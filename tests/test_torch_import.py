@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: it imports no JAX (or flax/optax) and
+nothing of decompdiff_tpu, and its entry points refuse to fall back to the
+CPU when no device is named and no GPU exists."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import decompdiff_tpu_torch
+from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+from decompdiff_tpu_torch.utils.testing import (
+    DEFAULT_MODEL_CONFIG, random_complex_batch)
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / 'decompdiff_tpu_torch'
+FORBIDDEN = ('jax', 'flax', 'optax', 'decompdiff_tpu')
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        decompdiff_tpu_torch.__path__, 'decompdiff_tpu_torch.'))
+
+
+def test_every_submodule_imports_without_jax():
+    code = (
+        'import importlib, sys\n'
+        f'for name in {_modules()!r}:\n'
+        '    importlib.import_module(name)\n'
+        f'bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})\n'
+        'print(bad)\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(_modules()) >= 20
+
+
+@pytest.mark.parametrize('path', sorted(
+    [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
+    + ['chip_smoke.py']))
+def test_no_forbidden_import_statement(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or '']
+        else:
+            continue
+        for name in names:
+            assert name.split('.')[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_raise_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecompDiffModel.create(DEFAULT_MODEL_CONFIG, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random_complex_batch(np.random.default_rng(0))
+
+
+def test_create_on_this_host_without_device_raises():
+    """This host has no CUDA: create(cfg, 8) must raise, not fall back."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    with pytest.raises(RuntimeError):
+        DecompDiffModel.create(DEFAULT_MODEL_CONFIG, 8)
