@@ -5,16 +5,25 @@
 
 1. Device: requires CUDA, turns TF32 off, prints the card's name and power
    limit (nvidia-smi).
-2. Build: compiles the three CUDA kernels of csrc/ with nvcc (timed set-up).
+2. Build: compiles the three CUDA sources of csrc/ (each holds a forward and
+   a backward kernel) with nvcc (timed set-up).
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), then holds
-   every kernel against its plain PyTorch version on those inputs and times
-   both with CUDA events.
-4. Path: guided reverse diffusion (armsca_prox + clash at every step) with the
-   released uni_o2_bond config and kernels on, with every launch counter set
-   to 0 just before and read just after; then one denoiser call with kernels
-   on against kernels off.
-5. Prints the kernels JSON line and, last, the device JSON line.
+   every forward kernel against its plain PyTorch version on those inputs,
+   and every backward kernel against plain autograd for a seeded cotangent
+   (zeroed on the rows that hold a relu gate within rounding of 0, see
+   GATE_MARGIN), timing each with CUDA events.
+4. Sampling path: guided reverse diffusion (armsca_prox + clash at every
+   step) with the released uni_o2_bond config and kernels on, with every
+   launch counter set to 0 just before and read just after; then one
+   denoiser call with kernels on against kernels off.
+5. Training path: training steps of the released config (forward, backward,
+   clip and Adam) at B=8, Np=320, Nl=32 with kernels on, counters set to 0
+   just before and read just after; the same steps with every kernel replaced
+   by its plain version; seconds per step and peak device memory of both;
+   one step's loss, grad norm and parameter gradients, kernels on against
+   off.
+6. Prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check exits non-zero. Needs torch and numpy only.
 """
@@ -30,18 +39,50 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 B, NUM_PROTEIN, NUM_LIGAND, NUM_FULL, NUM_GROUPS = 8, 320, 32, 2048, 6
-STEPS = 20
+STEPS = 20          # sampling steps
+TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 # H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # kernel vs plain version: both float32, different summation order
 KERNEL_RTOL, KERNEL_ATOL = 1e-3, 1e-4
+# backward kernel vs plain autograd, every element: atol relative to the
+# gradient's largest magnitude; the kernels sum source-node cotangents with
+# atomicAdd (order varies between runs) and parameter gradients over rows in
+# another order.
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# A relu gate whose input y = LayerNorm(pre) lies within float32 rounding of
+# 0 can fall on the other side in the kernel's recomputed LayerNorm than in
+# torch's, and the gradient through it then differs by its whole upstream
+# value. At these sizes (tens of millions of gates per call) a few such
+# gates exist. So the backward check zeroes the cotangent on the output rows
+# that hold a gate with a nonzero upstream gradient and |y| within
+# GATE_MARGIN times the plain version's largest float32 error of y (measured
+# against float64): no gradient then passes through an ambiguous gate, and
+# every gradient is held elementwise. At most MAX_DROPPED of the rows may be
+# zeroed. The full cotangent's count of elements outside the tolerance is
+# printed beside it.
+GATE_MARGIN, MAX_DROPPED = 8.0, 0.1
+GRAD_NAMES = {   # the differentiable inputs, then the two Branch fields
+    'edge_attention': ('x', 'e_w', 'q'),
+    'bond_attention': ('h_bond', 'x', 'q'),
+    'triplet_attention': ('angle', 'q'),
+}
 # one denoiser call, kernels on vs off: six layers of the above, on
 # coordinates of a few Angstrom and logits of order one
 PATH_RTOL, PATH_ATOL = 1e-3, 1e-3
+# one training step, kernels on vs off: the loss within float32 noise of six
+# layers; the parameter gradients elementwise at the tolerance the JAX
+# package holds its kernel path to against its dense path
+# (tests/test_train_step.py)
+LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-4, 2e-3, 1e-4
 KERNEL_SOURCES = {
     'edge_attention': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
     'bond_attention': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
     'triplet_attention': 'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
+    'edge_attention_backward': 'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
+    'bond_attention_backward': 'decompdiff_tpu/ops/pallas/bond_kernel.py:307',
+    'triplet_attention_backward':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
 }
 
 
@@ -74,8 +115,8 @@ def build_phase():
     from decompdiff_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f'build: {len(_build.KERNELS)} kernels in '
-          f'{time.perf_counter() - t0:.1f} s (set-up)', flush=True)
+    print(f'build: {len(_build.KERNELS)} sources (forward and backward '
+          f'kernels) in {time.perf_counter() - t0:.1f} s (set-up)', flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
@@ -184,6 +225,239 @@ def kernel_phase(torch, ops, captured):
     return results
 
 
+def flat_grads(grads):
+    """A backward wrapper's result as a flat list (Branch fields spread)."""
+    out = []
+    for g in grads:
+        out += list(g) if isinstance(g, tuple) else [g]
+    return out
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def grad_close(torch, a, b, rtol, atol):
+    """(ok, max abs error, error / max(1, |b|max), elements outside
+    rtol x |b| + atol x max(1, |b|max)) of gradient a against b."""
+    scale = max(1.0, float(b.abs().max()))
+    diff = (a - b).abs()
+    outliers = int((diff > atol * scale + rtol * b.abs()).sum())
+    err = float(diff.max())
+    ok = bool(torch.isfinite(a).all()) and outliers == 0
+    return ok, err, err / scale, outliers
+
+
+def ambiguous_rows(torch, mod, name, g, args, kw):
+    """(drop, live, tau) for cotangent g of one kernel mode, both bool over
+    the output rows g.shape[:-1]: `live` rows hold a relu gate with a nonzero
+    upstream gradient, and `drop` rows one whose input y also lies within
+    tau = GATE_MARGIN x max |y - y64| of 0, where y64 is the plain version's
+    y from the same inputs in float64."""
+    from decompdiff_tpu_torch.models.common import layer_norm
+    from decompdiff_tpu_torch.ops.common import Branch
+    plain, mlp = getattr(mod, f'{name}_reference'), mod.branch_mlp
+
+    def cast(a, dtype):
+        if isinstance(a, tuple):
+            return Branch(*(cast(t, dtype) for t in a))
+        if torch.is_tensor(a) and a.is_floating_point():
+            return a.detach().to(dtype)
+        return a
+
+    def run(dtype):
+        """The plain output, and per branch call y and relu(y) as a leaf."""
+        recs = []
+
+        def record(pre, p):
+            y = layer_norm(pre, p.ln_scale, p.ln_bias)
+            r = torch.relu(y).detach().requires_grad_(True)
+            recs.append((y.detach(), r))
+            return r @ p.wo + p.bo
+        mod.branch_mlp = record
+        try:
+            with torch.enable_grad():
+                out = plain(*(cast(a, dtype) for a in args), **kw)
+        finally:
+            mod.branch_mlp = mlp
+        return out, recs
+
+    out, recs = run(torch.float32)
+    ups = torch.autograd.grad(out, [r for _, r in recs], g)
+    recs64 = run(torch.float64)[1]
+    tau = GATE_MARGIN * max(float((y - y64).abs().max())
+                            for (y, _), (y64, _) in zip(recs, recs64))
+    nd = g.ndim - 1
+    drop = live = torch.zeros(g.shape[:-1], dtype=torch.bool, device=g.device)
+    for (y, _), u in zip(recs, ups):
+        hot = u != 0
+        drop = drop | ((y.abs() <= tau) & hot).flatten(nd).any(-1)
+        live = live | hot.flatten(nd).any(-1)
+    return drop, live, tau
+
+
+def backward_phase(torch, ops, captured):
+    """Each backward kernel against plain autograd (the plain forward's
+    autograd backward, on the card) for a seeded cotangent, zeroed on the
+    rows that ambiguous_rows drops, on the inputs the first layer gives each
+    mode."""
+    from decompdiff_tpu_torch.ops.common import Branch
+    results = {}
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for (name, pos), (args, kw) in sorted(captured.items()):
+        mod = ops[name]
+        kernel = getattr(mod, f'{name}_backward')
+        plain = getattr(mod, f'{name}_backward_reference')
+        with torch.no_grad():
+            out = getattr(mod, f'{name}_reference')(*args, **kw)
+        g_full = torch.randn(out.shape, generator=gen, device=out.device)
+        drop, live, tau = ambiguous_rows(torch, mod, name, g_full, args, kw)
+        n_drop, n_live = int(drop.sum()), int(live.sum())
+        full_out = sum(
+            grad_close(torch, a, b, GRAD_RTOL, GRAD_ATOL)[3]
+            for a, b in zip(flat_grads(kernel(g_full, *args, **kw)),
+                            flat_grads(plain(g_full, *args, **kw)))
+            if b is not None)
+        g = g_full * (~drop)[..., None].to(g_full.dtype)
+        want = flat_grads(plain(g, *args, **kw))
+        got = flat_grads(kernel(g, *args, **kw))
+        torch.cuda.synchronize()
+        check(len(got) == len(want), f'{name} backward: gradient count')
+        labels = GRAD_NAMES[name] + tuple(
+            f'{b}.{f}' for b in 'kv' for f in Branch._fields)
+        max_abs, worst, n_out, ok = 0.0, 0.0, 0, True
+        for label, a, b in zip(labels, got, want):
+            if b is None:
+                ok = ok and a is None
+                continue
+            good, err, rel, out_i = grad_close(torch, a, b, GRAD_RTOL,
+                                               GRAD_ATOL)
+            ok = ok and good
+            max_abs, worst, n_out = max(max_abs, err), max(worst, rel), \
+                n_out + out_i
+            if not good:
+                print(f'  d {label} {tuple(b.shape)}: {out_i} elements '
+                      f'outside, max_err/scale {rel:.3e} MISMATCH', flush=True)
+        ms = time_ms(torch, lambda: kernel(g, *args, **kw))
+        plain_ms = time_ms(torch, lambda: plain(g, *args, **kw), iters=5)
+        # recompute plus two products per forward product; every input and
+        # the cotangent read once, every gradient written once
+        flops = 3 * work(torch, name, args, kw, out)[0]
+        inputs = [a for a in args if torch.is_tensor(a)]
+        for a in args:
+            if isinstance(a, tuple):
+                inputs += list(a)
+        moved = nbytes(inputs) + nbytes([g]) + nbytes(got)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        mode = 'pos' if pos else 'node'
+        print(f'kernel {name}_backward[{mode}] {len(got)} gradients: '
+              f'max_abs_err {max_abs:.3e} max_err/scale {worst:.3e}, '
+              f'{n_out} elements outside rtol {GRAD_RTOL} / atol {GRAD_ATOL} '
+              f'x max(1, |grad|max) '
+              f'{"ok" if ok else "MISMATCH"} with the cotangent zeroed on '
+              f'{n_drop} of {n_live} live rows (a gate within {tau:.3e} of '
+              f'0; {full_out} elements outside with none zeroed); kernel '
+              f'{ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
+              f'{"operations" if t_ops >= t_bytes else "bytes"} '
+              f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
+        check(ok, f'{name} backward disagrees with plain autograd')
+        check(n_drop <= MAX_DROPPED * n_live,
+              f'{name} backward: {n_drop} of {n_live} rows hold an ambiguous '
+              f'gate, more than {MAX_DROPPED:.0%}')
+        r = results.setdefault(f'{name}_backward', dict(err=0.0, modes=[]))
+        r['err'] = max(r['err'], max_abs)
+        r['modes'].append((ms, plain_ms, t_ops, t_bytes))
+    return results
+
+
+def train_phase(torch, batch):
+    """Training steps of the released config at the bench shapes, kernels
+    on and off. Returns the launch counts of the kernel path."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
+    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    dev = torch.device('cuda')
+    tcfg = DEFAULT_TRAIN_CONFIG
+    cfg = dict(DEFAULT_MODEL_CONFIG, use_pallas=True)
+    models = {
+        'kernels': DecompDiffModel.create(cfg, 8, device=dev, seed=0),
+        'plain': DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
+                                        device=dev, seed=0)}
+
+    # one step's gradients from the same weights and the same draws
+    steps = {}
+    for key, m in models.items():
+        grad_step = make_train_fns(m, tcfg)[1]
+        steps[key] = grad_step(create_train_state(m, tcfg), batch,
+                               torch.Generator(device=dev).manual_seed(3))
+    (g_on, m_on, t_on, _), (g_off, m_off, t_off, _) = (
+        steps['kernels'], steps['plain'])
+    check(torch.equal(t_on, t_off), 'the two paths drew different t')
+    for key in m_off:
+        a, b = float(m_on[key]), float(m_off[key])
+        print(f'train step kernels on vs off: {key} {a:.6f} vs {b:.6f}',
+              flush=True)
+        check(abs(a - b) <= LOSS_RTOL * abs(b) + 1e-6,
+              f'{key} differs with kernels on')
+    norm_on = float(torch.sqrt(sum((g * g).sum() for g in g_on.values())))
+    norm_off = float(torch.sqrt(sum((g * g).sum() for g in g_off.values())))
+    worst_name, worst = '', 0.0
+    for name, b in g_off.items():
+        ok, _, rel, out_i = grad_close(torch, g_on[name], b, STEP_RTOL,
+                                       STEP_ATOL)
+        if rel > worst:
+            worst_name, worst = name, rel
+        check(ok, f'gradient of {name} differs with kernels on (max_err/'
+              f'scale {rel:.3e}, {out_i} elements outside)')
+    print(f'train step kernels on vs off: grad_norm {norm_on:.6f} vs '
+          f'{norm_off:.6f}; {len(g_off)} parameter gradients within rtol '
+          f'{STEP_RTOL} / atol {STEP_ATOL} x max(1, |grad|max) elementwise: '
+          f'largest max_err/scale {worst:.3e} ({worst_name})', flush=True)
+    check(abs(norm_on - norm_off) <= STEP_RTOL * norm_off, 'grad_norm')
+    del steps, g_on, g_off
+
+    ops = model_ops()
+    names = [n for name in ops for n in (name, f'{name}_backward')]
+    layers = cfg['num_layers'] * cfg['num_blocks']
+    per_step = {'edge_attention': 2 * layers, 'bond_attention': 2 * layers,
+                'triplet_attention': layers}
+    expect = {n: per_step[n.replace('_backward', '')] * TRAIN_STEPS
+              for n in names}
+    launches = {}
+    for key, m in models.items():
+        state = create_train_state(m, tcfg)
+        step = make_train_fns(m, tcfg)[0]
+        g = torch.Generator(device=dev).manual_seed(4)
+        step(state, batch, g)                        # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        set_launches(ops, 0)
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            metrics = step(state, batch, g)
+        torch.cuda.synchronize()
+        elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        counts = get_launches(ops)
+        print(f'train path {key}: {TRAIN_STEPS} steps at B={B} '
+              f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
+              f'device memory {peak:.1f} MiB; last step loss '
+              f'{float(metrics["loss"]):.5f} grad_norm '
+              f'{float(metrics["grad_norm"]):.5f}; launches {counts}',
+              flush=True)
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+              f'non-finite training metrics ({key})')
+        if key == 'kernels':
+            launches = counts
+            check(counts == expect, f'training launches differ from the '
+                  f'expected {expect}')
+        else:
+            check(not any(counts.values()), 'the plain path launched kernels')
+    return launches
+
+
 def path_phase(torch, model, plain_model, batch, full_protein):
     from decompdiff_tpu_torch.sampling.sampler import (
         SampleConfig, sample_diffusion)
@@ -205,20 +479,21 @@ def path_phase(torch, model, plain_model, batch, full_protein):
     # warm-up (library initialization), not counted
     sample_diffusion(model, dataclasses.replace(cfg, num_steps=1), batch,
                      init_pos, init_v, init_b, full_protein, generator=g)
-    for name, mod in ops.items():
-        setattr(getattr(mod, name), 'launches', 0)
+    set_launches(ops, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sample_diffusion(model, cfg, batch, init_pos, init_v, init_b,
                            full_protein, generator=g)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: getattr(mod, name).launches for name, mod in ops.items()}
+    launches = get_launches(ops)
 
     layers = model.config['num_layers'] * model.config['num_blocks']
     expect = {'edge_attention': 2 * layers * STEPS,
               'bond_attention': 2 * layers * STEPS,
-              'triplet_attention': layers * STEPS}
+              'triplet_attention': layers * STEPS,
+              'edge_attention_backward': 0, 'bond_attention_backward': 0,
+              'triplet_attention_backward': 0}
     print(f'path: {STEPS} guided steps at B={B} Np={NUM_PROTEIN} '
           f'Nl={NUM_LIGAND} Nf={NUM_FULL}: {elapsed / STEPS:.4f} s/step, '
           f'{elapsed / STEPS / B:.5f} s/step/molecule; launches {launches} '
@@ -260,23 +535,27 @@ def path_phase(torch, model, plain_model, batch, full_protein):
 
 def kernel_records(results, launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
-    bond run their node and pos modes equally often on the path (once each
+    bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
-    its modes, and launches * ms is its time on the path."""
+    its modes, and launches * ms is its time on the path. `launches` is the
+    count on the path that runs the kernel: sampling for the forward
+    kernels, training for the backward ones."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes = (
             sum(col) / len(r['modes']) for col in zip(*r['modes']))
+        base = name.replace('_backward', '')
         kernels.append({
             'name': name, 'route': 'cuda',
-            'source': f'decompdiff_tpu_torch/csrc/{name}.cu',
+            'source': f'decompdiff_tpu_torch/csrc/{base}.cu',
             'replaces': KERNEL_SOURCES[name],
             'launches': launches[name],
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
             'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
-            # no single PyTorch call computes these fused MLP attentions
+            # no single PyTorch call computes these fused MLP attentions or
+            # their gradients
             'library_ms': None,
         })
     return kernels
@@ -288,6 +567,18 @@ def model_ops():
     return {'edge_attention': edge_attention,
             'bond_attention': bond_attention,
             'triplet_attention': triplet_attention}
+
+
+def set_launches(ops, value):
+    """Sets the launch count of every forward and backward wrapper."""
+    for name, mod in ops.items():
+        getattr(mod, name).launches = value
+        getattr(mod, f'{name}_backward').launches = value
+
+
+def get_launches(ops):
+    return {n: getattr(mod, n).launches for name, mod in ops.items()
+            for n in (name, f'{name}_backward')}
 
 
 def main():
@@ -328,11 +619,17 @@ def main():
             (batch.ligand_pos, batch.ligand_v, batch.bond_type, t))
         with torch.no_grad():
             results = kernel_phase(torch, ops, captured)
-        launches = path_phase(torch, model, plain_model, batch, full_protein)
+        results.update(backward_phase(torch, ops, captured))
+        sample_launches = path_phase(torch, model, plain_model, batch,
+                                     full_protein)
+        del model, plain_model, captured
+        train_launches = train_phase(torch, batch)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
 
+    launches = {n: (train_launches if n.endswith('_backward')
+                    else sample_launches)[n] for n in results}
     print(json.dumps({'kernels': kernel_records(results, launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-// kNN edge attention, node mode (x2h) and pos mode (h2x), for sm_90a.
+// kNN edge attention, node mode (x2h) and pos mode (h2x), for sm_90a:
+// forward and backward.
 //
-// Replaces: the Pallas TPU kernel decompdiff_tpu/ops/pallas/edge_kernel.py
-//   (_edge_fwd_call :540 -> _edge_kernel :152-250), forward only.
+// Replaces: the Pallas TPU kernels decompdiff_tpu/ops/pallas/edge_kernel.py
+//   forward  _edge_fwd_call :540 -> _edge_kernel :152-250,
+//   backward _edge_bwd_call :568 -> _edge_bwd_kernel :266-498 (non-gated).
 //
 // Computes, per destination node i and each of its K kNN sources s:
 //   edge_type = one-hot (src ligand?, dst ligand?) [+ one-hot same group]
@@ -14,21 +16,33 @@
 // (K times fewer operations than projecting every gathered row).
 //
 // Bound on an H100: operations. At the released shapes (B=8, N=352, K=32,
-// H=128) one node-mode call is ~6.9 GFLOP of per-edge products (the two
+// H=128) one node-mode forward is ~6.9 GFLOP of per-edge products (the two
 // [H, H] second linears dominate; pos mode ~4.3 GFLOP) against ~10 MB of
 // inputs and output, as chip_smoke.py counts them, so FP32 CUDA-core
 // throughput (67 TFLOP/s) bounds it, not the 3.35 TB/s of device memory.
+// The backward recomputes the forward and adds two products per forward
+// product, about 3x the operations, so it is bound the same way.
 //
-// Design: one block per destination node, one thread per channel; sources
-// go in chunks of 16 (row_attention.cuh). The edge-feature product uses the
-// one-hot structure of edge_type: for each type only the sources of that
-// type accumulate its 20 RBF rows and constant row, with the type's weights
-// held in registers, so the 84- (or 126-) row product costs 21 (or 42)
-// multiply-adds per channel and edge. Every per-edge intermediate lives in
-// registers or shared memory; only the [B, N, H] (or [B, N, 3]) output is
+// Forward design: one block per destination node, one thread per channel;
+// sources go in chunks of 16 (row_attention.cuh). The edge-feature product
+// uses the one-hot structure of edge_type: for each type only the sources
+// of that type accumulate its 20 RBF rows and constant row, with the type's
+// weights held in registers, so the 84- (or 126-) row product costs 21 (or
+// 42) multiply-adds per channel and edge. Every per-edge intermediate lives
+// in registers or shared memory; only the [B, N, H] (or [B, N, 3]) output is
 // written. Simple first version: no tensor cores, weights through the
 // read-only cache rather than staged in shared memory.
-#include "row_attention.cuh"
+//
+// Backward design (row_attention_bwd.cuh): a fixed grid of blocks, each
+// looping over destination rows, recomputes every per-edge intermediate in
+// shared memory (nothing per edge is saved by the forward). The TPU kernel
+// scatter-adds the source-node cotangents with a one-hot matmul over its
+// sequential grid; here d t_src and d x[src] are atomicAdds into zeroed
+// buffers (their order varies between runs, within float32 rounding).
+// d w_feat is accumulated per edge type, only for the 21 (42) rows of each
+// edge's own types. The distance chain gives 0 where |x_i - x_s|^2 < 1e-12,
+// like the clamp of the plain version's safe_norm.
+#include "row_attention_bwd.cuh"
 
 using namespace rowattn;
 
@@ -52,13 +66,135 @@ struct EdgeArgs {
   int N, K, H, n_heads, n_types, pos;
 };
 
+// Per-chunk source data of one destination row (shared memory).
+struct EdgeChunk {
+  ChunkSources cs;
+  float rbf[CH][R];
+  int ta[CH], tb[CH];  // the source's 4-way and (6 types) group edge type
+  float dist[CH];
+  float dgrad[CH];     // d dist / d rel = rel * dgrad (0 below the clamp)
+};
+
+// The destination row's own scalars.
+struct EdgeRow {
+  float x0, x1, x2;
+  bool lig;
+  float group;
+};
+
+__device__ __forceinline__ EdgeRow edge_row(const EdgeArgs& a, int row) {
+  EdgeRow r;
+  r.x0 = a.x[row * 3 + 0];
+  r.x1 = a.x[row * 3 + 1];
+  r.x2 = a.x[row * 3 + 2];
+  r.lig = a.lig[row] > 0.5f;
+  r.group = a.group ? a.group[row] : 0.f;
+  return r;
+}
+
+// Threads c < CH: the per-edge scalars of sources m0 .. m0+nm-1 of `row`.
+__device__ __forceinline__ void edge_chunk_setup(const EdgeArgs& a,
+                                                 EdgeChunk& ch, int row,
+                                                 int b, int m0, int nm,
+                                                 const EdgeRow& dst) {
+  const int c = threadIdx.x;
+  if (c >= CH) return;
+  const int N = a.N, K = a.K;
+  int s = 0, ok = 0, ta = 3, tb = -1;
+  float r0 = 0.f, r1 = 0.f, r2 = 0.f, d = 0.f, w = 1.f, dg = 0.f;
+  if (c < nm) {
+    const size_t e = (size_t)row * K + m0 + c;
+    s = a.idx[e];
+    const bool in_range = s >= 0 && s < N;
+    ok = in_range && a.mask[e] > 0.5f;
+    if (!in_range) s = 0;
+    const float* xs = a.x + ((size_t)b * N + s) * 3;
+    r0 = dst.x0 - xs[0];
+    r1 = dst.x1 - xs[1];
+    r2 = dst.x2 - xs[2];
+    const float d2 = r0 * r0 + r1 * r1 + r2 * r2;
+    d = sqrtf(fmaxf(d2, 1e-12f));
+    dg = d2 >= 1e-12f ? 1.f / d : 0.f;
+    w = a.ew[e];
+    const bool lig_s = a.lig[(size_t)b * N + s] > 0.5f;
+    ta = lig_s ? (dst.lig ? 0 : 1) : (dst.lig ? 2 : 3);
+    if (a.group) tb = 4 + (a.group[(size_t)b * N + s] == dst.group ? 1 : 0);
+  }
+  ch.cs.src[c] = s;
+  ch.cs.valid[c] = ok;
+  ch.cs.ew[c] = w;
+  ch.cs.rel[c * 3 + 0] = r0;
+  ch.cs.rel[c * 3 + 1] = r1;
+  ch.cs.rel[c * 3 + 2] = r2;
+  ch.ta[c] = ta;
+  ch.tb[c] = tb;
+  ch.dist[c] = d;
+  ch.dgrad[c] = dg;
+  for (int r = 0; r < R; ++r) {
+    const float u = d - kRbfOffsets[r];
+    ch.rbf[c][r] = expf(-0.5f * u * u);
+  }
+}
+
+__device__ __forceinline__ bool has_type(const EdgeChunk& ch, int m, int t) {
+  return ch.ta[m] == t || ch.tb[m] == t;
+}
+
+// Every thread: the first-linear outputs of the chunk's CH sources for
+// channel c into Yk and Yv ([CH][H]).
+__device__ __forceinline__ void edge_chunk_pre(const EdgeArgs& a,
+                                               const EdgeChunk& ch, int b,
+                                               float tk, float tv, float* Yk,
+                                               float* Yv) {
+  const int c = threadIdx.x, H = a.H, F = a.n_types;
+  float pk[CH], pv[CH];
+#pragma unroll
+  for (int m = 0; m < CH; ++m) {
+    const size_t srow = ((size_t)b * a.N + ch.cs.src[m]) * H + c;
+    pk[m] = tk + __ldg(a.k.t_src + srow);
+    pv[m] = tv + __ldg(a.v.t_src + srow);
+  }
+  for (int t = 0; t < F; ++t) {
+    float wk[R], wv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      wk[r] = __ldg(a.k.w_feat + (size_t)(t * R + r) * H + c);
+      wv[r] = __ldg(a.v.w_feat + (size_t)(t * R + r) * H + c);
+    }
+    const float ck = __ldg(a.k.w_feat + (size_t)(F * R + t) * H + c);
+    const float cv = __ldg(a.v.w_feat + (size_t)(F * R + t) * H + c);
+#pragma unroll
+    for (int m = 0; m < CH; ++m) {
+      if (!has_type(ch, m, t)) continue;  // uniform over the block
+      float sk = ck, sv = cv;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        sk = fmaf(ch.rbf[m][r], wk[r], sk);
+        sv = fmaf(ch.rbf[m][r], wv[r], sv);
+      }
+      pk[m] += sk;
+      pv[m] += sv;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < CH; ++m) {
+    Yk[m * H + c] = pk[m];
+    Yv[m * H + c] = pv[m];
+  }
+}
+
+// True if some thread sees a valid source in the row (block-uniform).
+__device__ __forceinline__ bool row_has_source(const float* mrow, int K) {
+  int any = 0;
+  for (int t = threadIdx.x; t < K; t += blockDim.x) any |= mrow[t] > 0.5f;
+  return __syncthreads_or(any);
+}
+
 __global__ void edge_attention_kernel(EdgeArgs a) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ ChunkSources cs;
-  __shared__ float s_rbf[CH][R];
-  __shared__ int s_ta[CH], s_tb[CH];
+  __shared__ EdgeChunk ch;
 
-  const int H = a.H, K = a.K, N = a.N, F = a.n_types;
+  const int H = a.H, K = a.K, N = a.N;
   const bool pos = a.pos != 0;
   float* Yk = smem;
   float* Yv = Yk + CH * H;
@@ -66,12 +202,9 @@ __global__ void edge_attention_kernel(EdgeArgs a) {
   const int row = blockIdx.x;  // b * N + i
   const int b = row / N;
   const int c = threadIdx.x;
-  const float* mrow = a.mask + (size_t)row * K;
   float* out_row = a.out + (size_t)row * (pos ? 3 : H);
 
-  int any = 0;
-  for (int t = c; t < K; t += blockDim.x) any |= mrow[t] > 0.5f;
-  if (!__syncthreads_or(any)) {
+  if (!row_has_source(a.mask + (size_t)row * K, K)) {
     zero_row(out_row, pos);
     return;
   }
@@ -79,89 +212,181 @@ __global__ void edge_attention_kernel(EdgeArgs a) {
   const float q_c = a.q[(size_t)row * H + c];
   const float tk = a.k.t_row[(size_t)row * H + c];
   const float tv = a.v.t_row[(size_t)row * H + c];
-  const float x0 = a.x[row * 3 + 0], x1 = a.x[row * 3 + 1],
-              x2 = a.x[row * 3 + 2];
-  const bool lig_d = a.lig[row] > 0.5f;
-  const float g_d = a.group ? a.group[row] : 0.f;
+  const EdgeRow dst = edge_row(a, row);
   const float scale = 1.f / sqrtf((float)(H / a.n_heads));
   RowState st;
 
   for (int m0 = 0; m0 < K; m0 += CH) {
     const int nm = min(CH, K - m0);
-    if (c < CH) {
-      // per-edge scalars: source, validity, geometry, RBF and edge types
-      int s = 0, ok = 0, ta = 3, tb = -1;
-      float r0 = 0.f, r1 = 0.f, r2 = 0.f, d = 0.f, w = 1.f;
-      if (c < nm) {
-        const size_t e = (size_t)row * K + m0 + c;
-        s = a.idx[e];
-        const bool in_range = s >= 0 && s < N;
-        ok = in_range && mrow[m0 + c] > 0.5f;
-        if (!in_range) s = 0;
-        const float* xs = a.x + ((size_t)b * N + s) * 3;
-        r0 = x0 - xs[0];
-        r1 = x1 - xs[1];
-        r2 = x2 - xs[2];
-        d = sqrtf(fmaxf(r0 * r0 + r1 * r1 + r2 * r2, 1e-12f));
-        w = a.ew[e];
-        const bool lig_s = a.lig[(size_t)b * N + s] > 0.5f;
-        ta = lig_s ? (lig_d ? 0 : 1) : (lig_d ? 2 : 3);
-        if (a.group) tb = 4 + (a.group[(size_t)b * N + s] == g_d ? 1 : 0);
-      }
-      cs.src[c] = s;
-      cs.valid[c] = ok;
-      cs.ew[c] = w;
-      cs.rel[c * 3 + 0] = r0;
-      cs.rel[c * 3 + 1] = r1;
-      cs.rel[c * 3 + 2] = r2;
-      s_ta[c] = ta;
-      s_tb[c] = tb;
-      for (int r = 0; r < R; ++r) {
-        const float u = d - kRbfOffsets[r];
-        s_rbf[c][r] = expf(-0.5f * u * u);
-      }
-    }
+    edge_chunk_setup(a, ch, row, b, m0, nm, dst);
     __syncthreads();
-
-    float pk[CH], pv[CH];
-#pragma unroll
-    for (int m = 0; m < CH; ++m) {
-      const size_t srow = ((size_t)b * N + cs.src[m]) * H + c;
-      pk[m] = tk + __ldg(a.k.t_src + srow);
-      pv[m] = tv + __ldg(a.v.t_src + srow);
-    }
-    for (int t = 0; t < F; ++t) {
-      float wk[R], wv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        wk[r] = __ldg(a.k.w_feat + (size_t)(t * R + r) * H + c);
-        wv[r] = __ldg(a.v.w_feat + (size_t)(t * R + r) * H + c);
-      }
-      const float ck = __ldg(a.k.w_feat + (size_t)(F * R + t) * H + c);
-      const float cv = __ldg(a.v.w_feat + (size_t)(F * R + t) * H + c);
-#pragma unroll
-      for (int m = 0; m < CH; ++m) {
-        if (s_ta[m] != t && s_tb[m] != t) continue;  // uniform over the block
-        float sk = ck, sv = cv;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          sk = fmaf(s_rbf[m][r], wk[r], sk);
-          sv = fmaf(s_rbf[m][r], wv[r], sv);
-        }
-        pk[m] += sk;
-        pv[m] += sv;
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < CH; ++m) {
-      Yk[m * H + c] = pk[m];
-      Yv[m * H + c] = pv[m];
-    }
+    edge_chunk_pre(a, ch, b, tk, tv, Yk, Yv);
     __syncthreads();
-    finish_chunk(Yk, Yv, Vs, a.k, a.v, cs, nm, H, a.n_heads, pos, q_c, scale,
-                 st);
+    finish_chunk(Yk, Yv, Vs, a.k, a.v, ch.cs, nm, H, a.n_heads, pos, q_c,
+                 scale, st);
   }
   finalize(st, out_row, Vs, H, a.n_heads, pos);
+}
+
+struct EdgeBwdArgs {
+  EdgeArgs f;            // forward inputs (f.out unused)
+  const float* g;        // [B, N, H] or [B, N, 3] output cotangent
+  const float* woT_k;    // [H, H] transposed Wo_k
+  const float* woT_v;    // [H, H] transposed Wo_v (node mode only)
+  float* d_x;            // [B, N, 3]   zeroed; atomics
+  float* d_ew;           // [B, N, K]
+  float* d_q;            // [B, N, H]
+  float* d_trow_k;       // [B, N, H]
+  float* d_tsrc_k;       // [B, N, H]   zeroed; atomics
+  float* d_trow_v;
+  float* d_tsrc_v;
+  float* slots;          // [gridDim.x][P] zeroed parameter-gradient slots
+  int rows;              // B * N
+};
+
+__global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
+  using namespace rowbwd;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ EdgeChunk ch;
+  __shared__ float s_coef[CH][R];  // d rbf / d dist
+
+  const EdgeArgs& f = a.f;
+  const int H = f.H, K = f.K, N = f.N, F = f.n_types, nh = f.n_heads;
+  const bool pos = f.pos != 0;
+  const int c = threadIdx.x;
+  const RowSmem s = carve(smem, K, H, nh);
+  const float scale = 1.f / sqrtf((float)(H / nh));
+  GradSlot sk, sv;
+  block_slots(a.slots, F * (R + 1), H, pos ? nh : H, sk, sv);
+  SmallGrads acc;
+
+  for (int row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const int b = row / N;
+    if (!row_has_source(f.mask + (size_t)row * K, K)) {
+      a.d_q[(size_t)row * H + c] = 0.f;
+      a.d_trow_k[(size_t)row * H + c] = 0.f;
+      a.d_trow_v[(size_t)row * H + c] = 0.f;
+      for (int t = c; t < K; t += blockDim.x) a.d_ew[(size_t)row * K + t] = 0.f;
+      continue;
+    }
+    const float q_c = f.q[(size_t)row * H + c];
+    const float tk = f.k.t_row[(size_t)row * H + c];
+    const float tv = f.v.t_row[(size_t)row * H + c];
+    const EdgeRow dst = edge_row(f, row);
+    float g_c = 0.f, g3[3] = {0.f, 0.f, 0.f};
+    if (pos)
+      for (int d = 0; d < 3; ++d) g3[d] = a.g[(size_t)row * 3 + d];
+    else
+      g_c = a.g[(size_t)row * H + c];
+
+    // pass A: logits, k, and the v part of d alpha
+    for (int m0 = 0; m0 < K; m0 += CH) {
+      const int nm = min(CH, K - m0);
+      edge_chunk_setup(f, ch, row, b, m0, nm, dst);
+      if (c < nm) {
+        s.VL[m0 + c] = ch.cs.valid[c] ? 1.f : 0.f;
+        s.EW[m0 + c] = ch.cs.ew[c];
+        s.GR[m0 + c] = ch.cs.rel[c * 3] * g3[0] + ch.cs.rel[c * 3 + 1] * g3[1] +
+                       ch.cs.rel[c * 3 + 2] * g3[2];
+      }
+      __syncthreads();
+      edge_chunk_pre(f, ch, b, tk, tv, s.Yk, s.Yv);
+      __syncthreads();
+      pass_a_chunk(s, f.k, f.v, m0, nm, H, nh, pos, q_c, g_c, scale);
+    }
+    head_stage(s, K, nh, pos);
+    a.d_q[(size_t)row * H + c] = row_d_q(s, K, H, nh, scale);
+    for (int t = c; t < K; t += blockDim.x)
+      a.d_ew[(size_t)row * K + t] = s.DEW[t];
+
+    // pass B: both branches back to d pre, then the edge features
+    float trow_k = 0.f, trow_v = 0.f;
+    float dxd[3] = {0.f, 0.f, 0.f};  // d x of the destination (threads < CH)
+    for (int m0 = 0; m0 < K; m0 += CH) {
+      const int nm = min(CH, K - m0);
+      edge_chunk_setup(f, ch, row, b, m0, nm, dst);
+      if (c < CH)
+        for (int r = 0; r < R; ++r)
+          s_coef[c][r] = -(ch.dist[c] - kRbfOffsets[r]) * ch.rbf[c][r];
+      __syncthreads();
+      edge_chunk_pre(f, ch, b, tk, tv, s.Yk, s.Yv);
+      __syncthreads();
+      pass_b_chunk(s, f.k, f.v, a.woT_k, a.woT_v, sk, sv, acc, m0, nm, H, nh,
+                   pos, q_c, g_c, scale, trow_k, trow_v);
+
+      // source-node cotangent of t_src
+      for (int m = 0; m < nm; ++m) {
+        if (!ch.cs.valid[m]) continue;  // uniform over the block
+        const size_t srow = ((size_t)b * N + ch.cs.src[m]) * H + c;
+        atomicAdd(a.d_tsrc_k + srow, s.Dk[m * H + c]);
+        atomicAdd(a.d_tsrc_v + srow, s.Dv[m * H + c]);
+      }
+
+      // d w_feat and d dist, one edge type at a time
+      float sd[CH];
+#pragma unroll
+      for (int m = 0; m < CH; ++m) sd[m] = 0.f;
+      for (int t = 0; t < F; ++t) {
+        bool present = false;
+        for (int m = 0; m < nm; ++m)
+          present |= ch.cs.valid[m] && has_type(ch, m, t);
+        if (!present) continue;  // uniform over the block
+        float wk[R], wv[R], gk[R], gv[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          wk[r] = __ldg(f.k.w_feat + (size_t)(t * R + r) * H + c);
+          wv[r] = __ldg(f.v.w_feat + (size_t)(t * R + r) * H + c);
+          gk[r] = 0.f;
+          gv[r] = 0.f;
+        }
+        float ck = 0.f, cv = 0.f;
+#pragma unroll
+        for (int m = 0; m < CH; ++m) {
+          if (m >= nm || !ch.cs.valid[m] || !has_type(ch, m, t)) continue;
+          const float dk = s.Dk[m * H + c], dv = s.Dv[m * H + c];
+          ck += dk;
+          cv += dv;
+          float e = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            gk[r] = fmaf(ch.rbf[m][r], dk, gk[r]);
+            gv[r] = fmaf(ch.rbf[m][r], dv, gv[r]);
+            e = fmaf(s_coef[m][r], fmaf(dk, wk[r], dv * wv[r]), e);
+          }
+          sd[m] += e;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          slot_add(sk.wfeat + (size_t)(t * R + r) * H + c, gk[r]);
+          slot_add(sv.wfeat + (size_t)(t * R + r) * H + c, gv[r]);
+        }
+        slot_add(sk.wfeat + (size_t)(F * R + t) * H + c, ck);
+        slot_add(sv.wfeat + (size_t)(F * R + t) * H + c, cv);
+      }
+      const float d_dist = block_sum_ch(sd, s.RED);
+
+      // d rel = d dist * rel / dist (+ pos mode: WR * g) -> both endpoints
+      if (c < nm && ch.cs.valid[c]) {
+        const float fd = d_dist * ch.dgrad[c];
+        const float wr = pos ? s.WR[m0 + c] : 0.f;
+        const size_t src = (size_t)b * N + ch.cs.src[c];
+        for (int d = 0; d < 3; ++d) {
+          const float dr = fd * ch.cs.rel[c * 3 + d] + wr * g3[d];
+          dxd[d] += dr;
+          atomicAdd(a.d_x + src * 3 + d, -dr);
+        }
+      }
+      __syncthreads();  // the next chunk overwrites ch and the buffers
+    }
+    a.d_trow_k[(size_t)row * H + c] = trow_k;
+    a.d_trow_v[(size_t)row * H + c] = trow_v;
+    if (c < 32)
+      for (int d = 0; d < 3; ++d) {
+        const float t = warp_sum(c < CH ? dxd[d] : 0.f);
+        if (c == 0) atomicAdd(a.d_x + (size_t)row * 3 + d, t);
+      }
+  }
+  flush_small(acc, sk, sv, nh, pos);
 }
 
 }  // namespace
@@ -187,4 +412,40 @@ extern "C" int edge_attention_fwd(
   if (err != cudaSuccess) return (int)err;
   edge_attention_kernel<<<B * N, H, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Backward: G blocks over the B*N rows, then the fixed-order slot sum into
+// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same]).
+extern "C" int edge_attention_bwd(
+    const float* x, const float* lig, const float* group, const int* idx,
+    const float* mask, const float* ew, const float* q, const float* g,
+    const float* k_row, const float* k_src, const float* k_feat,
+    const float* k_wo, const float* k_bo, const float* k_lns,
+    const float* k_lnb, const float* k_woT,
+    const float* v_row, const float* v_src, const float* v_feat,
+    const float* v_wo, const float* v_bo, const float* v_lns,
+    const float* v_lnb, const float* v_woT,
+    float* d_x, float* d_ew, float* d_q, float* d_trow_k, float* d_tsrc_k,
+    float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
+    int B, int N, int K, int H, int n_heads, int n_types, int pos, int G,
+    void* stream) {
+  if (B * N == 0 || G <= 0) return 0;
+  EdgeBwdArgs a{
+      EdgeArgs{x, lig, group, idx, mask, ew, q,
+               Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
+               Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
+               nullptr, N, K, H, n_heads, n_types, pos},
+      g, k_woT, v_woT, d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
+      d_tsrc_v, slots, B * N};
+  const size_t smem = sizeof(float) * rowbwd::row_smem_floats(K, H, n_heads);
+  cudaError_t err = allow_smem(edge_attention_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  edge_attention_bwd_kernel<<<G, H, smem, (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int F = n_types * (R + 1);
+  const size_t P = rowbwd::branch_slot_floats(F, H, H) +
+                   rowbwd::branch_slot_floats(F, H, pos ? n_heads : H);
+  return (int)rowbwd::launch_reduce(slots, d_params, G, P,
+                                    (cudaStream_t)stream);
 }

@@ -32,6 +32,27 @@ def gumbel_argmax(uniform: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+def log_sample_categorical(logits: torch.Tensor,
+                           generator: torch.Generator = None) -> torch.Tensor:
+    """Gumbel-max sample over the last axis, with a uniform draw from
+    `generator` (ref models/transitions.py:78-84)."""
+    uniform = torch.rand(logits.shape, generator=generator,
+                         device=logits.device)
+    return gumbel_argmax(uniform, logits)
+
+
+def categorical_kl(log_p: torch.Tensor, log_q: torch.Tensor) -> torch.Tensor:
+    """sum_k p (log p - log q) over the last axis
+    (ref models/decompdiff.py:35-37)."""
+    return (torch.exp(log_p) * (log_p - log_q)).sum(-1)
+
+
+def log_categorical(log_x0: torch.Tensor,
+                    log_prob: torch.Tensor) -> torch.Tensor:
+    """sum_k onehot(x0) log_prob (ref models/decompdiff.py:40-41)."""
+    return (torch.exp(log_x0) * log_prob).sum(-1)
+
+
 def log_add_exp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     maximum = torch.maximum(a, b)
     return maximum + torch.log(torch.exp(a - maximum) + torch.exp(b - maximum))
@@ -99,6 +120,12 @@ class CategoricalDiffusion:
         return log_add_exp(log_v0 + log_cum,
                            log_1_min_cum + self.prior_logprobs)
 
+    def q_v_sample(self, log_v0, t, generator=None):
+        """Sample v_t ~ q(v_t | v_0); returns (index, log-one-hot)
+        (ref models/transitions.py:146-150)."""
+        idx = log_sample_categorical(self.q_v_pred(log_v0, t), generator)
+        return idx, index_to_log_onehot(idx, self.num_classes)
+
     def q_v_posterior(self, log_v0, log_vt, t):
         """q(v_{t-1} | v_t, v_0), normalized over classes
         (ref models/transitions.py:153-161)."""
@@ -135,6 +162,4 @@ class CategoricalDiffusion:
         """Sample from the terminal distribution (init types at sampling
         time; ref scripts/sample_diffusion_decomp.py:306-312)."""
         logits = self.prior_logprobs.expand(tuple(shape) + (self.num_classes,))
-        uniform = torch.rand(logits.shape, generator=generator,
-                             device=logits.device)
-        return gumbel_argmax(uniform, logits)
+        return log_sample_categorical(logits, generator)

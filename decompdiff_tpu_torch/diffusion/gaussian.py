@@ -102,3 +102,18 @@ class GaussianDiffusion:
         ab_t, om_t, ab_s, om_s = self._ab_pair(t, s, ndim)
         var = om_s / om_t * (om_t - om_s) / ab_s
         return torch.log(torch.clamp(var, min=1e-20))
+
+    # -- losses --------------------------------------------------------------
+    @staticmethod
+    def pos_mse_per_graph(pred, target, stds, atom_mask):
+        """std-normalized per-graph-mean MSE (ref models/decompdiff.py:
+        530-531): pred/target/stds [B, Nl, 3], atom_mask [B, Nl] bool ->
+        [B], the mean over real atoms of sum_xyz (pred - target)^2 / sigma^2.
+        The per-graph values feed the importance-sampling Lt history."""
+        per_atom = (((pred - target) ** 2) / (stds ** 2)).sum(-1)
+        m = atom_mask.to(per_atom.dtype)
+        return (per_atom * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+
+    def pos_mse_loss(self, pred, target, stds, atom_mask):
+        """Scalar mean over graphs of `pos_mse_per_graph`."""
+        return self.pos_mse_per_graph(pred, target, stds, atom_mask).mean()

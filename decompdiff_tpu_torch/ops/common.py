@@ -1,5 +1,7 @@
 """What the three attention kernels share: the per-branch argument bundle,
-the attention step of their plain versions, and the wrappers' input checks.
+the attention step of their plain versions, the wrappers' input checks, and
+the backward plumbing (parameter-gradient buffers, the plain backward by
+autograd).
 
 All three kernels compute, for every destination row and each of its
 sources, two "branches" (k and v) of the form
@@ -121,3 +123,71 @@ def launch(fn, args: list, device: torch.device, name: str) -> None:
         rc = fn(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f'{name} kernel launch failed with cudaError {rc}')
+
+
+def branch_checks(tag: str, p: Branch, row_shape: tuple, src_shape: tuple,
+                  feat_rows: int, H: int, dout: int) -> list:
+    """The check_inputs entries of one branch."""
+    f32 = torch.float32
+    return [(f'{tag}.t_row', p.t_row, row_shape, f32),
+            (f'{tag}.t_src', p.t_src, src_shape, f32),
+            (f'{tag}.w_feat', p.w_feat, (feat_rows, H), f32),
+            (f'{tag}.wo', p.wo, (H, dout), f32),
+            (f'{tag}.bo', p.bo, (dout,), f32),
+            (f'{tag}.ln_scale', p.ln_scale, (H,), f32),
+            (f'{tag}.ln_bias', p.ln_bias, (H,), f32)]
+
+
+# ---------------------------------------------------------------------------
+# backward plumbing
+# ---------------------------------------------------------------------------
+
+def backward_blocks(items: int, device: torch.device) -> int:
+    """Blocks of a backward launch: two per SM (each loops over rows), and
+    no more than there are rows or work items."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(items, 2 * sms))
+
+
+class ParamGrads:
+    """The parameter-gradient buffers of a backward launch: zeroed per-block
+    slots [G, P] that the kernel fills, and the flat [P] sum over blocks
+    that its second pass writes. Both branches, each laid out as
+    [w_feat (F, H) | wo (H, dout) | bo (dout) | ln_scale (H) | ln_bias (H)]."""
+
+    def __init__(self, blocks: int, feat_rows: int, H: int, dout_v: int,
+                 device: torch.device):
+        self.shapes = [s for dout in (H, dout_v) for s in (
+            (feat_rows, H), (H, dout), (dout,), (H,), (H,))]
+        size = sum(math.prod(s) for s in self.shapes)
+        self.slots = torch.zeros((blocks, size), device=device)
+        self.out = torch.empty(size, device=device)
+
+    def branches(self, t_row_k, t_src_k, t_row_v, t_src_v):
+        """The k and v Branch gradients, from the kernel's per-node
+        gradients and the summed parameter gradients."""
+        flat = torch.split(self.out, [math.prod(s) for s in self.shapes])
+        views = [t.view(s) for t, s in zip(flat, self.shapes)]
+        return (Branch(t_row_k, t_src_k, *views[:5]),
+                Branch(t_row_v, t_src_v, *views[5:]))
+
+
+def autograd_grads(fn, g: torch.Tensor,
+                   inputs: Sequence[Optional[torch.Tensor]]) -> list:
+    """The plain backward: gradients of fn(*inputs) for the cotangent g, by
+    autograd, on the inputs' device; zeros for an input the output does not
+    depend on, None for an input that is None."""
+    leaves = [None if t is None else t.detach().requires_grad_(True)
+              for t in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+    live = [t for t in leaves if t is not None]
+    grads = iter(torch.autograd.grad(out, live, g, allow_unused=True))
+    result = []
+    for t in leaves:
+        if t is None:
+            result.append(None)
+            continue
+        d = next(grads)
+        result.append(torch.zeros_like(t) if d is None else d)
+    return result

@@ -1,6 +1,7 @@
-"""kNN edge attention: wrapper, plain version and launch count of the CUDA
-kernel csrc/edge_attention.cu, which replaces the Pallas kernel
-decompdiff_tpu/ops/pallas/edge_kernel.py (_edge_fwd_call / _edge_kernel).
+"""kNN edge attention: wrapper, plain version and launch counts of the CUDA
+kernels in csrc/edge_attention.cu, which replace the Pallas kernels of
+decompdiff_tpu/ops/pallas/edge_kernel.py (forward _edge_fwd_call /
+_edge_kernel, backward _edge_bwd_call / _edge_bwd_kernel).
 
 For every destination node i and each of its K kNN sources s = idx[i, k]:
 
@@ -15,6 +16,10 @@ For every destination node i and each of its K kNN sources s = idx[i, k]:
 
 `t_row` is h @ Wi + be and `t_src` is h @ Wj (per-node products, computed
 by the caller with torch.matmul); in pos mode Wo_v is [H, heads].
+
+On CUDA tensors `edge_attention` is differentiable: its autograd node saves
+only the inputs, and `edge_attention_backward` recomputes the rest in the
+backward kernel and returns the gradients of x, e_w, q and both branches.
 """
 
 from __future__ import annotations
@@ -23,12 +28,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from decompdiff_tpu_torch.models.common import (
     fixed_rbf, outer_product, safe_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    Branch, attend, branch_mlp, branch_ptrs, check_heads, check_inputs,
+    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
+    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
     launch, on_cpu, ptr)
 
 
@@ -69,6 +76,76 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
     return attend(q, kk, vv, mask > 0.5, n_heads, rel if pos_mode else None)
 
 
+def edge_attention_backward_reference(g, x, lig, group, idx, mask, e_w, q,
+                                      k: Branch, v: Branch, *, n_heads: int,
+                                      pos_mode: bool):
+    """Plain version of the backward: autograd through the plain forward.
+    Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch."""
+    def fn(x, e_w, q, *kv):
+        return edge_attention_reference(
+            x, lig, group, idx, mask, e_w, q, Branch(*kv[:7]),
+            Branch(*kv[7:]), n_heads=n_heads, pos_mode=pos_mode)
+    d = autograd_grads(fn, g, [x, e_w, q, *k, *v])
+    return d[0], d[1], d[2], Branch(*d[3:10]), Branch(*d[10:])
+
+
+def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode):
+    """check_inputs entries of the kernel's inputs, and the edge-type count."""
+    B, N, K = idx.shape
+    H = q.shape[-1]
+    check_heads(H, n_heads)
+    f32 = torch.float32
+    n_et = 4 if group is None else 6
+    named = [('x', x, (B, N, 3), f32), ('lig', lig, (B, N), f32),
+             ('idx', idx, (B, N, K), torch.int32),
+             ('mask', mask, (B, N, K), f32), ('e_w', e_w, (B, N, K), f32),
+             ('q', q, (B, N, H), f32)]
+    if group is not None:
+        named.append(('group', group, (B, N), f32))
+    for tag, p, dout in (('k', k, H), ('v', v, n_heads if pos_mode else H)):
+        named += branch_checks(tag, p, (B, N, H), (B, N, H), n_et * 21, H,
+                               dout)
+    return named, n_et
+
+
+def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode):
+    B, N, K = idx.shape
+    H = q.shape[-1]
+    named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
+                          pos_mode)
+    check_inputs(q.device, named)
+    out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
+                      dtype=torch.float32)
+    fn = _build.load('edge_attention', 'edge_attention_fwd', 22, 7)
+    args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
+             ptr(q)] + branch_ptrs(k) + branch_ptrs(v) + [ptr(out)]
+            + [B, N, K, H, n_heads, n_et, int(pos_mode)])
+    launch(fn, args, q.device, 'edge_attention')
+    edge_attention.launches += 1
+    return out
+
+
+class _EdgeAttention(torch.autograd.Function):
+    """Forward kernel, saving only the inputs; backward kernel."""
+
+    @staticmethod
+    def forward(ctx, n_heads, pos_mode, x, lig, group, idx, mask, e_w, q,
+                *kv):
+        ctx.opts = dict(n_heads=n_heads, pos_mode=pos_mode)
+        ctx.save_for_backward(x, lig, group, idx, mask, e_w, q, *kv)
+        return _forward(x, lig, group, idx, mask, e_w, q, Branch(*kv[:7]),
+                        Branch(*kv[7:]), n_heads, pos_mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, lig, group, idx, mask, e_w, q, *kv = ctx.saved_tensors
+        d_x, d_ew, d_q, dk, dv = edge_attention_backward(
+            g.contiguous(), x, lig, group, idx, mask, e_w, q,
+            Branch(*kv[:7]), Branch(*kv[7:]), **ctx.opts)
+        return (None, None, d_x, None, None, None, None, d_ew, d_q, *dk, *dv)
+
+
 def edge_attention(x: torch.Tensor, lig: torch.Tensor,
                    group: Optional[torch.Tensor], idx: torch.Tensor,
                    mask: torch.Tensor, e_w: torch.Tensor, q: torch.Tensor,
@@ -80,41 +157,56 @@ def edge_attention(x: torch.Tensor, lig: torch.Tensor,
         idx [B, N, K] int32 sources; mask / e_w [B, N, K]; q [B, N, H];
         k, v: Branch with t_row / t_src [B, N, H], w_feat [F*21, H],
         wo [H, H] (v in pos mode [H, heads]), bo, ln_scale, ln_bias.
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    its gradient launches the backward kernel.
     """
     if on_cpu(q):
         return edge_attention_reference(x, lig, group, idx, mask, e_w, q, k,
                                         v, n_heads=n_heads, pos_mode=pos_mode)
+    return _EdgeAttention.apply(n_heads, pos_mode, x, lig, group, idx, mask,
+                                e_w, q, *k, *v)
+
+
+def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
+                            q, k: Branch, v: Branch, *, n_heads: int,
+                            pos_mode: bool):
+    """Gradients of edge_attention for the output cotangent g ([B, N, H],
+    pos mode [B, N, 3]): (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch
+    (d t_row, d t_src and the five parameter gradients). CPU tensors run the
+    plain version; CUDA tensors launch the backward kernel."""
+    if on_cpu(q):
+        return edge_attention_backward_reference(
+            g, x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
+            pos_mode=pos_mode)
     B, N, K = idx.shape
     H = q.shape[-1]
-    check_heads(H, n_heads)
-    n_et = 4 if group is None else 6
-    f32 = torch.float32
-    dv = n_heads if pos_mode else H
-    named = [('x', x, (B, N, 3), f32), ('lig', lig, (B, N), f32),
-             ('idx', idx, (B, N, K), torch.int32),
-             ('mask', mask, (B, N, K), f32), ('e_w', e_w, (B, N, K), f32),
-             ('q', q, (B, N, H), f32)]
-    if group is not None:
-        named.append(('group', group, (B, N), f32))
-    for tag, p, dout in (('k', k, H), ('v', v, dv)):
-        named += [(f'{tag}.t_row', p.t_row, (B, N, H), f32),
-                  (f'{tag}.t_src', p.t_src, (B, N, H), f32),
-                  (f'{tag}.w_feat', p.w_feat, (n_et * 21, H), f32),
-                  (f'{tag}.wo', p.wo, (H, dout), f32),
-                  (f'{tag}.bo', p.bo, (dout,), f32),
-                  (f'{tag}.ln_scale', p.ln_scale, (H,), f32),
-                  (f'{tag}.ln_bias', p.ln_bias, (H,), f32)]
+    named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
+                          pos_mode)
+    named.append(('g', g, (B, N, 3 if pos_mode else H), torch.float32))
     check_inputs(q.device, named)
-    out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
-                      dtype=f32)
-    fn = _build.load('edge_attention', 'edge_attention_fwd', 22, 7)
+    dev = q.device
+    d_x = torch.zeros((B, N, 3), device=dev)
+    d_ew = torch.empty((B, N, K), device=dev)
+    d_q, d_trow_k, d_trow_v = (torch.empty((B, N, H), device=dev)
+                               for _ in range(3))
+    d_tsrc_k, d_tsrc_v = (torch.zeros((B, N, H), device=dev)
+                          for _ in range(2))
+    blocks = backward_blocks(B * N, dev)
+    pg = ParamGrads(blocks, n_et * 21, H, n_heads if pos_mode else H, dev)
+    woT_k = k.wo.t().contiguous()
+    woT_v = None if pos_mode else v.wo.t().contiguous()
+    fn = _build.load('edge_attention', 'edge_attention_bwd', 33, 8)
     args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
-             ptr(q)] + branch_ptrs(k) + branch_ptrs(v) + [ptr(out)]
-            + [B, N, K, H, n_heads, n_et, int(pos_mode)])
-    launch(fn, args, q.device, 'edge_attention')
-    edge_attention.launches += 1
-    return out
+             ptr(q), ptr(g)] + branch_ptrs(k) + [ptr(woT_k)]
+            + branch_ptrs(v) + [ptr(woT_v)]
+            + [ptr(t) for t in (d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
+                                d_tsrc_v, pg.slots, pg.out)]
+            + [B, N, K, H, n_heads, n_et, int(pos_mode), blocks])
+    launch(fn, args, dev, 'edge_attention_backward')
+    edge_attention_backward.launches += 1
+    dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
+    return d_x, d_ew, d_q, dk, dv
 
 
 edge_attention.launches = 0
+edge_attention_backward.launches = 0

@@ -1,6 +1,7 @@
-"""Bond-triplet angular attention: wrapper, plain version and launch count
-of the CUDA kernel csrc/triplet_attention.cu, which replaces the Pallas
-kernel decompdiff_tpu/ops/pallas/triplet_kernel.py (_fwd_call / _kernel).
+"""Bond-triplet angular attention: wrapper, plain version and launch counts
+of the CUDA kernels in csrc/triplet_attention.cu, which replace the Pallas
+kernels of decompdiff_tpu/ops/pallas/triplet_kernel.py (forward _fwd_call /
+_kernel, backward _bwd_call / _bwd_kernel).
 
 For every bond edge (j -> i) and every third ligand atom k:
 
@@ -13,16 +14,22 @@ For every bond edge (j -> i) and every third ligand atom k:
 
 `t_src` is the factorized (k -> j) term with the angular bias folded in and
 `t_row` the (i, j) term; both are computed by the caller.
+
+On CUDA tensors `triplet_attention` is differentiable: its autograd node
+saves only the inputs, and `triplet_attention_backward` recomputes the rest
+in the backward kernel.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from decompdiff_tpu_torch.models.common import ANGULAR_DIM, angular_encoding
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    Branch, attend, branch_mlp, branch_ptrs, check_heads, check_inputs,
+    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
+    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
     launch, on_cpu, ptr)
 
 
@@ -49,18 +56,19 @@ def triplet_attention_reference(angle, mask, q, k: Branch, v: Branch, *,
     return attend(q, branch(k), branch(v), triplet_mask(mask), n_heads)
 
 
-def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
-                      q: torch.Tensor, k: Branch, v: Branch, *,
-                      n_heads: int) -> torch.Tensor:
-    """Args (float32): angle [B, Nl(i), Nl(j), Nl(k)] angles at vertex i;
-    mask [B, Nl, Nl] bond mask; q [B, Nl, Nl, H]; k, v: Branch with
-    t_row [B, Nl(i), Nl(j), H], t_src [B, Nl(j), Nl(k), H], w_feat [13, H],
-    wo [H, H], bo, ln_scale, ln_bias.
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
-    """
-    if on_cpu(q):
-        return triplet_attention_reference(angle, mask, q, k, v,
-                                           n_heads=n_heads)
+def triplet_attention_backward_reference(g, angle, mask, q, k: Branch,
+                                         v: Branch, *, n_heads: int):
+    """Plain version of the backward: autograd through the plain forward.
+    Returns (d_angle, d_q, d_k, d_v), d_k and d_v as Branch."""
+    def fn(angle, q, *kv):
+        return triplet_attention_reference(
+            angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]), n_heads=n_heads)
+    d = autograd_grads(fn, g, [angle, q, *k, *v])
+    return d[0], d[1], Branch(*d[2:9]), Branch(*d[9:])
+
+
+def _checks(angle, mask, q, k, v, n_heads):
+    """check_inputs entries of the kernel's inputs."""
     B, Nl = angle.shape[:2]
     H = q.shape[-1]
     check_heads(H, n_heads)
@@ -68,15 +76,16 @@ def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
     named = [('angle', angle, (B, Nl, Nl, Nl), f32),
              ('mask', mask, (B, Nl, Nl), f32), ('q', q, (B, Nl, Nl, H), f32)]
     for tag, p in (('k', k), ('v', v)):
-        named += [(f'{tag}.t_row', p.t_row, (B, Nl, Nl, H), f32),
-                  (f'{tag}.t_src', p.t_src, (B, Nl, Nl, H), f32),
-                  (f'{tag}.w_feat', p.w_feat, (ANGULAR_DIM, H), f32),
-                  (f'{tag}.wo', p.wo, (H, H), f32),
-                  (f'{tag}.bo', p.bo, (H,), f32),
-                  (f'{tag}.ln_scale', p.ln_scale, (H,), f32),
-                  (f'{tag}.ln_bias', p.ln_bias, (H,), f32)]
-    check_inputs(q.device, named)
-    out = torch.empty((B, Nl, Nl, H), device=q.device, dtype=f32)
+        named += branch_checks(tag, p, (B, Nl, Nl, H), (B, Nl, Nl, H),
+                               ANGULAR_DIM, H, H)
+    return named
+
+
+def _forward(angle, mask, q, k, v, n_heads):
+    B, Nl = angle.shape[:2]
+    H = q.shape[-1]
+    check_inputs(q.device, _checks(angle, mask, q, k, v, n_heads))
+    out = torch.empty((B, Nl, Nl, H), device=q.device, dtype=torch.float32)
     fn = _build.load('triplet_attention', 'triplet_attention_fwd', 18, 4)
     args = ([ptr(angle), ptr(mask), ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
             + [ptr(out)] + [B, Nl, H, n_heads])
@@ -85,4 +94,74 @@ def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+class _TripletAttention(torch.autograd.Function):
+    """Forward kernel, saving only the inputs; backward kernel."""
+
+    @staticmethod
+    def forward(ctx, n_heads, angle, mask, q, *kv):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(angle, mask, q, *kv)
+        return _forward(angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]),
+                        n_heads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        angle, mask, q, *kv = ctx.saved_tensors
+        d_angle, d_q, dk, dv = triplet_attention_backward(
+            g.contiguous(), angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]),
+            n_heads=ctx.n_heads)
+        return (None, d_angle, None, d_q, *dk, *dv)
+
+
+def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
+                      q: torch.Tensor, k: Branch, v: Branch, *,
+                      n_heads: int) -> torch.Tensor:
+    """Args (float32): angle [B, Nl(i), Nl(j), Nl(k)] angles at vertex i;
+    mask [B, Nl, Nl] bond mask; q [B, Nl, Nl, H]; k, v: Branch with
+    t_row [B, Nl(i), Nl(j), H], t_src [B, Nl(j), Nl(k), H], w_feat [13, H],
+    wo [H, H], bo, ln_scale, ln_bias.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    its gradient launches the backward kernel.
+    """
+    if on_cpu(q):
+        return triplet_attention_reference(angle, mask, q, k, v,
+                                           n_heads=n_heads)
+    return _TripletAttention.apply(n_heads, angle, mask, q, *k, *v)
+
+
+def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
+                               v: Branch, *, n_heads: int):
+    """Gradients of triplet_attention for the output cotangent g
+    [B, Nl, Nl, H]: (d_angle, d_q, d_k, d_v), d_k and d_v as Branch. CPU
+    tensors run the plain version; CUDA tensors launch the backward
+    kernel."""
+    if on_cpu(q):
+        return triplet_attention_backward_reference(
+            g, angle, mask, q, k, v, n_heads=n_heads)
+    B, Nl = angle.shape[:2]
+    H = q.shape[-1]
+    named = _checks(angle, mask, q, k, v, n_heads)
+    named.append(('g', g, (B, Nl, Nl, H), torch.float32))
+    check_inputs(q.device, named)
+    dev = q.device
+    d_angle = torch.zeros((B, Nl, Nl, Nl), device=dev)
+    d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v = (
+        torch.empty((B, Nl, Nl, H), device=dev) for _ in range(5))
+    blocks = backward_blocks(B * Nl, dev)
+    pg = ParamGrads(blocks, ANGULAR_DIM, H, H, dev)
+    woT_k, woT_v = k.wo.t().contiguous(), v.wo.t().contiguous()
+    fn = _build.load('triplet_attention', 'triplet_attention_bwd', 28, 5)
+    args = ([ptr(angle), ptr(mask), ptr(q), ptr(g)] + branch_ptrs(k)
+            + [ptr(woT_k)] + branch_ptrs(v) + [ptr(woT_v)]
+            + [ptr(t) for t in (d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v,
+                                d_tsrc_v, pg.slots, pg.out)]
+            + [B, Nl, H, n_heads, blocks])
+    launch(fn, args, dev, 'triplet_attention_backward')
+    triplet_attention_backward.launches += 1
+    dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
+    return d_angle, d_q, dk, dv
+
+
 triplet_attention.launches = 0
+triplet_attention_backward.launches = 0

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (forward and backward) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA device and the CUDA toolkit (`nvcc`); without
 a card each one skips with that reason. On a GPU machine run
@@ -9,7 +10,9 @@ a card each one skips with that reason. On a GPU machine run
 machine does not need). The shapes are small and ragged on purpose: K and
 Nl are not multiples of the kernels' 16-source chunk, some rows are fully
 masked, and the 6-edge-type variant runs, which the released-shape check in
-chip_smoke.py does not cover.
+chip_smoke.py does not cover. Nl=20 gives the bond and triplet kernels two
+source chunks, the last one ragged, and the triplet backward's shared
+d t_src sum across both.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -24,6 +27,7 @@ from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
 from decompdiff_tpu_torch.ops import bond_attention as bond_ops
 from decompdiff_tpu_torch.ops import edge_attention as edge_ops
 from decompdiff_tpu_torch.ops import triplet_attention as triplet_ops
+from decompdiff_tpu_torch.ops.common import Branch
 from decompdiff_tpu_torch.ops.knn import knn_neighbors
 from decompdiff_tpu_torch.utils.testing import (
     random_complex_batch, tiny_model_config)
@@ -101,10 +105,11 @@ def test_edge_kernel(cuda, pos_mode, group, H, heads):
         assert float(got[0, N - 5:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
 @pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
-def test_bond_kernel(cuda, pos_mode):
+def test_bond_kernel(cuda, pos_mode, Nl):
     rng = np.random.default_rng(2)
-    B, Nl, H, heads = 2, 13, 64, 8
+    B, H, heads = 2, 64, 8
     h = torch.as_tensor(rng.normal(size=(B, Nl, H)), dtype=torch.float32)
     hb = torch.as_tensor(rng.normal(size=(B, Nl, Nl, H)), dtype=torch.float32)
     x = torch.as_tensor(rng.normal(size=(B, Nl, 3)) * 2, dtype=torch.float32)
@@ -123,10 +128,11 @@ def test_bond_kernel(cuda, pos_mode):
     _compare(module, args, cuda, bond_ops.bond_attention)
 
 
+@pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
 @pytest.mark.parametrize('include_h_node', [True, False])
-def test_triplet_kernel(cuda, include_h_node):
+def test_triplet_kernel(cuda, include_h_node, Nl):
     rng = np.random.default_rng(3)
-    B, Nl, H, heads = 2, 13, 32, 4
+    B, H, heads = 2, 32, 4
     h = torch.as_tensor(rng.normal(size=(B, Nl, H)), dtype=torch.float32)
     hb = torch.as_tensor(rng.normal(size=(B, Nl, Nl, H)), dtype=torch.float32)
     x = torch.as_tensor(rng.normal(size=(B, Nl, 3)) * 2, dtype=torch.float32)
@@ -175,3 +181,214 @@ def test_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError, match='dtype'):
         module(h, hb.contiguous(), bm.double())
     assert bond_ops.bond_attention.launches == before
+
+
+# --------------------------------------------------------------------------
+# backward kernels against plain autograd
+# --------------------------------------------------------------------------
+# Gradient tolerance rtol 1e-3 / atol 1e-4 * max(1, max |plain gradient|):
+# float32 on both sides, but the kernels sum the source-node cotangents
+# (edge, bond) with atomicAdd, whose order changes from run to run, and every
+# parameter gradient over rows in another order than autograd.
+
+def _rand(rng, *shape, scale=0.3):
+    return torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float32)
+
+
+def _rand_branch(rng, row_shape, src_shape, feat_rows, H, dout):
+    return Branch(_rand(rng, *row_shape, scale=1.0),
+                  _rand(rng, *src_shape, scale=1.0),
+                  _rand(rng, feat_rows, H), _rand(rng, H, dout),
+                  _rand(rng, dout), 1.0 + _rand(rng, H), _rand(rng, H))
+
+
+def _flat_grads(grads):
+    out = []
+    for g in grads:
+        if isinstance(g, Branch):
+            out += list(g)
+        else:
+            out.append(g)
+    return out
+
+
+def _check_backward(fn, g, args, kw, cuda, counter):
+    """The backward wrapper on CPU tensors (plain autograd) against the same
+    wrapper on CUDA tensors (the kernel)."""
+    want = _flat_grads(fn(g, *args, **kw))
+    dev_args = [Branch(*(t.to(cuda) for t in a)) if isinstance(a, Branch)
+                else _to(a, cuda) for a in args]
+    before = counter.launches
+    got = _flat_grads(fn(g.to(cuda), *dev_args, **kw))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+            continue
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4 * scale,
+                                   msg=lambda m: f'gradient {i}: {m}')
+
+
+@pytest.mark.parametrize('H,heads', [(32, 4), (128, 16)])
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_edge_backward_kernel(cuda, pos_mode, group, H, heads):
+    rng = np.random.default_rng(5)
+    B, N, K, Np = 2, 37, 20, 25
+    x, graph, e_w = _graph(rng, B, N, K, Np, group)
+    n_et = 6 if group else 4
+    dv = heads if pos_mode else H
+    k = _rand_branch(rng, (B, N, H), (B, N, H), n_et * 21, H, H)
+    v = _rand_branch(rng, (B, N, H), (B, N, H), n_et * 21, H, dv)
+    q = _rand(rng, B, N, H, scale=1.0)
+    g = _rand(rng, B, N, 3 if pos_mode else H, scale=1.0)
+    args = (x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q, k, v)
+    _check_backward(edge_ops.edge_attention_backward, g, args,
+                    dict(n_heads=heads, pos_mode=pos_mode), cuda,
+                    edge_ops.edge_attention_backward)
+
+
+@pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_backward_kernel(cuda, pos_mode, Nl):
+    rng = np.random.default_rng(6)
+    B, H, heads = 2, 64, 8
+    lm = torch.ones(B, Nl, dtype=torch.bool)
+    lm[1, 9:] = False
+    bm = (lm[:, :, None] & lm[:, None, :] & ~torch.eye(Nl, dtype=torch.bool)
+          ).float()
+    dv = heads if pos_mode else H
+    k = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, H)
+    v = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, dv)
+    hb, q = _rand(rng, B, Nl, Nl, H, scale=1.0), _rand(rng, B, Nl, H, scale=1.0)
+    x = _rand(rng, B, Nl, 3, scale=2.0) if pos_mode else None
+    g = _rand(rng, B, Nl, 3 if pos_mode else H, scale=1.0)
+    _check_backward(bond_ops.bond_attention_backward, g,
+                    (hb, x, bm, q, k, v),
+                    dict(n_heads=heads, pos_mode=pos_mode), cuda,
+                    bond_ops.bond_attention_backward)
+
+
+@pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
+@pytest.mark.parametrize('H,heads', [(32, 4), (128, 16)])
+def test_triplet_backward_kernel(cuda, H, heads, Nl):
+    rng = np.random.default_rng(7)
+    B = 2
+    bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.4)
+          & ~torch.eye(Nl, dtype=torch.bool)).float()
+    bm[0, 4] = 0.0                              # atom 4 of complex 0: no bonds
+    k = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    v = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
+                            dtype=torch.float32)
+    q = _rand(rng, B, Nl, Nl, H, scale=1.0)
+    g = _rand(rng, B, Nl, Nl, H, scale=1.0)
+    _check_backward(triplet_ops.triplet_attention_backward, g,
+                    (angle, bm, q, k, v), dict(n_heads=heads), cuda,
+                    triplet_ops.triplet_attention_backward)
+
+
+@pytest.mark.parametrize('which', ['edge_node', 'edge_pos', 'bond_node',
+                                   'bond_pos', 'triplet'])
+def test_autograd_reaches_backward_kernel(cuda, which):
+    """Through a module with kernels on, loss.backward() launches the
+    backward kernel once and gives every parameter and input the gradient
+    that the plain version gives."""
+    rng = np.random.default_rng(8)
+    H, heads = 32, 4
+    if which.startswith('edge'):
+        B, N, K = 2, 23, 12
+        x, graph, e_w = _graph(rng, B, N, K, 15, False)
+        h = _rand(rng, B, N, H, scale=1.0)
+        cls = (tutb.PosEdgeAttention if which == 'edge_pos'
+               else tutb.NodeEdgeAttention)
+        kw = {} if which == 'edge_pos' else {'out_fc': True}
+        module = cls(H, heads, 4, use_kernels=True, **kw)
+        args, diff = (h, x, graph, e_w), (0, 1, 3)
+        counter = edge_ops.edge_attention_backward
+    elif which.startswith('bond'):
+        B, Nl = 2, 11
+        h = _rand(rng, B, Nl, H, scale=1.0)
+        hb = _rand(rng, B, Nl, Nl, H, scale=1.0)
+        bm = (torch.ones(B, Nl, Nl) - torch.eye(Nl)).contiguous()
+        bm[1, 8:] = 0.0
+        bm[1, :, 8:] = 0.0
+        if which == 'bond_pos':
+            module = tutb.PosBondAttention(H, heads, use_kernels=True)
+            args = (h, _rand(rng, B, Nl, 3, scale=2.0), hb, bm)
+            diff = (0, 1, 2)
+        else:
+            module = tutb.NodeBondAttention(H, heads, out_fc=True,
+                                            use_kernels=True)
+            args, diff = (h, hb, bm), (0, 1)
+        counter = bond_ops.bond_attention_backward
+    else:
+        B, Nl = 2, 9
+        h = _rand(rng, B, Nl, H, scale=1.0)
+        hb = _rand(rng, B, Nl, Nl, H, scale=1.0)
+        x = _rand(rng, B, Nl, 3, scale=2.0)
+        bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.5)
+              & ~torch.eye(Nl, dtype=torch.bool)).float()
+        module = tutb.BondTripletAttention(H, heads, include_h_node=True,
+                                           use_kernels=True)
+        args, diff = (h, hb, x, bm), (0, 1, 2)
+        counter = triplet_ops.triplet_attention_backward
+    _randomize(module, 3).requires_grad_(True)
+
+    def grads(mod, inputs):
+        leaves = [a.clone().requires_grad_(True) if i in diff else a
+                  for i, a in enumerate(inputs)]
+        out = mod(*leaves)
+        cot = torch.as_tensor(np.random.default_rng(9).normal(size=out.shape),
+                              dtype=torch.float32, device=out.device)
+        params = [p for _, p in sorted(mod.named_parameters())]
+        return torch.autograd.grad((out * cot).sum(),
+                                   [leaves[i] for i in diff] + params)
+
+    want = grads(module, args)
+    module.to(cuda)
+    before = counter.launches
+    got = grads(module, [_to(a, cuda) for a in args])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4 * scale)
+
+
+def test_tiny_train_step_kernels_on_vs_off(cuda):
+    """One training step's loss, grad norm and every parameter gradient with
+    the kernels on against off (same weights, same draws), at the tolerance
+    the JAX package holds its kernel path to (tests/test_train_step.py); and
+    the step launches each forward and backward kernel once per use."""
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state, global_norm, make_train_fns)
+    cfg = tiny_model_config(num_diffusion_timesteps=20)
+    batch = random_complex_batch(np.random.default_rng(0), batch_size=4,
+                                 num_ligand=11, real_ligand=9, device=cuda)
+    out = {}
+    for on in (True, False):
+        model = DecompDiffModel.create(dict(cfg, use_pallas=on), 8,
+                                       device=cuda, seed=3)
+        grad_step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[1]
+        before = triplet_ops.triplet_attention_backward.launches
+        grads, metrics, _, _ = grad_step(
+            create_train_state(model, DEFAULT_TRAIN_CONFIG), batch,
+            torch.Generator(device=cuda).manual_seed(1))
+        torch.cuda.synchronize()
+        launched = triplet_ops.triplet_attention_backward.launches - before
+        assert launched == (cfg['num_layers'] if on else 0)
+        out[on] = grads, metrics
+    (g_on, m_on), (g_off, m_off) = out[True], out[False]
+    for key in m_off:
+        torch.testing.assert_close(m_on[key], m_off[key], rtol=1e-4,
+                                   atol=1e-6)
+    torch.testing.assert_close(global_norm(g_on), global_norm(g_off),
+                               rtol=2e-3, atol=0.0)
+    for name, b in g_off.items():
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(g_on[name], b, rtol=2e-3,
+                                   atol=1e-4 * scale, msg=name)

@@ -23,7 +23,8 @@ from decompdiff_tpu_torch.ops import bond_attention as bond_ops
 from decompdiff_tpu_torch.ops import edge_attention as edge_ops
 from decompdiff_tpu_torch.ops import triplet_attention as triplet_ops
 from decompdiff_tpu_torch.ops.common import Branch
-from decompdiff_tpu_torch.utils.params import load_flax_params
+from decompdiff_tpu_torch.utils.params import (
+    flax_to_state_dict, load_flax_params)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -246,3 +247,157 @@ def test_wrappers_refuse_other_devices():
         bond_ops.bond_attention(torch.empty(B, Nl, Nl, H, **meta), None,
                                 torch.empty(B, Nl, Nl, **meta), q, br, br,
                                 n_heads=HEADS, pos_mode=False)
+
+
+# --------------------------------------------------------------------------
+# gradients
+# --------------------------------------------------------------------------
+# The plain versions' autograd gradients (what the wrappers run on the CPU,
+# and what the backward kernels are held to on the card) against the JAX
+# modules' gradients through the Pallas kernels' custom VJPs (interpret mode)
+# and through the dense path. Tolerance rtol 5e-4 / atol 5e-5 * max(1, max
+# |JAX gradient|), that of tests/test_pallas_triplet_grad.py.
+
+def _assert_grads(got, want, label):
+    for (name, a), b in zip(got, want):
+        b = np.asarray(b)
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, rtol=5e-4, atol=5e-5 * scale,
+                                   err_msg=f'{label}: {name}')
+
+
+def _param_grads(flax_grads):
+    """(path, array) leaves of a flax gradient tree, sorted by path."""
+    return sorted(flax_to_state_dict(jax.tree.map(np.asarray,
+                                                  flax_grads)).items())
+
+
+def _torch_grads(module, inputs, diff, cot):
+    """Gradients of sum(module(*inputs) * cot) wrt the parameters (sorted
+    by name) and the inputs at positions `diff`."""
+    module.requires_grad_(True)
+    leaves = [a.clone().requires_grad_(True) if i in diff else a
+              for i, a in enumerate(inputs)]
+    out = module(*leaves)
+    params = sorted(module.named_parameters())
+    wrt = [p for _, p in params] + [leaves[i] for i in diff]
+    grads = torch.autograd.grad((out * _t(cot)).sum(), wrt, allow_unused=True)
+    grads = [torch.zeros_like(w) if g is None else g
+             for w, g in zip(wrt, grads)]          # unused: zero, as in JAX
+    named = [(n, g.numpy()) for (n, _), g in zip(params, grads)]
+    return named, [g.numpy() for g in grads[len(params):]]
+
+
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_edge_kernel_grads(pos_mode, group):
+    c = _edge_inputs(group, seed=21 + 2 * pos_mode + group)
+    mask = np.ones((2, 16), bool)
+    mask[0, 12:] = False
+    nbr_idx, nbr_mask = knn_neighbors(jnp.asarray(c['x']), jnp.asarray(mask),
+                                      4)
+    mask_ligand = (np.arange(16)[None, :] >= c['Np']) & mask
+    group_idx = (None if c['graph'].group is None
+                 else c['graph'].group.numpy().astype(np.int32))
+    kw = dict(num_protein=c['Np'], n_etypes=c['n_etypes'])
+    if pos_mode:
+        mods = [jutb.PosEdgeAttention(H, HEADS, use_pallas=p, **kw)
+                for p in (False, True)]
+        tmod = tutb.PosEdgeAttention(H, HEADS, c['n_etypes'],
+                                     use_kernels=True)
+    else:
+        mods = [jutb.NodeEdgeAttention(H, HEADS, out_fc=False, use_pallas=p,
+                                       **kw) for p in (False, True)]
+        tmod = tutb.NodeEdgeAttention(H, HEADS, c['n_etypes'], out_fc=False,
+                                      use_kernels=True)
+    params = mods[0].init(jax.random.PRNGKey(0), c['h'], c['ed_dense'],
+                          c['e_w'])
+    cot = np.random.default_rng(9).normal(
+        size=(2, 16, 3 if pos_mode else H)).astype(np.float32)
+
+    def jax_grads(mod, pallas):
+        def f(params, h, x, e_w):
+            ed = _jax_edge_data(x, nbr_idx, nbr_mask, mask_ligand, group_idx,
+                                pallas)
+            return jnp.sum(mod.apply(params, h, ed, e_w) * cot)
+        return jax.grad(f, argnums=(0, 1, 2, 3))(params, c['h'], c['x'],
+                                                 c['e_w'])
+
+    _load(tmod, params)
+    got_p, got_in = _torch_grads(
+        tmod, (_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
+        (0, 1, 3), cot)
+    for mod, pallas in zip(mods, (False, True)):
+        gp, gh, gx, gew = jax_grads(mod, pallas)
+        label = 'pallas' if pallas else 'dense'
+        _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
+        _assert_grads(zip(('h', 'x', 'e_w'), got_in),
+                      [gh, gx, np.asarray(gew)[..., 0]], label)
+
+
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_kernel_grads(pos_mode):
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=24 + pos_mode)
+    tbm = _t(bond_mask, torch.float32)
+    cot = np.random.default_rng(9).normal(
+        size=(2, 8, 3 if pos_mode else H)).astype(np.float32)
+    if pos_mode:
+        def rel(x):
+            return x[:, :, None, :] - x[:, None, :, :]
+        mods = [jutb.PosBondAttention(H, HEADS, use_pallas=p)
+                for p in (False, True)]
+        params = mods[0].init(jax.random.PRNGKey(0), h_lig, rel(x_lig),
+                              h_bond, bond_mask)
+        tmod = _load(tutb.PosBondAttention(H, HEADS, use_kernels=True),
+                     params)
+        got_p, got_in = _torch_grads(
+            tmod, (_t(h_lig), _t(x_lig), _t(h_bond), tbm), (0, 1, 2), cot)
+
+        def jax_grads(mod):
+            def f(params, h, x, hb):
+                return jnp.sum(mod.apply(params, h, rel(x), hb, bond_mask)
+                               * cot)
+            return jax.grad(f, argnums=(0, 1, 2, 3))(params, h_lig, x_lig,
+                                                     h_bond)
+        labels = ('h_lig', 'x_lig', 'h_bond')
+    else:
+        mods = [jutb.NodeBondAttention(H, HEADS, out_fc=False, use_pallas=p)
+                for p in (False, True)]
+        params = mods[0].init(jax.random.PRNGKey(0), h_lig, h_bond, bond_mask)
+        tmod = _load(tutb.NodeBondAttention(H, HEADS, out_fc=False,
+                                            use_kernels=True), params)
+        got_p, got_in = _torch_grads(tmod, (_t(h_lig), _t(h_bond), tbm),
+                                     (0, 1), cot)
+
+        def jax_grads(mod):
+            def f(params, h, hb):
+                return jnp.sum(mod.apply(params, h, hb, bond_mask) * cot)
+            return jax.grad(f, argnums=(0, 1, 2))(params, h_lig, h_bond)
+        labels = ('h_lig', 'h_bond')
+    for mod, label in zip(mods, ('dense', 'pallas')):
+        gp, *gin = jax_grads(mod)
+        _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
+        _assert_grads(zip(labels, got_in), gin, label)
+
+
+@pytest.mark.parametrize('include_h_node', [True, False])
+def test_triplet_kernel_grads(include_h_node):
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=26)
+    mods = [jutb.BondTripletAttention(H, HEADS, include_h_node=include_h_node,
+                                      use_pallas=p) for p in (False, True)]
+    params = mods[0].init(jax.random.PRNGKey(0), h_lig, h_bond, x_lig,
+                          bond_mask)
+    cot = np.random.default_rng(9).normal(size=(2, 8, 8, H)).astype(
+        np.float32)
+    tmod = _load(tutb.BondTripletAttention(
+        H, HEADS, include_h_node=include_h_node, use_kernels=True), params)
+    got_p, got_in = _torch_grads(
+        tmod, (_t(h_lig), _t(h_bond), _t(x_lig), _t(bond_mask, torch.float32)),
+        (0, 1, 2), cot)
+    for mod, label in zip(mods, ('dense', 'pallas')):
+        def f(params, h, hb, x):
+            return jnp.sum(mod.apply(params, h, hb, x, bond_mask) * cot)
+        gp, *gin = jax.grad(f, argnums=(0, 1, 2, 3))(params, h_lig, h_bond,
+                                                     x_lig)
+        _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
+        _assert_grads(zip(('h_lig', 'h_bond', 'x_lig'), got_in), gin, label)
