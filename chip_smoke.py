@@ -8,21 +8,24 @@
 2. Build: compiles the three CUDA sources of csrc/ (each holds a forward and
    a backward kernel) with nvcc (timed set-up).
 3. Kernels: records the inputs each of the five kernel modes gets in the first
-   layer of a released-config denoiser call (B=8, Np=320, Nl=32), then holds
-   every forward kernel against its plain PyTorch version on those inputs,
-   and every backward kernel against plain autograd for a seeded cotangent
-   (zeroed on the rows that hold a relu gate within rounding of 0, see
-   GATE_MARGIN), timing each with CUDA events.
-4. Sampling path: guided reverse diffusion (armsca_prox + clash at every
-   step) with the released uni_o2_bond config and kernels on, with every
-   launch counter set to 0 just before and read just after; then one
-   denoiser call with kernels on against kernels off.
-5. Training path: training steps of the released config (forward, backward,
-   clip and Adam) at B=8, Np=320, Nl=32 with kernels on, counters set to 0
-   just before and read just after; the same steps with every kernel replaced
-   by its plain version; seconds per step and peak device memory of both;
-   one step's loss, grad norm and parameter gradients, kernels on against
-   off.
+   layer of a released-config denoiser call (B=8, Np=320, Nl=32), and those
+   of the m-gated edge mode in the first layer of a released-width uni_o2
+   (ew_net_type 'm') denoiser call; then holds every forward kernel against
+   its plain PyTorch version on those inputs, and every backward kernel
+   against plain autograd for a seeded cotangent (zeroed on the rows that
+   hold a relu gate within rounding of 0, see GATE_MARGIN), timing each with
+   CUDA events.
+4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
+   step) with kernels on, first with the released uni_o2_bond config, then
+   with the released-width uni_o2 config, each with every launch counter set
+   to 0 just before and read just after; then one denoiser call with kernels
+   on against kernels off, for uni_o2 with ew_net_type m, global and r.
+5. Training paths: training steps (forward, backward, clip and Adam) at B=8,
+   Np=320, Nl=32 with kernels on, counters set to 0 just before and read
+   just after, for uni_o2_bond and then uni_o2; the same steps with every
+   kernel replaced by its plain version; seconds per step and peak device
+   memory of both; one step's loss, grad norm and parameter gradients,
+   kernels on against off.
 6. Prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check exits non-zero. Needs torch and numpy only.
@@ -75,14 +78,31 @@ PATH_RTOL, PATH_ATOL = 1e-3, 1e-3
 # package holds its kernel path to against its dense path
 # (tests/test_train_step.py)
 LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-4, 2e-3, 1e-4
+# the TPU kernel each record replaces; the m-gated records are the m_gate
+# variants of the same two pallas_calls
 KERNEL_SOURCES = {
     'edge_attention': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
+    'edge_attention_mgate': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
     'bond_attention': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
     'triplet_attention': 'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
     'edge_attention_backward': 'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
     'bond_attention_backward': 'decompdiff_tpu/ops/pallas/bond_kernel.py:307',
     'triplet_attention_backward':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
+    'edge_attention_mgate_backward':
+        'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
+}
+# Each ungated edge and bond mode's kernel ms in PR 2's final call (PERF.md,
+# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's for comparison.
+PR2_MS = {
+    ('edge_attention', 'node'): '0.4371-0.4378',
+    ('edge_attention', 'pos'): '0.3841-0.3858',
+    ('bond_attention', 'node'): '0.1049-0.1236',
+    ('bond_attention', 'pos'): '0.0967-0.1457',
+    ('edge_attention_backward', 'node'): '2.9387-2.9521',
+    ('edge_attention_backward', 'pos'): '2.8469-2.8665',
+    ('bond_attention_backward', 'node'): '0.5112-0.5211',
+    ('bond_attention_backward', 'pos'): '0.5367-0.5415',
 }
 
 
@@ -139,7 +159,8 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
 def capture_inputs(torch, ops, plain_model, batch, state):
     """The arguments of the first call of each kernel mode in one denoiser
-    call (kernels off), keyed by (kernel name, pos_mode)."""
+    call (kernels off), keyed by (kernel record name, pos_mode); an m-gated
+    edge call is the record edge_attention_mgate."""
     captured = {}
     originals = {}
     for name, mod in ops.items():
@@ -147,8 +168,8 @@ def capture_inputs(torch, ops, plain_model, batch, state):
         orig = originals[name] = getattr(mod, fn_name)
 
         def record(*args, _name=name, _orig=orig, **kw):
-            captured.setdefault((_name, kw.get('pos_mode', False)),
-                                (args, kw))
+            rec = _name + ('_mgate' if kw.get('gate') is not None else '')
+            captured.setdefault((rec, kw.get('pos_mode', False)), (args, kw))
             return _orig(*args, **kw)
         setattr(mod, fn_name, record)
     try:
@@ -160,26 +181,41 @@ def capture_inputs(torch, ops, plain_model, batch, state):
     return captured
 
 
-def work(torch, name, args, kw, out):
-    """(FLOPs, bytes) the call needs on these inputs: 2 per multiply-add of
-    the per-pair products and of q.k and alpha.v over valid (row, source)
-    pairs only (LayerNorm, exp and adds left out, so the bound is a lower
-    bound); every input read once and the output written once."""
+def op_name(rec):
+    """The ops module function of a kernel record name."""
+    return rec.replace('_mgate', '')
+
+
+def call_inputs(torch, args, kw):
+    """Every tensor a kernel call reads: the tensor arguments, Branch fields
+    and the gate."""
     tensors = [a for a in args if torch.is_tensor(a)]
-    for a in args:
+    for a in list(args) + [kw.get('gate')]:
         if isinstance(a, tuple):
             tensors += list(a)
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return tensors
+
+
+def work(torch, name, args, kw, out):
+    """(FLOPs, bytes) the call needs on these inputs: 2 per multiply-add of
+    the per-pair products, of q.k and alpha.v and of the m-gate's v.wm over
+    valid (row, source) pairs only (LayerNorm, exp and adds left out, so the
+    bound is a lower bound); every input read once and the output written
+    once."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in call_inputs(torch, args, kw))
     nbytes += out.numel() * out.element_size()
     H = args[-3].shape[-1]                # every kernel takes (..., q, k, v)
     nh = kw['n_heads']
     pos = kw.get('pos_mode', False)
     v_out = 2 * H * nh + 2 * H + 6 * nh if pos else 2 * H * H + 2 * H
     attn = 2 * H * H + 2 * H + v_out      # k second linear, q.k, v and alpha.v
-    if name == 'edge_attention':          # (x, lig, group, idx, mask, ...)
+    if name.startswith('edge_attention'):  # (x, lig, group, idx, mask, ...)
         pairs = int((args[4] > 0.5).sum())
         n_types = 1 if args[2] is None else 2
         per_pair = 2 * 2 * 21 * n_types * H + attn
+        if kw.get('gate') is not None:
+            per_pair += 2 * H
     elif name == 'bond_attention':        # (h_bond, x, mask, ...)
         pairs = int((args[2] > 0.5).sum())
         per_pair = 2 * 2 * H * H + attn
@@ -190,12 +226,20 @@ def work(torch, name, args, kw, out):
     return pairs * per_pair, nbytes
 
 
+def modes(captured):
+    """The captured modes in a fixed order, the m-gated ones last: each
+    earlier mode then draws the cotangent and follows the launches it did
+    before the gate existed, so its numbers stay comparable across runs."""
+    return sorted(captured.items(), key=lambda kv: ('_mgate' in kv[0][0],
+                                                    kv[0]))
+
+
 def kernel_phase(torch, ops, captured):
     results = {}
-    for (name, pos), (args, kw) in sorted(captured.items()):
-        mod = ops[name]
-        kernel = getattr(mod, name)
-        plain = getattr(mod, f'{name}_reference')
+    for (name, pos), (args, kw) in modes(captured):
+        mod = ops[op_name(name)]
+        kernel = getattr(mod, op_name(name))
+        plain = getattr(mod, f'{op_name(name)}_reference')
         ref = plain(*args, **kw)
         out = kernel(*args, **kw)
         torch.cuda.synchronize()
@@ -213,16 +257,22 @@ def kernel_phase(torch, ops, captured):
         print(f'kernel {name}[{mode}] out {shapes}: max_abs_err {max_abs:.3e} '
               f'max_rel_err {max_rel:.3e} (rtol {KERNEL_RTOL}, atol '
               f'{KERNEL_ATOL}) {"ok" if ok else "MISMATCH"}; kernel '
-              f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-              f'{max(t_ops, t_bytes):.4f} ms by '
+              f'{ms:.4f} ms{pr2_note(name, mode)}, plain {plain_ms:.4f} ms, '
+              f'bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
               f'({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)', flush=True)
         check(ok, f'{name}[{mode}] disagrees with its plain version')
         r = results.setdefault(name, dict(err=0.0, modes=[]))
         r['err'] = max(r['err'], max_abs)
         r['modes'].append((ms, plain_ms, t_ops, t_bytes))
-    check(len(captured) == 5, f'expected 5 kernel modes, saw {sorted(captured)}')
+    check(len(captured) == 6,
+          f'expected 6 kernel modes, saw {sorted(captured)}')
     return results
+
+
+def pr2_note(name, mode):
+    ref = PR2_MS.get((name, mode))
+    return f' (PR 2: {ref} ms)' if ref else ''
 
 
 def flat_grads(grads):
@@ -259,8 +309,10 @@ def ambiguous_rows(torch, mod, name, g, args, kw):
     plain, mlp = getattr(mod, f'{name}_reference'), mod.branch_mlp
 
     def cast(a, dtype):
-        if isinstance(a, tuple):
+        if isinstance(a, Branch):
             return Branch(*(cast(t, dtype) for t in a))
+        if isinstance(a, tuple):                 # the m-gate (wm, bm)
+            return tuple(cast(t, dtype) for t in a)
         if torch.is_tensor(a) and a.is_floating_point():
             return a.detach().to(dtype)
         return a
@@ -277,7 +329,8 @@ def ambiguous_rows(torch, mod, name, g, args, kw):
         mod.branch_mlp = record
         try:
             with torch.enable_grad():
-                out = plain(*(cast(a, dtype) for a in args), **kw)
+                out = plain(*(cast(a, dtype) for a in args),
+                            **{k: cast(a, dtype) for k, a in kw.items()})
         finally:
             mod.branch_mlp = mlp
         return out, recs
@@ -304,14 +357,15 @@ def backward_phase(torch, ops, captured):
     from decompdiff_tpu_torch.ops.common import Branch
     results = {}
     gen = torch.Generator(device='cuda').manual_seed(2)
-    for (name, pos), (args, kw) in sorted(captured.items()):
-        mod = ops[name]
-        kernel = getattr(mod, f'{name}_backward')
-        plain = getattr(mod, f'{name}_backward_reference')
+    for (name, pos), (args, kw) in modes(captured):
+        op = op_name(name)
+        mod = ops[op]
+        kernel = getattr(mod, f'{op}_backward')
+        plain = getattr(mod, f'{op}_backward_reference')
         with torch.no_grad():
-            out = getattr(mod, f'{name}_reference')(*args, **kw)
+            out = getattr(mod, f'{op}_reference')(*args, **kw)
         g_full = torch.randn(out.shape, generator=gen, device=out.device)
-        drop, live, tau = ambiguous_rows(torch, mod, name, g_full, args, kw)
+        drop, live, tau = ambiguous_rows(torch, mod, op, g_full, args, kw)
         n_drop, n_live = int(drop.sum()), int(live.sum())
         full_out = sum(
             grad_close(torch, a, b, GRAD_RTOL, GRAD_ATOL)[3]
@@ -323,8 +377,9 @@ def backward_phase(torch, ops, captured):
         got = flat_grads(kernel(g, *args, **kw))
         torch.cuda.synchronize()
         check(len(got) == len(want), f'{name} backward: gradient count')
-        labels = GRAD_NAMES[name] + tuple(
-            f'{b}.{f}' for b in 'kv' for f in Branch._fields)
+        labels = GRAD_NAMES[op] + tuple(
+            f'{b}.{f}' for b in 'kv' for f in Branch._fields) + (
+            ('gate.wm', 'gate.bm') if kw.get('gate') is not None else ())
         max_abs, worst, n_out, ok = 0.0, 0.0, 0, True
         for label, a, b in zip(labels, got, want):
             if b is None:
@@ -343,11 +398,8 @@ def backward_phase(torch, ops, captured):
         # recompute plus two products per forward product; every input and
         # the cotangent read once, every gradient written once
         flops = 3 * work(torch, name, args, kw, out)[0]
-        inputs = [a for a in args if torch.is_tensor(a)]
-        for a in args:
-            if isinstance(a, tuple):
-                inputs += list(a)
-        moved = nbytes(inputs) + nbytes([g]) + nbytes(got)
+        moved = (nbytes(call_inputs(torch, args, kw)) + nbytes([g])
+                 + nbytes(got))
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
         mode = 'pos' if pos else 'node'
         print(f'kernel {name}_backward[{mode}] {len(got)} gradients: '
@@ -357,7 +409,7 @@ def backward_phase(torch, ops, captured):
               f'{"ok" if ok else "MISMATCH"} with the cotangent zeroed on '
               f'{n_drop} of {n_live} live rows (a gate within {tau:.3e} of '
               f'0; {full_out} elements outside with none zeroed); kernel '
-              f'{ms:.4f} ms, plain '
+              f'{ms:.4f} ms{pr2_note(f"{name}_backward", mode)}, plain '
               f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
               f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
@@ -371,20 +423,16 @@ def backward_phase(torch, ops, captured):
     return results
 
 
-def train_phase(torch, batch):
-    """Training steps of the released config at the bench shapes, kernels
-    on and off. Returns the launch counts of the kernel path."""
-    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+def train_phase(torch, batch, cfg, per_step, label):
+    """Training steps of `cfg` at the bench shapes, kernels on and off.
+    per_step: the forward kernels' launches per step (each backward kernel
+    launches as often as its forward). Returns the launch counts of the
+    kernel path."""
     from decompdiff_tpu_torch.training.train_step import (
         DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
-    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
     dev = torch.device('cuda')
     tcfg = DEFAULT_TRAIN_CONFIG
-    cfg = dict(DEFAULT_MODEL_CONFIG, use_pallas=True)
-    models = {
-        'kernels': DecompDiffModel.create(cfg, 8, device=dev, seed=0),
-        'plain': DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
-                                        device=dev, seed=0)}
+    models = dict(zip(('kernels', 'plain'), make_models(torch, cfg)))
 
     # one step's gradients from the same weights and the same draws
     steps = {}
@@ -397,8 +445,8 @@ def train_phase(torch, batch):
     check(torch.equal(t_on, t_off), 'the two paths drew different t')
     for key in m_off:
         a, b = float(m_on[key]), float(m_off[key])
-        print(f'train step kernels on vs off: {key} {a:.6f} vs {b:.6f}',
-              flush=True)
+        print(f'{label} train step kernels on vs off: {key} {a:.6f} vs '
+              f'{b:.6f}', flush=True)
         check(abs(a - b) <= LOSS_RTOL * abs(b) + 1e-6,
               f'{key} differs with kernels on')
     norm_on = float(torch.sqrt(sum((g * g).sum() for g in g_on.values())))
@@ -411,7 +459,7 @@ def train_phase(torch, batch):
             worst_name, worst = name, rel
         check(ok, f'gradient of {name} differs with kernels on (max_err/'
               f'scale {rel:.3e}, {out_i} elements outside)')
-    print(f'train step kernels on vs off: grad_norm {norm_on:.6f} vs '
+    print(f'{label} train step kernels on vs off: grad_norm {norm_on:.6f} vs '
           f'{norm_off:.6f}; {len(g_off)} parameter gradients within rtol '
           f'{STEP_RTOL} / atol {STEP_ATOL} x max(1, |grad|max) elementwise: '
           f'largest max_err/scale {worst:.3e} ({worst_name})', flush=True)
@@ -419,12 +467,8 @@ def train_phase(torch, batch):
     del steps, g_on, g_off
 
     ops = model_ops()
-    names = [n for name in ops for n in (name, f'{name}_backward')]
-    layers = cfg['num_layers'] * cfg['num_blocks']
-    per_step = {'edge_attention': 2 * layers, 'bond_attention': 2 * layers,
-                'triplet_attention': layers}
-    expect = {n: per_step[n.replace('_backward', '')] * TRAIN_STEPS
-              for n in names}
+    expect = {n: per_step.get(n.replace('_backward', ''), 0) * TRAIN_STEPS
+              for n in get_launches(ops)}
     launches = {}
     for key, m in models.items():
         state = create_train_state(m, tcfg)
@@ -441,7 +485,7 @@ def train_phase(torch, batch):
         elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated() / 2**20
         counts = get_launches(ops)
-        print(f'train path {key}: {TRAIN_STEPS} steps at B={B} '
+        print(f'{label} train path {key}: {TRAIN_STEPS} steps at B={B} '
               f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
               f'device memory {peak:.1f} MiB; last step loss '
               f'{float(metrics["loss"]):.5f} grad_norm '
@@ -458,7 +502,11 @@ def train_phase(torch, batch):
     return launches
 
 
-def path_phase(torch, model, plain_model, batch, full_protein):
+def path_phase(torch, model, plain_model, batch, full_protein, per_call,
+               label):
+    """Guided sampling with kernels on (launches counted) and with plain
+    versions, then one denoiser call kernels on vs off. per_call: each
+    forward kernel's launches per denoiser call. Returns the launches."""
     from decompdiff_tpu_torch.sampling.sampler import (
         SampleConfig, sample_diffusion)
     ops = model_ops()
@@ -488,13 +536,8 @@ def path_phase(torch, model, plain_model, batch, full_protein):
     elapsed = time.perf_counter() - t0
     launches = get_launches(ops)
 
-    layers = model.config['num_layers'] * model.config['num_blocks']
-    expect = {'edge_attention': 2 * layers * STEPS,
-              'bond_attention': 2 * layers * STEPS,
-              'triplet_attention': layers * STEPS,
-              'edge_attention_backward': 0, 'bond_attention_backward': 0,
-              'triplet_attention_backward': 0}
-    print(f'path: {STEPS} guided steps at B={B} Np={NUM_PROTEIN} '
+    expect = {n: per_call.get(n, 0) * STEPS for n in launches}
+    print(f'{label} path: {STEPS} guided steps at B={B} Np={NUM_PROTEIN} '
           f'Nl={NUM_LIGAND} Nf={NUM_FULL}: {elapsed / STEPS:.4f} s/step, '
           f'{elapsed / STEPS / B:.5f} s/step/molecule; launches {launches} '
           f'(expected {expect})', flush=True)
@@ -512,25 +555,29 @@ def path_phase(torch, model, plain_model, batch, full_protein):
                      full_protein, generator=g)
     torch.cuda.synchronize()
     plain_elapsed = time.perf_counter() - t0
-    print(f'path with plain versions: {plain_elapsed / STEPS:.4f} s/step',
-          flush=True)
+    print(f'{label} path with plain versions: '
+          f'{plain_elapsed / STEPS:.4f} s/step', flush=True)
+    denoiser_on_off(torch, model, plain_model, batch,
+                    (init_pos, init_v, init_b), label)
+    return launches
 
-    # one denoiser call, kernels on vs off
+
+def denoiser_on_off(torch, model, plain_model, batch, state, label):
+    """One denoiser call at the last timestep, kernels on vs off."""
     t = torch.full((B,), model.num_timesteps - 1, dtype=torch.long,
-                   device=dev)
+                   device=model.device)
     with torch.no_grad():
-        on = model.apply(batch, init_pos, init_v, init_b, t)
-        off = plain_model.apply(batch, init_pos, init_v, init_b, t)
+        on = model.apply(batch, *state, t)
+        off = plain_model.apply(batch, *state, t)
     for key in on:
         err = float((on[key] - off[key]).abs().max())
         ok = bool(torch.allclose(on[key], off[key], rtol=PATH_RTOL,
                                  atol=PATH_ATOL))
-        print(f'denoiser kernels on vs off: {key} max_abs_err {err:.3e} '
-              f'(rtol {PATH_RTOL}, atol {PATH_ATOL}) '
+        print(f'{label} denoiser kernels on vs off: {key} max_abs_err '
+              f'{err:.3e} (rtol {PATH_RTOL}, atol {PATH_ATOL}) '
               f'{"ok" if ok else "MISMATCH"}', flush=True)
         check(bool(torch.isfinite(on[key]).all()), f'non-finite {key}')
-        check(ok, f'denoiser {key} differs with kernels on')
-    return launches
+        check(ok, f'{label} denoiser {key} differs with kernels on')
 
 
 def kernel_records(results, launches):
@@ -544,7 +591,7 @@ def kernel_records(results, launches):
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes = (
             sum(col) / len(r['modes']) for col in zip(*r['modes']))
-        base = name.replace('_backward', '')
+        base = op_name(name.replace('_backward', ''))
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'decompdiff_tpu_torch/csrc/{base}.cu',
@@ -569,16 +616,40 @@ def model_ops():
             'triplet_attention': triplet_attention}
 
 
-def set_launches(ops, value):
-    """Sets the launch count of every forward and backward wrapper."""
+def launch_counters(ops):
+    """{record name: (wrapper, counter attribute)} of every forward and
+    backward kernel; the m-gated edge launches have counters of their own."""
+    counters = {}
     for name, mod in ops.items():
-        getattr(mod, name).launches = value
-        getattr(mod, f'{name}_backward').launches = value
+        for n in (name, f'{name}_backward'):
+            counters[n] = (getattr(mod, n), 'launches')
+            if name == 'edge_attention':
+                counters[n.replace(name, f'{name}_mgate')] = (
+                    getattr(mod, n), 'gated_launches')
+    return counters
+
+
+def set_launches(ops, value):
+    """Sets the launch count of every forward and backward kernel."""
+    for fn, attr in launch_counters(ops).values():
+        setattr(fn, attr, value)
 
 
 def get_launches(ops):
-    return {n: getattr(mod, n).launches for name, mod in ops.items()
-            for n in (name, f'{name}_backward')}
+    return {n: getattr(fn, attr)
+            for n, (fn, attr) in launch_counters(ops).items()}
+
+
+def make_models(torch, cfg):
+    """The kernel and plain models of cfg, with the same weights (seed 0)."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    dev = torch.device('cuda')
+    model = DecompDiffModel.create(dict(cfg, use_pallas=True), 8, device=dev,
+                                   seed=0)
+    plain = DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
+                                   device=dev, seed=0)
+    plain.denoiser.load_state_dict(model.denoiser.state_dict())
+    return model, plain
 
 
 def main():
@@ -594,9 +665,8 @@ def main():
         build_phase()
 
         from decompdiff_tpu_torch.data.batch import FullProtein
-        from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
         from decompdiff_tpu_torch.utils.testing import (
-            DEFAULT_MODEL_CONFIG, random_complex_batch)
+            DEFAULT_MODEL_CONFIG, random_complex_batch, uni_o2_model_config)
         dev = torch.device('cuda')
         rng = np.random.default_rng(0)
         batch = random_complex_batch(
@@ -606,30 +676,55 @@ def main():
             pos=torch.as_tensor(rng.normal(size=(B, NUM_FULL, 3)) * 8,
                                 dtype=torch.float32, device=dev),
             mask=torch.ones((B, NUM_FULL), dtype=torch.bool, device=dev))
-        cfg = dict(DEFAULT_MODEL_CONFIG, use_pallas=True)
-        model = DecompDiffModel.create(cfg, 8, device=dev, seed=0)
-        plain_model = DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
-                                             device=dev, seed=0)
-        plain_model.denoiser.load_state_dict(model.denoiser.state_dict())
+        bond_cfg, o2_cfg = DEFAULT_MODEL_CONFIG, uni_o2_model_config()
+        model, plain_model = make_models(torch, bond_cfg)
+        o2_model, o2_plain = make_models(torch, o2_cfg)
 
         ops = model_ops()
         t = torch.zeros((B,), dtype=torch.long, device=dev)
-        captured = capture_inputs(
-            torch, ops, plain_model, batch,
-            (batch.ligand_pos, batch.ligand_v, batch.bond_type, t))
+        state = (batch.ligand_pos, batch.ligand_v, batch.bond_type, t)
+        captured = capture_inputs(torch, ops, plain_model, batch, state)
+        o2_modes = capture_inputs(torch, ops, o2_plain, batch, state)
+        captured[('edge_attention_mgate', False)] = o2_modes[
+            ('edge_attention_mgate', False)]
         with torch.no_grad():
             results = kernel_phase(torch, ops, captured)
         results.update(backward_phase(torch, ops, captured))
+        del captured, o2_modes
+
+        # forward launches per denoiser call; the m-gate runs in x2h only
+        layers = bond_cfg['num_layers'] * bond_cfg['num_blocks']
+        bond_calls = {'edge_attention': 2 * layers,
+                      'bond_attention': 2 * layers,
+                      'triplet_attention': layers}
+        o2_layers = o2_cfg['num_layers'] * o2_cfg['num_blocks']
+        o2_calls = {'edge_attention': o2_layers,
+                    'edge_attention_mgate': o2_layers}
         sample_launches = path_phase(torch, model, plain_model, batch,
-                                     full_protein)
-        del model, plain_model, captured
-        train_launches = train_phase(torch, batch)
+                                     full_protein, bond_calls, 'uni_o2_bond')
+        o2_sample_launches = path_phase(torch, o2_model, o2_plain, batch,
+                                        full_protein, o2_calls, 'uni_o2[m]')
+        del model, plain_model, o2_model, o2_plain
+        for ew in ('global', 'r'):
+            on, off = make_models(torch, dict(o2_cfg, ew_net_type=ew))
+            denoiser_on_off(torch, on, off, batch, state[:3], f'uni_o2[{ew}]')
+            del on, off
+        train_launches = train_phase(torch, batch, bond_cfg, bond_calls,
+                                     'uni_o2_bond')
+        o2_train_launches = train_phase(torch, batch, o2_cfg, o2_calls,
+                                        'uni_o2[m]')
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
 
-    launches = {n: (train_launches if n.endswith('_backward')
-                    else sample_launches)[n] for n in results}
+    # each kernel's launches on the path that runs it: the m-gated ones on
+    # the uni_o2 paths, the others on the uni_o2_bond paths
+    launches = {}
+    for n in results:
+        sampled, trained = ((o2_sample_launches, o2_train_launches)
+                            if '_mgate' in n else
+                            (sample_launches, train_launches))
+        launches[n] = (trained if n.endswith('_backward') else sampled)[n]
     print(json.dumps({'kernels': kernel_records(results, launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 //
 // Replaces: the Pallas TPU kernels decompdiff_tpu/ops/pallas/edge_kernel.py
 //   forward  _edge_fwd_call :540 -> _edge_kernel :152-250,
-//   backward _edge_bwd_call :568 -> _edge_bwd_kernel :266-498 (non-gated).
+//   backward _edge_bwd_call :568 -> _edge_bwd_kernel :266-498,
+// each without and with m_gate (:220-225, :338-345, :381-397).
 //
 // Computes, per destination node i and each of its K kNN sources s:
 //   edge_type = one-hot (src ligand?, dst ligand?) [+ one-hot same group]
 //   pre_m     = [outer(edge_type, RBF20(|x_i - x_s|)), edge_type] @ We_m
 //               + t_row_m[i] + t_src_m[s]                      (m = k, v)
-//   k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m ;  v *= e_w
+//   k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m
+//   [m-gate, node mode only: v *= sigmoid(v . wm + bm)] ;  v *= e_w
 //   node mode: out[i] = sum_k softmax_k(q[i] . k / sqrt(hd)) v  [H]
 //   pos mode:  out[i] = sum_k mean_h(alpha v) (x_i - x_s)        [3]
 // t_src = h @ Wj is projected per node before the launch and gathered here
@@ -42,6 +44,13 @@
 // d w_feat is accumulated per edge type, only for the 21 (42) rows of each
 // edge's own types. The distance chain gives 0 where |x_i - x_s|^2 < 1e-12,
 // like the clamp of the plain version's safe_norm.
+//
+// The m-gate (uni_o2, ew_net_type 'm') is the template parameter GATE of
+// both kernels; the launchers take it when wm is not null. Its dot product
+// over the H channels of each source is a block reduction per chunk
+// (row_attention.cuh chunk_gate); the backward keeps each source's gate and
+// v before the gate in shared memory, and sums d wm and d bm per block in
+// registers into a slot of their own after the v branch's.
 #include "row_attention_bwd.cuh"
 
 using namespace rowattn;
@@ -64,6 +73,7 @@ struct EdgeArgs {
   Branch k, v;
   float* out;          // [B, N, H] or [B, N, 3]
   int N, K, H, n_heads, n_types, pos;
+  Gate gate;           // m-gate wm [H], bm [1] (GATE kernels only)
 };
 
 // Per-chunk source data of one destination row (shared memory).
@@ -190,6 +200,7 @@ __device__ __forceinline__ bool row_has_source(const float* mrow, int K) {
   return __syncthreads_or(any);
 }
 
+template <bool GATE>
 __global__ void edge_attention_kernel(EdgeArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ EdgeChunk ch;
@@ -199,6 +210,11 @@ __global__ void edge_attention_kernel(EdgeArgs a) {
   float* Yk = smem;
   float* Yv = Yk + CH * H;
   float* Vs = Yv + CH * H;
+  Gate gt = a.gate;
+  if constexpr (GATE) {
+    gt.red = Vs + CH * a.n_heads;
+    gt.g = gt.red + (H / 32) * CH;
+  }
   const int row = blockIdx.x;  // b * N + i
   const int b = row / N;
   const int c = threadIdx.x;
@@ -222,8 +238,8 @@ __global__ void edge_attention_kernel(EdgeArgs a) {
     __syncthreads();
     edge_chunk_pre(a, ch, b, tk, tv, Yk, Yv);
     __syncthreads();
-    finish_chunk(Yk, Yv, Vs, a.k, a.v, ch.cs, nm, H, a.n_heads, pos, q_c,
-                 scale, st);
+    finish_chunk<GATE>(Yk, Yv, Vs, a.k, a.v, ch.cs, nm, H, a.n_heads, pos,
+                       q_c, scale, st, gt);
   }
   finalize(st, out_row, Vs, H, a.n_heads, pos);
 }
@@ -244,6 +260,7 @@ struct EdgeBwdArgs {
   int rows;              // B * N
 };
 
+template <bool GATE>
 __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
@@ -254,11 +271,13 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
   const int H = f.H, K = f.K, N = f.N, F = f.n_types, nh = f.n_heads;
   const bool pos = f.pos != 0;
   const int c = threadIdx.x;
-  const RowSmem s = carve(smem, K, H, nh);
+  const RowSmem s = carve(smem, K, H, nh, GATE);
   const float scale = 1.f / sqrtf((float)(H / nh));
   GradSlot sk, sv;
-  block_slots(a.slots, F * (R + 1), H, pos ? nh : H, sk, sv);
+  block_slots(a.slots, F * (R + 1), H, pos ? nh : H, sk, sv,
+              GATE ? H + 1 : 0);
   SmallGrads acc;
+  float gw = 0.f, gb = 0.f;  // this block's d wm[c] and d bm (GATE)
 
   for (int row = blockIdx.x; row < a.rows; row += gridDim.x) {
     const int b = row / N;
@@ -292,12 +311,18 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
       __syncthreads();
       edge_chunk_pre(f, ch, b, tk, tv, s.Yk, s.Yv);
       __syncthreads();
-      pass_a_chunk(s, f.k, f.v, m0, nm, H, nh, pos, q_c, g_c, scale);
+      pass_a_chunk<GATE>(s, f.k, f.v, m0, nm, H, nh, pos, q_c, g_c, scale,
+                         f.gate);
     }
-    head_stage(s, K, nh, pos);
+    head_stage<GATE>(s, K, nh, pos);
     a.d_q[(size_t)row * H + c] = row_d_q(s, K, H, nh, scale);
     for (int t = c; t < K; t += blockDim.x)
       a.d_ew[(size_t)row * K + t] = s.DEW[t];
+    if constexpr (GATE)
+      for (int m = 0; m < K; ++m) {  // d wm = sum d s vraw, d bm = sum d s
+        gw = fmaf(s.DS[m], s.VR[m * H + c], gw);
+        gb += s.DS[m];
+      }
 
     // pass B: both branches back to d pre, then the edge features
     float trow_k = 0.f, trow_v = 0.f;
@@ -311,8 +336,8 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
       __syncthreads();
       edge_chunk_pre(f, ch, b, tk, tv, s.Yk, s.Yv);
       __syncthreads();
-      pass_b_chunk(s, f.k, f.v, a.woT_k, a.woT_v, sk, sv, acc, m0, nm, H, nh,
-                   pos, q_c, g_c, scale, trow_k, trow_v);
+      pass_b_chunk<GATE>(s, f.k, f.v, a.woT_k, a.woT_v, sk, sv, acc, m0, nm,
+                         H, nh, pos, q_c, g_c, scale, trow_k, trow_v, f.gate);
 
       // source-node cotangent of t_src
       for (int m = 0; m < nm; ++m) {
@@ -387,6 +412,29 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
       }
   }
   flush_small(acc, sk, sv, nh, pos);
+  if constexpr (GATE) {
+    float* sg = sv.lnb + H;  // the gate's slot: d wm [H], then d bm
+    sg[c] = gw;
+    if (c == 0) sg[H] = gb;
+  }
+}
+
+template <bool GATE>
+cudaError_t launch_fwd(const EdgeArgs& a, int rows, size_t smem,
+                       cudaStream_t stream) {
+  cudaError_t err = allow_smem(edge_attention_kernel<GATE>, smem);
+  if (err != cudaSuccess) return err;
+  edge_attention_kernel<GATE><<<rows, a.H, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool GATE>
+cudaError_t launch_bwd(const EdgeBwdArgs& a, int G, size_t smem,
+                       cudaStream_t stream) {
+  cudaError_t err = allow_smem(edge_attention_bwd_kernel<GATE>, smem);
+  if (err != cudaSuccess) return err;
+  edge_attention_bwd_kernel<GATE><<<G, a.f.H, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -399,23 +447,26 @@ extern "C" int edge_attention_fwd(
     const float* k_lnb,
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
-    const float* v_lnb,
+    const float* v_lnb, const float* wm, const float* bm,
     float* out, int B, int N, int K, int H, int n_heads, int n_types, int pos,
     void* stream) {
   if (B * N == 0) return 0;
+  if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeArgs a{x, lig, group, idx, mask, ew, q,
              Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
-             out, N, K, H, n_heads, n_types, pos};
+             out, N, K, H, n_heads, n_types, pos, Gate{wm, bm}};
   const size_t smem = smem_bytes(H, n_heads, 0);
-  cudaError_t err = allow_smem(edge_attention_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  edge_attention_kernel<<<B * N, H, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (!wm) return (int)launch_fwd<false>(a, B * N, smem, (cudaStream_t)stream);
+  // plus the gate's block-sum scratch and the chunk's CH gates
+  const size_t gate_smem = sizeof(float) * ((size_t)(H / 32) * CH + CH);
+  return (int)launch_fwd<true>(a, B * N, smem + gate_smem,
+                               (cudaStream_t)stream);
 }
 
 // Backward: G blocks over the B*N rows, then the fixed-order slot sum into
-// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same]).
+// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same] and, with
+// the gate, [d wm (H) | d bm]).
 extern "C" int edge_attention_bwd(
     const float* x, const float* lig, const float* group, const int* idx,
     const float* mask, const float* ew, const float* q, const float* g,
@@ -424,28 +475,31 @@ extern "C" int edge_attention_bwd(
     const float* k_lnb, const float* k_woT,
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
-    const float* v_lnb, const float* v_woT,
+    const float* v_lnb, const float* v_woT, const float* wm, const float* bm,
     float* d_x, float* d_ew, float* d_q, float* d_trow_k, float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
     int B, int N, int K, int H, int n_heads, int n_types, int pos, int G,
     void* stream) {
   if (B * N == 0 || G <= 0) return 0;
+  if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeBwdArgs a{
       EdgeArgs{x, lig, group, idx, mask, ew, q,
                Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
-               nullptr, N, K, H, n_heads, n_types, pos},
+               nullptr, N, K, H, n_heads, n_types, pos, Gate{wm, bm}},
       g, k_woT, v_woT, d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
       d_tsrc_v, slots, B * N};
-  const size_t smem = sizeof(float) * rowbwd::row_smem_floats(K, H, n_heads);
-  cudaError_t err = allow_smem(edge_attention_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  edge_attention_bwd_kernel<<<G, H, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
+  const bool gate = wm != nullptr;
+  const size_t smem =
+      sizeof(float) * rowbwd::row_smem_floats(K, H, n_heads, gate);
+  cudaError_t err =
+      gate ? launch_bwd<true>(a, G, smem, (cudaStream_t)stream)
+           : launch_bwd<false>(a, G, smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int F = n_types * (R + 1);
   const size_t P = rowbwd::branch_slot_floats(F, H, H) +
-                   rowbwd::branch_slot_floats(F, H, pos ? n_heads : H);
+                   rowbwd::branch_slot_floats(F, H, pos ? n_heads : H) +
+                   (gate ? H + 1 : 0);
   return (int)rowbwd::launch_reduce(slots, d_params, G, P,
                                     (cudaStream_t)stream);
 }

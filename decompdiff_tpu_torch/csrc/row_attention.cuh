@@ -15,6 +15,11 @@
 // clamp), masked sources contribute nothing, and the sum is clamped at 1e-16,
 // so a row without a valid source gives exactly 0. No block depends on
 // another.
+//
+// The edge kernel's node mode has an optional m-gate (uni_o2, ew_net_type
+// 'm'): v <- v * sigmoid(v . wm + bm) per source, before the edge weight.
+// It is a template parameter of finish_chunk (and of the backward passes),
+// so the kernels without it compile to the code they had before it existed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +58,46 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Returns, in threads 0 .. CH-1, the block-wide sum of vals[threadIdx.x].
+// RED is [blockDim.x / 32][CH] floats of shared memory. Contains barriers.
+__device__ __forceinline__ float block_sum_ch(const float (&vals)[CH],
+                                              float* RED) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int m = 0; m < CH; ++m) {
+    const float t = warp_sum(vals[m]);
+    if (lane == 0) RED[warp * CH + m] = t;
+  }
+  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x < CH)
+    for (int w = 0; w < n_warps; ++w) t += RED[w * CH + threadIdx.x];
+  __syncthreads();
+  return t;
+}
+
+// The m-gate's parameters and, in the forward, its shared scratch.
+struct Gate {
+  const float* wm = nullptr;  // [H]
+  const float* bm = nullptr;  // [1]
+  float* red = nullptr;       // shared [H/32][CH]: block_sum_ch scratch
+  float* g = nullptr;         // shared [CH]: the chunk's gates (forward)
+};
+
+// Threads c < CH: the gate sigmoid(v_c . wm + bm) of source c of a chunk,
+// where thread j holds channel j of every source's v as vr[m] + bv. Every
+// thread must call it (it contains barriers).
+__device__ __forceinline__ float chunk_gate(const float (&vr)[CH], float bv,
+                                           const Gate& gt, float* red) {
+  const float w = __ldg(gt.wm + threadIdx.x);
+  float part[CH];
+#pragma unroll
+  for (int m = 0; m < CH; ++m) part[m] = (vr[m] + bv) * w;
+  const float s = block_sum_ch(part, red) + __ldg(gt.bm);
+  return 1.f / (1.f + expf(-s));
 }
 
 // In place: rows [0, CH) of P [CH][H] <- relu(LayerNorm(row) * lns + lnb).
@@ -102,12 +147,14 @@ __device__ __forceinline__ void matvec(const float* X,
 
 // LayerNorm/relu, second linear, logits and online softmax for one chunk of
 // nm sources whose `pre` rows are in Yk and Yv. Vs holds [CH][heads] v
-// outputs in pos mode. Ends with a barrier, so the caller may overwrite the
-// shared buffers for the next chunk.
+// outputs in pos mode. GATE (node mode only) applies the m-gate `gt`. Ends
+// with a barrier, so the caller may overwrite the shared buffers for the
+// next chunk.
+template <bool GATE = false>
 __device__ __forceinline__ void finish_chunk(
     float* Yk, float* Yv, float* Vs, const Branch& k, const Branch& v,
     const ChunkSources& cs, int nm, int H, int n_heads, bool pos, float q_c,
-    float scale, RowState& st) {
+    float scale, RowState& st, const Gate& gt = Gate{}) {
   const int c = threadIdx.x;
   ln_relu_rows(Yk, H, k.lns, k.lnb);
   ln_relu_rows(Yv, H, v.lns, v.lnb);
@@ -132,6 +179,11 @@ __device__ __forceinline__ void finish_chunk(
     }
     __syncthreads();
   }
+  if constexpr (GATE) {
+    const float g = chunk_gate(vr, bv, gt, gt.red);
+    if (c < CH) gt.g[c] = g;
+    __syncthreads();
+  }
 
   const int hd = H / n_heads;
   const int head = c / hd;
@@ -148,7 +200,10 @@ __device__ __forceinline__ void finish_chunk(
     st.l = st.l * sc + e;
     st.m = mn;
     if (!pos) {
-      st.acc[0] = st.acc[0] * sc + e * (vr[m] + bv) * cs.ew[m];
+      if constexpr (GATE)
+        st.acc[0] = st.acc[0] * sc + e * ((vr[m] + bv) * gt.g[m]) * cs.ew[m];
+      else
+        st.acc[0] = st.acc[0] * sc + e * (vr[m] + bv) * cs.ew[m];
     } else {
       const float w = e * Vs[m * n_heads + head];
 #pragma unroll

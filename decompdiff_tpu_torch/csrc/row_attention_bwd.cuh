@@ -23,6 +23,11 @@
 // for the small vectors, and for the matrices additions into the block's own
 // slot in device memory (slot_add). After the main kernel, reduce_slots adds
 // the slots in a fixed order, so every parameter gradient is deterministic.
+//
+// With the m-gate (GATE, edge node mode), v = vraw * g with g = sigmoid(s),
+// s = vraw . wm + bm: pass A also keeps g and vraw per source, the heads
+// stage forms d s = e_w g (1 - g) sum_h alpha sum_{c in head} g_c vraw_c,
+// and pass B takes d vraw = d v g + d s wm.
 #pragma once
 
 #include "row_attention.cuh"
@@ -63,13 +68,14 @@ __device__ __forceinline__ GradSlot make_slot(float* base, int F, int H,
 // load-add-store would stall on device-memory latency once per element.
 __device__ __forceinline__ void slot_add(float* p, float v) { atomicAdd(p, v); }
 
-// The k and v slots of this block: slots is [gridDim.x][Pk + Pv].
+// The k and v slots of this block: slots is [gridDim.x][Pk + Pv + extra],
+// with `extra` floats of a kernel's own after the v slot.
 __device__ __forceinline__ void block_slots(float* slots, int F, int H,
                                             int dout_v, GradSlot& sk,
-                                            GradSlot& sv) {
+                                            GradSlot& sv, int extra = 0) {
   const size_t pk = (size_t)F * H + (size_t)H * H + 3 * (size_t)H;
   const size_t pv = (size_t)F * H + (size_t)H * dout_v + dout_v + 2 * (size_t)H;
-  float* base = slots + (size_t)blockIdx.x * (pk + pv);
+  float* base = slots + (size_t)blockIdx.x * (pk + pv + extra);
   sk = make_slot(base, F, H, H);
   sv = make_slot(base + pk, F, H, dout_v);
 }
@@ -100,17 +106,21 @@ struct RowSmem {
   float* DEW;  // [M] d e_w
   float* RS;   // [2][CH] 1/std of the k and v rows
   float* RED;  // [H/32][CH] cross-warp sums
+  float* GT;   // [M] gate g (GATE only)
+  float* DS;   // [M] d s, the gate's input (GATE only)
+  float* VR;   // [M][H] vraw, v before the gate (GATE only)
 };
 
-inline size_t row_smem_floats(int M, int H, int n_heads) {
+inline size_t row_smem_floats(int M, int H, int n_heads, bool gate = false) {
   return (size_t)6 * CH * H + (size_t)M * H + (size_t)3 * M * n_heads +
-         (size_t)5 * M + 2 * CH + (size_t)(H / 32) * CH;
+         (size_t)5 * M + 2 * CH + (size_t)(H / 32) * CH +
+         (gate ? (size_t)M * H + 2 * (size_t)M : 0);
 }
 
-// Lays out RowSmem from p (16-byte aligned; the [.][H] buffers come first so
-// they stay aligned for the float4 reads of matvec).
+// Lays out RowSmem from p (16-byte aligned; the [.][H] buffers that matvec
+// reads as float4 come first so they stay aligned; the gate's buffers last).
 __device__ __forceinline__ RowSmem carve(float* p, int M, int H,
-                                         int n_heads) {
+                                         int n_heads, bool gate = false) {
   RowSmem s;
   s.Yk = p;
   s.Yv = s.Yk + CH * H;
@@ -129,25 +139,10 @@ __device__ __forceinline__ RowSmem carve(float* p, int M, int H,
   s.DEW = s.WR + M;
   s.RS = s.DEW + M;
   s.RED = s.RS + 2 * CH;
+  s.GT = gate ? s.RED + (H / 32) * CH : nullptr;
+  s.DS = gate ? s.GT + M : nullptr;
+  s.VR = gate ? s.DS + M : nullptr;
   return s;
-}
-
-// Returns, in threads 0 .. CH-1, the block-wide sum of vals[threadIdx.x].
-__device__ __forceinline__ float block_sum_ch(const float (&vals)[CH],
-                                              float* RED) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int m = 0; m < CH; ++m) {
-    const float t = warp_sum(vals[m]);
-    if (lane == 0) RED[warp * CH + m] = t;
-  }
-  __syncthreads();
-  float t = 0.f;
-  if (threadIdx.x < CH)
-    for (int w = 0; w < n_warps; ++w) t += RED[w * CH + threadIdx.x];
-  __syncthreads();
-  return t;
 }
 
 // LayerNorm of the CH rows of P keeping what the backward needs:
@@ -200,12 +195,14 @@ __device__ __forceinline__ void ln_bwd_rows(float* D, const float* X,
 }
 
 // Pass A of one chunk of nm sources starting at m0, whose first-linear
-// outputs are in Yk and Yv. Ends with a barrier.
+// outputs are in Yk and Yv; with GATE also the gate and vraw of each source.
+// Ends with a barrier.
+template <bool GATE = false>
 __device__ __forceinline__ void pass_a_chunk(const RowSmem& s, const Branch& k,
                                              const Branch& v, int m0, int nm,
                                              int H, int n_heads, bool pos,
-                                             float q_c, float g_c,
-                                             float scale) {
+                                             float q_c, float g_c, float scale,
+                                             const Gate& gt = Gate{}) {
   const int c = threadIdx.x;
   ln_relu_rows(s.Yk, H, k.lns, k.lnb);
   ln_relu_rows(s.Yv, H, v.lns, v.lnb);
@@ -227,6 +224,13 @@ __device__ __forceinline__ void pass_a_chunk(const RowSmem& s, const Branch& k,
         a = fmaf(s.Yv[m * H + j], __ldg(v.wo + (size_t)j * n_heads + h), a);
       if (m < nm) s.AUX[(m0 + m) * n_heads + h] = a;
     }
+  }
+  if constexpr (GATE) {
+    const float g = chunk_gate(vr, bv, gt, s.RED);
+    if (c < nm) s.GT[m0 + c] = g;
+#pragma unroll
+    for (int m = 0; m < CH; ++m)
+      if (m < nm) s.VR[(m0 + m) * H + c] = vr[m] + bv;
   }
 
   const int hd = H / n_heads;
@@ -253,13 +257,17 @@ __device__ __forceinline__ void pass_a_chunk(const RowSmem& s, const Branch& k,
 }
 
 // d alpha of source m, head h, from what pass A stored.
+template <bool GATE = false>
 __device__ __forceinline__ float d_alpha(const RowSmem& s, int m, int h,
                                          int n_heads, bool pos) {
-  const float a = s.AUX[m * n_heads + h] * s.EW[m];
+  float a = s.AUX[m * n_heads + h] * s.EW[m];
+  if constexpr (GATE) a *= s.GT[m];
   return pos ? a * s.GR[m] / n_heads : a;
 }
 
-// Softmax and its backward over the row's M sources. Ends with a barrier.
+// Softmax and its backward over the row's M sources; with GATE also d s.
+// Ends with a barrier.
+template <bool GATE = false>
 __device__ __forceinline__ void head_stage(const RowSmem& s, int M,
                                            int n_heads, bool pos) {
   for (int h = threadIdx.x; h < n_heads; h += blockDim.x) {
@@ -275,12 +283,13 @@ __device__ __forceinline__ void head_stage(const RowSmem& s, int M,
       const bool ok = s.VL[m] != 0.f;
       const float alpha = ok ? expf(s.LG[m * n_heads + h] - mx) * inv : 0.f;
       s.LG[m * n_heads + h] = alpha;
-      if (ok) sd += alpha * d_alpha(s, m, h, n_heads, pos);
+      if (ok) sd += alpha * d_alpha<GATE>(s, m, h, n_heads, pos);
     }
     for (int m = 0; m < M; ++m)
       s.DH[m * n_heads + h] =
           s.VL[m] != 0.f
-              ? s.LG[m * n_heads + h] * (d_alpha(s, m, h, n_heads, pos) - sd)
+              ? s.LG[m * n_heads + h] *
+                    (d_alpha<GATE>(s, m, h, n_heads, pos) - sd)
               : 0.f;
   }
   __syncthreads();
@@ -289,9 +298,14 @@ __device__ __forceinline__ void head_stage(const RowSmem& s, int M,
     if (s.VL[m] != 0.f)
       for (int h = 0; h < n_heads; ++h)
         dew += s.LG[m * n_heads + h] * s.AUX[m * n_heads + h];
-    // node: d e_w = sum_h alpha sum_{c in head} g_c vraw_c
+    // node: d e_w = sum_h alpha sum_{c in head} g_c vraw_c (times the gate)
     // pos:  d e_w = sum_h alpha vraw (rel . g) / heads, and
     //       d rel = g sum_h alpha vraw e_w / heads
+    if constexpr (GATE) {
+      const float gate = s.GT[m];
+      s.DS[m] = s.EW[m] * dew * gate * (1.f - gate);
+      dew *= gate;
+    }
     s.DEW[m] = pos ? dew * s.GR[m] / n_heads : dew;
     s.WR[m] = pos ? dew * s.EW[m] / n_heads : 0.f;
   }
@@ -314,13 +328,14 @@ __device__ __forceinline__ float row_d_q(const RowSmem& s, int M, int H,
 // nm), adds the chunk's second-linear parameter gradients to the slots and
 // the small sums, and d pre to the row sums trow_k / trow_v. woT_k and
 // woT_v are the transposed [dout][H] second linears (woT_v unused in pos
-// mode). Ends with a barrier.
+// mode). With GATE, d vraw takes the gate's chain. Ends with a barrier.
+template <bool GATE = false>
 __device__ __forceinline__ void pass_b_chunk(
     const RowSmem& s, const Branch& k, const Branch& v,
     const float* __restrict__ woT_k, const float* __restrict__ woT_v,
     const GradSlot& sk, const GradSlot& sv, SmallGrads& acc, int m0, int nm,
     int H, int n_heads, bool pos, float q_c, float g_c, float scale,
-    float& trow_k, float& trow_v) {
+    float& trow_k, float& trow_v, const Gate& gt = Gate{}) {
   const int c = threadIdx.x;
   const int head = c / (H / n_heads);
   ln_fwd_rows(s.Yk, s.Xk, s.RS, H, k.lns, k.lnb);
@@ -328,12 +343,16 @@ __device__ __forceinline__ void pass_b_chunk(
 
   // d of the second linears' outputs
   float dko[CH], dvo[CH];
+  float wm_c = 0.f;
+  if constexpr (GATE) wm_c = __ldg(gt.wm + c);
 #pragma unroll
   for (int m = 0; m < CH; ++m) {
     const int mm = m0 + m;
     dko[m] = m < nm ? s.DH[mm * n_heads + head] * scale * q_c : 0.f;
     dvo[m] = (!pos && m < nm) ? s.LG[mm * n_heads + head] * g_c * s.EW[mm]
                               : 0.f;
+    if constexpr (GATE)
+      if (m < nm) dvo[m] = dvo[m] * s.GT[mm] + s.DS[mm] * wm_c;
     s.Dk[m * H + c] = dko[m];
     if (!pos) s.Dv[m * H + c] = dvo[m];
   }

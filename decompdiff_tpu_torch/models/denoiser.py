@@ -6,10 +6,15 @@ models/decompdiff.py:213-351).
   * protein/ligand Linear embeddings to hidden_dim - 1 plus a 0/1 node
     indicator (ref :245-256); with prior nodes hidden_dim - 3 and a 3-way
     indicator (ref :247-250)
-  * refine net over the static [protein | ligand (| prior)] context
+  * refine net over the static [protein | ligand (| prior)] context, by
+    `model_type`: 'uni_o2_bond' (uni_transformer_bond.py), which also embeds
+    the bond types (`ligand_bond_emb`) and carries a bond hidden state, or
+    'uni_o2' (uni_transformer.py), which has no bond stream and always runs
+    4 edge types (the prior nodes' group ids are not passed to it)
   * v head Linear -> ShiftedSoftplus -> Linear (ref :194-198)
-  * bond head 'lin' (the bond hidden state) or 'pre_att'
-    (RBF(dist) ++ (h_i + h_j)/2, ref :323-341)
+  * with bond diffusion, a bond head: 'lin' reads the bond hidden state, so
+    it needs 'uni_o2_bond'; 'pre_att' builds RBF(dist) ++ (h_i + h_j)/2
+    over the final ligand atoms (ref :323-341) and works with both nets
 
 Submodule names are the flax ones (`protein_atom_emb`, `refine_net`, ...).
 The config key `use_pallas` selects the CUDA kernels; the JAX package's TPU
@@ -30,6 +35,7 @@ from decompdiff_tpu_torch.constants import PROTEIN_FEATURE_DIM
 from decompdiff_tpu_torch.data.batch import ComplexBatch
 from decompdiff_tpu_torch.models.common import (
     Dense, linspace_rbf, shifted_softplus)
+from decompdiff_tpu_torch.models.uni_transformer import UniTransformerO2
 from decompdiff_tpu_torch.models.uni_transformer_bond import UniTransformerBond
 
 
@@ -51,12 +57,9 @@ class DecompDenoiser(nn.Module):
         super().__init__()
         cfg = self.config = dict(config)
         self.num_classes, self.num_bond_classes = num_classes, num_bond_classes
-        model_type = cfg.get('model_type', 'uni_o2_bond')
-        if model_type == 'uni_o2':
-            raise NotImplementedError(
-                'the uni_o2 refine net is not ported yet (ROADMAP item D1)')
-        if model_type != 'uni_o2_bond':
-            raise ValueError(model_type)
+        self.model_type = cfg.get('model_type', 'uni_o2_bond')
+        if self.model_type not in ('uni_o2_bond', 'uni_o2'):
+            raise ValueError(self.model_type)
         if cfg.get('compute_dtype') not in (None, 'float32'):
             raise NotImplementedError(
                 f"compute_dtype {cfg['compute_dtype']!r}: the port runs float32")
@@ -84,22 +87,31 @@ class DecompDenoiser(nn.Module):
         self.ligand_atom_emb = Dense(lig_in, emb_dim)
         if self.add_prior_node:
             self.prior_atom_emb = Dense(20, emb_dim)
-        self.ligand_bond_emb = Dense(num_bond_classes, H)
-        self.refine_net = UniTransformerBond(
-            num_blocks=cfg['num_blocks'], num_layers=cfg['num_layers'],
-            hidden_dim=H, n_heads=cfg['n_heads'], k=cfg['knn'],
-            x2h_out_fc=cfg.get('x2h_out_fc', True),
-            include_h_node=cfg.get('h_node_in_bond_net', False),
-            use_kernels=cfg.get('use_pallas', False),
-            cutoff_mode=cfg.get('cutoff_mode', 'knn'),
-            r_max=cfg.get('r_max', 10.0),
-            n_etypes=6 if self.add_prior_node else 4)
+        net = dict(num_blocks=cfg['num_blocks'], num_layers=cfg['num_layers'],
+                   hidden_dim=H, n_heads=cfg['n_heads'], k=cfg['knn'],
+                   x2h_out_fc=cfg.get('x2h_out_fc', True),
+                   use_kernels=cfg.get('use_pallas', False),
+                   cutoff_mode=cfg.get('cutoff_mode', 'knn'),
+                   r_max=cfg.get('r_max', 10.0))
+        if self.model_type == 'uni_o2_bond':
+            self.ligand_bond_emb = Dense(num_bond_classes, H)
+            self.refine_net = UniTransformerBond(
+                include_h_node=cfg.get('h_node_in_bond_net', False),
+                n_etypes=6 if self.add_prior_node else 4, **net)
+        else:
+            self.refine_net = UniTransformerO2(
+                ew_net_type=cfg.get('ew_net_type', 'global'),
+                num_x2h=cfg.get('num_x2h', 1), num_h2x=cfg.get('num_h2x', 1),
+                sync_twoup=cfg.get('sync_twoup', False), **net)
         self.v_inf_0 = Dense(H, H)
         self.v_inf_1 = Dense(H, num_classes)
         self.bond_diffusion = cfg.get('bond_diffusion', False)
         if self.bond_diffusion:
             self.bond_net_type = cfg.get('bond_net_type', 'lin')
             if self.bond_net_type == 'lin':
+                if self.model_type != 'uni_o2_bond':
+                    raise ValueError("bond_net_type 'lin' reads the bond "
+                                     "hidden state of the uni_o2_bond net")
                 bond_in = H
             elif self.bond_net_type == 'pre_att':
                 bond_in = cfg.get('num_r_gaussian', 20) + H
@@ -184,11 +196,16 @@ class DecompDenoiser(nn.Module):
             mask_ligand = torch.cat([false_p, batch.ligand_mask], dim=1)
             movable = torch.cat([false_p, batch.update_mask()], dim=1)
 
-        bond_onehot = F.one_hot(bond_type.long(), self.num_bond_classes).float()
-        h_bond = self.ligand_bond_emb(bond_onehot)
-        outputs = self.refine_net(
-            h_all, pos_all.contiguous(), h_bond, mask_all, mask_ligand,
-            movable, batch.bond_mask, num_protein=Np, group_idx=group_idx)
+        if self.model_type == 'uni_o2_bond':
+            bond_onehot = F.one_hot(bond_type.long(),
+                                    self.num_bond_classes).float()
+            outputs = self.refine_net(
+                h_all, pos_all.contiguous(), self.ligand_bond_emb(bond_onehot),
+                mask_all, mask_ligand, movable, batch.bond_mask,
+                num_protein=Np, group_idx=group_idx)
+        else:
+            outputs = self.refine_net(h_all, pos_all.contiguous(), mask_all,
+                                      mask_ligand, movable, num_protein=Np)
 
         final_h_lig = outputs['h'][:, Np:Np + Nl]
         final_pos_lig = outputs['x'][:, Np:Np + Nl]

@@ -153,23 +153,31 @@ class ParamGrads:
     """The parameter-gradient buffers of a backward launch: zeroed per-block
     slots [G, P] that the kernel fills, and the flat [P] sum over blocks
     that its second pass writes. Both branches, each laid out as
-    [w_feat (F, H) | wo (H, dout) | bo (dout) | ln_scale (H) | ln_bias (H)]."""
+    [w_feat (F, H) | wo (H, dout) | bo (dout) | ln_scale (H) | ln_bias (H)],
+    then the `extra` shapes of a kernel's own parameters."""
 
     def __init__(self, blocks: int, feat_rows: int, H: int, dout_v: int,
-                 device: torch.device):
+                 device: torch.device, extra: Sequence[tuple] = ()):
         self.shapes = [s for dout in (H, dout_v) for s in (
-            (feat_rows, H), (H, dout), (dout,), (H,), (H,))]
+            (feat_rows, H), (H, dout), (dout,), (H,), (H,))] + list(extra)
         size = sum(math.prod(s) for s in self.shapes)
         self.slots = torch.zeros((blocks, size), device=device)
         self.out = torch.empty(size, device=device)
 
+    def views(self):
+        flat = torch.split(self.out, [math.prod(s) for s in self.shapes])
+        return [t.view(s) for t, s in zip(flat, self.shapes)]
+
     def branches(self, t_row_k, t_src_k, t_row_v, t_src_v):
         """The k and v Branch gradients, from the kernel's per-node
         gradients and the summed parameter gradients."""
-        flat = torch.split(self.out, [math.prod(s) for s in self.shapes])
-        views = [t.view(s) for t, s in zip(flat, self.shapes)]
+        views = self.views()
         return (Branch(t_row_k, t_src_k, *views[:5]),
-                Branch(t_row_v, t_src_v, *views[5:]))
+                Branch(t_row_v, t_src_v, *views[5:10]))
+
+    def extra(self) -> list:
+        """The summed gradients of the `extra` parameters."""
+        return self.views()[10:]
 
 
 def autograd_grads(fn, g: torch.Tensor,

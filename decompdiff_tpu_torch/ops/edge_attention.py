@@ -9,7 +9,9 @@ For every destination node i and each of its K kNN sources s = idx[i, k]:
                 [+ 2-way one-hot of same decomposition group]
     edge_feat = [outer(edge_type, RBF20(|x_i - x_s|)), edge_type]   (F*21)
     pre_m     = edge_feat @ We_m + t_row_m[i] + t_src_m[s]          (m = k, v)
-    k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m ;  v *= e_w
+    k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m
+    [gate = (wm, bm), node mode only: v *= sigmoid(v . wm + bm)]
+    v *= e_w
     alpha     = masked softmax over K of the head-grouped q[i] . k / sqrt(hd)
     node mode:  out[i] = sum_k alpha v                              [B, N, H]
     pos mode:   out[i] = sum_k mean_h(alpha v) (x_i - x_s)          [B, N, 3]
@@ -17,14 +19,20 @@ For every destination node i and each of its K kNN sources s = idx[i, k]:
 `t_row` is h @ Wi + be and `t_src` is h @ Wj (per-node products, computed
 by the caller with torch.matmul); in pos mode Wo_v is [H, heads].
 
+The gate is the uni_o2 net's ew_net_type 'm' (edge_kernel.py m_gate); the
+kernels take it as a template parameter, and its launches are counted apart
+(`edge_attention.gated_launches`, `edge_attention_backward.gated_launches`)
+from the ungated ones (`.launches`).
+
 On CUDA tensors `edge_attention` is differentiable: its autograd node saves
 only the inputs, and `edge_attention_backward` recomputes the rest in the
-backward kernel and returns the gradients of x, e_w, q and both branches.
+backward kernel and returns the gradients of x, e_w, q, both branches and
+the gate.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +46,8 @@ from decompdiff_tpu_torch.ops.common import (
     branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
     launch, on_cpu, ptr)
 
+Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
+
 
 def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """h [B, N, F], idx [B, N, K] -> [B, N, K, F]."""
@@ -46,23 +56,40 @@ def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(h, 1, flat).reshape(B, N, K, h.shape[-1])
 
 
-def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
-                             k: Branch, v: Branch, *, n_heads: int,
-                             pos_mode: bool) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, in the order of the JAX dense
-    path (models/uni_transformer_bond.py NodeEdgeAttention/PosEdgeAttention)."""
-    rel = x[:, :, None, :] - gather_nodes(x, idx)            # x_dst - x_src
-    dist = safe_norm(rel, dim=-1)
+def edge_types(lig: torch.Tensor, group: Optional[torch.Tensor],
+               idx: torch.Tensor) -> torch.Tensor:
+    """[B, N, K, 4 or 6] one-hot edge types: (src ligand?, dst ligand?), then
+    with groups (same group?)."""
     lig_src = gather_nodes(lig[..., None], idx)[..., 0] > 0.5
     lig_dst = (lig > 0.5)[:, :, None]
     type_id = torch.where(lig_src & lig_dst, 0,
                           torch.where(lig_src & ~lig_dst, 1,
                                       torch.where(~lig_src & lig_dst, 2, 3)))
-    edge_type = F.one_hot(type_id, 4).to(x.dtype)
+    edge_type = F.one_hot(type_id, 4).to(lig.dtype)
     if group is not None:
         same = gather_nodes(group[..., None], idx)[..., 0] == group[:, :, None]
         edge_type = torch.cat(
-            [edge_type, F.one_hot(same.long(), 2).to(x.dtype)], dim=-1)
+            [edge_type, F.one_hot(same.long(), 2).to(lig.dtype)], dim=-1)
+    return edge_type
+
+
+def _node_mode_gate(gate: Optional[Gate], pos_mode: bool) -> None:
+    if gate is not None and pos_mode:
+        raise ValueError("the m-gate applies in node mode only (ew_net_type "
+                         "'m' is the identity for coordinate updates)")
+
+
+def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
+                             k: Branch, v: Branch, *, n_heads: int,
+                             pos_mode: bool,
+                             gate: Optional[Gate] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, in the order of the JAX dense
+    path (models/uni_transformer_bond.py NodeEdgeAttention/PosEdgeAttention,
+    models/uni_transformer.py X2HAttention for the gate)."""
+    _node_mode_gate(gate, pos_mode)
+    rel = x[:, :, None, :] - gather_nodes(x, idx)            # x_dst - x_src
+    dist = safe_norm(rel, dim=-1)
+    edge_type = edge_types(lig, group, idx)
     edge_feat = torch.cat([outer_product(edge_type, fixed_rbf(dist)),
                            edge_type], dim=-1)
 
@@ -72,25 +99,34 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
         return branch_mlp(pre, p)
 
     kk = branch(k)
-    vv = branch(v) * e_w[..., None]
+    vv = branch(v)
+    if gate is not None:
+        wm, bm = gate
+        vv = vv * torch.sigmoid(vv @ wm[:, None] + bm)
+    vv = vv * e_w[..., None]
     return attend(q, kk, vv, mask > 0.5, n_heads, rel if pos_mode else None)
 
 
 def edge_attention_backward_reference(g, x, lig, group, idx, mask, e_w, q,
                                       k: Branch, v: Branch, *, n_heads: int,
-                                      pos_mode: bool):
+                                      pos_mode: bool,
+                                      gate: Optional[Gate] = None):
     """Plain version of the backward: autograd through the plain forward.
-    Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch."""
-    def fn(x, e_w, q, *kv):
+    Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch, and with a
+    gate a sixth entry (d_wm, d_bm)."""
+    def fn(x, e_w, q, *params):
         return edge_attention_reference(
-            x, lig, group, idx, mask, e_w, q, Branch(*kv[:7]),
-            Branch(*kv[7:]), n_heads=n_heads, pos_mode=pos_mode)
-    d = autograd_grads(fn, g, [x, e_w, q, *k, *v])
-    return d[0], d[1], d[2], Branch(*d[3:10]), Branch(*d[10:])
+            x, lig, group, idx, mask, e_w, q, Branch(*params[:7]),
+            Branch(*params[7:14]), n_heads=n_heads, pos_mode=pos_mode,
+            gate=tuple(params[14:]) or None)
+    d = autograd_grads(fn, g, [x, e_w, q, *k, *v, *(gate or ())])
+    grads = d[0], d[1], d[2], Branch(*d[3:10]), Branch(*d[10:17])
+    return grads if gate is None else grads + (tuple(d[17:]),)
 
 
-def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode):
+def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode, gate):
     """check_inputs entries of the kernel's inputs, and the edge-type count."""
+    _node_mode_gate(gate, pos_mode)
     B, N, K = idx.shape
     H = q.shape[-1]
     check_heads(H, n_heads)
@@ -105,83 +141,100 @@ def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode):
     for tag, p, dout in (('k', k, H), ('v', v, n_heads if pos_mode else H)):
         named += branch_checks(tag, p, (B, N, H), (B, N, H), n_et * 21, H,
                                dout)
+    if gate is not None:
+        named += [('gate.wm', gate[0], (H,), f32),
+                  ('gate.bm', gate[1], (1,), f32)]
     return named, n_et
 
 
-def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode):
+def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode,
+             gate):
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
-                          pos_mode)
+                          pos_mode, gate)
     check_inputs(q.device, named)
     out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
-    fn = _build.load('edge_attention', 'edge_attention_fwd', 22, 7)
+    wm, bm = gate or (None, None)
+    fn = _build.load('edge_attention', 'edge_attention_fwd', 24, 7)
     args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
-             ptr(q)] + branch_ptrs(k) + branch_ptrs(v) + [ptr(out)]
+             ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
+            + [ptr(wm), ptr(bm), ptr(out)]
             + [B, N, K, H, n_heads, n_et, int(pos_mode)])
     launch(fn, args, q.device, 'edge_attention')
-    edge_attention.launches += 1
+    if gate is None:
+        edge_attention.launches += 1
+    else:
+        edge_attention.gated_launches += 1
     return out
 
 
 class _EdgeAttention(torch.autograd.Function):
-    """Forward kernel, saving only the inputs; backward kernel."""
+    """Forward kernel, saving only the inputs; backward kernel. `params` is
+    the k and v Branch fields, then wm and bm with a gate."""
 
     @staticmethod
     def forward(ctx, n_heads, pos_mode, x, lig, group, idx, mask, e_w, q,
-                *kv):
+                *params):
         ctx.opts = dict(n_heads=n_heads, pos_mode=pos_mode)
-        ctx.save_for_backward(x, lig, group, idx, mask, e_w, q, *kv)
-        return _forward(x, lig, group, idx, mask, e_w, q, Branch(*kv[:7]),
-                        Branch(*kv[7:]), n_heads, pos_mode)
+        ctx.save_for_backward(x, lig, group, idx, mask, e_w, q, *params)
+        return _forward(x, lig, group, idx, mask, e_w, q,
+                        Branch(*params[:7]), Branch(*params[7:14]), n_heads,
+                        pos_mode, tuple(params[14:]) or None)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, lig, group, idx, mask, e_w, q, *kv = ctx.saved_tensors
-        d_x, d_ew, d_q, dk, dv = edge_attention_backward(
+        x, lig, group, idx, mask, e_w, q, *params = ctx.saved_tensors
+        gate = tuple(params[14:]) or None
+        d_x, d_ew, d_q, dk, dv, *d_gate = edge_attention_backward(
             g.contiguous(), x, lig, group, idx, mask, e_w, q,
-            Branch(*kv[:7]), Branch(*kv[7:]), **ctx.opts)
-        return (None, None, d_x, None, None, None, None, d_ew, d_q, *dk, *dv)
+            Branch(*params[:7]), Branch(*params[7:14]), gate=gate,
+            **ctx.opts)
+        return (None, None, d_x, None, None, None, None, d_ew, d_q, *dk, *dv,
+                *(d_gate[0] if d_gate else ()))
 
 
 def edge_attention(x: torch.Tensor, lig: torch.Tensor,
                    group: Optional[torch.Tensor], idx: torch.Tensor,
                    mask: torch.Tensor, e_w: torch.Tensor, q: torch.Tensor,
-                   k: Branch, v: Branch, *, n_heads: int,
-                   pos_mode: bool) -> torch.Tensor:
+                   k: Branch, v: Branch, *, n_heads: int, pos_mode: bool,
+                   gate: Optional[Gate] = None) -> torch.Tensor:
     """Args (float32 unless noted):
         x [B, N, 3] coordinates; lig [B, N] 1.0 on ligand(+prior) nodes;
         group [B, N] decomposition group ids, or None for 4 edge types;
         idx [B, N, K] int32 sources; mask / e_w [B, N, K]; q [B, N, H];
         k, v: Branch with t_row / t_src [B, N, H], w_feat [F*21, H],
-        wo [H, H] (v in pos mode [H, heads]), bo, ln_scale, ln_bias.
+        wo [H, H] (v in pos mode [H, heads]), bo, ln_scale, ln_bias;
+        gate: optional m-gate (wm [H], bm [1]), node mode only.
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     its gradient launches the backward kernel.
     """
     if on_cpu(q):
         return edge_attention_reference(x, lig, group, idx, mask, e_w, q, k,
-                                        v, n_heads=n_heads, pos_mode=pos_mode)
+                                        v, n_heads=n_heads, pos_mode=pos_mode,
+                                        gate=gate)
     return _EdgeAttention.apply(n_heads, pos_mode, x, lig, group, idx, mask,
-                                e_w, q, *k, *v)
+                                e_w, q, *k, *v, *(gate or ()))
 
 
 def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
                             q, k: Branch, v: Branch, *, n_heads: int,
-                            pos_mode: bool):
+                            pos_mode: bool, gate: Optional[Gate] = None):
     """Gradients of edge_attention for the output cotangent g ([B, N, H],
     pos mode [B, N, 3]): (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch
-    (d t_row, d t_src and the five parameter gradients). CPU tensors run the
-    plain version; CUDA tensors launch the backward kernel."""
+    (d t_row, d t_src and the five parameter gradients), and with a gate a
+    sixth entry (d_wm, d_bm). CPU tensors run the plain version; CUDA
+    tensors launch the backward kernel."""
     if on_cpu(q):
         return edge_attention_backward_reference(
             g, x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
-            pos_mode=pos_mode)
+            pos_mode=pos_mode, gate=gate)
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
-                          pos_mode)
+                          pos_mode, gate)
     named.append(('g', g, (B, N, 3 if pos_mode else H), torch.float32))
     check_inputs(q.device, named)
     dev = q.device
@@ -192,21 +245,26 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
     d_tsrc_k, d_tsrc_v = (torch.zeros((B, N, H), device=dev)
                           for _ in range(2))
     blocks = backward_blocks(B * N, dev)
-    pg = ParamGrads(blocks, n_et * 21, H, n_heads if pos_mode else H, dev)
+    pg = ParamGrads(blocks, n_et * 21, H, n_heads if pos_mode else H, dev,
+                    extra=() if gate is None else ((H,), (1,)))
     woT_k = k.wo.t().contiguous()
     woT_v = None if pos_mode else v.wo.t().contiguous()
-    fn = _build.load('edge_attention', 'edge_attention_bwd', 33, 8)
+    wm, bm = gate or (None, None)
+    fn = _build.load('edge_attention', 'edge_attention_bwd', 35, 8)
     args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
              ptr(q), ptr(g)] + branch_ptrs(k) + [ptr(woT_k)]
-            + branch_ptrs(v) + [ptr(woT_v)]
+            + branch_ptrs(v) + [ptr(woT_v), ptr(wm), ptr(bm)]
             + [ptr(t) for t in (d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
                                 d_tsrc_v, pg.slots, pg.out)]
             + [B, N, K, H, n_heads, n_et, int(pos_mode), blocks])
     launch(fn, args, dev, 'edge_attention_backward')
-    edge_attention_backward.launches += 1
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
-    return d_x, d_ew, d_q, dk, dv
+    if gate is None:
+        edge_attention_backward.launches += 1
+        return d_x, d_ew, d_q, dk, dv
+    edge_attention_backward.gated_launches += 1
+    return d_x, d_ew, d_q, dk, dv, tuple(pg.extra())
 
 
-edge_attention.launches = 0
-edge_attention_backward.launches = 0
+edge_attention.launches = edge_attention.gated_launches = 0
+edge_attention_backward.launches = edge_attention_backward.gated_launches = 0

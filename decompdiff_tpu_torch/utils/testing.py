@@ -51,6 +51,16 @@ DEFAULT_MODEL_CONFIG = {
 }
 
 
+def uni_o2_model_config(**overrides) -> dict:
+    """The released widths (DEFAULT_MODEL_CONFIG) with the non-bond uni_o2
+    refine net, its m-gated edge weights, and the pre_att bond head (the
+    bond-diffusion setting tests/test_uni_o2.py builds)."""
+    cfg = dict(DEFAULT_MODEL_CONFIG, model_type='uni_o2', ew_net_type='m',
+               bond_diffusion=True, bond_net_type='pre_att')
+    cfg.update(overrides)
+    return cfg
+
+
 def tiny_model_config(**overrides) -> dict:
     """A scaled-down config for fast CPU tests."""
     cfg = dict(DEFAULT_MODEL_CONFIG)

@@ -3,9 +3,11 @@
 NVIDIA GPU (the port's twin of benchmarks/profile_train_step.py).
 
     python3 scripts/profile_torch_train.py [--steps 3] [--trace PATH]
+        [--model uni_o2_bond|uni_o2]
 
 Runs the training bench shapes (B=8, Np=320, Nl=32, the released
-uni_o2_bond config with random weights, kernels on, the released training
+uni_o2_bond config, or with --model uni_o2 the released-width uni_o2
+config with the m-gate, with random weights, kernels on, the released training
 hyperparameters: jitter, symmetric t, loss, clip and Adam), warms up with one
 step, then traces `--steps` steps with torch.profiler. Prints the wall time
 per step, the device busy share (the union of kernel intervals over the
@@ -35,9 +37,9 @@ from decompdiff_tpu_torch.ops import _build  # noqa: E402
 from decompdiff_tpu_torch.training.train_step import (  # noqa: E402
     DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
 from decompdiff_tpu_torch.utils.testing import (  # noqa: E402
-    DEFAULT_MODEL_CONFIG, random_complex_batch)
+    random_complex_batch)
 from profile_torch_sample import (  # noqa: E402
-    GROUPS, is_annotation, union_us)
+    GROUPS, MODELS, is_annotation, union_us)
 
 B, NUM_PROTEIN, NUM_LIGAND, NUM_GROUPS = 8, 320, 32, 6
 TRAIN_GROUPS = (
@@ -60,6 +62,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=3)
     ap.add_argument('--trace', help='write the Chrome trace here')
+    ap.add_argument('--model', choices=sorted(MODELS), default='uni_o2_bond')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('profile_torch_train: no CUDA device', file=sys.stderr)
@@ -78,7 +81,7 @@ def main() -> int:
                                  num_protein=NUM_PROTEIN,
                                  num_ligand=NUM_LIGAND, num_groups=NUM_GROUPS,
                                  device=dev)
-    model = DecompDiffModel.create(dict(DEFAULT_MODEL_CONFIG, use_pallas=True),
+    model = DecompDiffModel.create(dict(MODELS[args.model], use_pallas=True),
                                    8, device=dev, seed=0)
     state = create_train_state(model, DEFAULT_TRAIN_CONFIG)
     step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[0]
@@ -113,7 +116,7 @@ def main() -> int:
         by_name[e.name][0] += d
         by_name[e.name][1] += 1
     steps = args.steps
-    print(f'{steps} training steps at B={B} Np={NUM_PROTEIN} '
+    print(f'{args.model}: {steps} training steps at B={B} Np={NUM_PROTEIN} '
           f'Nl={NUM_LIGAND}: wall {wall_us / steps / 1e3:.3f} ms/step, device '
           f'busy {busy_us / steps / 1e3:.3f} ms/step '
           f'({100 * busy_us / wall_us:.1f}% of the window), '

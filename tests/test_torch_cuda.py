@@ -12,7 +12,8 @@ Nl are not multiples of the kernels' 16-source chunk, some rows are fully
 masked, and the 6-edge-type variant runs, which the released-shape check in
 chip_smoke.py does not cover. Nl=20 gives the bond and triplet kernels two
 source chunks, the last one ragged, and the triplet backward's shared
-d t_src sum across both.
+d t_src sum across both. The m-gated edge kernels (uni_o2) run at K=20 and
+K=32 with a gate bias of 0 and one of +-30, which saturates the sigmoid.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -146,8 +147,13 @@ def test_triplet_kernel(cuda, include_h_node, Nl):
     assert float(got[0, 4].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize('extra', [{}, {'add_prior_node': True}],
-                         ids=['released', 'prior_node'])
+UNI_O2 = {'model_type': 'uni_o2', 'bond_net_type': 'pre_att'}
+
+
+@pytest.mark.parametrize('extra', [
+    {}, {'add_prior_node': True}, dict(UNI_O2, ew_net_type='m'),
+    dict(UNI_O2, ew_net_type='r', num_x2h=2)],
+    ids=['released', 'prior_node', 'uni_o2_m', 'uni_o2_r'])
 def test_tiny_denoiser_kernels_on_vs_off(cuda, extra):
     cfg = tiny_model_config(**extra)
     on = DecompDiffModel.create(dict(cfg, use_pallas=True), 8, device=cuda)
@@ -203,25 +209,33 @@ def _rand_branch(rng, row_shape, src_shape, feat_rows, H, dout):
 
 
 def _flat_grads(grads):
+    """Branch fields and the gate's (d_wm, d_bm) spread."""
     out = []
     for g in grads:
-        if isinstance(g, Branch):
+        if isinstance(g, tuple):
             out += list(g)
         else:
             out.append(g)
     return out
 
 
-def _check_backward(fn, g, args, kw, cuda, counter):
+def _dev(a, cuda):
+    if isinstance(a, tuple):
+        return type(a)(*(t.to(cuda) for t in a)) if isinstance(a, Branch) \
+            else tuple(t.to(cuda) for t in a)
+    return _to(a, cuda)
+
+
+def _check_backward(fn, g, args, kw, cuda, counter, count='launches'):
     """The backward wrapper on CPU tensors (plain autograd) against the same
-    wrapper on CUDA tensors (the kernel)."""
+    wrapper on CUDA tensors (the kernel), which adds one to `count`."""
     want = _flat_grads(fn(g, *args, **kw))
-    dev_args = [Branch(*(t.to(cuda) for t in a)) if isinstance(a, Branch)
-                else _to(a, cuda) for a in args]
-    before = counter.launches
-    got = _flat_grads(fn(g.to(cuda), *dev_args, **kw))
+    dev_args = [_dev(a, cuda) for a in args]
+    dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
+    before = getattr(counter, count)
+    got = _flat_grads(fn(g.to(cuda), *dev_args, **dev_kw))
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert getattr(counter, count) == before + 1
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         if b is None:
@@ -249,6 +263,53 @@ def test_edge_backward_kernel(cuda, pos_mode, group, H, heads):
     _check_backward(edge_ops.edge_attention_backward, g, args,
                     dict(n_heads=heads, pos_mode=pos_mode), cuda,
                     edge_ops.edge_attention_backward)
+
+
+def _gated_case(K, bm, seed):
+    """Inputs of a gated (node mode, 4 edge types) edge launch at the
+    released width; rows N-5.. of complex 0 have no valid source."""
+    rng = np.random.default_rng(seed)
+    B, N, Np, H = 2, 37, 25, 128
+    x, graph, e_w = _graph(rng, B, N, K, Np, False)
+    k = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
+    v = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
+    q = _rand(rng, B, N, H, scale=1.0)
+    gate = (_rand(rng, H), torch.tensor([bm], dtype=torch.float32))
+    args = (x, graph.lig, None, graph.idx, graph.mask, e_w, q, k, v)
+    return args, gate, rng
+
+
+GATE_BIAS = {'bm0': 0.0, 'bm+30': 30.0, 'bm-30': -30.0}
+
+
+@pytest.mark.parametrize('bm', sorted(GATE_BIAS))
+@pytest.mark.parametrize('K', [20, 32], ids=['K20', 'K32'])
+def test_edge_gated_kernel(cuda, K, bm):
+    args, gate, _ = _gated_case(K, GATE_BIAS[bm], seed=12)
+    kw = dict(n_heads=16, pos_mode=False, gate=gate)
+    want = edge_ops.edge_attention(*args, **kw)
+    counts = (edge_ops.edge_attention.launches,
+              edge_ops.edge_attention.gated_launches)
+    got = edge_ops.edge_attention(*[_dev(a, cuda) for a in args],
+                                  **dict(kw, gate=_dev(gate, cuda)))
+    torch.cuda.synchronize()
+    assert (edge_ops.edge_attention.launches,
+            edge_ops.edge_attention.gated_launches) == (counts[0],
+                                                        counts[1] + 1)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    assert float(got[0, -5:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('bm', sorted(GATE_BIAS))
+@pytest.mark.parametrize('K', [20, 32], ids=['K20', 'K32'])
+def test_edge_gated_backward_kernel(cuda, K, bm):
+    """Every gradient, d wm and d bm included, elementwise."""
+    args, gate, rng = _gated_case(K, GATE_BIAS[bm], seed=13)
+    g = _rand(rng, *args[-3].shape, scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args,
+                    dict(n_heads=16, pos_mode=False, gate=gate), cuda,
+                    edge_ops.edge_attention_backward, count='gated_launches')
 
 
 @pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
@@ -359,14 +420,13 @@ def test_autograd_reaches_backward_kernel(cuda, which):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4 * scale)
 
 
-def test_tiny_train_step_kernels_on_vs_off(cuda):
+def _train_step_on_vs_off(cuda, cfg, counter, count='launches'):
     """One training step's loss, grad norm and every parameter gradient with
     the kernels on against off (same weights, same draws), at the tolerance
     the JAX package holds its kernel path to (tests/test_train_step.py); and
-    the step launches each forward and backward kernel once per use."""
+    the step launches the backward kernel `counter` once per layer."""
     from decompdiff_tpu_torch.training.train_step import (
         DEFAULT_TRAIN_CONFIG, create_train_state, global_norm, make_train_fns)
-    cfg = tiny_model_config(num_diffusion_timesteps=20)
     batch = random_complex_batch(np.random.default_rng(0), batch_size=4,
                                  num_ligand=11, real_ligand=9, device=cuda)
     out = {}
@@ -374,12 +434,12 @@ def test_tiny_train_step_kernels_on_vs_off(cuda):
         model = DecompDiffModel.create(dict(cfg, use_pallas=on), 8,
                                        device=cuda, seed=3)
         grad_step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[1]
-        before = triplet_ops.triplet_attention_backward.launches
+        before = getattr(counter, count)
         grads, metrics, _, _ = grad_step(
             create_train_state(model, DEFAULT_TRAIN_CONFIG), batch,
             torch.Generator(device=cuda).manual_seed(1))
         torch.cuda.synchronize()
-        launched = triplet_ops.triplet_attention_backward.launches - before
+        launched = getattr(counter, count) - before
         assert launched == (cfg['num_layers'] if on else 0)
         out[on] = grads, metrics
     (g_on, m_on), (g_off, m_off) = out[True], out[False]
@@ -392,3 +452,17 @@ def test_tiny_train_step_kernels_on_vs_off(cuda):
         scale = max(1.0, float(b.abs().max()))
         torch.testing.assert_close(g_on[name], b, rtol=2e-3,
                                    atol=1e-4 * scale, msg=name)
+
+
+def test_tiny_train_step_kernels_on_vs_off(cuda):
+    _train_step_on_vs_off(cuda, tiny_model_config(num_diffusion_timesteps=20),
+                          triplet_ops.triplet_attention_backward)
+
+
+def test_tiny_uni_o2_train_step_kernels_on_vs_off(cuda):
+    """The uni_o2 net with the m-gate: its gated backward kernel runs once
+    per layer (x2h), through the whole loss."""
+    cfg = tiny_model_config(num_diffusion_timesteps=20, **UNI_O2,
+                            ew_net_type='m')
+    _train_step_on_vs_off(cuda, cfg, edge_ops.edge_attention_backward,
+                          count='gated_launches')

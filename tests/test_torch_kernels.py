@@ -3,7 +3,8 @@ the CPU the wrapper runs the kernel's plain version), against the JAX
 package's Pallas kernel in interpret mode and its dense path, with shared
 parameters loaded through the param bridge.
 
-Modes: edge node/pos with 4 and 6 edge types, bond node/pos, triplet with
+Modes: edge node/pos with 4 and 6 edge types, edge node mode with the
+m-gate (through the uni_o2 X2HAttention modules), bond node/pos, triplet with
 include_h_node True and False; every case has ragged masks and fully-masked
 rows. Tolerance rtol 2e-4 / atol 2e-5, that of the JAX package's own
 Pallas-vs-dense tests (tests/test_pallas_{edge,bond,triplet}.py)."""
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 from decompdiff_tpu.data.batch import make_bond_mask
+from decompdiff_tpu.models import uni_transformer as jo2
 from decompdiff_tpu.models import uni_transformer_bond as jutb
 from decompdiff_tpu.models.common import safe_norm as jax_safe_norm
 from decompdiff_tpu.ops.knn import knn_neighbors
+from decompdiff_tpu_torch.models import uni_transformer as to2
 from decompdiff_tpu_torch.models import uni_transformer_bond as tutb
 from decompdiff_tpu_torch.ops import bond_attention as bond_ops
 from decompdiff_tpu_torch.ops import edge_attention as edge_ops
@@ -105,35 +108,83 @@ def _edge_inputs(group, seed, B=2, N=16, Np=10, K=4):
         None if group_idx is None else _t(group_idx, torch.float32))
     return dict(h=h, x=x, e_w=e_w, Np=Np, ed_dense=ed_dense,
                 ed_pallas=ed_pallas, graph=graph,
-                n_etypes=6 if group else 4)
+                n_etypes=6 if group else 4, nbr_idx=nbr_idx,
+                nbr_mask=nbr_mask, mask_ligand=mask_ligand,
+                group_idx=group_idx)
 
 
-@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
-@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
-def test_edge_kernel_modes(pos_mode, group):
-    c = _edge_inputs(group, seed=3 + 2 * pos_mode + group)
-    kw = dict(use_pallas=False, num_protein=c['Np'], n_etypes=c['n_etypes'])
-    if pos_mode:
-        jmod = jutb.PosEdgeAttention(H, HEADS, **kw)
-        jfused = jutb.PosEdgeAttention(H, HEADS, **dict(kw, use_pallas=True))
-        tmod = tutb.PosEdgeAttention(H, HEADS, c['n_etypes'],
-                                     use_kernels=True)
+# (mode, 6 edge types); 'mgate' is node mode with the uni_o2 m-gate, which
+# only the 4-type net has
+EDGE_CASES = [('node', False), ('node', True), ('pos', False), ('pos', True),
+              ('mgate', False)]
+EDGE_IDS = [f'{m}-{6 if g else 4}types' for m, g in EDGE_CASES]
+
+
+def _jax_edge(mode, pallas, c):
+    """(init, apply) of the JAX module of an edge case: init(key) -> params;
+    apply(params, h, x, e_w) builds the edge data from x (so jax.grad
+    reaches it) and runs the module."""
+    kw = dict(use_pallas=pallas, num_protein=c['Np'])
+    if mode == 'mgate':
+        mod = jo2.X2HAttention(H, HEADS, ew_net_type='m', out_fc=False, **kw)
+    elif mode == 'pos':
+        mod = jutb.PosEdgeAttention(H, HEADS, n_etypes=c['n_etypes'], **kw)
     else:
-        jmod = jutb.NodeEdgeAttention(H, HEADS, out_fc=False, **kw)
-        jfused = jutb.NodeEdgeAttention(H, HEADS, out_fc=False,
-                                        **dict(kw, use_pallas=True))
-        tmod = tutb.NodeEdgeAttention(H, HEADS, c['n_etypes'], out_fc=False,
-                                      use_kernels=True)
-    params = jmod.init(jax.random.PRNGKey(0), c['h'], c['ed_dense'], c['e_w'])
-    dense = jmod.apply(params, c['h'], c['ed_dense'], c['e_w'])
-    pallas = jfused.apply(params, c['h'], c['ed_pallas'], c['e_w'])
-    _load(tmod, params)
-    launches = edge_ops.edge_attention.launches
+        mod = jutb.NodeEdgeAttention(H, HEADS, out_fc=False,
+                                     n_etypes=c['n_etypes'], **kw)
+
+    def args(h, x, e_w):
+        ed = _jax_edge_data(x, c['nbr_idx'], c['nbr_mask'], c['mask_ligand'],
+                            c['group_idx'], pallas)
+        if mode != 'mgate':
+            return h, ed, e_w
+        # uni_transformer.py's edge data; d2 and lig_src feed ew 'r' only
+        o2 = ((ed.x4, ed.idx_flat, ed.mld, None, None) if pallas else
+              (ed.edge_type, ed.dist, jutb.gather_nodes(h, ed.nbr_idx)))
+        return h, o2, ed.nbr_idx, ed.nbr_mask, e_w
+
+    return (lambda key: mod.init(key, *args(c['h'], c['x'], c['e_w'])),
+            lambda params, h, x, e_w: mod.apply(params, *args(h, x, e_w)))
+
+
+def _port_edge(mode, n_etypes):
+    if mode == 'mgate':
+        return to2.X2HAttention(H, HEADS, 'm', out_fc=False, use_kernels=True)
+    if mode == 'pos':
+        return tutb.PosEdgeAttention(H, HEADS, n_etypes, use_kernels=True)
+    return tutb.NodeEdgeAttention(H, HEADS, n_etypes, out_fc=False,
+                                  use_kernels=True)
+
+
+def _edge_params(mode, c):
+    """Dense-path init; for the gate, every leaf moved by N(0, 0.1^2) so
+    the gate's bias is not 0."""
+    params = _jax_edge(mode, False, c)[0](jax.random.PRNGKey(0))
+    if mode != 'mgate':
+        return params
+    rng = np.random.default_rng(1)
+    return jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.normal(
+        size=a.shape).astype(np.float32), params)
+
+
+@pytest.mark.parametrize('mode,group', EDGE_CASES, ids=EDGE_IDS)
+def test_edge_kernel_modes(mode, group):
+    pos_mode = mode == 'pos'
+    c = _edge_inputs(group, seed=3 + 2 * pos_mode + group + 5 * (
+        mode == 'mgate'))
+    params = _edge_params(mode, c)
+    args = (c['h'], c['x'], c['e_w'])
+    dense = _jax_edge(mode, False, c)[1](params, *args)
+    pallas = _jax_edge(mode, True, c)[1](params, *args)
+    tmod = _load(_port_edge(mode, c['n_etypes']), params)
+    counts = (edge_ops.edge_attention.launches,
+              edge_ops.edge_attention.gated_launches)
     got = tmod(_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0]))
-    assert edge_ops.edge_attention.launches == launches  # CPU: no launch
+    assert (edge_ops.edge_attention.launches,
+            edge_ops.edge_attention.gated_launches) == counts  # CPU: none
     assert got.shape == ((2, 16, 3) if pos_mode else (2, 16, H))
     _check(got, dense, pallas)
-    if not pos_mode:                     # padded dst nodes: exactly zero
+    if mode == 'node':                   # padded dst nodes: exactly zero
         assert float(got[0, 12:].abs().max()) == 0.0
 
 
@@ -288,47 +339,32 @@ def _torch_grads(module, inputs, diff, cot):
     return named, [g.numpy() for g in grads[len(params):]]
 
 
-@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
-@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
-def test_edge_kernel_grads(pos_mode, group):
-    c = _edge_inputs(group, seed=21 + 2 * pos_mode + group)
-    mask = np.ones((2, 16), bool)
-    mask[0, 12:] = False
-    nbr_idx, nbr_mask = knn_neighbors(jnp.asarray(c['x']), jnp.asarray(mask),
-                                      4)
-    mask_ligand = (np.arange(16)[None, :] >= c['Np']) & mask
-    group_idx = (None if c['graph'].group is None
-                 else c['graph'].group.numpy().astype(np.int32))
-    kw = dict(num_protein=c['Np'], n_etypes=c['n_etypes'])
-    if pos_mode:
-        mods = [jutb.PosEdgeAttention(H, HEADS, use_pallas=p, **kw)
-                for p in (False, True)]
-        tmod = tutb.PosEdgeAttention(H, HEADS, c['n_etypes'],
-                                     use_kernels=True)
-    else:
-        mods = [jutb.NodeEdgeAttention(H, HEADS, out_fc=False, use_pallas=p,
-                                       **kw) for p in (False, True)]
-        tmod = tutb.NodeEdgeAttention(H, HEADS, c['n_etypes'], out_fc=False,
-                                      use_kernels=True)
-    params = mods[0].init(jax.random.PRNGKey(0), c['h'], c['ed_dense'],
-                          c['e_w'])
+@pytest.mark.parametrize('mode,group', EDGE_CASES, ids=EDGE_IDS)
+def test_edge_kernel_grads(mode, group):
+    """With the m-gate this covers d wm and d bm (ew_kernel, ew_bias)."""
+    pos_mode = mode == 'pos'
+    c = _edge_inputs(group, seed=21 + 2 * pos_mode + group + 5 * (
+        mode == 'mgate'))
+    params = _edge_params(mode, c)
     cot = np.random.default_rng(9).normal(
         size=(2, 16, 3 if pos_mode else H)).astype(np.float32)
 
-    def jax_grads(mod, pallas):
+    def jax_grads(pallas):
+        apply = _jax_edge(mode, pallas, c)[1]
+
         def f(params, h, x, e_w):
-            ed = _jax_edge_data(x, nbr_idx, nbr_mask, mask_ligand, group_idx,
-                                pallas)
-            return jnp.sum(mod.apply(params, h, ed, e_w) * cot)
+            return jnp.sum(apply(params, h, x, e_w) * cot)
         return jax.grad(f, argnums=(0, 1, 2, 3))(params, c['h'], c['x'],
                                                  c['e_w'])
 
-    _load(tmod, params)
+    tmod = _load(_port_edge(mode, c['n_etypes']), params)
     got_p, got_in = _torch_grads(
         tmod, (_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
         (0, 1, 3), cot)
-    for mod, pallas in zip(mods, (False, True)):
-        gp, gh, gx, gew = jax_grads(mod, pallas)
+    if mode == 'mgate':
+        assert {'ew_kernel', 'ew_bias'} <= {n for n, _ in got_p}
+    for pallas in (False, True):
+        gp, gh, gx, gew = jax_grads(pallas)
         label = 'pallas' if pallas else 'dense'
         _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
         _assert_grads(zip(('h', 'x', 'e_w'), got_in),

@@ -132,15 +132,18 @@ def test_param_bridge_is_strict():
 
 def test_config_keys():
     """use_pallas selects the kernels; the TPU tuning keys are accepted and
-    change nothing; uni_o2 is not ported yet."""
+    change nothing; model_type uni_o2 builds the non-bond refine net."""
     cfg = tiny_model_config(use_pallas=True, pallas_bf16=True,
                             pallas_gather_bf16=True, pallas_triplet_i_block=4,
                             pallas_edge_tile=128)
     model = DecompDiffModel.create(cfg, 8, device='cpu')
     assert model.denoiser.refine_net.layer_0.bond_layer.use_kernels
-    with pytest.raises(NotImplementedError, match='D1'):
-        DecompDiffModel.create(tiny_model_config(model_type='uni_o2'), 8,
-                               device='cpu')
+    o2 = DecompDiffModel.create(
+        dict(cfg, model_type='uni_o2', bond_net_type='pre_att'), 8,
+        device='cpu').denoiser
+    assert type(o2.refine_net).__name__ == 'UniTransformerO2'
+    assert o2.refine_net.layer_0.x2h_0.use_kernels
+    assert not hasattr(o2, 'ligand_bond_emb')
 
 
 def test_center_by_protein_matches_jax():
