@@ -11,15 +11,18 @@
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), and those
    of the m-gated edge mode in the first layer of a released-width uni_o2
    (ew_net_type 'm') denoiser call; then holds every forward kernel against
-   its plain PyTorch version on those inputs, and every backward kernel
-   against plain autograd for a seeded cotangent (zeroed on the rows that
-   hold a relu gate within rounding of 0, see GATE_MARGIN), timing each with
-   CUDA events.
+   its plain PyTorch version on those inputs (the triplet kernel also with
+   its bf16 option against the bf16 plain version), and every backward
+   kernel against plain autograd for a seeded cotangent (zeroed on the rows
+   that hold a relu gate within rounding of 0, see GATE_MARGIN), timing each
+   with CUDA events beside the previous time (PREVIOUS_MS) and its bounds.
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
-   with the released-width uni_o2 config, each with every launch counter set
-   to 0 just before and read just after; then one denoiser call with kernels
-   on against kernels off, for uni_o2 with ew_net_type m, global and r.
+   the same with pallas_bf16, then with the released-width uni_o2 config,
+   each with every launch counter set to 0 just before and read just after;
+   then one denoiser call with kernels on against kernels off (for
+   pallas_bf16 against the float32 kernels: the option's cost, printed),
+   and for uni_o2 with ew_net_type m, global and r.
 5. Training paths: training steps (forward, backward, clip and Adam) at B=8,
    Np=320, Nl=32 with kernels on, counters set to 0 just before and read
    just after, for uni_o2_bond and then uni_o2; the same steps with every
@@ -44,10 +47,22 @@ REPO = Path(__file__).resolve().parent
 B, NUM_PROTEIN, NUM_LIGAND, NUM_FULL, NUM_GROUPS = 8, 320, 32, 2048, 6
 STEPS = 20          # sampling steps
 TRAIN_STEPS = 3     # timed training steps, after one warm-up step
-# H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth,
+# dense bf16 on the tensor cores
+PEAK_FLOPS, PEAK_BYTES, TENSOR_PEAK = 67e12, 3.35e12, 989e12
+# bf16 tensor-core passes of the [H, H] second linears of each redesigned
+# forward record (row_mma.cuh: hi*hi + hi*lo + lo*hi, or hi*hi with bf16)
+TENSOR_PASSES = {'edge_attention': 3, 'edge_attention_mgate': 3,
+                 'triplet_attention': 3, 'triplet_attention_bf16': 1}
 # kernel vs plain version: both float32, different summation order
 KERNEL_RTOL, KERNEL_ATOL = 1e-3, 1e-4
+# the triplet kernel's bf16 option vs the bf16 plain version: a y within
+# float32 rounding of a bf16 rounding boundary can round the other way in
+# the two (a flip), which moves a k or v entry by one bf16 ulp of y (up to
+# 2^-7 |y|) times a row of Wo; so at most BF16_FRAC of the elements may lie
+# outside BF16_RTOL / BF16_ATOL, and none beyond BF16_CAP
+# (tests/test_torch_cuda.py)
+BF16_RTOL, BF16_ATOL, BF16_FRAC, BF16_CAP = 1e-3, 1e-3, 1e-3, 1e-2
 # backward kernel vs plain autograd, every element: atol relative to the
 # gradient's largest magnitude; the kernels sum source-node cotangents with
 # atomicAdd (order varies between runs) and parameter gradients over rows in
@@ -85,6 +100,8 @@ KERNEL_SOURCES = {
     'edge_attention_mgate': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
     'bond_attention': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
     'triplet_attention': 'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
+    'triplet_attention_bf16':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
     'edge_attention_backward': 'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
     'bond_attention_backward': 'decompdiff_tpu/ops/pallas/bond_kernel.py:307',
     'triplet_attention_backward':
@@ -92,17 +109,23 @@ KERNEL_SOURCES = {
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
 }
-# Each ungated edge and bond mode's kernel ms in PR 2's final call (PERF.md,
-# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's for comparison.
-PR2_MS = {
-    ('edge_attention', 'node'): '0.4371-0.4378',
-    ('edge_attention', 'pos'): '0.3841-0.3858',
-    ('bond_attention', 'node'): '0.1049-0.1236',
-    ('bond_attention', 'pos'): '0.0967-0.1457',
-    ('edge_attention_backward', 'node'): '2.9387-2.9521',
-    ('edge_attention_backward', 'pos'): '2.8469-2.8665',
-    ('bond_attention_backward', 'node'): '0.5112-0.5211',
-    ('bond_attention_backward', 'pos'): '0.5367-0.5415',
+# Each kernel mode's ms as this script measured it before the edge and
+# triplet forward kernels moved to the tensor cores (the per-row CUDA-core
+# kernels; PERF.md kernel table, NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's.
+PREVIOUS_MS = {
+    ('edge_attention', 'node'): '0.4334-0.4361',
+    ('edge_attention', 'pos'): '0.3852-0.3888',
+    ('edge_attention_mgate', 'node'): '0.4622-0.4671',
+    ('bond_attention', 'node'): '0.1040-0.1043',
+    ('bond_attention', 'pos'): '0.0968-0.0986',
+    ('triplet_attention', 'node'): '1.8163-1.8297',
+    ('edge_attention_backward', 'node'): '2.9431-2.9450',
+    ('edge_attention_backward', 'pos'): '2.8171-2.8196',
+    ('edge_attention_mgate_backward', 'node'): '3.0699-3.0760',
+    ('bond_attention_backward', 'node'): '0.5065-0.5089',
+    ('bond_attention_backward', 'pos'): '0.5330-0.5357',
+    ('triplet_attention_backward', 'node'): '6.9968-7.0292',
 }
 
 
@@ -139,16 +162,25 @@ def build_phase():
           f'kernels) in {time.perf_counter() - t0:.1f} s (set-up)', flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(w in line for w in ('entry function', 'registers',
+                                       'spill')):
                 print(f'  {name}: {line.strip()}')
 
 
 def time_ms(torch, fn, iters=20, warmup=3):
+    """Device ms per call of fn, by CUDA events. The device first spins
+    (torch.cuda._sleep) for about twice the host time that the timed calls
+    take to enqueue, so every launch is queued before the first event and
+    the events time the device's work, not the wrapper's cost per call
+    (which exceeds a tensor-core kernel's time)."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * iters * host_s * 2e9))   # cycles at <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -183,7 +215,7 @@ def capture_inputs(torch, ops, plain_model, batch, state):
 
 def op_name(rec):
     """The ops module function of a kernel record name."""
-    return rec.replace('_mgate', '')
+    return rec.replace('_mgate', '').replace('_bf16', '')
 
 
 def call_inputs(torch, args, kw):
@@ -197,11 +229,11 @@ def call_inputs(torch, args, kw):
 
 
 def work(torch, name, args, kw, out):
-    """(FLOPs, bytes) the call needs on these inputs: 2 per multiply-add of
-    the per-pair products, of q.k and alpha.v and of the m-gate's v.wm over
-    valid (row, source) pairs only (LayerNorm, exp and adds left out, so the
-    bound is a lower bound); every input read once and the output written
-    once."""
+    """(FLOPs, [H, H] second-linear FLOPs among them, bytes) the call needs
+    on these inputs: 2 per multiply-add of the per-pair products, of q.k and
+    alpha.v and of the m-gate's v.wm over valid (row, source) pairs only
+    (LayerNorm, exp and adds left out, so the bound is a lower bound);
+    every input read once and the output written once."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in call_inputs(torch, args, kw))
     nbytes += out.numel() * out.element_size()
@@ -210,6 +242,7 @@ def work(torch, name, args, kw, out):
     pos = kw.get('pos_mode', False)
     v_out = 2 * H * nh + 2 * H + 6 * nh if pos else 2 * H * H + 2 * H
     attn = 2 * H * H + 2 * H + v_out      # k second linear, q.k, v and alpha.v
+    square = 2 * H * H * (1 if pos else 2)    # the [H, H] second linears
     if name.startswith('edge_attention'):  # (x, lig, group, idx, mask, ...)
         pairs = int((args[4] > 0.5).sum())
         n_types = 1 if args[2] is None else 2
@@ -223,7 +256,20 @@ def work(torch, name, args, kw, out):
         from decompdiff_tpu_torch.ops.triplet_attention import triplet_mask
         pairs = int(triplet_mask(args[1]).sum())
         per_pair = 2 * 2 * 13 * H + attn
-    return pairs * per_pair, nbytes
+    return pairs * per_pair, pairs * square, nbytes
+
+
+def bounds(name, flops, square, nbytes):
+    """(operations ms, bytes ms, operations ms with every FLOP at the FP32
+    CUDA-core peak) of a record: a tensor-core kernel's [H, H] products
+    count at the bf16 tensor-core peak for each pass it takes, its other
+    operations at the FP32 peak; every other kernel's all at the FP32
+    peak."""
+    t_fp32 = flops / PEAK_FLOPS * 1e3
+    passes = TENSOR_PASSES.get(name, 0)
+    t_ops = ((flops - square) / PEAK_FLOPS + passes * square / TENSOR_PEAK
+             ) * 1e3 if passes else t_fp32
+    return t_ops, nbytes / PEAK_BYTES * 1e3, t_fp32
 
 
 def modes(captured):
@@ -234,45 +280,69 @@ def modes(captured):
                                                     kv[0]))
 
 
-def kernel_phase(torch, ops, captured):
+def check_forward(torch, results, name, pos, args, kw, rtol, atol, frac=0.0,
+                  cap=None):
+    """One forward record on one mode's inputs: the kernel against its plain
+    version (at most `frac` of the elements outside rtol / atol, none
+    beyond `cap`), both timed, beside the previous time and the bounds. Returns
+    the kernel's output."""
+    mod = ops_module(name)
+    kernel = getattr(mod, op_name(name))
+    plain = getattr(mod, f'{op_name(name)}_reference')
+    ref = plain(*args, **kw)
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / ref.abs().clamp_min(1e-6)).max())
+    outside = int((err > atol + rtol * ref.abs()).sum())
+    ok = (bool(torch.isfinite(out).all()) and outside <= frac * out.numel()
+          and (cap is None or max_abs <= cap))
+    ms = time_ms(torch, lambda: kernel(*args, **kw))
+    plain_ms = time_ms(torch, lambda: plain(*args, **kw))
+    flops, square, nbytes = work(torch, name, args, kw, out)
+    t_ops, t_bytes, t_fp32 = bounds(name, flops, square, nbytes)
+    mode = 'pos' if pos else 'node'
+    shapes = 'x'.join(str(s) for s in out.shape)
+    fp32_note = (f' (FP32 CUDA-core bound {max(t_fp32, t_bytes):.4f} ms)'
+                 if name in TENSOR_PASSES else '')
+    print(f'kernel {name}[{mode}] out {shapes}: max_abs_err {max_abs:.3e} '
+          f'max_rel_err {max_rel:.3e}, {outside} elements outside (rtol '
+          f'{rtol}, atol {atol}; allowed {int(frac * out.numel())}'
+          f'{f", none beyond {cap}" if cap else ""}) '
+          f'{"ok" if ok else "MISMATCH"}; kernel {ms:.4f} ms'
+          f'{previous_note(name, mode)}, plain {plain_ms:.4f} ms, bound '
+          f'{max(t_ops, t_bytes):.4f} ms by '
+          f'{"operations" if t_ops >= t_bytes else "bytes"}{fp32_note} '
+          f'({flops / 1e9:.3f} GFLOP, {square / 1e9:.3f} of them [H, H] '
+          f'products, {nbytes / 1e6:.2f} MB)', flush=True)
+    check(ok, f'{name}[{mode}] disagrees with its plain version')
+    r = results.setdefault(name, dict(err=0.0, modes=[]))
+    r['err'] = max(r['err'], max_abs)
+    r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_fp32))
+    return out
+
+
+def kernel_phase(torch, captured):
     results = {}
     for (name, pos), (args, kw) in modes(captured):
-        mod = ops[op_name(name)]
-        kernel = getattr(mod, op_name(name))
-        plain = getattr(mod, f'{op_name(name)}_reference')
-        ref = plain(*args, **kw)
-        out = kernel(*args, **kw)
-        torch.cuda.synchronize()
-        err = (out - ref).abs()
-        max_abs = float(err.max())
-        max_rel = float((err / ref.abs().clamp_min(1e-6)).max())
-        ok = bool(torch.allclose(out, ref, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL))
-        ms = time_ms(torch, lambda: kernel(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plain(*args, **kw))
-        flops, nbytes = work(torch, name, args, kw, out)
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        mode = 'pos' if pos else 'node'
-        shapes = 'x'.join(str(s) for s in out.shape)
-        print(f'kernel {name}[{mode}] out {shapes}: max_abs_err {max_abs:.3e} '
-              f'max_rel_err {max_rel:.3e} (rtol {KERNEL_RTOL}, atol '
-              f'{KERNEL_ATOL}) {"ok" if ok else "MISMATCH"}; kernel '
-              f'{ms:.4f} ms{pr2_note(name, mode)}, plain {plain_ms:.4f} ms, '
-              f'bound {max(t_ops, t_bytes):.4f} ms by '
-              f'{"operations" if t_ops >= t_bytes else "bytes"} '
-              f'({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)', flush=True)
-        check(ok, f'{name}[{mode}] disagrees with its plain version')
-        r = results.setdefault(name, dict(err=0.0, modes=[]))
-        r['err'] = max(r['err'], max_abs)
-        r['modes'].append((ms, plain_ms, t_ops, t_bytes))
+        out = check_forward(torch, results, name, pos, args, kw, KERNEL_RTOL,
+                            KERNEL_ATOL)
+        if name == 'triplet_attention':   # its pallas_bf16 option
+            out_bf16 = check_forward(torch, results, f'{name}_bf16', pos,
+                                     args, dict(kw, bf16=True), BF16_RTOL,
+                                     BF16_ATOL, BF16_FRAC, BF16_CAP)
+            print(f'kernel {name}_bf16: the option moves the kernel output '
+                  f'by max_abs {float((out_bf16 - out).abs().max()):.3e} '
+                  f'against the float32 kernel', flush=True)
     check(len(captured) == 6,
           f'expected 6 kernel modes, saw {sorted(captured)}')
     return results
 
 
-def pr2_note(name, mode):
-    ref = PR2_MS.get((name, mode))
-    return f' (PR 2: {ref} ms)' if ref else ''
+def previous_note(name, mode):
+    ref = PREVIOUS_MS.get((name, mode))
+    return f' (previous: {ref} ms)' if ref else ''
 
 
 def flat_grads(grads):
@@ -409,7 +479,7 @@ def backward_phase(torch, ops, captured):
               f'{"ok" if ok else "MISMATCH"} with the cotangent zeroed on '
               f'{n_drop} of {n_live} live rows (a gate within {tau:.3e} of '
               f'0; {full_out} elements outside with none zeroed); kernel '
-              f'{ms:.4f} ms{pr2_note(f"{name}_backward", mode)}, plain '
+              f'{ms:.4f} ms{previous_note(f"{name}_backward", mode)}, plain '
               f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
               f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
@@ -419,7 +489,7 @@ def backward_phase(torch, ops, captured):
               f'gate, more than {MAX_DROPPED:.0%}')
         r = results.setdefault(f'{name}_backward', dict(err=0.0, modes=[]))
         r['err'] = max(r['err'], max_abs)
-        r['modes'].append((ms, plain_ms, t_ops, t_bytes))
+        r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_ops))
     return results
 
 
@@ -502,18 +572,21 @@ def train_phase(torch, batch, cfg, per_step, label):
     return launches
 
 
-def path_phase(torch, model, plain_model, batch, full_protein, per_call,
-               label):
-    """Guided sampling with kernels on (launches counted) and with plain
-    versions, then one denoiser call kernels on vs off. per_call: each
-    forward kernel's launches per denoiser call. Returns the launches."""
+SAMPLE_CFG = dict(
+    num_steps=STEPS, save_traj=False,
+    energy_drift=({'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
+                  {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0}))
+
+
+def sample_counted(torch, model, batch, full_protein, per_call, label):
+    """STEPS guided steps with kernels on, every launch counter set to 0
+    just before and read just after; checks the launches (per_call: each
+    forward kernel's launches per denoiser call) and the samples. Returns
+    (launches, initial state)."""
     from decompdiff_tpu_torch.sampling.sampler import (
         SampleConfig, sample_diffusion)
     ops = model_ops()
-    cfg = SampleConfig(
-        num_steps=STEPS, save_traj=False,
-        energy_drift=({'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
-                      {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0}))
+    cfg = SampleConfig(**SAMPLE_CFG)
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(1)
     centers, stds = batch.atom_prior_centers(), batch.atom_prior_stds()
@@ -547,18 +620,54 @@ def path_phase(torch, model, plain_model, batch, full_protein, per_call,
     check(bool(((out['v'] >= 0) & (out['v'] < 8)).all()), 'atom types')
     check(bool(((out['bond'] >= 0) & (out['bond'] < 5)).all()), 'bond types')
     check(bool((out['bond'][~batch.bond_mask] == 0).all()), 'masked bonds')
+    return launches, (init_pos, init_v, init_b)
 
+
+def path_phase(torch, model, plain_model, batch, full_protein, per_call,
+               label):
+    """Guided sampling with kernels on (launches counted) and with plain
+    versions, then one denoiser call kernels on vs off. Returns the
+    launches."""
+    from decompdiff_tpu_torch.sampling.sampler import (
+        SampleConfig, sample_diffusion)
+    launches, state = sample_counted(torch, model, batch, full_protein,
+                                     per_call, label)
     # the same steps with every kernel replaced by its plain version
+    g = torch.Generator(device=model.device).manual_seed(1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sample_diffusion(plain_model, cfg, batch, init_pos, init_v, init_b,
+    sample_diffusion(plain_model, SampleConfig(**SAMPLE_CFG), batch, *state,
                      full_protein, generator=g)
     torch.cuda.synchronize()
     plain_elapsed = time.perf_counter() - t0
     print(f'{label} path with plain versions: '
           f'{plain_elapsed / STEPS:.4f} s/step', flush=True)
-    denoiser_on_off(torch, model, plain_model, batch,
-                    (init_pos, init_v, init_b), label)
+    denoiser_on_off(torch, model, plain_model, batch, state, label)
+    return launches
+
+
+def bf16_path_phase(torch, model, cfg, batch, full_protein, per_call):
+    """Guided sampling with pallas_bf16 (the triplet kernel's bf16 option),
+    launches counted; then one denoiser call against the float32 kernels of
+    `model` (same weights): the option's cost, printed. Returns the
+    launches."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    bf16 = DecompDiffModel.create(dict(cfg, use_pallas=True, pallas_bf16=True),
+                                  8, device=model.device, seed=0)
+    bf16.denoiser.load_state_dict(model.denoiser.state_dict())
+    per_call = dict(per_call, triplet_attention_bf16=per_call[
+        'triplet_attention'], triplet_attention=0)
+    launches, state = sample_counted(torch, bf16, batch, full_protein,
+                                     per_call, 'uni_o2_bond[bf16]')
+    t = torch.full((B,), model.num_timesteps - 1, dtype=torch.long,
+                   device=model.device)
+    with torch.no_grad():
+        got, want = bf16.apply(batch, *state, t), model.apply(batch, *state, t)
+    for key in want:
+        check(bool(torch.isfinite(got[key]).all()), f'non-finite {key}')
+        print(f'uni_o2_bond[bf16] denoiser against the float32 kernels: '
+              f'{key} max_abs_diff '
+              f'{float((got[key] - want[key]).abs().max()):.3e}', flush=True)
     return launches
 
 
@@ -586,10 +695,12 @@ def kernel_records(results, launches):
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
     its modes, and launches * ms is its time on the path. `launches` is the
     count on the path that runs the kernel: sampling for the forward
-    kernels, training for the backward ones."""
+    kernels (with pallas_bf16 for the triplet's bf16 record), training for
+    the backward ones. bound_fp32_ms: the bound with every operation at the
+    FP32 CUDA-core peak, as PRs 1-3 gave it."""
     kernels = []
     for name, r in results.items():
-        ms, plain_ms, t_ops, t_bytes = (
+        ms, plain_ms, t_ops, t_bytes, t_fp32 = (
             sum(col) / len(r['modes']) for col in zip(*r['modes']))
         base = op_name(name.replace('_backward', ''))
         kernels.append({
@@ -601,6 +712,7 @@ def kernel_records(results, launches):
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
             'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'bound_fp32_ms': max(t_fp32, t_bytes),
             # no single PyTorch call computes these fused MLP attentions or
             # their gradients
             'library_ms': None,
@@ -616,9 +728,15 @@ def model_ops():
             'triplet_attention': triplet_attention}
 
 
+def ops_module(rec):
+    """The ops module of a kernel record name."""
+    return model_ops()[op_name(rec).replace('_backward', '')]
+
+
 def launch_counters(ops):
     """{record name: (wrapper, counter attribute)} of every forward and
-    backward kernel; the m-gated edge launches have counters of their own."""
+    backward kernel; the m-gated edge launches and the triplet's bf16
+    launches have counters of their own."""
     counters = {}
     for name, mod in ops.items():
         for n in (name, f'{name}_backward'):
@@ -626,6 +744,8 @@ def launch_counters(ops):
             if name == 'edge_attention':
                 counters[n.replace(name, f'{name}_mgate')] = (
                     getattr(mod, n), 'gated_launches')
+        if name == 'triplet_attention':
+            counters[f'{name}_bf16'] = (getattr(mod, name), 'bf16_launches')
     return counters
 
 
@@ -688,7 +808,7 @@ def main():
         captured[('edge_attention_mgate', False)] = o2_modes[
             ('edge_attention_mgate', False)]
         with torch.no_grad():
-            results = kernel_phase(torch, ops, captured)
+            results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
         del captured, o2_modes
 
@@ -702,6 +822,8 @@ def main():
                     'edge_attention_mgate': o2_layers}
         sample_launches = path_phase(torch, model, plain_model, batch,
                                      full_protein, bond_calls, 'uni_o2_bond')
+        bf16_launches = bf16_path_phase(torch, model, bond_cfg, batch,
+                                        full_protein, bond_calls)
         o2_sample_launches = path_phase(torch, o2_model, o2_plain, batch,
                                         full_protein, o2_calls, 'uni_o2[m]')
         del model, plain_model, o2_model, o2_plain
@@ -718,12 +840,15 @@ def main():
         return 1
 
     # each kernel's launches on the path that runs it: the m-gated ones on
-    # the uni_o2 paths, the others on the uni_o2_bond paths
+    # the uni_o2 paths, the triplet's bf16 one on the pallas_bf16 sampling
+    # path, the others on the uni_o2_bond paths
     launches = {}
     for n in results:
         sampled, trained = ((o2_sample_launches, o2_train_launches)
                             if '_mgate' in n else
                             (sample_launches, train_launches))
+        if n.endswith('_bf16'):
+            sampled = bf16_launches
         launches[n] = (trained if n.endswith('_backward') else sampled)[n]
     print(json.dumps({'kernels': kernel_records(results, launches)}))
     print(json.dumps({'ok': True, 'device': {

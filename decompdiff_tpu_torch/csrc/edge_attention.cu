@@ -20,20 +20,28 @@
 // Bound on an H100: operations. At the released shapes (B=8, N=352, K=32,
 // H=128) one node-mode forward is ~6.9 GFLOP of per-edge products (the two
 // [H, H] second linears dominate; pos mode ~4.3 GFLOP) against ~10 MB of
-// inputs and output, as chip_smoke.py counts them, so FP32 CUDA-core
-// throughput (67 TFLOP/s) bounds it, not the 3.35 TB/s of device memory.
-// The backward recomputes the forward and adds two products per forward
-// product, about 3x the operations, so it is bound the same way.
+// inputs and output, as chip_smoke.py counts them, not the 3.35 TB/s of
+// device memory. The backward recomputes the forward and adds two products
+// per forward product, about 3x the operations, so it is bound the same way.
 //
-// Forward design: one block per destination node, one thread per channel;
-// sources go in chunks of 16 (row_attention.cuh). The edge-feature product
-// uses the one-hot structure of edge_type: for each type only the sources
-// of that type accumulate its 20 RBF rows and constant row, with the type's
-// weights held in registers, so the 84- (or 126-) row product costs 21 (or
-// 42) multiply-adds per channel and edge. Every per-edge intermediate lives
-// in registers or shared memory; only the [B, N, H] (or [B, N, 3]) output is
-// written. Simple first version: no tensor cores, weights through the
-// read-only cache rather than staged in shared memory.
+// Forward design (row_mma.cuh): a persistent grid of one 512-thread block
+// per SM. Each block stages the [H, H] second linears (both branches in
+// node mode, k in pos mode), split into bf16 hi + lo, in shared memory once
+// and loops over tiles of 2 destination nodes x 32 sources (more sources:
+// an online softmax across chunks of 32). Per tile the gathered t_src and
+// the edge-feature products of both branches run on CUDA cores in one pass
+// (they share the RBF rows and the type tests): the product uses the
+// one-hot structure of edge_type, so for each type only the sources of
+// that type accumulate its 20 RBF rows and constant row, with the type's
+// weights in registers (21, or 42 with groups, multiply-adds per channel
+// and edge). LayerNorm and relu run a warp per four edges and branch; the
+// [H, H] products run on the tensor cores in three bf16 passes (float32
+// accuracy), in node mode both at once, eight warps each. Pos mode's v
+// branch ([H, heads]) stays on CUDA cores, with Wo_v in shared memory. The
+// m-gate's v . wm is one warp reduction per edge.
+// Logits, softmax and the sums of alpha v stay float32. Only the [B, N, H]
+// (or [B, N, 3]) output is written; a tile with no valid edge writes zeros
+// without computing.
 //
 // Backward design (row_attention_bwd.cuh): a fixed grid of blocks, each
 // looping over destination rows, recomputes every per-edge intermediate in
@@ -46,12 +54,13 @@
 // like the clamp of the plain version's safe_norm.
 //
 // The m-gate (uni_o2, ew_net_type 'm') is the template parameter GATE of
-// both kernels; the launchers take it when wm is not null. Its dot product
-// over the H channels of each source is a block reduction per chunk
-// (row_attention.cuh chunk_gate); the backward keeps each source's gate and
+// both kernels; the launchers take it when wm is not null. In the forward
+// its dot product over the H channels of each source is a warp reduction
+// (edge_gate); the backward keeps each source's gate and
 // v before the gate in shared memory, and sums d wm and d bm per block in
 // registers into a slot of their own after the v branch's.
 #include "row_attention_bwd.cuh"
+#include "row_mma.cuh"
 
 using namespace rowattn;
 
@@ -200,48 +209,306 @@ __device__ __forceinline__ bool row_has_source(const float* mrow, int K) {
   return __syncthreads_or(any);
 }
 
-template <bool GATE>
-__global__ void edge_attention_kernel(EdgeArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ EdgeChunk ch;
+// ---------------------------------------------------------------------------
+// forward: tensor-core stage of row_mma.cuh
+// ---------------------------------------------------------------------------
 
-  const int H = a.H, K = a.K, N = a.N;
-  const bool pos = a.pos != 0;
-  float* Yk = smem;
-  float* Yv = Yk + CH * H;
-  float* Vs = Yv + CH * H;
-  Gate gt = a.gate;
-  if constexpr (GATE) {
-    gt.red = Vs + CH * a.n_heads;
-    gt.g = gt.red + (H / 32) * CH;
+namespace rm = rowmma;
+
+// Offsets into the forward kernel's dynamic shared memory; the launcher
+// builds the same layout to size the launch.
+struct EdgeLayout {
+  size_t wk_hi, wk_lo, wv_hi, wv_lo, wv, pk, pv, e, vs, sc, m, l, a3, q,
+      scratch, rbf, dist, src, valid, coef, rel, ta, tb, bytes;
+  __host__ __device__ EdgeLayout(int H, int NH, bool pos) {
+    rm::Carve c;
+    wk_hi = c.take(rm::wo_bytes(H));
+    wk_lo = c.take(rm::wo_bytes(H));
+    wv_hi = pos ? 0 : c.take(rm::wo_bytes(H));
+    wv_lo = pos ? 0 : c.take(rm::wo_bytes(H));
+    wv = pos ? c.take(sizeof(float) * H * NH) : 0;
+    pk = c.take(rm::p_bytes(H));
+    pv = c.take(rm::p_bytes(H));
+    e = c.take(sizeof(float) * NH * rm::EH);
+    vs = pos ? c.take(sizeof(float) * NH * rm::EH) : 0;
+    sc = c.take(sizeof(float) * rm::TI * NH);
+    m = c.take(sizeof(float) * rm::TI * NH);
+    l = c.take(sizeof(float) * rm::TI * NH);
+    a3 = pos ? c.take(sizeof(float) * rm::TI * NH * 3) : 0;
+    q = c.take(sizeof(float) * rm::TI * H);
+    scratch = c.take(sizeof(float) * rm::THREADS);
+    rbf = c.take(sizeof(float) * rm::TILE * R);
+    dist = c.take(sizeof(float) * rm::TILE);
+    src = c.take(sizeof(int) * rm::TILE);
+    valid = c.take(sizeof(int) * rm::TILE);
+    coef = c.take(sizeof(float) * rm::TILE);
+    rel = c.take(sizeof(float) * rm::TILE * 3);
+    ta = c.take(sizeof(int) * rm::TILE);
+    tb = c.take(sizeof(int) * rm::TILE);
+    bytes = c.off;
   }
-  const int row = blockIdx.x;  // b * N + i
-  const int b = row / N;
-  const int c = threadIdx.x;
-  float* out_row = a.out + (size_t)row * (pos ? 3 : H);
+};
 
-  if (!row_has_source(a.mask + (size_t)row * K, K)) {
-    zero_row(out_row, pos);
-    return;
+// The per-edge scalars of a tile (shared memory), pair row r = (il, k).
+struct EdgeTile {
+  float* rbf;   // [TILE][R]
+  float* dist;  // [TILE]
+  int* src;     // [TILE] source node, flat b * N + s
+  int* valid;   // [TILE]
+  float* coef;  // [TILE] weight of v: e_w (times the m-gate)
+  float* rel;   // [TILE][3] x_dst - x_src
+  int* ta;      // [TILE] 4-way edge type
+  int* tb;      // [TILE] group edge type (4 or 5), or -1
+};
+
+// Threads r < TILE: the scalars of pair row r (source k0 + r % KC of row
+// row0 + r / KC). Rows outside the graph (row >= rows or source >= K) get
+// node 0 and weigh nothing. Returns the thread's validity. No barrier.
+__device__ __forceinline__ int edge_tile_setup(const EdgeArgs& a,
+                                               const EdgeTile& t, int row0,
+                                               int rows, int k0) {
+  const int r = threadIdx.x;
+  if (r >= rm::TILE) return 0;
+  const int row = row0 + r / rm::KC, k = k0 + r % rm::KC;
+  int s_flat = 0, ok = 0, ta = 3, tb = -1;
+  float r0 = 0.f, r1 = 0.f, r2 = 0.f, d = 0.f, w = 1.f;
+  if (row < rows && k < a.K) {
+    const int N = a.N, b = row / N;
+    const size_t e = (size_t)row * a.K + k;
+    // the loads that do not depend on the source first
+    int s = a.idx[e];
+    const float m = a.mask[e];
+    w = a.ew[e];
+    const float xd0 = a.x[(size_t)row * 3 + 0], xd1 = a.x[(size_t)row * 3 + 1];
+    const float xd2 = a.x[(size_t)row * 3 + 2];
+    const bool lig_d = a.lig[row] > 0.5f;
+    const float g_d = a.group ? a.group[row] : 0.f;
+    const bool in_range = s >= 0 && s < N;
+    ok = in_range && m > 0.5f;
+    if (!in_range) s = 0;
+    s_flat = b * N + s;
+    const float* xs = a.x + (size_t)s_flat * 3;
+    r0 = xd0 - xs[0];
+    r1 = xd1 - xs[1];
+    r2 = xd2 - xs[2];
+    d = sqrtf(fmaxf(r0 * r0 + r1 * r1 + r2 * r2, 1e-12f));
+    const bool lig_s = a.lig[s_flat] > 0.5f;
+    ta = lig_s ? (lig_d ? 0 : 1) : (lig_d ? 2 : 3);
+    if (a.group) tb = 4 + (a.group[s_flat] == g_d ? 1 : 0);
   }
+  t.src[r] = s_flat;
+  t.valid[r] = ok;
+  t.coef[r] = w;
+  t.rel[r * 3 + 0] = r0;
+  t.rel[r * 3 + 1] = r1;
+  t.rel[r * 3 + 2] = r2;
+  t.ta[r] = ta;
+  t.tb[r] = tb;
+  t.dist[r] = d;
+  return ok;
+}
 
-  const float q_c = a.q[(size_t)row * H + c];
-  const float tk = a.k.t_row[(size_t)row * H + c];
-  const float tv = a.v.t_row[(size_t)row * H + c];
-  const EdgeRow dst = edge_row(a, row);
-  const float scale = 1.f / sqrtf((float)(H / a.n_heads));
-  RowState st;
+// The weights of edge type ty for channel c: its R RBF rows, then its
+// constant row.
+__device__ __forceinline__ void load_type(float (&w)[R + 1],
+                                          const float* __restrict__ w_feat,
+                                          int F, int ty, int H, int c) {
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    w[q] = __ldg(w_feat + (size_t)(ty * R + q) * H + c);
+  w[R] = __ldg(w_feat + (size_t)(F * R + ty) * H + c);
+}
 
-  for (int m0 = 0; m0 < K; m0 += CH) {
-    const int nm = min(CH, K - m0);
-    edge_chunk_setup(a, ch, row, b, m0, nm, dst);
-    __syncthreads();
-    edge_chunk_pre(a, ch, b, tk, tv, Yk, Yv);
-    __syncthreads();
-    finish_chunk<GATE>(Yk, Yv, Vs, a.k, a.v, ch.cs, nm, H, a.n_heads, pos,
-                       q_c, scale, st, gt);
+// Both branches' first-linear outputs of the tile into Pk and Pv: t_row +
+// the gathered t_src + the edge-feature product, type by type, only for
+// the rows of each type; the two branches share the RBF loads and the type
+// tests. Thread t: channel t % H of TILE * H / THREADS consecutive rows (a
+// warp shares its rows, so the type tests are uniform over it). No
+// barrier.
+template <int H>
+__device__ __forceinline__ void edge_tile_pre(const EdgeArgs& a,
+                                              const EdgeTile& t, float trk,
+                                              float trv, float* Pk,
+                                              float* Pv) {
+  constexpr int RPT = rm::TILE * H / rm::THREADS;
+  const int c = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
+  const int F = a.n_types;
+  unsigned types = 0;  // the types among the thread's rows
+#pragma unroll
+  for (int m = 0; m < RPT; ++m)
+    types |= 1u << t.ta[r0 + m] | (t.tb[r0 + m] < 0 ? 0u : 1u << t.tb[r0 + m]);
+  float pk[RPT], pv[RPT];
+#pragma unroll
+  for (int m = 0; m < RPT; ++m) {
+    const size_t src = (size_t)t.src[r0 + m] * H + c;
+    pk[m] = trk + __ldg(a.k.t_src + src);
+    pv[m] = trv + __ldg(a.v.t_src + src);
   }
-  finalize(st, out_row, Vs, H, a.n_heads, pos);
+  for (; types; types &= types - 1) {
+    const int ty = __ffs(types) - 1;
+    float wk[R + 1], wv[R + 1];
+    load_type(wk, a.k.w_feat, F, ty, H, c);
+    load_type(wv, a.v.w_feat, F, ty, H, c);
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int r = r0 + m;
+      if (t.ta[r] != ty && t.tb[r] != ty) continue;
+      const float4* rb = reinterpret_cast<const float4*>(t.rbf + r * R);
+      float sk = wk[R], sv = wv[R];
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        const float4 b = rb[q];
+        sk = fmaf(b.x, wk[4 * q], sk);
+        sv = fmaf(b.x, wv[4 * q], sv);
+        sk = fmaf(b.y, wk[4 * q + 1], sk);
+        sv = fmaf(b.y, wv[4 * q + 1], sv);
+        sk = fmaf(b.z, wk[4 * q + 2], sk);
+        sv = fmaf(b.z, wv[4 * q + 2], sv);
+        sk = fmaf(b.w, wk[4 * q + 3], sk);
+        sv = fmaf(b.w, wv[4 * q + 3], sv);
+      }
+      pk[m] += sk;
+      pv[m] += sv;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < RPT; ++m) {
+    Pk[(r0 + m) * rm::p_ld(H) + c] = pk[m];
+    Pv[(r0 + m) * rm::p_ld(H) + c] = pv[m];
+  }
+}
+
+// The m-gate: coef[r] *= sigmoid(V[r] . wm + bm) for the tile's rows of V
+// (float32 in P). Warp w takes rows w, w + WARPS, ... at once. No barrier.
+template <int H>
+__device__ __forceinline__ void edge_gate(const float* V, const Gate& gt,
+                                          float* coef) {
+  constexpr int RW = rm::TILE / rm::WARPS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float s[RW];
+#pragma unroll
+  for (int q = 0; q < RW; ++q) {
+    const float* v = V + (warp + q * rm::WARPS) * rm::p_ld(H);
+    s[q] = 0.f;
+#pragma unroll
+    for (int c = lane; c < H; c += 32)
+      s[q] = fmaf(v[c], __ldg(gt.wm + c), s[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < RW; ++q) s[q] = rm::warp_sum(s[q]) + __ldg(gt.bm);
+  if (lane == 0)
+#pragma unroll
+    for (int q = 0; q < RW; ++q)
+      coef[warp + q * rm::WARPS] *= 1.f / (1.f + expf(-s[q]));
+}
+
+// Persistent: block g takes the tiles g, g + gridDim.x, ... of 2
+// destination rows each.
+template <int H, bool POS, bool GATE>
+__global__ void __launch_bounds__(rm::THREADS, 1)
+    edge_attention_kernel(EdgeArgs a, int B) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int K = a.K, NH = a.n_heads, rows = B * a.N;
+  const EdgeLayout lay(H, NH, POS);
+  rm::bf16* wkh = reinterpret_cast<rm::bf16*>(dyn + lay.wk_hi);
+  rm::bf16* wkl = reinterpret_cast<rm::bf16*>(dyn + lay.wk_lo);
+  rm::bf16* wvh = reinterpret_cast<rm::bf16*>(dyn + lay.wv_hi);
+  rm::bf16* wvl = reinterpret_cast<rm::bf16*>(dyn + lay.wv_lo);
+  float* WV = reinterpret_cast<float*>(dyn + lay.wv);
+  float* Pk = reinterpret_cast<float*>(dyn + lay.pk);
+  float* Pv = reinterpret_cast<float*>(dyn + lay.pv);
+  float* VS = reinterpret_cast<float*>(dyn + lay.vs);
+  float* A3 = reinterpret_cast<float*>(dyn + lay.a3);
+  const rm::Softmax sm{reinterpret_cast<float*>(dyn + lay.e),
+                       reinterpret_cast<float*>(dyn + lay.sc),
+                       reinterpret_cast<float*>(dyn + lay.m),
+                       reinterpret_cast<float*>(dyn + lay.l)};
+  float* Q = reinterpret_cast<float*>(dyn + lay.q);
+  float* scratch = reinterpret_cast<float*>(dyn + lay.scratch);
+  const EdgeTile et{reinterpret_cast<float*>(dyn + lay.rbf),
+                    reinterpret_cast<float*>(dyn + lay.dist),
+                    reinterpret_cast<int*>(dyn + lay.src),
+                    reinterpret_cast<int*>(dyn + lay.valid),
+                    reinterpret_cast<float*>(dyn + lay.coef),
+                    reinterpret_cast<float*>(dyn + lay.rel),
+                    reinterpret_cast<int*>(dyn + lay.ta),
+                    reinterpret_cast<int*>(dyn + lay.tb)};
+
+  rm::stage_wo<H>(a.k.wo, wkh, wkl);
+  if (POS) {  // Wo_v [H][NH], float32
+    for (int e = threadIdx.x; e < H * NH; e += rm::THREADS)
+      WV[e] = __ldg(a.v.wo + e);
+  } else {
+    rm::stage_wo<H>(a.v.wo, wvh, wvl);
+  }
+  const float scale = 1.f / sqrtf((float)(H / NH));
+  const int c = threadIdx.x % H;
+  // the tile row of this thread's pre-phase rows
+  const int il_t = (threadIdx.x / H) * (rm::TILE * H / rm::THREADS) / rm::KC;
+  const int n_tiles = (rows + rm::TI - 1) / rm::TI;
+
+  // A tile without a valid edge skips all its chunks and writes zeros.
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * rm::TI, n_rows = min(rm::TI, rows - row0);
+    float* out0 = a.out + (size_t)row0 * (POS ? 3 : H);
+    const bool in_t = il_t < n_rows;
+    const size_t t_off = (size_t)(row0 + il_t) * H + c;
+    const float trk = in_t ? a.k.t_row[t_off] : 0.f;
+    const float trv = in_t ? a.v.t_row[t_off] : 0.f;
+    float acc = 0.f;
+
+    for (int k0 = 0; k0 < max(K, 1); k0 += rm::KC) {  // K = 0: one empty
+      __syncthreads();  // the last chunk (tile) is done with the shared data
+      if (k0 == 0) {    // the tile's rows: q and the softmax state
+        for (int e = threadIdx.x; e < rm::TI * H; e += rm::THREADS)
+          Q[e] = e / H < n_rows ? a.q[(size_t)row0 * H + e] : 0.f;
+        rm::softmax_reset(sm, NH);
+        if (POS)
+          for (int e = threadIdx.x; e < rm::TI * NH * 3; e += rm::THREADS)
+            A3[e] = 0.f;
+      }
+      const int live = edge_tile_setup(a, et, row0, rows, k0);
+      if (!__syncthreads_or(live)) continue;  // no valid edge in the chunk
+      // RBF q of row r by thread r + TILE * j: q is uniform over a warp
+      for (int u = threadIdx.x; u < rm::TILE * R; u += rm::THREADS) {
+        const int r = u % rm::TILE, q = u / rm::TILE;
+        const float v = et.dist[r] - kRbfOffsets[q];
+        et.rbf[r * R + q] = expf(-0.5f * v * v);
+      }
+      __syncthreads();
+
+      // both branches: first linear, LayerNorm and relu, second linear
+      edge_tile_pre<H>(a, et, trk, trv, Pk, Pv);
+      __syncthreads();
+      rm::ln_relu<H, rm::kHiLo>(Pk, a.k.lns, a.k.lnb);
+      rm::ln_relu<H, POS ? rm::kF32 : rm::kHiLo>(Pv, a.v.lns, a.v.lnb);
+      __syncthreads();
+      if (POS) {  // k on the tensor cores, then v's [H, heads] on CUDA cores
+        rm::tile_product<H, true>(Pk, wkh, wkl, a.k.bo);
+        rm::tile_heads<H>(Pv, WV, a.v.bo, NH, VS);
+      } else {    // warps 0-7 take k, warps 8-15 v
+        const int g = threadIdx.x / (rm::THREADS / 2);
+        rm::tile_product<H, true, rm::WARPS / 2>(
+            g ? Pv : Pk, g ? wvh : wkh, g ? wvl : wkl, g ? a.v.bo : a.k.bo,
+            (threadIdx.x >> 5) % (rm::WARPS / 2));
+      }
+      // the logits and the online softmax; the m-gate
+      rm::chunk_logits<H>(Pk, Q, et.valid, NH, scale, sm);
+      if (GATE) edge_gate<H>(Pv, a.gate, et.coef);
+      __syncthreads();
+      // the sums of alpha v
+      if (POS)
+        rm::chunk_acc_pos(VS, sm, et.coef, et.rel, A3, NH);
+      else
+        acc = rm::chunk_acc_node<H>(acc, Pv, sm, et.coef, NH);
+    }
+    if (POS) {
+      __syncthreads();
+      rm::finish_pos(sm, A3, NH, out0, n_rows);
+    } else {
+      rm::finish_node<H>(acc, sm, NH, scratch, out0, H, n_rows);
+    }
+  }
 }
 
 struct EdgeBwdArgs {
@@ -419,12 +686,25 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
   }
 }
 
-template <bool GATE>
-cudaError_t launch_fwd(const EdgeArgs& a, int rows, size_t smem,
-                       cudaStream_t stream) {
-  cudaError_t err = allow_smem(edge_attention_kernel<GATE>, smem);
+// One block per SM (at most one per tile).
+template <int H>
+cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  edge_attention_kernel<GATE><<<rows, a.H, smem, stream>>>(a);
+  const size_t smem = EdgeLayout(H, a.n_heads, a.pos != 0).bytes;
+  void (*kernel)(EdgeArgs, int) = edge_attention_kernel<H, false, false>;
+  if (a.pos)
+    kernel = edge_attention_kernel<H, true, false>;
+  else if (a.gate.wm)
+    kernel = edge_attention_kernel<H, false, true>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B * a.N + rm::TI - 1) / rm::TI;
+  kernel<<<std::min(sms, tiles), rm::THREADS, smem, stream>>>(a, B);
   return cudaGetLastError();
 }
 
@@ -456,12 +736,13 @@ extern "C" int edge_attention_fwd(
              Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, N, K, H, n_heads, n_types, pos, Gate{wm, bm}};
-  const size_t smem = smem_bytes(H, n_heads, 0);
-  if (!wm) return (int)launch_fwd<false>(a, B * N, smem, (cudaStream_t)stream);
-  // plus the gate's block-sum scratch and the chunk's CH gates
-  const size_t gate_smem = sizeof(float) * ((size_t)(H / 32) * CH + CH);
-  return (int)launch_fwd<true>(a, B * N, smem + gate_smem,
-                               (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {  // the forward kernels take H = 32, 64 or 128
+    case 32: return (int)launch_fwd<32>(a, B, s);
+    case 64: return (int)launch_fwd<64>(a, B, s);
+    case 128: return (int)launch_fwd<128>(a, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Backward: G blocks over the B*N rows, then the fixed-order slot sum into

@@ -13,18 +13,28 @@
 // and t_row are the factorized O(Nl^2) terms, computed before the launch.
 //
 // Bound on an H100: operations. At the released shapes (B=8, Nl=32, H=128)
-// one forward is ~17 GFLOP of per-triplet products (the two [H, H] second
-// linears are 90% of it) against ~26 MB of inputs and output, as
-// chip_smoke.py counts them; FP32 CUDA-core throughput bounds it, and it is
-// the largest kernel of a denoiser call. The backward recomputes the
-// forward and adds two products per forward product (~52 GFLOP), still
-// against O(Nl^3) bytes, so it is bound the same way.
+// one forward is ~19 GFLOP of per-triplet products against ~26 MB of
+// inputs and output, as chip_smoke.py counts them; the two [H, H] second
+// linears are ~17 GFLOP of it, and the largest kernel of a denoiser call.
+// The backward recomputes the forward and adds two products per forward
+// product (~52 GFLOP), still against O(Nl^3) bytes.
 //
-// Forward design: one block per (complex, i, j), one thread per channel;
-// the k axis goes in chunks of 16 (row_attention.cuh). The 13-wide angular
-// code is built in shared memory with sincosf (no polynomial) and projected
-// with Wa's column held in registers; no O(Nl^3 H) intermediate leaves the
-// SM. A row whose bond (j -> i) is masked writes zeros without computing.
+// Forward design (row_mma.cuh): a persistent grid of one 512-thread block
+// per SM. Each block stages Wo_k and Wo_v, split into bf16 hi + lo, in
+// shared memory once, then loops over work items (complex b, atom j); an
+// item stages t_src[b, j, :, :] of both branches in shared memory (when it
+// fits, else reads it through the cache) and walks its rows i two at a
+// time: a tile is 2 rows i x 32 atoms k (more k: an online softmax across
+// chunks of 32). Per tile and branch each warp builds four pair rows on
+// CUDA cores, a lane four channels with their columns of Wa in registers:
+// the 13-wide angular code (sincosf, no polynomial) projected and added to
+// t_row and t_src, then LayerNorm and relu on the registers, split into
+// bf16 hi + lo in shared memory. The [H, H] product runs on the tensor
+// cores, three bf16 passes (float32 accuracy),
+// or one with `bf16` (the `pallas_bf16` option of the TPU kernel,
+// triplet_kernel.py:121-126). Logits, softmax and sum alpha v stay float32
+// on CUDA cores. No O(Nl^3 H) intermediate leaves the SM. A tile with no
+// valid triplet writes zeros without computing.
 //
 // Backward design (row_attention_bwd.cuh): the TPU kernel sums
 // d t_src[j, k] = sum_i d pre[i, j, k] over its sequential grid. Here a
@@ -34,12 +44,14 @@
 // row and written directly. d Wa stays in registers per thread until the
 // block ends. Every per-triplet intermediate is recomputed in shared memory.
 #include "row_attention_bwd.cuh"
+#include "row_mma.cuh"
 
 using namespace rowattn;
 
 namespace {
 
-constexpr int A = 13;  // angular code width
+constexpr int A = 13;   // angular code width
+constexpr int AP = 16;  // its row stride in the forward's shared memory
 __constant__ float kFreqs[6] = {1.f, 2.f, 3.f, 1.f, 0.5f, 1.f / 3.f};
 
 struct TripletArgs {
@@ -109,49 +121,213 @@ __device__ __forceinline__ bool row_has_source(const TripletArgs& a, int row,
   return __syncthreads_or(any);
 }
 
-__global__ void triplet_attention_kernel(TripletArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ ChunkSources cs;
-  __shared__ float s_ang[CH][A];
+// ---------------------------------------------------------------------------
+// forward: tensor-core stage of row_mma.cuh
+// ---------------------------------------------------------------------------
 
-  const int H = a.H, Nl = a.Nl;
-  float* Yk = smem;
-  float* Yv = Yk + CH * H;
-  float* Vs = Yv + CH * H;
-  const int row = blockIdx.x;  // (b * Nl + i) * Nl + j
-  const int bi = row / Nl;
-  const int b = bi / Nl, i = bi % Nl, j = row % Nl;
-  const int c = threadIdx.x;
-  const float* mrow_j = a.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
-  float* out_row = a.out + (size_t)row * H;
+namespace rm = rowmma;
 
-  if (!row_has_source(a, row, i, mrow_j)) {
-    zero_row(out_row, false);
-    return;
+// Offsets into the forward kernel's dynamic shared memory; the launcher
+// builds the same layout to size the launch.
+struct TripletLayout {
+  size_t wk_hi, wk_lo, wv_hi, wv_lo, wa, p, ang, e, sc, m, l, q, scratch,
+      valid, ts, bytes;
+  __host__ __device__ TripletLayout(int H, int NH, int Nl, bool split,
+                                    bool stage) {
+    rm::Carve c;
+    wk_hi = c.take(rm::wo_bytes(H));
+    wk_lo = split ? c.take(rm::wo_bytes(H)) : 0;
+    wv_hi = c.take(rm::wo_bytes(H));
+    wv_lo = split ? c.take(rm::wo_bytes(H)) : 0;
+    wa = c.take(sizeof(float) * 2 * A * H);
+    p = c.take(rm::p_bytes(H));
+    ang = c.take(sizeof(float) * rm::TILE * AP);
+    e = c.take(sizeof(float) * NH * rm::EH);
+    sc = c.take(sizeof(float) * rm::TI * NH);
+    m = c.take(sizeof(float) * rm::TI * NH);
+    l = c.take(sizeof(float) * rm::TI * NH);
+    q = c.take(sizeof(float) * rm::TI * H);
+    scratch = c.take(sizeof(float) * rm::THREADS);
+    valid = c.take(sizeof(int) * rm::TILE);
+    ts = stage ? c.take(sizeof(float) * 2 * (size_t)Nl * H) : 0;
+    bytes = c.off;
   }
+};
 
-  const float q_c = a.q[(size_t)row * H + c];
-  const float tk = a.k.t_row[(size_t)row * H + c];
-  const float tv = a.v.t_row[(size_t)row * H + c];
-  float wak[A], wav[A];
+// One branch's y of the tile into P, in the form FORM: pair row r = (il, k)
+// gets pre = t_row[i0 + il] + t_src[k0 + k] + ang[r] @ Wa (0 outside the
+// atoms), then relu(LayerNorm(pre)) (rm::ln_write). Warp w builds its own
+// rows w, w + WARPS, ... in registers, a lane channels lane + 32 v, so the
+// LayerNorm needs neither a barrier nor a pass through shared memory.
+// wa: the branch's Wa [A][H] in shared memory; t_row0: t_row of row i0
+// (rows Nl * H apart); ts: the item's t_src rows [Nl][H], in shared or
+// device memory. No barrier.
+template <int H, int FORM>
+__device__ __forceinline__ void triplet_tile_y(const float (*ang)[AP],
+                                               const Branch& br,
+                                               const float* wa,
+                                               const float* t_row0,
+                                               const float* ts, int i0,
+                                               int k0, int Nl, float* P) {
+  constexpr int NV = H / 32;
+  static_assert(rm::KC % rm::WARPS == 0, "a warp's row q is in row il");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float w[A][NV], tr[rm::TI][NV], x[rm::RW][NV];
 #pragma unroll
-  for (int t = 0; t < A; ++t) {
-    wak[t] = __ldg(a.k.w_feat + (size_t)t * H + c);
-    wav[t] = __ldg(a.v.w_feat + (size_t)t * H + c);
+  for (int v = 0; v < NV; ++v) {
+#pragma unroll
+    for (int t = 0; t < A; ++t)
+      w[t][v] = wa[t * H + lane + 32 * v];
+#pragma unroll
+    for (int il = 0; il < rm::TI; ++il)
+      tr[il][v] = i0 + il < Nl
+                      ? t_row0[(size_t)il * Nl * H + lane + 32 * v]
+                      : 0.f;
   }
-  const float scale = 1.f / sqrtf((float)(H / a.n_heads));
-  RowState st;
+#pragma unroll
+  for (int q = 0; q < rm::RW; ++q) {
+    const int il = q * rm::WARPS / rm::KC, r = warp + q * rm::WARPS;
+    const int k = k0 + r % rm::KC;
+    const float* tsr = ts + (size_t)min(k, Nl - 1) * H;
+    float a[AP];
+#pragma unroll
+    for (int t = 0; t < AP / 4; ++t) {
+      const float4 a4 = reinterpret_cast<const float4*>(ang[r])[t];
+      a[4 * t] = a4.x;
+      a[4 * t + 1] = a4.y;
+      a[4 * t + 2] = a4.z;
+      a[4 * t + 3] = a4.w;
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float p = tr[il][v] + tsr[lane + 32 * v];
+#pragma unroll
+      for (int t = 0; t < A; ++t) p = fmaf(a[t], w[t][v], p);
+      x[q][v] = i0 + il < Nl && k < Nl ? p : 0.f;
+    }
+  }
+  rm::ln_write<H, FORM>(P, x, br.lns, br.lnb);
+}
 
-  for (int m0 = 0; m0 < Nl; m0 += CH) {
-    const int nm = min(CH, Nl - m0);
-    triplet_chunk_setup(a, cs, s_ang, nullptr, row, i, mrow_j, m0, nm);
-    __syncthreads();
-    triplet_chunk_pre(a, cs, s_ang, wak, wav, b, j, tk, tv, Yk, Yv);
-    __syncthreads();
-    finish_chunk(Yk, Yv, Vs, a.k, a.v, cs, nm, H, a.n_heads, false, q_c,
-                 scale, st);
+// Persistent: block g takes work items (b, j) = g, g + gridDim.x, ...;
+// stage != 0: the item's t_src rows are copied into shared memory.
+template <int H, bool BF16>
+__global__ void __launch_bounds__(rm::THREADS, 1)
+    triplet_attention_kernel(TripletArgs a, int B, int stage) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  constexpr int Y = BF16 ? rm::kHi : rm::kHiLo;
+  const int Nl = a.Nl, NH = a.n_heads;
+  const TripletLayout lay(H, NH, Nl, !BF16, stage != 0);
+  rm::bf16* wkh = reinterpret_cast<rm::bf16*>(dyn + lay.wk_hi);
+  rm::bf16* wvh = reinterpret_cast<rm::bf16*>(dyn + lay.wv_hi);
+  rm::bf16* wkl =
+      BF16 ? nullptr : reinterpret_cast<rm::bf16*>(dyn + lay.wk_lo);
+  rm::bf16* wvl =
+      BF16 ? nullptr : reinterpret_cast<rm::bf16*>(dyn + lay.wv_lo);
+  float* WA = reinterpret_cast<float*>(dyn + lay.wa);  // Wa_k, then Wa_v
+  float* P = reinterpret_cast<float*>(dyn + lay.p);
+  float(*ang)[AP] = reinterpret_cast<float(*)[AP]>(dyn + lay.ang);
+  const rm::Softmax sm{reinterpret_cast<float*>(dyn + lay.e),
+                       reinterpret_cast<float*>(dyn + lay.sc),
+                       reinterpret_cast<float*>(dyn + lay.m),
+                       reinterpret_cast<float*>(dyn + lay.l)};
+  float* Q = reinterpret_cast<float*>(dyn + lay.q);
+  float* scratch = reinterpret_cast<float*>(dyn + lay.scratch);
+  int* valid = reinterpret_cast<int*>(dyn + lay.valid);
+  float* TS = reinterpret_cast<float*>(dyn + lay.ts);
+
+  rm::stage_wo<H>(a.k.wo, wkh, wkl);
+  rm::stage_wo<H>(a.v.wo, wvh, wvl);
+  for (int e = threadIdx.x; e < A * H; e += rm::THREADS) {
+    WA[e] = __ldg(a.k.w_feat + e);
+    WA[A * H + e] = __ldg(a.v.w_feat + e);
   }
-  finalize(st, out_row, Vs, H, a.n_heads, false);
+  const float scale = 1.f / sqrtf((float)(H / NH));
+
+  for (int item = blockIdx.x; item < B * Nl; item += gridDim.x) {
+    const int b = item / Nl, j = item % Nl;
+    const float* mrow_j = a.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
+    const size_t src0 = ((size_t)b * Nl + j) * Nl * H;
+    const float* tsk = a.k.t_src + src0;
+    const float* tsv = a.v.t_src + src0;
+    if (stage) {
+      __syncthreads();  // the last item is done with TS
+      const int n = Nl * H;
+      if (((reinterpret_cast<uintptr_t>(tsk) |
+            reinterpret_cast<uintptr_t>(tsv)) & 15) == 0) {
+        for (int e = threadIdx.x; e < n / 2; e += rm::THREADS)
+          reinterpret_cast<float4*>(TS)[e] =
+              e < n / 4 ? __ldg(reinterpret_cast<const float4*>(tsk) + e)
+                        : __ldg(reinterpret_cast<const float4*>(tsv) + e -
+                                n / 4);
+      } else {
+        for (int e = threadIdx.x; e < 2 * n; e += rm::THREADS)
+          TS[e] = e < n ? __ldg(tsk + e) : __ldg(tsv + e - n);
+      }
+      tsk = TS;
+      tsv = TS + (size_t)Nl * H;
+    }
+    // a tile: rows i0, i0 + 1 (rows (b, i, j) of out, Nl * H apart); one
+    // without a valid triplet skips all its chunks and writes zeros
+    for (int i0 = 0; i0 < Nl; i0 += rm::TI) {
+      const int n_rows = min(rm::TI, Nl - i0);
+      const size_t row0 = (((size_t)b * Nl + i0) * Nl + j) * H;
+      float acc = 0.f;
+
+      for (int k0 = 0; k0 < Nl; k0 += rm::KC) {
+        __syncthreads();  // the last chunk (tile, item) is done with them
+        if (k0 == 0) {    // the tile's rows: q and the softmax state
+          for (int e = threadIdx.x; e < rm::TI * H; e += rm::THREADS)
+            Q[e] = e / H < n_rows
+                       ? a.q[row0 + (size_t)(e / H) * Nl * H + e % H]
+                       : 0.f;
+          rm::softmax_reset(sm, NH);
+        }
+        int live = 0;
+        for (int u = threadIdx.x; u < rm::TILE * 7; u += rm::THREADS) {
+          const int r = u / 7, f = u - r * 7;
+          const int i = i0 + r / rm::KC, k = k0 + r % rm::KC;
+          const bool in = i < Nl && k < Nl;
+          float x = 0.f, m_ij = 0.f, m_jk = 0.f;
+          if (in) {  // independent loads
+            x = a.angle[(((size_t)b * Nl + i) * Nl + j) * Nl + k];
+            if (f == 6) {
+              m_ij = a.mask[((size_t)b * Nl + i) * Nl + j];
+              m_jk = mrow_j[k];
+            }
+          }
+          if (f == 6) {
+            const int ok = k != i && m_jk > 0.5f && m_ij > 0.5f;
+            valid[r] = ok;
+            live |= ok;
+            ang[r][0] = x;
+          } else {
+            float s, co;
+            sincosf(x * kFreqs[f], &s, &co);
+            ang[r][1 + f] = s;
+            ang[r][7 + f] = co;
+          }
+        }
+        if (!__syncthreads_or(live)) continue;  // no triplet in the chunk
+
+        // k: logits and the online softmax
+        triplet_tile_y<H, Y>(ang, a.k, WA, a.k.t_row + row0, tsk, i0, k0, Nl,
+                             P);
+        __syncthreads();
+        rm::tile_product<H, !BF16>(P, wkh, wkl, a.k.bo);
+        rm::chunk_logits<H>(P, Q, valid, NH, scale, sm);
+        __syncthreads();
+        // v: sum alpha v
+        triplet_tile_y<H, Y>(ang, a.v, WA + A * H, a.v.t_row + row0, tsv, i0,
+                             k0, Nl, P);
+        __syncthreads();
+        rm::tile_product<H, !BF16>(P, wvh, wvl, a.v.bo);
+        acc = rm::chunk_acc_node<H>(acc, P, sm, nullptr, NH);
+      }
+      rm::finish_node<H>(acc, sm, NH, scratch, a.out + row0, (size_t)Nl * H,
+                         n_rows);
+    }
+  }
 }
 
 struct TripletBwdArgs {
@@ -282,8 +458,36 @@ __global__ void triplet_attention_bwd_kernel(TripletBwdArgs a) {
   flush_small(acc, sk, sv, nh, false);
 }
 
+// One block per SM (at most one per work item). t_src is staged when the
+// whole layout fits the block's shared memory.
+template <int H>
+cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
+                       cudaStream_t stream) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const bool stage =
+      TripletLayout(H, a.n_heads, a.Nl, !bf16, true).bytes <= (size_t)optin;
+  const size_t smem = TripletLayout(H, a.n_heads, a.Nl, !bf16, stage).bytes;
+  void (*kernel)(TripletArgs, int, int) = triplet_attention_kernel<H, false>;
+  if (bf16) kernel = triplet_attention_kernel<H, true>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<std::min(sms, B * a.Nl), rm::THREADS, smem, stream>>>(a, B,
+                                                                 stage);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Forward. bf16 != 0: one bf16 pass of the second linears (the TPU
+// kernel's `bf16` option); otherwise float32 accuracy. H: 32, 64 or 128.
 extern "C" int triplet_attention_fwd(
     const float* angle, const float* mask, const float* q,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -292,17 +496,19 @@ extern "C" int triplet_attention_fwd(
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb,
-    float* out, int B, int Nl, int H, int n_heads, void* stream) {
+    float* out, int B, int Nl, int H, int n_heads, int bf16, void* stream) {
   if (B * Nl == 0) return 0;
   TripletArgs a{angle, mask, q,
                 Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
                 Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                 out, Nl, H, n_heads};
-  const size_t smem = smem_bytes(H, n_heads, 0);
-  cudaError_t err = allow_smem(triplet_attention_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  triplet_attention_kernel<<<B * Nl * Nl, H, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 32: return (int)launch_fwd<32>(a, B, bf16 != 0, s);
+    case 64: return (int)launch_fwd<64>(a, B, bf16 != 0, s);
+    case 128: return (int)launch_fwd<128>(a, B, bf16 != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order

@@ -189,13 +189,16 @@ class BondTripletAttention(nn.Module):
     features (ref BondUpdateLayer, uni_transformer_edge.py:77-167). The first
     projection of the kv input [h_bond[j,k], r_feat[j,k], r_feat[i,j],
     a_feat, h[k], h[j]] is factorized into (j,k), (i,j), j and angular
-    terms; only the 13-wide angular code is projected per triplet."""
+    terms; only the 13-wide angular code is projected per triplet. `bf16`
+    (config key `pallas_bf16`) takes the kernel's bf16 second linears; like
+    the JAX module, only the kernel path reads it."""
 
     def __init__(self, hidden_dim, n_heads, include_h_node=True,
-                 use_kernels=False):
+                 use_kernels=False, bf16=False):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
+        self.bf16 = bf16
         self.include_h_node = include_h_node
         kj_in = H + 20 + (H if include_h_node else 0)
         for prefix in ('hk', 'hv'):
@@ -231,12 +234,14 @@ class BondTripletAttention(nn.Module):
         r_feat = fixed_rbf(d)                                   # [B, Nl, Nl, 20]
         q_in = (torch.cat([h_bond, h_lig[:, :, None, :].expand(B, Nl, Nl, H)],
                           dim=-1) if self.include_h_node else h_bond)
-        fn = (triplet_ops.triplet_attention if self.use_kernels
-              else triplet_ops.triplet_attention_reference)
-        return fn(triplet_angles(x_lig), bond_mask, self.hq(q_in),
-                  self._branch('hk', h_lig, h_bond, r_feat),
-                  self._branch('hv', h_lig, h_bond, r_feat),
-                  n_heads=self.n_heads)
+        args = (triplet_angles(x_lig), bond_mask, self.hq(q_in),
+                self._branch('hk', h_lig, h_bond, r_feat),
+                self._branch('hv', h_lig, h_bond, r_feat))
+        if self.use_kernels:
+            return triplet_ops.triplet_attention(*args, n_heads=self.n_heads,
+                                                 bf16=self.bf16)
+        return triplet_ops.triplet_attention_reference(*args,
+                                                       n_heads=self.n_heads)
 
 
 class AttentionLayerBond(nn.Module):
@@ -244,7 +249,7 @@ class AttentionLayerBond(nn.Module):
     (ref AttentionLayerO2TwoUpdateNodeGeneral, uni_transformer_edge.py:213-287)."""
 
     def __init__(self, hidden_dim, n_heads, x2h_out_fc, include_h_node,
-                 n_etypes=4, use_kernels=False):
+                 n_etypes=4, use_kernels=False, triplet_bf16=False):
         super().__init__()
         H = hidden_dim
         self.node_layer_with_edge = NodeEdgeAttention(
@@ -253,7 +258,7 @@ class AttentionLayerBond(nn.Module):
             H, n_heads, out_fc=x2h_out_fc, use_kernels=use_kernels)
         self.bond_layer = BondTripletAttention(
             H, n_heads, include_h_node=include_h_node,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, bf16=triplet_bf16)
         self.lin_node = Dense(H, H)
         self.pos_layer_with_edge = PosEdgeAttention(
             H, n_heads, n_etypes, use_kernels=use_kernels)
@@ -287,7 +292,8 @@ class UniTransformerBond(nn.Module):
 
     def __init__(self, num_blocks, num_layers, hidden_dim, n_heads, k,
                  x2h_out_fc=True, include_h_node=False, use_kernels=False,
-                 cutoff_mode='knn', r_max=10.0, n_etypes=4):
+                 cutoff_mode='knn', r_max=10.0, n_etypes=4,
+                 triplet_bf16=False):
         super().__init__()
         if cutoff_mode not in ('knn', 'radius', 'hybrid'):
             raise NotImplementedError(f'cutoff_mode {cutoff_mode!r}')
@@ -300,7 +306,7 @@ class UniTransformerBond(nn.Module):
         for i in range(num_layers):
             setattr(self, f'layer_{i}', AttentionLayerBond(
                 hidden_dim, n_heads, x2h_out_fc, include_h_node, n_etypes,
-                use_kernels))
+                use_kernels, triplet_bf16))
         self.num_layers = num_layers
 
     def forward(self, h, x, h_bond, mask_all, mask_ligand, movable,

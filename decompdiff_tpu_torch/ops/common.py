@@ -108,6 +108,18 @@ def check_heads(H: int, n_heads: int) -> None:
         raise ValueError(f'head width {hd} must divide 32')
 
 
+TENSOR_CORE_WIDTHS = (32, 64, 128)
+
+
+def check_tensor_core_width(H: int) -> None:
+    """The tensor-core forward kernels (edge and triplet) give each thread
+    of a 512-thread block whole rows of one channel and keep both branches'
+    [H, H] second linears in shared memory."""
+    if H not in TENSOR_CORE_WIDTHS:
+        raise ValueError(f'hidden width {H}: the edge and triplet forward '
+                         f'kernels take H in {TENSOR_CORE_WIDTHS}')
+
+
 def branch_ptrs(p: Branch) -> list:
     return [ctypes.c_void_p(t.data_ptr()) for t in p]
 

@@ -44,7 +44,7 @@ from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
-    launch, on_cpu, ptr)
+    check_tensor_core_width, launch, on_cpu, ptr)
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -154,6 +154,7 @@ def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode,
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
                           pos_mode, gate)
     check_inputs(q.device, named)
+    check_tensor_core_width(H)
     out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
     wm, bm = gate or (None, None)

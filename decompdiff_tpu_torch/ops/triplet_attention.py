@@ -15,6 +15,14 @@ For every bond edge (j -> i) and every third ligand atom k:
 `t_src` is the factorized (k -> j) term with the angular bias folded in and
 `t_row` the (i, j) term; both are computed by the caller.
 
+`bf16=True` is the TPU kernel's `bf16` option (config key `pallas_bf16`):
+the two second linears take y and Wo rounded to bf16, with float32
+accumulation, in the forward only. The gradient stays the float32 one
+(triplet_kernel.py: "the backward kernel is always f32"): its backward
+recomputes the forward without the rounding. The launches of the two
+forward variants are counted apart (`triplet_attention.launches`,
+`triplet_attention.bf16_launches`).
+
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
 in the backward kernel.
@@ -25,12 +33,13 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from decompdiff_tpu_torch.models.common import ANGULAR_DIM, angular_encoding
+from decompdiff_tpu_torch.models.common import (
+    ANGULAR_DIM, angular_encoding, layer_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
-    launch, on_cpu, ptr)
+    check_tensor_core_width, launch, on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -43,15 +52,21 @@ def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def triplet_attention_reference(angle, mask, q, k: Branch, v: Branch, *,
-                                n_heads: int) -> torch.Tensor:
+                                n_heads: int,
+                                bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
-    path (models/uni_transformer_bond.py BondTripletAttention)."""
+    path (models/uni_transformer_bond.py BondTripletAttention). bf16: the
+    second linears multiply y and Wo rounded to bf16 in float32, where
+    bf16 x bf16 products are exact (triplet_kernel.py:121-126)."""
     a_feat = angular_encoding(angle)                          # [B,i,j,k,13]
 
     def branch(p: Branch):
         pre = (a_feat @ p.w_feat + p.t_src[:, None, :, :, :]
                + p.t_row[:, :, :, None, :])
-        return branch_mlp(pre, p)
+        if not bf16:
+            return branch_mlp(pre, p)
+        y = torch.relu(layer_norm(pre, p.ln_scale, p.ln_bias))
+        return y.bfloat16().float() @ p.wo.bfloat16().float() + p.bo
 
     return attend(q, branch(k), branch(v), triplet_mask(mask), n_heads)
 
@@ -81,28 +96,39 @@ def _checks(angle, mask, q, k, v, n_heads):
     return named
 
 
-def _forward(angle, mask, q, k, v, n_heads):
+def _forward(angle, mask, q, k, v, n_heads, bf16):
     B, Nl = angle.shape[:2]
     H = q.shape[-1]
     check_inputs(q.device, _checks(angle, mask, q, k, v, n_heads))
+    check_tensor_core_width(H)
     out = torch.empty((B, Nl, Nl, H), device=q.device, dtype=torch.float32)
-    fn = _build.load('triplet_attention', 'triplet_attention_fwd', 18, 4)
+    fn = _build.load('triplet_attention', 'triplet_attention_fwd', 18, 5)
     args = ([ptr(angle), ptr(mask), ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
-            + [ptr(out)] + [B, Nl, H, n_heads])
+            + [ptr(out)] + [B, Nl, H, n_heads, int(bf16)])
     launch(fn, args, q.device, 'triplet_attention')
-    triplet_attention.launches += 1
+    if bf16:
+        triplet_attention.bf16_launches += 1
+    else:
+        triplet_attention.launches += 1
     return out
 
 
 class _TripletAttention(torch.autograd.Function):
-    """Forward kernel, saving only the inputs; backward kernel."""
+    """Forward, saving only the inputs: the kernel on CUDA tensors, the
+    plain bf16 version on CPU tensors. Backward: triplet_attention_backward
+    (the float32 backward kernel, or its plain version on the CPU), so a
+    bf16 forward has the float32 gradient, as the TPU kernel's custom VJP
+    gives it."""
 
     @staticmethod
-    def forward(ctx, n_heads, angle, mask, q, *kv):
+    def forward(ctx, n_heads, bf16, angle, mask, q, *kv):
         ctx.n_heads = n_heads
         ctx.save_for_backward(angle, mask, q, *kv)
-        return _forward(angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]),
-                        n_heads)
+        k, v = Branch(*kv[:7]), Branch(*kv[7:])
+        if on_cpu(q):
+            return triplet_attention_reference(angle, mask, q, k, v,
+                                               n_heads=n_heads, bf16=bf16)
+        return _forward(angle, mask, q, k, v, n_heads, bf16)
 
     @staticmethod
     @once_differentiable
@@ -111,23 +137,25 @@ class _TripletAttention(torch.autograd.Function):
         d_angle, d_q, dk, dv = triplet_attention_backward(
             g.contiguous(), angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]),
             n_heads=ctx.n_heads)
-        return (None, d_angle, None, d_q, *dk, *dv)
+        return (None, None, d_angle, None, d_q, *dk, *dv)
 
 
 def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
                       q: torch.Tensor, k: Branch, v: Branch, *,
-                      n_heads: int) -> torch.Tensor:
+                      n_heads: int, bf16: bool = False) -> torch.Tensor:
     """Args (float32): angle [B, Nl(i), Nl(j), Nl(k)] angles at vertex i;
     mask [B, Nl, Nl] bond mask; q [B, Nl, Nl, H]; k, v: Branch with
     t_row [B, Nl(i), Nl(j), H], t_src [B, Nl(j), Nl(k), H], w_feat [13, H],
-    wo [H, H], bo, ln_scale, ln_bias.
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
-    its gradient launches the backward kernel.
+    wo [H, H], bo, ln_scale, ln_bias; bf16: one bf16 pass of the second
+    linears in the forward (the gradient stays float32).
+    CPU tensors run the plain version (with bf16, under an autograd node
+    whose backward is the float32 plain backward); CUDA tensors launch the
+    kernel, and its gradient launches the backward kernel.
     """
-    if on_cpu(q):
+    if on_cpu(q) and not bf16:
         return triplet_attention_reference(angle, mask, q, k, v,
                                            n_heads=n_heads)
-    return _TripletAttention.apply(n_heads, angle, mask, q, *k, *v)
+    return _TripletAttention.apply(n_heads, bf16, angle, mask, q, *k, *v)
 
 
 def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
@@ -163,5 +191,5 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
     return d_angle, d_q, dk, dv
 
 
-triplet_attention.launches = 0
+triplet_attention.launches = triplet_attention.bf16_launches = 0
 triplet_attention_backward.launches = 0

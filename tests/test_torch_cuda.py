@@ -147,6 +147,112 @@ def test_triplet_kernel(cuda, include_h_node, Nl):
     assert float(got[0, 4].abs().max()) == 0.0
 
 
+# --------------------------------------------------------------------------
+# tensor-core forward kernels at the released width, against their plain
+# versions on the card
+# --------------------------------------------------------------------------
+# The triplet forward at Nl below, at and above its 32-atom source chunk
+# (80: three chunks, the last ragged), the edge forward at K below, at and
+# above it, with an odd number of destination rows (the last 2-row tile
+# ragged). bf16: the kernel's one bf16 pass against the bf16 plain version.
+# A y within float32 rounding of a bf16 rounding boundary can round the
+# other way in the two (a flip), which moves a k or v entry by one bf16 ulp
+# of y (up to 2^-7 |y|) times a row of Wo; at these weights (scale 0.3, not
+# 1/sqrt(H)) one flip moved an output by 3.3e-3. So at most 0.1% of the
+# elements may lie outside rtol / atol 1e-3, and none beyond 1e-2.
+BF16_TOL = dict(rtol=1e-3, atol=1e-3)
+BF16_FRAC, BF16_CAP = 1e-3, 1e-2
+
+
+def _assert_bf16_close(got, want):
+    diff = (got - want).abs()
+    outside = int((diff > BF16_TOL['atol']
+                   + BF16_TOL['rtol'] * want.abs()).sum())
+    assert outside <= BF16_FRAC * want.numel(), outside
+    assert float(diff.max()) <= BF16_CAP
+
+
+def _forward_on_card(fn, plain, args, kw, cuda, counter, count):
+    """The plain version and the kernel, both on the card (kw bf16: at the
+    bf16 criterion above, else TOL); the kernel adds one to `count`.
+    Returns the kernel's output."""
+    dev_args = [_dev(a, cuda) for a in args]
+    dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
+    want = plain(*dev_args, **dev_kw)
+    before = getattr(counter, count)
+    got = fn(*dev_args, **dev_kw)
+    torch.cuda.synchronize()
+    assert getattr(counter, count) == before + 1
+    assert bool(torch.isfinite(got).all())
+    if kw.get('bf16'):
+        _assert_bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    return got
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('Nl', [13, 20, 32, 48, 80])
+def test_triplet_tensor_core_kernel(cuda, Nl, bf16):
+    rng = np.random.default_rng(10 + Nl)
+    B, H, heads = 2, 128, 16
+    bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.3)
+          & ~torch.eye(Nl, dtype=torch.bool)).float()
+    bm[0, 4] = 0.0                    # rows (4, j): bond (j -> 4) masked
+    bm[1, :, 2] = 0.0                 # rows (i, 2) of complex 1 as well
+    k = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    v = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
+                            dtype=torch.float32)
+    q = _rand(rng, B, Nl, Nl, H, scale=1.0)
+    got = _forward_on_card(
+        triplet_ops.triplet_attention,
+        triplet_ops.triplet_attention_reference, (angle, bm, q, k, v),
+        dict(n_heads=heads, bf16=bf16), cuda, triplet_ops.triplet_attention,
+        'bf16_launches' if bf16 else 'launches')
+    assert float(got[0, 4].abs().max()) == 0.0
+    assert float(got[1, :, 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('K', [16, 32, 48], ids=['K16', 'K32', 'K48'])
+@pytest.mark.parametrize('mode', ['node', 'pos', 'gated'])
+def test_edge_tensor_core_kernel(cuda, mode, K):
+    """B * N = 159 destination rows; rows N-5.. of complex 0 have no valid
+    source and give exactly 0."""
+    rng = np.random.default_rng(20 + K)
+    B, N, Np, H, heads = 3, 53, 35, 128, 16
+    pos = mode == 'pos'
+    x, graph, e_w = _graph(rng, B, N, K, Np, True)
+    k = _rand_branch(rng, (B, N, H), (B, N, H), 126, H, H)
+    v = _rand_branch(rng, (B, N, H), (B, N, H), 126, H, heads if pos else H)
+    q = _rand(rng, B, N, H, scale=1.0)
+    kw = dict(n_heads=heads, pos_mode=pos)
+    if mode == 'gated':
+        kw['gate'] = (_rand(rng, H), torch.tensor([0.5]))
+    args = (x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q, k, v)
+    got = _forward_on_card(
+        edge_ops.edge_attention, edge_ops.edge_attention_reference, args, kw,
+        cuda, edge_ops.edge_attention,
+        'gated_launches' if mode == 'gated' else 'launches')
+    assert float(got[0, N - 5:].abs().max()) == 0.0
+
+
+def test_tensor_core_kernels_refuse_other_widths(cuda):
+    """The edge and triplet forward kernels take H in 32, 64, 128; the
+    wrapper raises before a launch for any other width."""
+    rng = np.random.default_rng(11)
+    B, Nl, H, heads = 1, 5, 96, 12
+    br = _dev(_rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H),
+              cuda)
+    angle = torch.zeros(B, Nl, Nl, Nl, device=cuda)
+    bm = torch.ones(B, Nl, Nl, device=cuda)
+    q = torch.zeros(B, Nl, Nl, H, device=cuda)
+    before = triplet_ops.triplet_attention.launches
+    with pytest.raises(ValueError, match='hidden width 96'):
+        triplet_ops.triplet_attention(angle, bm, q, br, br, n_heads=heads)
+    assert triplet_ops.triplet_attention.launches == before
+
+
 UNI_O2 = {'model_type': 'uni_o2', 'bond_net_type': 'pre_att'}
 
 

@@ -283,6 +283,53 @@ def test_triplet_kernel(include_h_node):
     assert float(got[0, 6:].abs().max()) == 0.0     # masked (j -> i) rows
 
 
+# The `pallas_bf16` option: y and Wo rounded to bf16 before the second
+# linears. Where the port's float32 y and the JAX kernel's differ in the
+# last bit, a y near a bf16 rounding boundary rounds to neighbouring bf16
+# values, which moves a k or v entry by one bf16 ulp of y (2^-8 relative)
+# times a row of Wo: up to 7.7e-4 here (seeds 0-3, both variants), against
+# ~4.5e-3 that the option itself moves the output. Hence rtol / atol 1e-3.
+BF16_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _bf16_triplet_modules(include_h_node):
+    """(JAX Pallas module with bf16, port module with kernels and bf16)."""
+    jmod = jutb.BondTripletAttention(H, HEADS, include_h_node=include_h_node,
+                                     use_pallas=True, pallas_bf16=True)
+    tmod = tutb.BondTripletAttention(H, HEADS, include_h_node=include_h_node,
+                                     use_kernels=True, bf16=True)
+    return jmod, tmod
+
+
+@pytest.mark.parametrize('include_h_node', [True, False])
+def test_triplet_kernel_bf16(include_h_node):
+    """The bf16 plain version (what the wrapper runs on the CPU) against the
+    JAX Pallas kernel with bf16=True in interpret mode; the option moves
+    the output by more than that tolerance, and the kernel path of the
+    port without it stays the float32 one."""
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=2)
+    args = (h_lig, h_bond, x_lig, bond_mask)
+    jmod, tmod = _bf16_triplet_modules(include_h_node)
+    params = jutb.BondTripletAttention(
+        H, HEADS, include_h_node=include_h_node).init(jax.random.PRNGKey(0),
+                                                      *args)
+    tmod = _load(tmod, params)
+    targs = (_t(h_lig), _t(h_bond), _t(x_lig), _t(bond_mask, torch.float32))
+    counts = (triplet_ops.triplet_attention.launches,
+              triplet_ops.triplet_attention.bf16_launches)
+    got = tmod(*targs).detach().numpy()
+    assert (triplet_ops.triplet_attention.launches,
+            triplet_ops.triplet_attention.bf16_launches) == counts  # CPU
+    np.testing.assert_allclose(got, np.asarray(jmod.apply(params, *args)),
+                               **BF16_TOL)
+    tmod.bf16 = False
+    f32 = tmod(*targs).detach().numpy()
+    assert np.abs(got - f32).max() > 2 * BF16_TOL['atol']
+    _check(torch.as_tensor(f32), jutb.BondTripletAttention(
+        H, HEADS, include_h_node=include_h_node).apply(params, *args))
+    assert float(np.abs(got[0, 6:]).max()) == 0.0   # masked (j -> i) rows
+
+
 # --------------------------------------------------------------------------
 # wrapper dispatch
 # --------------------------------------------------------------------------
@@ -437,3 +484,30 @@ def test_triplet_kernel_grads(include_h_node):
                                                      x_lig)
         _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
         _assert_grads(zip(('h_lig', 'h_bond', 'x_lig'), got_in), gin, label)
+
+
+@pytest.mark.parametrize('include_h_node', [True, False])
+def test_triplet_kernel_bf16_grads(include_h_node):
+    """With bf16 the gradient is the float32 one: the port's CPU autograd
+    node runs the float32 plain backward, as the JAX custom VJP runs the
+    float32 backward kernel; both against jax.grad of the bf16 Pallas
+    module, at the float32 gradient tolerance."""
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=27)
+    jmod, tmod = _bf16_triplet_modules(include_h_node)
+    params = jutb.BondTripletAttention(
+        H, HEADS, include_h_node=include_h_node).init(
+            jax.random.PRNGKey(0), h_lig, h_bond, x_lig, bond_mask)
+    cot = np.random.default_rng(9).normal(size=(2, 8, 8, H)).astype(
+        np.float32)
+    got_p, got_in = _torch_grads(
+        _load(tmod, params),
+        (_t(h_lig), _t(h_bond), _t(x_lig), _t(bond_mask, torch.float32)),
+        (0, 1, 2), cot)
+
+    def f(params, h, hb, x):
+        return jnp.sum(jmod.apply(params, h, hb, x, bond_mask) * cot)
+    gp, *gin = jax.grad(f, argnums=(0, 1, 2, 3))(params, h_lig, h_bond,
+                                                 x_lig)
+    _assert_grads(got_p, [b for _, b in _param_grads(gp)], 'pallas bf16')
+    _assert_grads(zip(('h_lig', 'h_bond', 'x_lig'), got_in), gin,
+                  'pallas bf16')
