@@ -26,7 +26,9 @@
 // vectors of pos mode are formed from the coordinates in-kernel instead of
 // reading a [B, Nl, Nl, 3] tensor. Only B * Nl blocks exist at these
 // shapes, fewer than two waves on 132 SMs: a later version should split
-// rows or batch several layers' calls.
+// rows or batch several layers' calls. At H = 128 it takes 174 registers a
+// thread, so blocks of H > 256 threads are compiled for 1024 threads (at
+// most 64 registers) to launch at all.
 //
 // Backward design (row_attention_bwd.cuh): one block per row as well (the
 // grid is capped at two blocks per SM, each looping over rows), every
@@ -100,7 +102,11 @@ __device__ __forceinline__ bool row_has_source(const float* mrow, int Nl) {
   return __syncthreads_or(any);
 }
 
-__global__ void bond_attention_kernel(BondArgs a) {
+// WIDE: the block may have up to 1024 threads (H > 256; at most 64
+// registers a thread).
+template <bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256)
+    bond_attention_kernel(BondArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
 
@@ -289,9 +295,11 @@ extern "C" int bond_attention_fwd(
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, Nl, H, n_heads, pos};
   const size_t smem = smem_bytes(H, n_heads, 1);
-  cudaError_t err = allow_smem(bond_attention_kernel, smem);
+  void (*kernel)(BondArgs) = H > 256 ? bond_attention_kernel<true>
+                                     : bond_attention_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  bond_attention_kernel<<<B * Nl, H, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<B * Nl, H, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

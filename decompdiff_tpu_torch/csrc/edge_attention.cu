@@ -8,14 +8,19 @@
 //
 // Computes, per destination node i and each of its K kNN sources s:
 //   edge_type = one-hot (src ligand?, dst ligand?) [+ one-hot same group]
-//   pre_m     = [outer(edge_type, RBF20(|x_i - x_s|)), edge_type] @ We_m
+//   pre_m     = [outer(edge_type, RBF20(|x_i - xs_s|)), edge_type] @ We_m
 //               + t_row_m[i] + t_src_m[s]                      (m = k, v)
 //   k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m
 //   [m-gate, node mode only: v *= sigmoid(v . wm + bm)] ;  v *= e_w
 //   node mode: out[i] = sum_k softmax_k(q[i] . k / sqrt(hd)) v  [H]
-//   pos mode:  out[i] = sum_k mean_h(alpha v) (x_i - x_s)        [3]
+//   pos mode:  out[i] = sum_k mean_h(alpha v) (x_i - xs_s)       [3]
 // t_src = h @ Wj is projected per node before the launch and gathered here
 // (K times fewer operations than projecting every gathered row).
+// xs holds the sources' coordinates: x itself, or with the TPU kernel's
+// gather_bf16 option (_split_hjT :132-149) x rebuilt from bf16 hi + lo by
+// the caller. Every read of a source's coordinates goes through xs and
+// every read of a destination's through x; the backward scatters the
+// sources' coordinate cotangent into d_xs (d_x itself when xs is x).
 //
 // Bound on an H100: operations. At the released shapes (B=8, N=352, K=32,
 // H=128) one node-mode forward is ~6.9 GFLOP of per-edge products (the two
@@ -24,12 +29,12 @@
 // device memory. The backward recomputes the forward and adds two products
 // per forward product, about 3x the operations, so it is bound the same way.
 //
-// Forward design (row_mma.cuh): a persistent grid of one 512-thread block
-// per SM. Each block stages the [H, H] second linears (both branches in
-// node mode, k in pos mode), split into bf16 hi + lo, in shared memory once
-// and loops over tiles of 2 destination nodes x 32 sources (more sources:
-// an online softmax across chunks of 32). Per tile the gathered t_src and
-// the edge-feature products of both branches run on CUDA cores in one pass
+// Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
+// 512-thread block per SM. Each block stages the [H, H] second linears
+// (both branches in node mode, k in pos mode), split into bf16 hi + lo, in
+// shared memory once and loops over tiles of 2 destination nodes x 32
+// sources (more sources: an online softmax across chunks of 32). Per tile
+// the gathered t_src and the edge-feature products of both branches run on CUDA cores in one pass
 // (they share the RBF rows and the type tests): the product uses the
 // one-hot structure of edge_type, so for each type only the sources of
 // that type accumulate its 20 RBF rows and constant row, with the type's
@@ -42,6 +47,15 @@
 // Logits, softmax and the sums of alpha v stay float32. Only the [B, N, H]
 // (or [B, N, 3]) output is written; a tile with no valid edge writes zeros
 // without computing.
+//
+// Forward design at every other width (a multiple of 32 up to 1024 whose
+// head width divides 32; row_attention.cuh): one block per destination row
+// with one thread per channel, the sources in chunks of 16: per chunk the
+// gathered t_src and edge-feature products in registers, both branches'
+// pre in shared memory ([16][H] each, never Wo), LayerNorm and relu a warp
+// per source, the second linears with Wo read through the cache, then an
+// online softmax. Shared memory grows with H (128 KB at 1024); the blocks
+// of H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
 // Backward design (row_attention_bwd.cuh): a fixed grid of blocks, each
 // looping over destination rows, recomputes every per-edge intermediate in
@@ -72,7 +86,8 @@ __constant__ float kRbfOffsets[20] = {0.f, 1.f, 1.25f, 1.5f, 1.75f, 2.f, 2.25f,
 constexpr int R = 20;  // RBF features per edge type
 
 struct EdgeArgs {
-  const float* x;      // [B, N, 3]
+  const float* x;      // [B, N, 3] destinations' coordinates
+  const float* xs;     // [B, N, 3] sources' coordinates (x, or hi + lo)
   const float* lig;    // [B, N]
   const float* group;  // [B, N] or null (4 edge types)
   const int* idx;      // [B, N, K]
@@ -127,7 +142,7 @@ __device__ __forceinline__ void edge_chunk_setup(const EdgeArgs& a,
     const bool in_range = s >= 0 && s < N;
     ok = in_range && a.mask[e] > 0.5f;
     if (!in_range) s = 0;
-    const float* xs = a.x + ((size_t)b * N + s) * 3;
+    const float* xs = a.xs + ((size_t)b * N + s) * 3;
     r0 = dst.x0 - xs[0];
     r1 = dst.x1 - xs[1];
     r2 = dst.x2 - xs[2];
@@ -287,7 +302,7 @@ __device__ __forceinline__ int edge_tile_setup(const EdgeArgs& a,
     ok = in_range && m > 0.5f;
     if (!in_range) s = 0;
     s_flat = b * N + s;
-    const float* xs = a.x + (size_t)s_flat * 3;
+    const float* xs = a.xs + (size_t)s_flat * 3;
     r0 = xd0 - xs[0];
     r1 = xd1 - xs[1];
     r2 = xd2 - xs[2];
@@ -511,12 +526,89 @@ __global__ void __launch_bounds__(rm::THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward at the other widths: per-row kernel of row_attention.cuh
+// ---------------------------------------------------------------------------
+
+// One block per destination row (b, i), one thread per channel. WIDE: the
+// block may have up to 1024 threads (H > 256).
+template <bool GATE, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256)
+    edge_attention_row_kernel(EdgeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ EdgeChunk ch;
+
+  const int H = a.H, K = a.K, N = a.N;
+  const bool pos = a.pos != 0;
+  float* Yk = smem;
+  float* Yv = Yk + CH * H;
+  float* Vs = Yv + CH * H;
+  Gate gt = a.gate;
+  if constexpr (GATE) {
+    gt.red = Vs + CH * a.n_heads;
+    gt.g = gt.red + (H / 32) * CH;
+  }
+  const int row = blockIdx.x;  // b * N + i
+  const int b = row / N;
+  const int c = threadIdx.x;
+  float* out_row = a.out + (size_t)row * (pos ? 3 : H);
+
+  if (!row_has_source(a.mask + (size_t)row * K, K)) {
+    zero_row(out_row, pos);
+    return;
+  }
+
+  const float q_c = a.q[(size_t)row * H + c];
+  const float tk = a.k.t_row[(size_t)row * H + c];
+  const float tv = a.v.t_row[(size_t)row * H + c];
+  const EdgeRow dst = edge_row(a, row);
+  const float scale = 1.f / sqrtf((float)(H / a.n_heads));
+  RowState st;
+
+  for (int m0 = 0; m0 < K; m0 += CH) {
+    const int nm = min(CH, K - m0);
+    edge_chunk_setup(a, ch, row, b, m0, nm, dst);
+    __syncthreads();
+    edge_chunk_pre(a, ch, b, tk, tv, Yk, Yv);
+    __syncthreads();
+    finish_chunk<GATE>(Yk, Yv, Vs, a.k, a.v, ch.cs, nm, H, a.n_heads, pos,
+                       q_c, scale, st, gt);
+  }
+  finalize(st, out_row, Vs, H, a.n_heads, pos);
+}
+
+template <bool GATE, bool WIDE>
+cudaError_t launch_row(const EdgeArgs& a, int rows, size_t smem,
+                       cudaStream_t stream) {
+  cudaError_t err = allow_smem(edge_attention_row_kernel<GATE, WIDE>, smem);
+  if (err != cudaSuccess) return err;
+  edge_attention_row_kernel<GATE, WIDE><<<rows, a.H, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The per-row forward: [CH][H] pre of both branches and [CH][heads] v (pos
+// mode), plus with the gate its block-sum scratch and the chunk's CH gates.
+cudaError_t launch_fwd_row(const EdgeArgs& a, int B, cudaStream_t stream) {
+  const bool gate = a.gate.wm != nullptr, wide = a.H > 256;
+  const size_t smem =
+      smem_bytes(a.H, a.n_heads, 0) +
+      (gate ? sizeof(float) * ((size_t)(a.H / 32) * CH + CH) : 0);
+  const int rows = B * a.N;
+  if (gate)
+    return wide ? launch_row<true, true>(a, rows, smem, stream)
+                : launch_row<true, false>(a, rows, smem, stream);
+  return wide ? launch_row<false, true>(a, rows, smem, stream)
+              : launch_row<false, false>(a, rows, smem, stream);
+}
+
 struct EdgeBwdArgs {
   EdgeArgs f;            // forward inputs (f.out unused)
   const float* g;        // [B, N, H] or [B, N, 3] output cotangent
   const float* woT_k;    // [H, H] transposed Wo_k
   const float* woT_v;    // [H, H] transposed Wo_v (node mode only)
-  float* d_x;            // [B, N, 3]   zeroed; atomics
+  float* d_x;            // [B, N, 3]   zeroed; atomics (destinations)
+  float* d_xs;           // [B, N, 3]   zeroed; atomics (sources; d_x when
+                         //             xs is x)
   float* d_ew;           // [B, N, K]
   float* d_q;            // [B, N, H]
   float* d_trow_k;       // [B, N, H]
@@ -665,7 +757,7 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
         for (int d = 0; d < 3; ++d) {
           const float dr = fd * ch.cs.rel[c * 3 + d] + wr * g3[d];
           dxd[d] += dr;
-          atomicAdd(a.d_x + src * 3 + d, -dr);
+          atomicAdd(a.d_xs + src * 3 + d, -dr);
         }
       }
       __syncthreads();  // the next chunk overwrites ch and the buffers
@@ -719,8 +811,12 @@ cudaError_t launch_bwd(const EdgeBwdArgs& a, int G, size_t smem,
 
 }  // namespace
 
+// Forward. xs: the sources' coordinates (x when the caller has no separate
+// table). H in 32, 64, 128: the tensor-core kernel; any other width the
+// wrapper admits: the per-row kernel.
 extern "C" int edge_attention_fwd(
-    const float* x, const float* lig, const float* group, const int* idx,
+    const float* x, const float* xs, const float* lig, const float* group,
+    const int* idx,
     const float* mask, const float* ew, const float* q,
     const float* k_row, const float* k_src, const float* k_feat,
     const float* k_wo, const float* k_bo, const float* k_lns,
@@ -732,43 +828,46 @@ extern "C" int edge_attention_fwd(
     void* stream) {
   if (B * N == 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
-  EdgeArgs a{x, lig, group, idx, mask, ew, q,
+  EdgeArgs a{x, xs, lig, group, idx, mask, ew, q,
              Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, N, K, H, n_heads, n_types, pos, Gate{wm, bm}};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {  // the forward kernels take H = 32, 64 or 128
+  switch (H) {  // ops/common.py TENSOR_CORE_WIDTHS
     case 32: return (int)launch_fwd<32>(a, B, s);
     case 64: return (int)launch_fwd<64>(a, B, s);
     case 128: return (int)launch_fwd<128>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_fwd_row(a, B, s);
   }
 }
 
 // Backward: G blocks over the B*N rows, then the fixed-order slot sum into
 // d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same] and, with
-// the gate, [d wm (H) | d bm]).
+// the gate, [d wm (H) | d bm]). d_xs: the sources' coordinate cotangent, a
+// zeroed buffer of its own when xs is not x, else d_x.
 extern "C" int edge_attention_bwd(
-    const float* x, const float* lig, const float* group, const int* idx,
-    const float* mask, const float* ew, const float* q, const float* g,
+    const float* x, const float* xs, const float* lig, const float* group,
+    const int* idx, const float* mask, const float* ew, const float* q,
+    const float* g,
     const float* k_row, const float* k_src, const float* k_feat,
     const float* k_wo, const float* k_bo, const float* k_lns,
     const float* k_lnb, const float* k_woT,
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb, const float* v_woT, const float* wm, const float* bm,
-    float* d_x, float* d_ew, float* d_q, float* d_trow_k, float* d_tsrc_k,
+    float* d_x, float* d_xs, float* d_ew, float* d_q, float* d_trow_k,
+    float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
     int B, int N, int K, int H, int n_heads, int n_types, int pos, int G,
     void* stream) {
   if (B * N == 0 || G <= 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeBwdArgs a{
-      EdgeArgs{x, lig, group, idx, mask, ew, q,
+      EdgeArgs{x, xs, lig, group, idx, mask, ew, q,
                Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                nullptr, N, K, H, n_heads, n_types, pos, Gate{wm, bm}},
-      g, k_woT, v_woT, d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
+      g, k_woT, v_woT, d_x, d_xs, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
       d_tsrc_v, slots, B * N};
   const bool gate = wm != nullptr;
   const size_t smem =

@@ -20,8 +20,15 @@
 // 'm'): v <- v * sigmoid(v . wm + bm) per source, before the edge weight.
 // It is a template parameter of finish_chunk (and of the backward passes),
 // so the kernels without it compile to the code they had before it existed.
+// So is BF16, the triplet forward's `bf16` option: the second linears take
+// y and Wo rounded to bf16 (exact products, float32 sums).
+//
+// The edge and triplet forwards run on this chunk body at the widths their
+// tensor-core kernels (row_mma.cuh) do not take; the bond forward at every
+// width.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rowattn {
@@ -100,7 +107,13 @@ __device__ __forceinline__ float chunk_gate(const float (&vr)[CH], float bv,
   return 1.f / (1.f + expf(-s));
 }
 
-// In place: rows [0, CH) of P [CH][H] <- relu(LayerNorm(row) * lns + lnb).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// In place: rows [0, CH) of P [CH][H] <- relu(LayerNorm(row) * lns + lnb),
+// rounded to bf16 with BF16.
+template <bool BF16 = false>
 __device__ __forceinline__ void ln_relu_rows(float* P, int H,
                                              const float* __restrict__ lns,
                                              const float* __restrict__ lnb) {
@@ -117,23 +130,33 @@ __device__ __forceinline__ void ln_relu_rows(float* P, int H,
       s2 += d * d;
     }
     const float rstd = rsqrtf(warp_sum(s2) / H + 1e-5f);
-    for (int c = lane; c < H; c += 32)
-      row[c] = fmaxf((row[c] - mean) * rstd * __ldg(lns + c) + __ldg(lnb + c),
-                     0.f);
+    for (int c = lane; c < H; c += 32) {
+      const float y = fmaxf(
+          (row[c] - mean) * rstd * __ldg(lns + c) + __ldg(lnb + c), 0.f);
+      row[c] = BF16 ? round_bf16(y) : y;
+    }
   }
 }
 
-// acc[m] = sum_j X[m][j] * W[j][col] for the CH rows of X [CH][H] (shared).
+// acc[m] = sum_j X[m][j] * W[j][col] for the CH rows of X [CH][H] (shared);
+// with BF16, W rounded to bf16.
+template <bool BF16 = false>
 __device__ __forceinline__ void matvec(const float* X,
                                        const float* __restrict__ W, int H,
                                        int ld, int col, float (&acc)[CH]) {
 #pragma unroll
   for (int m = 0; m < CH; ++m) acc[m] = 0.f;
   for (int j = 0; j < H; j += 4) {
-    const float w0 = __ldg(W + (size_t)(j + 0) * ld + col);
-    const float w1 = __ldg(W + (size_t)(j + 1) * ld + col);
-    const float w2 = __ldg(W + (size_t)(j + 2) * ld + col);
-    const float w3 = __ldg(W + (size_t)(j + 3) * ld + col);
+    float w0 = __ldg(W + (size_t)(j + 0) * ld + col);
+    float w1 = __ldg(W + (size_t)(j + 1) * ld + col);
+    float w2 = __ldg(W + (size_t)(j + 2) * ld + col);
+    float w3 = __ldg(W + (size_t)(j + 3) * ld + col);
+    if (BF16) {
+      w0 = round_bf16(w0);
+      w1 = round_bf16(w1);
+      w2 = round_bf16(w2);
+      w3 = round_bf16(w3);
+    }
 #pragma unroll
     for (int m = 0; m < CH; ++m) {
       const float4 x = *reinterpret_cast<const float4*>(X + m * H + j);
@@ -147,26 +170,27 @@ __device__ __forceinline__ void matvec(const float* X,
 
 // LayerNorm/relu, second linear, logits and online softmax for one chunk of
 // nm sources whose `pre` rows are in Yk and Yv. Vs holds [CH][heads] v
-// outputs in pos mode. GATE (node mode only) applies the m-gate `gt`. Ends
+// outputs in pos mode. GATE (node mode only) applies the m-gate `gt`; BF16
+// (node mode only) rounds y and Wo to bf16 before the second linears. Ends
 // with a barrier, so the caller may overwrite the shared buffers for the
 // next chunk.
-template <bool GATE = false>
+template <bool GATE = false, bool BF16 = false>
 __device__ __forceinline__ void finish_chunk(
     float* Yk, float* Yv, float* Vs, const Branch& k, const Branch& v,
     const ChunkSources& cs, int nm, int H, int n_heads, bool pos, float q_c,
     float scale, RowState& st, const Gate& gt = Gate{}) {
   const int c = threadIdx.x;
-  ln_relu_rows(Yk, H, k.lns, k.lnb);
-  ln_relu_rows(Yv, H, v.lns, v.lnb);
+  ln_relu_rows<BF16>(Yk, H, k.lns, k.lnb);
+  ln_relu_rows<BF16>(Yv, H, v.lns, v.lnb);
   __syncthreads();
 
   float kr[CH];
-  matvec(Yk, k.wo, H, H, c, kr);
+  matvec<BF16>(Yk, k.wo, H, H, c, kr);
   const float bk = __ldg(k.bo + c);
   float vr[CH];
   float bv = 0.f;
   if (!pos) {
-    matvec(Yv, v.wo, H, H, c, vr);
+    matvec<BF16>(Yv, v.wo, H, H, c, vr);
     bv = __ldg(v.bo + c);
   } else {
     // v has one output per head: CH * heads dot products shared by the block

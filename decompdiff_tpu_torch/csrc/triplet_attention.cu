@@ -19,12 +19,12 @@
 // The backward recomputes the forward and adds two products per forward
 // product (~52 GFLOP), still against O(Nl^3) bytes.
 //
-// Forward design (row_mma.cuh): a persistent grid of one 512-thread block
-// per SM. Each block stages Wo_k and Wo_v, split into bf16 hi + lo, in
-// shared memory once, then loops over work items (complex b, atom j); an
-// item stages t_src[b, j, :, :] of both branches in shared memory (when it
-// fits, else reads it through the cache) and walks its rows i two at a
-// time: a tile is 2 rows i x 32 atoms k (more k: an online softmax across
+// Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
+// 512-thread block per SM. Each block stages Wo_k and Wo_v, split into
+// bf16 hi + lo, in shared memory once, then loops over work items (complex
+// b, atom j); an item stages t_src[b, j, :, :] of both branches in shared
+// memory (when it fits, else reads it through the cache) and walks its rows
+// i two at a time: a tile is 2 rows i x 32 atoms k (more k: an online softmax across
 // chunks of 32). Per tile and branch each warp builds four pair rows on
 // CUDA cores, a lane four channels with their columns of Wa in registers:
 // the 13-wide angular code (sincosf, no polynomial) projected and added to
@@ -35,6 +35,15 @@
 // triplet_kernel.py:121-126). Logits, softmax and sum alpha v stay float32
 // on CUDA cores. No O(Nl^3 H) intermediate leaves the SM. A tile with no
 // valid triplet writes zeros without computing.
+//
+// Forward design at every other width (a multiple of 32 up to 1024 whose
+// head width divides 32; row_attention.cuh): one block per (complex, i, j),
+// one thread per channel; the k axis goes in chunks of 16. The 13-wide
+// angular code is built in shared memory with sincosf and projected with
+// Wa's column held in registers; the second linears read Wo through the
+// cache (with `bf16`, y and Wo rounded to bf16 first). A row whose bond
+// (j -> i) is masked writes zeros without computing. The blocks of
+// H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
 // Backward design (row_attention_bwd.cuh): the TPU kernel sums
 // d t_src[j, k] = sum_i d pre[i, j, k] over its sequential grid. Here a
@@ -330,6 +339,82 @@ __global__ void __launch_bounds__(rm::THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward at the other widths: per-row kernel of row_attention.cuh
+// ---------------------------------------------------------------------------
+
+// One block per row (b, i, j), one thread per channel. WIDE: the block may
+// have up to 1024 threads (H > 256).
+template <bool BF16, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256)
+    triplet_attention_row_kernel(TripletArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ ChunkSources cs;
+  __shared__ float s_ang[CH][A];
+
+  const int H = a.H, Nl = a.Nl;
+  float* Yk = smem;
+  float* Yv = Yk + CH * H;
+  float* Vs = Yv + CH * H;
+  const int row = blockIdx.x;  // (b * Nl + i) * Nl + j
+  const int bi = row / Nl;
+  const int b = bi / Nl, i = bi % Nl, j = row % Nl;
+  const int c = threadIdx.x;
+  const float* mrow_j = a.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
+  float* out_row = a.out + (size_t)row * H;
+
+  if (!row_has_source(a, row, i, mrow_j)) {
+    zero_row(out_row, false);
+    return;
+  }
+
+  const float q_c = a.q[(size_t)row * H + c];
+  const float tk = a.k.t_row[(size_t)row * H + c];
+  const float tv = a.v.t_row[(size_t)row * H + c];
+  float wak[A], wav[A];
+#pragma unroll
+  for (int t = 0; t < A; ++t) {
+    wak[t] = __ldg(a.k.w_feat + (size_t)t * H + c);
+    wav[t] = __ldg(a.v.w_feat + (size_t)t * H + c);
+  }
+  const float scale = 1.f / sqrtf((float)(H / a.n_heads));
+  RowState st;
+
+  for (int m0 = 0; m0 < Nl; m0 += CH) {
+    const int nm = min(CH, Nl - m0);
+    triplet_chunk_setup(a, cs, s_ang, nullptr, row, i, mrow_j, m0, nm);
+    __syncthreads();
+    triplet_chunk_pre(a, cs, s_ang, wak, wav, b, j, tk, tv, Yk, Yv);
+    __syncthreads();
+    finish_chunk<false, BF16>(Yk, Yv, Vs, a.k, a.v, cs, nm, H, a.n_heads,
+                              false, q_c, scale, st);
+  }
+  finalize(st, out_row, Vs, H, a.n_heads, false);
+}
+
+template <bool BF16, bool WIDE>
+cudaError_t launch_row(const TripletArgs& a, int rows, size_t smem,
+                       cudaStream_t stream) {
+  cudaError_t err =
+      allow_smem(triplet_attention_row_kernel<BF16, WIDE>, smem);
+  if (err != cudaSuccess) return err;
+  triplet_attention_row_kernel<BF16, WIDE><<<rows, a.H, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The per-row forward: [CH][H] pre of both branches and [CH][heads] scratch.
+cudaError_t launch_fwd_row(const TripletArgs& a, int B, bool bf16,
+                           cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.H, a.n_heads, 0);
+  const int rows = B * a.Nl * a.Nl;
+  const bool wide = a.H > 256;
+  if (bf16)
+    return wide ? launch_row<true, true>(a, rows, smem, stream)
+                : launch_row<true, false>(a, rows, smem, stream);
+  return wide ? launch_row<false, true>(a, rows, smem, stream)
+              : launch_row<false, false>(a, rows, smem, stream);
+}
+
 struct TripletBwdArgs {
   TripletArgs f;         // forward inputs (f.out unused)
   const float* g;        // [B, Nl, Nl, H] output cotangent
@@ -486,8 +571,10 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
 
 }  // namespace
 
-// Forward. bf16 != 0: one bf16 pass of the second linears (the TPU
-// kernel's `bf16` option); otherwise float32 accuracy. H: 32, 64 or 128.
+// Forward. bf16 != 0: the second linears on bf16-rounded y and Wo (the TPU
+// kernel's `bf16` option); otherwise float32 accuracy. H in 32, 64, 128:
+// the tensor-core kernel; any other width the wrapper admits: the per-row
+// kernel.
 extern "C" int triplet_attention_fwd(
     const float* angle, const float* mask, const float* q,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -503,11 +590,11 @@ extern "C" int triplet_attention_fwd(
                 Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                 out, Nl, H, n_heads};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {
+  switch (H) {  // ops/common.py TENSOR_CORE_WIDTHS
     case 32: return (int)launch_fwd<32>(a, B, bf16 != 0, s);
     case 64: return (int)launch_fwd<64>(a, B, bf16 != 0, s);
     case 128: return (int)launch_fwd<128>(a, B, bf16 != 0, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_fwd_row(a, B, bf16 != 0, s);
   }
 }
 

@@ -17,11 +17,13 @@ models/decompdiff.py:213-351).
     over the final ligand atoms (ref :323-341) and works with both nets
 
 Submodule names are the flax ones (`protein_atom_emb`, `refine_net`, ...).
-The config key `use_pallas` selects the CUDA kernels, and with them
-`pallas_bf16` the triplet kernel's bf16 second linears (uni_o2_bond; the
-plain path ignores it, as the JAX dense path does). The JAX package's other
-TPU keys (`pallas_gather_bf16`, `pallas_triplet_i_block`,
-`pallas_edge_tile`) are accepted and have no effect here.
+The config key `use_pallas` selects the CUDA kernels, and with them, for
+uni_o2_bond (the JAX uni_o2 net reads neither), `pallas_bf16` the triplet
+kernel's bf16 second linears and `pallas_gather_bf16` the edge kernels'
+sources from the bf16 node table of the JAX kernel path; the plain path
+ignores both, as the JAX dense path does. The JAX package's TPU tiling keys
+(`pallas_triplet_i_block`, `pallas_edge_tile`) change no value there and
+are accepted and unused here.
 """
 
 from __future__ import annotations
@@ -100,7 +102,8 @@ class DecompDenoiser(nn.Module):
             self.refine_net = UniTransformerBond(
                 include_h_node=cfg.get('h_node_in_bond_net', False),
                 n_etypes=6 if self.add_prior_node else 4,
-                triplet_bf16=cfg.get('pallas_bf16', False), **net)
+                triplet_bf16=cfg.get('pallas_bf16', False),
+                gather_bf16=cfg.get('pallas_gather_bf16', False), **net)
         else:
             self.refine_net = UniTransformerO2(
                 ew_net_type=cfg.get('ew_net_type', 'global'),

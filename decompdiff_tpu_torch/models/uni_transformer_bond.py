@@ -13,6 +13,12 @@ wrapper, otherwise its plain PyTorch version, which follows the JAX dense
 path's order of operations. Unlike the JAX kernel path, the context is not
 padded to a multiple of 64: the CUDA kernels take any N.
 
+On the kernel path two options follow the JAX kernel path's:
+`triplet_bf16` (config key `pallas_bf16`) takes the triplet kernel's bf16
+second linears, and `gather_bf16` (config key `pallas_gather_bf16`) gives
+the edge attentions their sources from the JAX kernels' bf16 node table
+(`gather_table`). The plain path ignores both, as the JAX dense path does.
+
 Parameter names and layouts are the flax ones, so a state_dict key is the
 flax parameter path joined with '.'.
 """
@@ -60,14 +66,46 @@ def _register_branch(module, prefix, feat_dim, hidden, out_dim):
     _param(module, f'{prefix}_j_kernel', hidden, hidden)
 
 
-def _branch(module, prefix, h) -> Branch:
+def _branch(module, prefix, h, h_src=None) -> Branch:
     """The Branch of a registered k/v branch, with the per-node projections
-    of h [B, n, H] (the first linear's bias folded into t_row)."""
+    of h [B, n, H] (the first linear's bias folded into t_row); t_src
+    projects h_src when given, else h."""
     p = lambda s: getattr(module, f'{prefix}_{s}')  # noqa: E731
     return Branch(t_row=h @ p('i_kernel') + p('e_bias'),
-                  t_src=h @ p('j_kernel'),
+                  t_src=(h if h_src is None else h_src) @ p('j_kernel'),
                   w_feat=p('e_kernel'), wo=p('out_kernel'), bo=p('out_bias'),
                   ln_scale=p('ln_scale'), ln_bias=p('ln_bias'))
+
+
+def gather_table(h, x):
+    """(h_src, x_src): what the sources of an edge attention are read from
+    with gather_bf16, as the JAX kernel path packs its node table
+    (_pack_hx, uni_transformer_bond.py:176-185) and the kernel unpacks it
+    (_split_hjT, edge_kernel.py:132-149): h rounded to bf16, and x as
+    bf16 hi + lo summed in float32. In autograd this is JAX's cast chain:
+    the cotangent reaching h through h_src is summed over edges and both
+    branches, then rounded to bf16 once (the cast back); the one reaching
+    x through x_src is the rounded sum of the d x_src terms, since hi's
+    two cotangents cancel exactly in bf16."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return h.to(torch.bfloat16).float(), hi.float() + lo.float()
+
+
+def _edge_call(module, prefixes, h, x, graph: EdgeGraph, e_w, q,
+               pos_mode: bool):
+    """One edge attention of a module with `use_kernels` and `gather_bf16`
+    flags, whose two branches are registered under `prefixes`."""
+    h_src, kw = None, {}
+    if not module.use_kernels:
+        fn = edge_ops.edge_attention_reference
+    else:
+        fn = edge_ops.edge_attention
+        if module.gather_bf16:
+            h_src, kw['x_src'] = gather_table(h, x)
+    return fn(x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q,
+              *(_branch(module, p, h, h_src) for p in prefixes),
+              n_heads=module.n_heads, pos_mode=pos_mode, **kw)
 
 
 class NodeEdgeAttention(nn.Module):
@@ -75,22 +113,19 @@ class NodeEdgeAttention(nn.Module):
     (ref NodeUpdateLayer, uni_transformer_edge.py:16-74)."""
 
     def __init__(self, hidden_dim, n_heads, n_etypes=4, out_fc=True,
-                 use_kernels=False):
+                 use_kernels=False, gather_bf16=False):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
+        self.gather_bf16 = gather_bf16
         for prefix in ('hk', 'hv'):
             _register_branch(self, prefix, n_etypes * 21, H, H)
         self.hq = MLP(H, H, H)
         self.node_output = MLP(2 * H, H, H) if out_fc else None
 
     def forward(self, h, x, graph: EdgeGraph, e_w):
-        fn = (edge_ops.edge_attention if self.use_kernels
-              else edge_ops.edge_attention_reference)
-        out = fn(x, graph.lig, graph.group, graph.idx, graph.mask, e_w,
-                 self.hq(h), _branch(self, 'hk', h),
-                 _branch(self, 'hv', h),
-                 n_heads=self.n_heads, pos_mode=False)
+        out = _edge_call(self, ('hk', 'hv'), h, x, graph, e_w, self.hq(h),
+                         pos_mode=False)
         if self.node_output is not None:
             out = self.node_output(torch.cat([out, h], dim=-1))
         return out
@@ -100,21 +135,19 @@ class PosEdgeAttention(nn.Module):
     """Equivariant coordinate attention over [B, N, K] kNN edges
     (ref PosUpdateLayer, uni_transformer_edge.py:170-210)."""
 
-    def __init__(self, hidden_dim, n_heads, n_etypes=4, use_kernels=False):
+    def __init__(self, hidden_dim, n_heads, n_etypes=4, use_kernels=False,
+                 gather_bf16=False):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
+        self.gather_bf16 = gather_bf16
         _register_branch(self, 'xk', n_etypes * 21, H, H)
         _register_branch(self, 'xv', n_etypes * 21, H, n_heads)
         self.xq = MLP(H, H, H)
 
     def forward(self, h, x, graph: EdgeGraph, e_w):
-        fn = (edge_ops.edge_attention if self.use_kernels
-              else edge_ops.edge_attention_reference)
-        return fn(x, graph.lig, graph.group, graph.idx, graph.mask, e_w,
-                  self.xq(h), _branch(self, 'xk', h),
-                  _branch(self, 'xv', h),
-                  n_heads=self.n_heads, pos_mode=True)
+        return _edge_call(self, ('xk', 'xv'), h, x, graph, e_w, self.xq(h),
+                          pos_mode=True)
 
 
 class NodeBondAttention(nn.Module):
@@ -249,11 +282,13 @@ class AttentionLayerBond(nn.Module):
     (ref AttentionLayerO2TwoUpdateNodeGeneral, uni_transformer_edge.py:213-287)."""
 
     def __init__(self, hidden_dim, n_heads, x2h_out_fc, include_h_node,
-                 n_etypes=4, use_kernels=False, triplet_bf16=False):
+                 n_etypes=4, use_kernels=False, triplet_bf16=False,
+                 gather_bf16=False):
         super().__init__()
         H = hidden_dim
         self.node_layer_with_edge = NodeEdgeAttention(
-            H, n_heads, n_etypes, out_fc=x2h_out_fc, use_kernels=use_kernels)
+            H, n_heads, n_etypes, out_fc=x2h_out_fc, use_kernels=use_kernels,
+            gather_bf16=gather_bf16)
         self.node_layer_with_bond = NodeBondAttention(
             H, n_heads, out_fc=x2h_out_fc, use_kernels=use_kernels)
         self.bond_layer = BondTripletAttention(
@@ -261,7 +296,8 @@ class AttentionLayerBond(nn.Module):
             use_kernels=use_kernels, bf16=triplet_bf16)
         self.lin_node = Dense(H, H)
         self.pos_layer_with_edge = PosEdgeAttention(
-            H, n_heads, n_etypes, use_kernels=use_kernels)
+            H, n_heads, n_etypes, use_kernels=use_kernels,
+            gather_bf16=gather_bf16)
         self.pos_layer_with_bond = PosBondAttention(
             H, n_heads, use_kernels=use_kernels)
 
@@ -293,7 +329,7 @@ class UniTransformerBond(nn.Module):
     def __init__(self, num_blocks, num_layers, hidden_dim, n_heads, k,
                  x2h_out_fc=True, include_h_node=False, use_kernels=False,
                  cutoff_mode='knn', r_max=10.0, n_etypes=4,
-                 triplet_bf16=False):
+                 triplet_bf16=False, gather_bf16=False):
         super().__init__()
         if cutoff_mode not in ('knn', 'radius', 'hybrid'):
             raise NotImplementedError(f'cutoff_mode {cutoff_mode!r}')
@@ -306,7 +342,7 @@ class UniTransformerBond(nn.Module):
         for i in range(num_layers):
             setattr(self, f'layer_{i}', AttentionLayerBond(
                 hidden_dim, n_heads, x2h_out_fc, include_h_node, n_etypes,
-                use_kernels, triplet_bf16))
+                use_kernels, triplet_bf16, gather_bf16))
         self.num_layers = num_layers
 
     def forward(self, h, x, h_bond, mask_all, mask_ligand, movable,

@@ -7,27 +7,41 @@ For every destination node i and each of its K kNN sources s = idx[i, k]:
 
     edge_type = 4-way one-hot of (src is ligand, dst is ligand)
                 [+ 2-way one-hot of same decomposition group]
-    edge_feat = [outer(edge_type, RBF20(|x_i - x_s|)), edge_type]   (F*21)
+    edge_feat = [outer(edge_type, RBF20(|x_i - xs_s|)), edge_type]  (F*21)
     pre_m     = edge_feat @ We_m + t_row_m[i] + t_src_m[s]          (m = k, v)
     k, v      = relu(LayerNorm(pre_m)) @ Wo_m + bo_m
     [gate = (wm, bm), node mode only: v *= sigmoid(v . wm + bm)]
     v *= e_w
     alpha     = masked softmax over K of the head-grouped q[i] . k / sqrt(hd)
     node mode:  out[i] = sum_k alpha v                              [B, N, H]
-    pos mode:   out[i] = sum_k mean_h(alpha v) (x_i - x_s)          [B, N, 3]
+    pos mode:   out[i] = sum_k mean_h(alpha v) (x_i - xs_s)         [B, N, 3]
 
 `t_row` is h @ Wi + be and `t_src` is h @ Wj (per-node products, computed
-by the caller with torch.matmul); in pos mode Wo_v is [H, heads].
+by the caller with torch.matmul); in pos mode Wo_v is [H, heads]. `xs` is
+the source coordinates `x_src`, or x when there is none.
 
 The gate is the uni_o2 net's ew_net_type 'm' (edge_kernel.py m_gate); the
 kernels take it as a template parameter, and its launches are counted apart
 (`edge_attention.gated_launches`, `edge_attention_backward.gated_launches`)
 from the ungated ones (`.launches`).
 
+`x_src` [B, N, 3] carries the TPU kernel's gather_bf16 table (config key
+`pallas_gather_bf16`, edge_kernel.py _split_hjT): the sources' coordinates
+rebuilt from bf16 hi + lo, beside the float32 x of the destinations. The
+caller forms it (models/uni_transformer_bond.py, with t_src from
+bf16-rounded h). Launches with an x_src are counted apart
+(`edge_attention.gather_launches`, `edge_attention_backward.gather_launches`),
+and its gradient is returned apart from that of x.
+
+The forward kernel is chosen by width: for H in TENSOR_CORE_WIDTHS the
+tensor-core kernel (csrc/row_mma.cuh), for every other width that
+check_heads admits the per-row kernel (csrc/row_attention.cuh). The
+per-row launches, of any mode, also count in `edge_attention.row_launches`.
+
 On CUDA tensors `edge_attention` is differentiable: its autograd node saves
 only the inputs, and `edge_attention_backward` recomputes the rest in the
-backward kernel and returns the gradients of x, e_w, q, both branches and
-the gate.
+backward kernel and returns the gradients of x, e_w, q, both branches, the
+gate and x_src.
 """
 
 from __future__ import annotations
@@ -42,9 +56,9 @@ from decompdiff_tpu_torch.models.common import (
     fixed_rbf, outer_product, safe_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
-    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
-    check_tensor_core_width, launch, on_cpu, ptr)
+    TENSOR_CORE_WIDTHS, Branch, ParamGrads, attend, autograd_grads,
+    backward_blocks, branch_checks, branch_mlp, branch_ptrs, check_heads,
+    check_inputs, launch, on_cpu, ptr)
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -81,13 +95,16 @@ def _node_mode_gate(gate: Optional[Gate], pos_mode: bool) -> None:
 
 def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
                              k: Branch, v: Branch, *, n_heads: int,
-                             pos_mode: bool,
-                             gate: Optional[Gate] = None) -> torch.Tensor:
+                             pos_mode: bool, gate: Optional[Gate] = None,
+                             x_src: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
     path (models/uni_transformer_bond.py NodeEdgeAttention/PosEdgeAttention,
-    models/uni_transformer.py X2HAttention for the gate)."""
+    models/uni_transformer.py X2HAttention for the gate); with x_src, the
+    order of the JAX kernel's gather_bf16 path (edge_kernel.py:172-175)."""
     _node_mode_gate(gate, pos_mode)
-    rel = x[:, :, None, :] - gather_nodes(x, idx)            # x_dst - x_src
+    xs = x if x_src is None else x_src
+    rel = x[:, :, None, :] - gather_nodes(xs, idx)           # x_dst - x_src
     dist = safe_norm(rel, dim=-1)
     edge_type = edge_types(lig, group, idx)
     edge_feat = torch.cat([outer_product(edge_type, fixed_rbf(dist)),
@@ -110,21 +127,25 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
 def edge_attention_backward_reference(g, x, lig, group, idx, mask, e_w, q,
                                       k: Branch, v: Branch, *, n_heads: int,
                                       pos_mode: bool,
-                                      gate: Optional[Gate] = None):
+                                      gate: Optional[Gate] = None,
+                                      x_src: Optional[torch.Tensor] = None):
     """Plain version of the backward: autograd through the plain forward.
-    Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch, and with a
-    gate a sixth entry (d_wm, d_bm)."""
-    def fn(x, e_w, q, *params):
+    Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch, then with a
+    gate (d_wm, d_bm) and with an x_src d_x_src."""
+    def fn(x, e_w, q, x_src, *params):
         return edge_attention_reference(
             x, lig, group, idx, mask, e_w, q, Branch(*params[:7]),
             Branch(*params[7:14]), n_heads=n_heads, pos_mode=pos_mode,
-            gate=tuple(params[14:]) or None)
-    d = autograd_grads(fn, g, [x, e_w, q, *k, *v, *(gate or ())])
-    grads = d[0], d[1], d[2], Branch(*d[3:10]), Branch(*d[10:17])
-    return grads if gate is None else grads + (tuple(d[17:]),)
+            gate=tuple(params[14:]) or None, x_src=x_src)
+    d = autograd_grads(fn, g, [x, e_w, q, x_src, *k, *v, *(gate or ())])
+    grads = (d[0], d[1], d[2], Branch(*d[4:11]), Branch(*d[11:18]))
+    if gate is not None:
+        grads += (tuple(d[18:]),)
+    return grads if x_src is None else grads + (d[3],)
 
 
-def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode, gate):
+def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode, gate,
+            x_src):
     """check_inputs entries of the kernel's inputs, and the edge-type count."""
     _node_mode_gate(gate, pos_mode)
     B, N, K = idx.shape
@@ -138,6 +159,8 @@ def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode, gate):
              ('q', q, (B, N, H), f32)]
     if group is not None:
         named.append(('group', group, (B, N), f32))
+    if x_src is not None:
+        named.append(('x_src', x_src, (B, N, 3), f32))
     for tag, p, dout in (('k', k, H), ('v', v, n_heads if pos_mode else H)):
         named += branch_checks(tag, p, (B, N, H), (B, N, H), n_et * 21, H,
                                dout)
@@ -147,27 +170,36 @@ def _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode, gate):
     return named, n_et
 
 
+def _count(counter, gate, x_src) -> None:
+    """One launch of `counter` (a wrapper) in the counter of its mode."""
+    if gate is not None:
+        counter.gated_launches += 1
+    elif x_src is not None:
+        counter.gather_launches += 1
+    else:
+        counter.launches += 1
+
+
 def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode,
-             gate):
+             gate, x_src):
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
-                          pos_mode, gate)
+                          pos_mode, gate, x_src)
     check_inputs(q.device, named)
-    check_tensor_core_width(H)
     out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
     wm, bm = gate or (None, None)
-    fn = _build.load('edge_attention', 'edge_attention_fwd', 24, 7)
-    args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
-             ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
+    fn = _build.load('edge_attention', 'edge_attention_fwd', 25, 7)
+    args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
+             ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q)]
+            + branch_ptrs(k) + branch_ptrs(v)
             + [ptr(wm), ptr(bm), ptr(out)]
             + [B, N, K, H, n_heads, n_et, int(pos_mode)])
     launch(fn, args, q.device, 'edge_attention')
-    if gate is None:
-        edge_attention.launches += 1
-    else:
-        edge_attention.gated_launches += 1
+    _count(edge_attention, gate, x_src)
+    if H not in TENSOR_CORE_WIDTHS:
+        edge_attention.row_launches += 1
     return out
 
 
@@ -176,70 +208,79 @@ class _EdgeAttention(torch.autograd.Function):
     the k and v Branch fields, then wm and bm with a gate."""
 
     @staticmethod
-    def forward(ctx, n_heads, pos_mode, x, lig, group, idx, mask, e_w, q,
-                *params):
+    def forward(ctx, n_heads, pos_mode, x, x_src, lig, group, idx, mask, e_w,
+                q, *params):
         ctx.opts = dict(n_heads=n_heads, pos_mode=pos_mode)
-        ctx.save_for_backward(x, lig, group, idx, mask, e_w, q, *params)
+        ctx.save_for_backward(x, x_src, lig, group, idx, mask, e_w, q,
+                              *params)
         return _forward(x, lig, group, idx, mask, e_w, q,
                         Branch(*params[:7]), Branch(*params[7:14]), n_heads,
-                        pos_mode, tuple(params[14:]) or None)
+                        pos_mode, tuple(params[14:]) or None, x_src)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, lig, group, idx, mask, e_w, q, *params = ctx.saved_tensors
+        x, x_src, lig, group, idx, mask, e_w, q, *params = ctx.saved_tensors
         gate = tuple(params[14:]) or None
-        d_x, d_ew, d_q, dk, dv, *d_gate = edge_attention_backward(
+        d_x, d_ew, d_q, dk, dv, *rest = edge_attention_backward(
             g.contiguous(), x, lig, group, idx, mask, e_w, q,
             Branch(*params[:7]), Branch(*params[7:14]), gate=gate,
-            **ctx.opts)
-        return (None, None, d_x, None, None, None, None, d_ew, d_q, *dk, *dv,
-                *(d_gate[0] if d_gate else ()))
+            x_src=x_src, **ctx.opts)
+        d_gate = rest.pop(0) if gate is not None else ()
+        d_xs = rest.pop(0) if x_src is not None else None
+        return (None, None, d_x, d_xs, None, None, None, None, d_ew, d_q,
+                *dk, *dv, *d_gate)
 
 
 def edge_attention(x: torch.Tensor, lig: torch.Tensor,
                    group: Optional[torch.Tensor], idx: torch.Tensor,
                    mask: torch.Tensor, e_w: torch.Tensor, q: torch.Tensor,
                    k: Branch, v: Branch, *, n_heads: int, pos_mode: bool,
-                   gate: Optional[Gate] = None) -> torch.Tensor:
+                   gate: Optional[Gate] = None,
+                   x_src: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Args (float32 unless noted):
         x [B, N, 3] coordinates; lig [B, N] 1.0 on ligand(+prior) nodes;
         group [B, N] decomposition group ids, or None for 4 edge types;
         idx [B, N, K] int32 sources; mask / e_w [B, N, K]; q [B, N, H];
         k, v: Branch with t_row / t_src [B, N, H], w_feat [F*21, H],
         wo [H, H] (v in pos mode [H, heads]), bo, ln_scale, ln_bias;
-        gate: optional m-gate (wm [H], bm [1]), node mode only.
+        gate: optional m-gate (wm [H], bm [1]), node mode only;
+        x_src: optional [B, N, 3] coordinates the sources are read from
+        (the gather_bf16 hi + lo table), None for x.
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     its gradient launches the backward kernel.
     """
     if on_cpu(q):
         return edge_attention_reference(x, lig, group, idx, mask, e_w, q, k,
                                         v, n_heads=n_heads, pos_mode=pos_mode,
-                                        gate=gate)
-    return _EdgeAttention.apply(n_heads, pos_mode, x, lig, group, idx, mask,
-                                e_w, q, *k, *v, *(gate or ()))
+                                        gate=gate, x_src=x_src)
+    return _EdgeAttention.apply(n_heads, pos_mode, x, x_src, lig, group, idx,
+                                mask, e_w, q, *k, *v, *(gate or ()))
 
 
 def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
                             q, k: Branch, v: Branch, *, n_heads: int,
-                            pos_mode: bool, gate: Optional[Gate] = None):
+                            pos_mode: bool, gate: Optional[Gate] = None,
+                            x_src: Optional[torch.Tensor] = None):
     """Gradients of edge_attention for the output cotangent g ([B, N, H],
     pos mode [B, N, 3]): (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch
-    (d t_row, d t_src and the five parameter gradients), and with a gate a
-    sixth entry (d_wm, d_bm). CPU tensors run the plain version; CUDA
-    tensors launch the backward kernel."""
+    (d t_row, d t_src and the five parameter gradients), then with a gate
+    (d_wm, d_bm), and with an x_src d_x_src (d_x then holds only the
+    destinations' part). CPU tensors run the plain version; CUDA tensors
+    launch the backward kernel."""
     if on_cpu(q):
         return edge_attention_backward_reference(
             g, x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
-            pos_mode=pos_mode, gate=gate)
+            pos_mode=pos_mode, gate=gate, x_src=x_src)
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
-                          pos_mode, gate)
+                          pos_mode, gate, x_src)
     named.append(('g', g, (B, N, 3 if pos_mode else H), torch.float32))
     check_inputs(q.device, named)
     dev = q.device
     d_x = torch.zeros((B, N, 3), device=dev)
+    d_xs = None if x_src is None else torch.zeros((B, N, 3), device=dev)
     d_ew = torch.empty((B, N, K), device=dev)
     d_q, d_trow_k, d_trow_v = (torch.empty((B, N, H), device=dev)
                                for _ in range(3))
@@ -251,21 +292,25 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
     woT_k = k.wo.t().contiguous()
     woT_v = None if pos_mode else v.wo.t().contiguous()
     wm, bm = gate or (None, None)
-    fn = _build.load('edge_attention', 'edge_attention_bwd', 35, 8)
-    args = ([ptr(x), ptr(lig), ptr(group), ptr(idx), ptr(mask), ptr(e_w),
-             ptr(q), ptr(g)] + branch_ptrs(k) + [ptr(woT_k)]
+    fn = _build.load('edge_attention', 'edge_attention_bwd', 37, 8)
+    args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
+             ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q), ptr(g)]
+            + branch_ptrs(k) + [ptr(woT_k)]
             + branch_ptrs(v) + [ptr(woT_v), ptr(wm), ptr(bm)]
-            + [ptr(t) for t in (d_x, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-                                d_tsrc_v, pg.slots, pg.out)]
+            + [ptr(t) for t in (d_x, d_x if d_xs is None else d_xs, d_ew,
+                                d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
+                                pg.slots, pg.out)]
             + [B, N, K, H, n_heads, n_et, int(pos_mode), blocks])
     launch(fn, args, dev, 'edge_attention_backward')
-    dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
-    if gate is None:
-        edge_attention_backward.launches += 1
-        return d_x, d_ew, d_q, dk, dv
-    edge_attention_backward.gated_launches += 1
-    return d_x, d_ew, d_q, dk, dv, tuple(pg.extra())
+    _count(edge_attention_backward, gate, x_src)
+    grads = (d_x, d_ew, d_q) + pg.branches(d_trow_k, d_tsrc_k, d_trow_v,
+                                           d_tsrc_v)
+    if gate is not None:
+        grads += (tuple(pg.extra()),)
+    return grads if x_src is None else grads + (d_xs,)
 
 
 edge_attention.launches = edge_attention.gated_launches = 0
+edge_attention.gather_launches = edge_attention.row_launches = 0
 edge_attention_backward.launches = edge_attention_backward.gated_launches = 0
+edge_attention_backward.gather_launches = 0

@@ -23,6 +23,12 @@ recomputes the forward without the rounding. The launches of the two
 forward variants are counted apart (`triplet_attention.launches`,
 `triplet_attention.bf16_launches`).
 
+The forward kernel is chosen by width: for H in TENSOR_CORE_WIDTHS the
+tensor-core kernel (csrc/row_mma.cuh), for every other width that
+check_heads admits the per-row kernel (csrc/row_attention.cuh), both with
+the bf16 option. The per-row launches, of either variant, also count in
+`triplet_attention.row_launches`.
+
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
 in the backward kernel.
@@ -37,9 +43,9 @@ from decompdiff_tpu_torch.models.common import (
     ANGULAR_DIM, angular_encoding, layer_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
-    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
-    check_tensor_core_width, launch, on_cpu, ptr)
+    TENSOR_CORE_WIDTHS, Branch, ParamGrads, attend, autograd_grads,
+    backward_blocks, branch_checks, branch_mlp, branch_ptrs, check_heads,
+    check_inputs, launch, on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -100,7 +106,6 @@ def _forward(angle, mask, q, k, v, n_heads, bf16):
     B, Nl = angle.shape[:2]
     H = q.shape[-1]
     check_inputs(q.device, _checks(angle, mask, q, k, v, n_heads))
-    check_tensor_core_width(H)
     out = torch.empty((B, Nl, Nl, H), device=q.device, dtype=torch.float32)
     fn = _build.load('triplet_attention', 'triplet_attention_fwd', 18, 5)
     args = ([ptr(angle), ptr(mask), ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
@@ -110,6 +115,8 @@ def _forward(angle, mask, q, k, v, n_heads, bf16):
         triplet_attention.bf16_launches += 1
     else:
         triplet_attention.launches += 1
+    if H not in TENSOR_CORE_WIDTHS:
+        triplet_attention.row_launches += 1
     return out
 
 
@@ -192,4 +199,5 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
 
 
 triplet_attention.launches = triplet_attention.bf16_launches = 0
+triplet_attention.row_launches = 0
 triplet_attention_backward.launches = 0

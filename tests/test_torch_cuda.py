@@ -14,6 +14,11 @@ chip_smoke.py does not cover. Nl=20 gives the bond and triplet kernels two
 source chunks, the last one ragged, and the triplet backward's shared
 d t_src sum across both. The m-gated edge kernels (uni_o2) run at K=20 and
 K=32 with a gate bias of 0 and one of +-30, which saturates the sigmoid.
+The gather_bf16 edge kernels (sources from x_src) run forward and backward
+in both modes with 4 and 6 edge types, the edge and triplet forwards at
+widths outside the tensor-core kernels' (H = 96, 256, 1024) on their
+per-row kernels, and the bond forward at H = 512 and 1024 (blocks of more
+than 256 threads).
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -129,6 +134,30 @@ def test_bond_kernel(cuda, pos_mode, Nl):
     _compare(module, args, cuda, bond_ops.bond_attention)
 
 
+@pytest.mark.parametrize('H,heads', [(512, 16), (1024, 32)],
+                         ids=['H512', 'H1024'])
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_wide_kernel(cuda, pos_mode, H, heads):
+    """The bond forward with blocks of more than 256 threads (its 1024-thread
+    build); Nl=20, two chunks."""
+    rng = np.random.default_rng(9)
+    B, Nl = 2, 20
+    lm = torch.ones(B, Nl, dtype=torch.bool)
+    lm[1, 9:] = False
+    bm = (lm[:, :, None] & lm[:, None, :] & ~torch.eye(Nl, dtype=torch.bool)
+          ).float()
+    k = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, H)
+    v = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, heads if pos_mode
+                     else H)
+    hb, q = _rand(rng, B, Nl, Nl, H, scale=1.0), _rand(rng, B, Nl, H,
+                                                        scale=1.0)
+    x = _rand(rng, B, Nl, 3, scale=2.0) if pos_mode else None
+    _forward_on_card(bond_ops.bond_attention,
+                     bond_ops.bond_attention_reference, (hb, x, bm, q, k, v),
+                     dict(n_heads=heads, pos_mode=pos_mode), cuda,
+                     bond_ops.bond_attention, 'launches')
+
+
 @pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
 @pytest.mark.parametrize('include_h_node', [True, False])
 def test_triplet_kernel(cuda, include_h_node, Nl):
@@ -237,20 +266,137 @@ def test_edge_tensor_core_kernel(cuda, mode, K):
     assert float(got[0, N - 5:].abs().max()) == 0.0
 
 
-def test_tensor_core_kernels_refuse_other_widths(cuda):
-    """The edge and triplet forward kernels take H in 32, 64, 128; the
-    wrapper raises before a launch for any other width."""
+def _edge_case(rng, H, heads, mode, K=20, B=2, N=37, Np=25, group=True):
+    """(args, kw) of an edge forward or backward launch; mode node, pos,
+    gated (node mode with the m-gate, 4 edge types) or gather (node mode
+    with x_src, the hi + lo split of x); `mode` may end in '_pos' for
+    gather in pos mode. Rows N-5.. of complex 0 have no valid source."""
+    pos = mode.endswith('pos')
+    group = group and mode != 'gated'
+    x, graph, e_w = _graph(rng, B, N, K, Np, group)
+    n_et = 6 if group else 4
+    k = _rand_branch(rng, (B, N, H), (B, N, H), n_et * 21, H, H)
+    v = _rand_branch(rng, (B, N, H), (B, N, H), n_et * 21, H,
+                     heads if pos else H)
+    q = _rand(rng, B, N, H, scale=1.0)
+    kw = dict(n_heads=heads, pos_mode=pos)
+    if mode == 'gated':
+        kw['gate'] = (_rand(rng, H), torch.tensor([0.5]))
+    if mode.startswith('gather'):
+        kw['x_src'] = tutb.gather_table(torch.zeros(1), x)[1]
+    return (x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q, k,
+            v), kw
+
+
+EDGE_COUNTS = {'node': 'launches', 'pos': 'launches',
+               'gated': 'gated_launches', 'gather': 'gather_launches',
+               'gather_pos': 'gather_launches'}
+
+
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('mode', ['gather', 'gather_pos'])
+def test_edge_gather_kernel(cuda, mode, group):
+    """gather_bf16: the sources' coordinates from x_src (hi + lo), the
+    destinations' from x; the launch counts in gather_launches alone."""
+    rng = np.random.default_rng(30 + group)
+    args, kw = _edge_case(rng, 128, 16, mode, K=32, group=group)
+    assert float((kw['x_src'] - args[0]).abs().max()) > 0.0
+    launches = edge_ops.edge_attention.launches
+    got = _forward_on_card(
+        edge_ops.edge_attention, edge_ops.edge_attention_reference, args, kw,
+        cuda, edge_ops.edge_attention, 'gather_launches')
+    assert edge_ops.edge_attention.launches == launches
+    if mode == 'gather':
+        assert float(got[0, -5:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('mode', ['gather', 'gather_pos'])
+def test_edge_gather_backward_kernel(cuda, mode, group):
+    """Every gradient elementwise, d x (destinations) and d x_src (sources)
+    apart."""
+    rng = np.random.default_rng(32 + group)
+    args, kw = _edge_case(rng, 128, 16, mode, group=group)
+    g = _rand(rng, *(args[0].shape if mode == 'gather_pos' else
+                     args[-3].shape), scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
+                    edge_ops.edge_attention_backward, count='gather_launches')
+
+
+# The widths outside the tensor-core kernels' run on the per-row kernels:
+# 96 and 256 with 12 and 16 heads (head width 8 and 16), and 1024 with 32
+# (head width 32, the largest block).
+ROW_WIDTHS = [(96, 12), (256, 16), (1024, 32)]
+ROW_IDS = [f'H{h}' for h, _ in ROW_WIDTHS]
+
+
+@pytest.mark.parametrize('H,heads', ROW_WIDTHS, ids=ROW_IDS)
+@pytest.mark.parametrize('mode', ['node', 'pos', 'gated', 'gather'])
+def test_edge_row_kernel(cuda, mode, H, heads):
+    rng = np.random.default_rng(40 + H)
+    args, kw = _edge_case(rng, H, heads, mode)
+    rows = edge_ops.edge_attention.row_launches
+    got = _forward_on_card(
+        edge_ops.edge_attention, edge_ops.edge_attention_reference, args, kw,
+        cuda, edge_ops.edge_attention, EDGE_COUNTS[mode])
+    assert edge_ops.edge_attention.row_launches == rows + 1
+    if mode != 'pos':
+        assert float(got[0, -5:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('H,heads', ROW_WIDTHS, ids=ROW_IDS)
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+def test_triplet_row_kernel(cuda, bf16, H, heads):
+    """Nl=20: two 16-atom chunks, the last ragged."""
+    rng = np.random.default_rng(50 + H)
+    B, Nl = 2, 20
+    bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.3)
+          & ~torch.eye(Nl, dtype=torch.bool)).float()
+    bm[0, 4] = 0.0
+    k = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    v = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
+                            dtype=torch.float32)
+    q = _rand(rng, B, Nl, Nl, H, scale=1.0)
+    rows = triplet_ops.triplet_attention.row_launches
+    got = _forward_on_card(
+        triplet_ops.triplet_attention,
+        triplet_ops.triplet_attention_reference, (angle, bm, q, k, v),
+        dict(n_heads=heads, bf16=bf16), cuda, triplet_ops.triplet_attention,
+        'bf16_launches' if bf16 else 'launches')
+    assert triplet_ops.triplet_attention.row_launches == rows + 1
+    assert float(got[0, 4].abs().max()) == 0.0
+
+
+def test_forward_kernels_refuse_what_check_heads_refuses(cuda):
+    """The edge and triplet forward wrappers refuse exactly the widths that
+    check_heads refuses (here 48, not a multiple of 32), before a launch;
+    the tensor-core widths do not run the per-row kernels."""
     rng = np.random.default_rng(11)
-    B, Nl, H, heads = 1, 5, 96, 12
+    B, Nl, H, heads = 1, 5, 48, 6
     br = _dev(_rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H),
               cuda)
     angle = torch.zeros(B, Nl, Nl, Nl, device=cuda)
     bm = torch.ones(B, Nl, Nl, device=cuda)
     q = torch.zeros(B, Nl, Nl, H, device=cuda)
-    before = triplet_ops.triplet_attention.launches
-    with pytest.raises(ValueError, match='hidden width 96'):
+    before = (triplet_ops.triplet_attention.launches,
+              triplet_ops.triplet_attention.row_launches)
+    with pytest.raises(ValueError, match='hidden width 48'):
         triplet_ops.triplet_attention(angle, bm, q, br, br, n_heads=heads)
-    assert triplet_ops.triplet_attention.launches == before
+    args, kw = _edge_case(rng, H, heads, 'node')
+    edge_before = (edge_ops.edge_attention.launches,
+                   edge_ops.edge_attention.row_launches)
+    with pytest.raises(ValueError, match='hidden width 48'):
+        edge_ops.edge_attention(*[_dev(a, cuda) for a in args], **kw)
+    assert (triplet_ops.triplet_attention.launches,
+            triplet_ops.triplet_attention.row_launches) == before
+    assert (edge_ops.edge_attention.launches,
+            edge_ops.edge_attention.row_launches) == edge_before
+    args, kw = _edge_case(rng, 64, 8, 'pos')
+    _forward_on_card(edge_ops.edge_attention,
+                     edge_ops.edge_attention_reference, args, kw, cuda,
+                     edge_ops.edge_attention, 'launches')
+    assert edge_ops.edge_attention.row_launches == edge_before[1]
 
 
 UNI_O2 = {'model_type': 'uni_o2', 'bond_net_type': 'pre_att'}
@@ -526,19 +672,36 @@ def test_autograd_reaches_backward_kernel(cuda, which):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4 * scale)
 
 
-def _train_step_on_vs_off(cuda, cfg, counter, count='launches'):
+def _plain_wrappers(monkeypatch):
+    """Every kernel wrapper replaced by its plain version, which the modules
+    then call on CUDA tensors under autograd: the kernel path's semantics
+    (gather_bf16 included) without a kernel."""
+    for mod, name in ((edge_ops, 'edge_attention'),
+                      (bond_ops, 'bond_attention'),
+                      (triplet_ops, 'triplet_attention')):
+        monkeypatch.setattr(mod, name, getattr(mod, f'{name}_reference'))
+
+
+def _train_step_on_vs_off(cuda, cfg, counter, count='launches', per_layer=1,
+                          monkeypatch=None):
     """One training step's loss, grad norm and every parameter gradient with
     the kernels on against off (same weights, same draws), at the tolerance
     the JAX package holds its kernel path to (tests/test_train_step.py); and
-    the step launches the backward kernel `counter` once per layer."""
+    the step launches the backward kernel `counter` per_layer times per
+    layer. With `monkeypatch`, off is the kernel path's model with every
+    wrapper replaced by its plain version (for options the plain path does
+    not read)."""
     from decompdiff_tpu_torch.training.train_step import (
         DEFAULT_TRAIN_CONFIG, create_train_state, global_norm, make_train_fns)
     batch = random_complex_batch(np.random.default_rng(0), batch_size=4,
                                  num_ligand=11, real_ligand=9, device=cuda)
     out = {}
     for on in (True, False):
-        model = DecompDiffModel.create(dict(cfg, use_pallas=on), 8,
-                                       device=cuda, seed=3)
+        if not on and monkeypatch is not None:
+            _plain_wrappers(monkeypatch)
+        model = DecompDiffModel.create(
+            dict(cfg, use_pallas=on or monkeypatch is not None), 8,
+            device=cuda, seed=3)
         grad_step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[1]
         before = getattr(counter, count)
         grads, metrics, _, _ = grad_step(
@@ -546,7 +709,7 @@ def _train_step_on_vs_off(cuda, cfg, counter, count='launches'):
             torch.Generator(device=cuda).manual_seed(1))
         torch.cuda.synchronize()
         launched = getattr(counter, count) - before
-        assert launched == (cfg['num_layers'] if on else 0)
+        assert launched == (per_layer * cfg['num_layers'] if on else 0)
         out[on] = grads, metrics
     (g_on, m_on), (g_off, m_off) = out[True], out[False]
     for key in m_off:
@@ -563,6 +726,16 @@ def _train_step_on_vs_off(cuda, cfg, counter, count='launches'):
 def test_tiny_train_step_kernels_on_vs_off(cuda):
     _train_step_on_vs_off(cuda, tiny_model_config(num_diffusion_timesteps=20),
                           triplet_ops.triplet_attention_backward)
+
+
+def test_tiny_gather_train_step_kernels_on_vs_off(cuda, monkeypatch):
+    """pallas_gather_bf16: both edge backward kernels of each layer take
+    the x_src table, against the same model with plain versions."""
+    cfg = tiny_model_config(num_diffusion_timesteps=20,
+                            pallas_gather_bf16=True)
+    _train_step_on_vs_off(cuda, cfg, edge_ops.edge_attention_backward,
+                          count='gather_launches', per_layer=2,
+                          monkeypatch=monkeypatch)
 
 
 def test_tiny_uni_o2_train_step_kernels_on_vs_off(cuda):

@@ -3,10 +3,11 @@ the CPU the wrapper runs the kernel's plain version), against the JAX
 package's Pallas kernel in interpret mode and its dense path, with shared
 parameters loaded through the param bridge.
 
-Modes: edge node/pos with 4 and 6 edge types, edge node mode with the
-m-gate (through the uni_o2 X2HAttention modules), bond node/pos, triplet with
-include_h_node True and False; every case has ragged masks and fully-masked
-rows. Tolerance rtol 2e-4 / atol 2e-5, that of the JAX package's own
+Modes: edge node/pos with 4 and 6 edge types, each also with gather_bf16
+(the sources read from the JAX kernels' bf16 node table), edge node mode
+with the m-gate (through the uni_o2 X2HAttention modules), bond node/pos,
+triplet with include_h_node True and False; every case has ragged masks and
+fully-masked rows. Tolerance rtol 2e-4 / atol 2e-5, that of the JAX package's own
 Pallas-vs-dense tests (tests/test_pallas_{edge,bond,triplet}.py)."""
 
 import jax
@@ -120,11 +121,13 @@ EDGE_CASES = [('node', False), ('node', True), ('pos', False), ('pos', True),
 EDGE_IDS = [f'{m}-{6 if g else 4}types' for m, g in EDGE_CASES]
 
 
-def _jax_edge(mode, pallas, c):
+def _jax_edge(mode, pallas, c, gather=False):
     """(init, apply) of the JAX module of an edge case: init(key) -> params;
     apply(params, h, x, e_w) builds the edge data from x (so jax.grad
-    reaches it) and runs the module."""
+    reaches it) and runs the module. gather: gather_bf16 (node, pos)."""
     kw = dict(use_pallas=pallas, num_protein=c['Np'])
+    if gather:
+        kw['gather_bf16'] = True
     if mode == 'mgate':
         mod = jo2.X2HAttention(H, HEADS, ew_net_type='m', out_fc=False, **kw)
     elif mode == 'pos':
@@ -147,13 +150,14 @@ def _jax_edge(mode, pallas, c):
             lambda params, h, x, e_w: mod.apply(params, *args(h, x, e_w)))
 
 
-def _port_edge(mode, n_etypes):
+def _port_edge(mode, n_etypes, gather=False):
     if mode == 'mgate':
         return to2.X2HAttention(H, HEADS, 'm', out_fc=False, use_kernels=True)
     if mode == 'pos':
-        return tutb.PosEdgeAttention(H, HEADS, n_etypes, use_kernels=True)
+        return tutb.PosEdgeAttention(H, HEADS, n_etypes, use_kernels=True,
+                                     gather_bf16=gather)
     return tutb.NodeEdgeAttention(H, HEADS, n_etypes, out_fc=False,
-                                  use_kernels=True)
+                                  use_kernels=True, gather_bf16=gather)
 
 
 def _edge_params(mode, c):
@@ -186,6 +190,39 @@ def test_edge_kernel_modes(mode, group):
     _check(got, dense, pallas)
     if mode == 'node':                   # padded dst nodes: exactly zero
         assert float(got[0, 12:].abs().max()) == 0.0
+
+
+# gather_bf16 (config key pallas_gather_bf16): the JAX kernel path reads the
+# sources from a bf16 node table [h | x hi | x lo] (_pack_hx), so t_src
+# projects bf16-rounded h and the source coordinates are hi + lo; the port's
+# modules form the same from h and x (gather_table) and pass x_src to the
+# wrapper. Forward at TOL against the JAX Pallas kernel with the option, in
+# interpret mode; the option itself moves the output by more than that.
+GATHER_CASES = [c for c in EDGE_CASES if c[0] != 'mgate']
+GATHER_IDS = [i for c, i in zip(EDGE_CASES, EDGE_IDS) if c[0] != 'mgate']
+
+
+@pytest.mark.parametrize('mode,group', GATHER_CASES, ids=GATHER_IDS)
+def test_edge_kernel_gather_bf16(mode, group):
+    pos_mode = mode == 'pos'
+    c = _edge_inputs(group, seed=31 + 2 * pos_mode + group)
+    params = _edge_params(mode, c)
+    args = (c['h'], c['x'], c['e_w'])
+    want = np.asarray(_jax_edge(mode, True, c, gather=True)[1](params, *args))
+    f32 = np.asarray(_jax_edge(mode, True, c)[1](params, *args))
+    tmod = _load(_port_edge(mode, c['n_etypes'], gather=True), params)
+    counts = (edge_ops.edge_attention.launches,
+              edge_ops.edge_attention.gather_launches)
+    got = tmod(_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0]))
+    assert (edge_ops.edge_attention.launches,
+            edge_ops.edge_attention.gather_launches) == counts  # CPU: none
+    _check(got, want)
+    assert np.abs(want - f32).max() > 10 * TOL['atol']
+    if mode == 'node':                   # padded dst nodes: exactly zero
+        assert float(got[0, 12:].abs().max()) == 0.0
+    tmod.gather_bf16 = False             # the flag alone selects the table
+    _check(tmod(_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
+           f32)
 
 
 def test_node_edge_out_fc_matches_dense():
@@ -416,6 +453,56 @@ def test_edge_kernel_grads(mode, group):
         _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
         _assert_grads(zip(('h', 'x', 'e_w'), got_in),
                       [gh, gx, np.asarray(gew)[..., 0]], label)
+
+
+# With gather_bf16 the cotangents of h and x pass a bf16 rounding, as in
+# JAX's cast chain: the table's (summed over edges, then rounded) and the
+# source coordinates' (hi + lo: the rounded sum of the d x_src terms). JAX
+# sums d t_src per edge into the table before rounding; the port scatters
+# d t_src, multiplies by Wj^T, then rounds: the same sum in another order,
+# so a value within float32 rounding of a bf16 rounding boundary can round
+# to the neighbouring bf16 value. d h and d x are therefore held at the
+# float32 tolerance above except for at most 1% of their elements, which
+# may differ by one bf16 ulp at the gradient's scale, 2^-7 * max(1,
+# max |grad|). Every other gradient at the float32 tolerance.
+BF16_ULP = 2.0 ** -7
+
+
+def _assert_rounded_grads(got, want, label):
+    for (name, a), b in zip(got, want):
+        b = np.asarray(b)
+        scale = max(1.0, float(np.abs(b).max()))
+        diff = np.abs(a - b)
+        outside = diff > 5e-4 * np.abs(b) + 5e-5 * scale
+        assert outside.sum() <= max(1, 0.01 * b.size), (label, name)
+        assert diff.max() <= BF16_ULP * scale, (label, name, diff.max())
+
+
+@pytest.mark.parametrize('mode,group', GATHER_CASES, ids=GATHER_IDS)
+def test_edge_kernel_gather_bf16_grads(mode, group):
+    """Parameter, h, x and e_w gradients of the gather_bf16 path against
+    jax.grad of the JAX Pallas module with the option (its custom VJP in
+    interpret mode)."""
+    pos_mode = mode == 'pos'
+    c = _edge_inputs(group, seed=41 + 2 * pos_mode + group)
+    params = _edge_params(mode, c)
+    cot = np.random.default_rng(9).normal(
+        size=(2, 16, 3 if pos_mode else H)).astype(np.float32)
+    apply = _jax_edge(mode, True, c, gather=True)[1]
+
+    def f(params, h, x, e_w):
+        return jnp.sum(apply(params, h, x, e_w) * cot)
+    gp, gh, gx, gew = jax.grad(f, argnums=(0, 1, 2, 3))(params, c['h'],
+                                                        c['x'], c['e_w'])
+    tmod = _load(_port_edge(mode, c['n_etypes'], gather=True), params)
+    got_p, got_in = _torch_grads(
+        tmod, (_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
+        (0, 1, 3), cot)
+    _assert_grads(got_p, [b for _, b in _param_grads(gp)], 'gather_bf16')
+    _assert_grads([('e_w', got_in[2])], [np.asarray(gew)[..., 0]],
+                  'gather_bf16')
+    _assert_rounded_grads(zip(('h', 'x'), got_in[:2]), [gh, gx],
+                          'gather_bf16')
 
 
 @pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])

@@ -130,27 +130,39 @@ def test_param_bridge_is_strict():
         load_flax_params(model.denoiser, {'params': wrong})
 
 
-def test_tiny_denoiser_bf16_matches_jax():
-    """use_pallas with pallas_bf16: the triplet kernel's bf16 second linears
-    (on the CPU their plain version) against the JAX kernel path with the
-    same keys (Pallas in interpret mode), at the bf16 tolerance of
-    tests/test_torch_kernels.py: a y within float32 rounding of a bf16
-    rounding boundary can round the other way in the two (measured up to
-    3e-4 here, seeds 0-2), while the option moves pred_bond by ~3e-3."""
-    keys = dict(use_pallas=True, pallas_bf16=True)
+# The bf16 options of the kernel path, each against the JAX kernel path with
+# the same keys (Pallas in interpret mode): (tolerance, the prediction the
+# option moves most against the float32 dense path, by at least this much).
+BF16_OPTIONS = {
+    'pallas_bf16': (dict(rtol=1e-3, atol=1e-3), 'pred_bond', 2e-3),
+    'pallas_gather_bf16': (TINY_TOL, 'pred_ligand_pos', 5e-4)}
+
+
+@pytest.mark.parametrize('option', sorted(BF16_OPTIONS))
+def test_tiny_denoiser_bf16_matches_jax(option):
+    """use_pallas with a bf16 option (on the CPU the kernels' plain versions
+    with the same roundings) against the JAX kernel path.
+    pallas_bf16 at the bf16 tolerance of tests/test_torch_kernels.py, rtol /
+    atol 1e-3: a y within float32 rounding of a bf16 rounding boundary can
+    round the other way in the two (measured up to 3e-4 here, seeds 0-2),
+    while the option moves pred_bond by ~4e-3. pallas_gather_bf16 at the
+    float32 tolerance: it rounds h and x, which enter each layer, not a
+    per-pair y, and no value here lies within float32 rounding of a bf16
+    boundary (measured 7.2e-7), while the option moves pred_ligand_pos by
+    ~1e-3."""
     _, params, want32 = _jax_reference('released')
-    cfg = tiny_model_config(**keys)
+    cfg = tiny_model_config(use_pallas=True, **{option: True})
     jbatch = jax_random_complex_batch(np.random.default_rng(0))
     want = JaxModel.create(cfg, 8).apply(
         params, jbatch, jbatch.ligand_pos, jbatch.ligand_v, jbatch.bond_type,
         jnp.array([7, 31]))
     batch = random_complex_batch(np.random.default_rng(0), device='cpu')
     got = _port_preds(cfg, params, batch, torch.tensor([7, 31]))
+    tol, moved, least = BF16_OPTIONS[option]
     for key in PRED_KEYS:
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                   rtol=1e-3, atol=1e-3, err_msg=key)
-    moved = np.abs(got['pred_bond'].numpy() - want32['pred_bond']).max()
-    assert moved > 2e-3
+                                   **tol, err_msg=key)
+    assert np.abs(got[moved].numpy() - want32[moved]).max() > least
 
 
 def _tiny_preds(cfg):
@@ -164,27 +176,34 @@ def _tiny_preds(cfg):
 
 def test_config_keys():
     """use_pallas selects the kernels; with them pallas_bf16 selects the
-    triplet kernel's bf16 forward (the plain path ignores it); the other
-    three TPU tuning keys are accepted and change nothing; model_type
-    uni_o2 builds the non-bond refine net."""
-    tuning = dict(pallas_gather_bf16=True, pallas_triplet_i_block=4,
-                  pallas_edge_tile=128)
-    cfg = tiny_model_config(use_pallas=True, pallas_bf16=True, **tuning)
+    triplet kernel's bf16 forward and pallas_gather_bf16 the edge kernels'
+    bf16 source table (the plain path ignores both); the two TPU tiling
+    keys are accepted and change nothing; model_type uni_o2 builds the
+    non-bond refine net."""
+    tuning = dict(pallas_triplet_i_block=4, pallas_edge_tile=128)
+    cfg = tiny_model_config(use_pallas=True, pallas_bf16=True,
+                            pallas_gather_bf16=True, **tuning)
     model = DecompDiffModel.create(cfg, 8, device='cpu')
-    bond_layer = model.denoiser.refine_net.layer_0.bond_layer
-    assert bond_layer.use_kernels and bond_layer.bf16
-    assert not DecompDiffModel.create(
-        tiny_model_config(use_pallas=True), 8,
-        device='cpu').denoiser.refine_net.layer_0.bond_layer.bf16
+    layer = model.denoiser.refine_net.layer_0
+    assert layer.bond_layer.use_kernels and layer.bond_layer.bf16
+    assert layer.node_layer_with_edge.gather_bf16
+    assert layer.pos_layer_with_edge.gather_bf16
+    layer = DecompDiffModel.create(tiny_model_config(use_pallas=True), 8,
+                                   device='cpu').denoiser.refine_net.layer_0
+    assert not layer.bond_layer.bf16
+    assert not layer.node_layer_with_edge.gather_bf16
     for use_pallas in (False, True):
         base = tiny_model_config(use_pallas=use_pallas)
         plain = _tiny_preds(base)
         same = _tiny_preds(dict(base, **tuning))
         bf16 = _tiny_preds(dict(base, pallas_bf16=True))
+        gather = _tiny_preds(dict(base, pallas_gather_bf16=True))
         for key in PRED_KEYS:
             assert torch.equal(same[key], plain[key]), key
         assert torch.equal(bf16['pred_bond'], plain['pred_bond']) \
             != use_pallas
+        for key in PRED_KEYS:
+            assert torch.equal(gather[key], plain[key]) != use_pallas, key
     o2 = DecompDiffModel.create(
         dict(cfg, model_type='uni_o2', bond_net_type='pre_att'), 8,
         device='cpu').denoiser
