@@ -813,7 +813,8 @@ cudaError_t launch_bwd(const EdgeBwdArgs& a, int G, size_t smem,
 
 // Forward. xs: the sources' coordinates (x when the caller has no separate
 // table). H in 32, 64, 128: the tensor-core kernel; any other width the
-// wrapper admits: the per-row kernel.
+// wrapper admits: the per-row kernel. *row: 1 when the per-row kernel was
+// launched, else 0 (the wrapper counts the route from it).
 extern "C" int edge_attention_fwd(
     const float* x, const float* xs, const float* lig, const float* group,
     const int* idx,
@@ -824,8 +825,9 @@ extern "C" int edge_attention_fwd(
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb, const float* wm, const float* bm,
-    float* out, int B, int N, int K, int H, int n_heads, int n_types, int pos,
-    void* stream) {
+    float* out, int* row, int B, int N, int K, int H, int n_heads,
+    int n_types, int pos, void* stream) {
+  *row = 0;
   if (B * N == 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeArgs a{x, xs, lig, group, idx, mask, ew, q,
@@ -833,11 +835,11 @@ extern "C" int edge_attention_fwd(
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, N, K, H, n_heads, n_types, pos, Gate{wm, bm}};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {  // ops/common.py TENSOR_CORE_WIDTHS
+  switch (H) {
     case 32: return (int)launch_fwd<32>(a, B, s);
     case 64: return (int)launch_fwd<64>(a, B, s);
     case 128: return (int)launch_fwd<128>(a, B, s);
-    default: return (int)launch_fwd_row(a, B, s);
+    default: *row = 1; return (int)launch_fwd_row(a, B, s);
   }
 }
 

@@ -574,7 +574,8 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
 // Forward. bf16 != 0: the second linears on bf16-rounded y and Wo (the TPU
 // kernel's `bf16` option); otherwise float32 accuracy. H in 32, 64, 128:
 // the tensor-core kernel; any other width the wrapper admits: the per-row
-// kernel.
+// kernel. *row: 1 when the per-row kernel was launched, else 0 (the
+// wrapper counts the route from it).
 extern "C" int triplet_attention_fwd(
     const float* angle, const float* mask, const float* q,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -583,18 +584,20 @@ extern "C" int triplet_attention_fwd(
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb,
-    float* out, int B, int Nl, int H, int n_heads, int bf16, void* stream) {
+    float* out, int* row, int B, int Nl, int H, int n_heads, int bf16,
+    void* stream) {
+  *row = 0;
   if (B * Nl == 0) return 0;
   TripletArgs a{angle, mask, q,
                 Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
                 Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                 out, Nl, H, n_heads};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {  // ops/common.py TENSOR_CORE_WIDTHS
+  switch (H) {
     case 32: return (int)launch_fwd<32>(a, B, bf16 != 0, s);
     case 64: return (int)launch_fwd<64>(a, B, bf16 != 0, s);
     case 128: return (int)launch_fwd<128>(a, B, bf16 != 0, s);
-    default: return (int)launch_fwd_row(a, B, bf16 != 0, s);
+    default: *row = 1; return (int)launch_fwd_row(a, B, bf16 != 0, s);
   }
 }
 

@@ -108,15 +108,6 @@ def check_heads(H: int, n_heads: int) -> None:
         raise ValueError(f'head width {hd} must divide 32')
 
 
-# The widths at which the edge and triplet forward launchers take their
-# tensor-core kernel (csrc/row_mma.cuh: one 512-thread block per SM, both
-# branches' [H, H] second linears in shared memory); every other width that
-# check_heads admits takes their per-row kernel (csrc/row_attention.cuh).
-# The launchers dispatch on the same list; the wrappers read it to count
-# the per-row launches.
-TENSOR_CORE_WIDTHS = (32, 64, 128)
-
-
 def branch_ptrs(p: Branch) -> list:
     return [ctypes.c_void_p(t.data_ptr()) for t in p]
 

@@ -33,10 +33,11 @@ bf16-rounded h). Launches with an x_src are counted apart
 (`edge_attention.gather_launches`, `edge_attention_backward.gather_launches`),
 and its gradient is returned apart from that of x.
 
-The forward kernel is chosen by width: for H in TENSOR_CORE_WIDTHS the
+The forward launcher chooses its kernel by width: for H in 32, 64, 128 the
 tensor-core kernel (csrc/row_mma.cuh), for every other width that
-check_heads admits the per-row kernel (csrc/row_attention.cuh). The
-per-row launches, of any mode, also count in `edge_attention.row_launches`.
+check_heads admits the per-row kernel (csrc/row_attention.cuh). It reports
+the route it took, and the per-row launches, of any mode, also count in
+`edge_attention.row_launches`.
 
 On CUDA tensors `edge_attention` is differentiable: its autograd node saves
 only the inputs, and `edge_attention_backward` recomputes the rest in the
@@ -46,6 +47,7 @@ gate and x_src.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -56,9 +58,9 @@ from decompdiff_tpu_torch.models.common import (
     fixed_rbf, outer_product, safe_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    TENSOR_CORE_WIDTHS, Branch, ParamGrads, attend, autograd_grads,
-    backward_blocks, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, launch, on_cpu, ptr)
+    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
+    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs, launch,
+    on_cpu, ptr)
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -190,16 +192,16 @@ def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode,
     out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
     wm, bm = gate or (None, None)
-    fn = _build.load('edge_attention', 'edge_attention_fwd', 25, 7)
+    row = ctypes.c_int(0)                 # 1: the per-row kernel launched
+    fn = _build.load('edge_attention', 'edge_attention_fwd', 26, 7)
     args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
              ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q)]
             + branch_ptrs(k) + branch_ptrs(v)
-            + [ptr(wm), ptr(bm), ptr(out)]
+            + [ptr(wm), ptr(bm), ptr(out), ctypes.byref(row)]
             + [B, N, K, H, n_heads, n_et, int(pos_mode)])
     launch(fn, args, q.device, 'edge_attention')
     _count(edge_attention, gate, x_src)
-    if H not in TENSOR_CORE_WIDTHS:
-        edge_attention.row_launches += 1
+    edge_attention.row_launches += row.value
     return out
 
 

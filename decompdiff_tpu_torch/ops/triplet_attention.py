@@ -23,11 +23,11 @@ recomputes the forward without the rounding. The launches of the two
 forward variants are counted apart (`triplet_attention.launches`,
 `triplet_attention.bf16_launches`).
 
-The forward kernel is chosen by width: for H in TENSOR_CORE_WIDTHS the
+The forward launcher chooses its kernel by width: for H in 32, 64, 128 the
 tensor-core kernel (csrc/row_mma.cuh), for every other width that
 check_heads admits the per-row kernel (csrc/row_attention.cuh), both with
-the bf16 option. The per-row launches, of either variant, also count in
-`triplet_attention.row_launches`.
+the bf16 option. It reports the route it took, and the per-row launches,
+of either variant, also count in `triplet_attention.row_launches`.
 
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
@@ -36,6 +36,8 @@ in the backward kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -43,9 +45,9 @@ from decompdiff_tpu_torch.models.common import (
     ANGULAR_DIM, angular_encoding, layer_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
-    TENSOR_CORE_WIDTHS, Branch, ParamGrads, attend, autograd_grads,
-    backward_blocks, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, launch, on_cpu, ptr)
+    Branch, ParamGrads, attend, autograd_grads, backward_blocks,
+    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs, launch,
+    on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -107,16 +109,16 @@ def _forward(angle, mask, q, k, v, n_heads, bf16):
     H = q.shape[-1]
     check_inputs(q.device, _checks(angle, mask, q, k, v, n_heads))
     out = torch.empty((B, Nl, Nl, H), device=q.device, dtype=torch.float32)
-    fn = _build.load('triplet_attention', 'triplet_attention_fwd', 18, 5)
+    row = ctypes.c_int(0)                 # 1: the per-row kernel launched
+    fn = _build.load('triplet_attention', 'triplet_attention_fwd', 19, 5)
     args = ([ptr(angle), ptr(mask), ptr(q)] + branch_ptrs(k) + branch_ptrs(v)
-            + [ptr(out)] + [B, Nl, H, n_heads, int(bf16)])
+            + [ptr(out), ctypes.byref(row)] + [B, Nl, H, n_heads, int(bf16)])
     launch(fn, args, q.device, 'triplet_attention')
     if bf16:
         triplet_attention.bf16_launches += 1
     else:
         triplet_attention.launches += 1
-    if H not in TENSOR_CORE_WIDTHS:
-        triplet_attention.row_launches += 1
+    triplet_attention.row_launches += row.value
     return out
 
 

@@ -15,10 +15,10 @@ source chunks, the last one ragged, and the triplet backward's shared
 d t_src sum across both. The m-gated edge kernels (uni_o2) run at K=20 and
 K=32 with a gate bias of 0 and one of +-30, which saturates the sigmoid.
 The gather_bf16 edge kernels (sources from x_src) run forward and backward
-in both modes with 4 and 6 edge types, the edge and triplet forwards at
-widths outside the tensor-core kernels' (H = 96, 256, 1024) on their
-per-row kernels, and the bond forward at H = 512 and 1024 (blocks of more
-than 256 threads).
+in both modes with 4 and 6 edge types, and with an x_src far from x on both
+forward routes; the edge and triplet forwards run at widths outside the
+tensor-core kernels' (H = 96, 256, 1024) on their per-row kernels, and the
+bond forward at H = 512 and 1024 (blocks of more than 256 threads).
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -266,11 +266,13 @@ def test_edge_tensor_core_kernel(cuda, mode, K):
     assert float(got[0, N - 5:].abs().max()) == 0.0
 
 
-def _edge_case(rng, H, heads, mode, K=20, B=2, N=37, Np=25, group=True):
+def _edge_case(rng, H, heads, mode, K=20, B=2, N=37, Np=25, group=True,
+               shift=0.0):
     """(args, kw) of an edge forward or backward launch; mode node, pos,
     gated (node mode with the m-gate, 4 edge types) or gather (node mode
-    with x_src, the hi + lo split of x); `mode` may end in '_pos' for
-    gather in pos mode. Rows N-5.. of complex 0 have no valid source."""
+    with x_src: the hi + lo split of x, or with `shift` x plus shift times
+    a standard normal); `mode` may end in '_pos' for gather in pos mode.
+    Rows N-5.. of complex 0 have no valid source."""
     pos = mode.endswith('pos')
     group = group and mode != 'gated'
     x, graph, e_w = _graph(rng, B, N, K, Np, group)
@@ -283,7 +285,8 @@ def _edge_case(rng, H, heads, mode, K=20, B=2, N=37, Np=25, group=True):
     if mode == 'gated':
         kw['gate'] = (_rand(rng, H), torch.tensor([0.5]))
     if mode.startswith('gather'):
-        kw['x_src'] = tutb.gather_table(torch.zeros(1), x)[1]
+        kw['x_src'] = (x + _rand(rng, *x.shape, scale=shift) if shift
+                       else tutb.gather_table(torch.zeros(1), x)[1])
     return (x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q, k,
             v), kw
 
@@ -317,6 +320,35 @@ def test_edge_gather_backward_kernel(cuda, mode, group):
     apart."""
     rng = np.random.default_rng(32 + group)
     args, kw = _edge_case(rng, 128, 16, mode, group=group)
+    g = _rand(rng, *(args[0].shape if mode == 'gather_pos' else
+                     args[-3].shape), scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
+                    edge_ops.edge_attention_backward, count='gather_launches')
+
+
+# x_src far from x: the hi + lo table lies within about 2^-17 |x| of x, so
+# the cases above would pass a kernel that read a source's coordinates from
+# x, or scattered their cotangent into d x. Here x_src is x plus 0.5 times
+# a standard normal, which moves every output and gradient by far more
+# than TOL: the forward on the tensor-core route (H=128) and the per-row
+# route (H=96), and the backward (per-row at every width), node and pos
+# mode, d x and d x_src apart.
+@pytest.mark.parametrize('H,heads', [(128, 16), (96, 12)],
+                         ids=['H128', 'H96'])
+@pytest.mark.parametrize('mode', ['gather', 'gather_pos'],
+                         ids=['node', 'pos'])
+@pytest.mark.parametrize('direction', ['forward', 'backward'])
+def test_edge_shifted_source_kernel(cuda, direction, mode, H, heads):
+    rng = np.random.default_rng(60 + H)
+    args, kw = _edge_case(rng, H, heads, mode, K=32, shift=0.5)
+    assert float((kw['x_src'] - args[0]).abs().max()) > 0.5
+    if direction == 'forward':
+        rows = edge_ops.edge_attention.row_launches
+        _forward_on_card(
+            edge_ops.edge_attention, edge_ops.edge_attention_reference, args,
+            kw, cuda, edge_ops.edge_attention, 'gather_launches')
+        assert edge_ops.edge_attention.row_launches == rows + (H == 96)
+        return
     g = _rand(rng, *(args[0].shape if mode == 'gather_pos' else
                      args[-3].shape), scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
