@@ -37,7 +37,9 @@
 // in pos mode, d x[j] in-program; a block per complex would give only B=8
 // blocks here, so those two are atomicAdds into zeroed buffers instead
 // (order varies between runs, within float32 rounding). d h_bond is per
-// pair and written directly.
+// pair and written directly. Blocks of H > 256 threads take a 1024-thread
+// build; at H >= 512 the row buffers do not fit in shared memory and live in
+// a device-memory scratch that the wrapper allocates (row_attention_bwd.cuh).
 #include "row_attention_bwd.cuh"
 
 using namespace rowattn;
@@ -160,9 +162,20 @@ struct BondBwdArgs {
   float* d_tsrc_v;
   float* slots;          // [gridDim.x][P] zeroed parameter-gradient slots
   int rows;              // B * Nl
+  float* scratch;        // row buffers in device memory (SCRATCH kernels)
+  int per_block;         //   floats of them per block
 };
 
-__global__ void bond_attention_bwd_kernel(BondBwdArgs a) {
+// The row buffers: the chunk's h_bond rows, then RowSmem.
+inline size_t bond_bwd_floats(int Nl, int H, int n_heads) {
+  return (size_t)CH * H + rowbwd::row_smem_floats(Nl, H, n_heads);
+}
+
+// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// a.scratch (row_attention_bwd.cuh).
+template <bool WIDE, bool SCRATCH>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+    bond_attention_bwd_kernel(BondBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
@@ -171,8 +184,8 @@ __global__ void bond_attention_bwd_kernel(BondBwdArgs a) {
   const int H = f.H, Nl = f.Nl, nh = f.n_heads;
   const bool pos = f.pos != 0;
   const int c = threadIdx.x;
-  float* Xs = smem;  // [CH][H] h_bond rows of the chunk
-  const RowSmem s = carve(smem + CH * H, Nl, H, nh);
+  float* Xs = row_base<SCRATCH>(smem, a.scratch, a.per_block);  // [CH][H]
+  const RowSmem s = carve(Xs + CH * H, Nl, H, nh);
   const float scale = 1.f / sqrtf((float)(H / nh));
   GradSlot sk, sv;
   block_slots(a.slots, H, H, pos ? nh : H, sk, sv);
@@ -278,6 +291,15 @@ __global__ void bond_attention_bwd_kernel(BondBwdArgs a) {
   flush_small(acc, sk, sv, nh, pos);
 }
 
+template <bool WIDE>
+cudaError_t launch_bwd(BondBwdArgs& a, int G, float* scratch, int* route,
+                       cudaStream_t stream) {
+  return rowbwd::launch_rows(
+      bond_attention_bwd_kernel<WIDE, false>,
+      bond_attention_bwd_kernel<WIDE, true>, a, G,
+      bond_bwd_floats(a.f.Nl, a.f.H, a.f.n_heads), scratch, route, stream);
+}
+
 }  // namespace
 
 extern "C" int bond_attention_fwd(
@@ -303,8 +325,20 @@ extern "C" int bond_attention_fwd(
   return (int)cudaGetLastError();
 }
 
+// Floats per block of the device-memory scratch that the backward needs at
+// these sizes (0: its row buffers fit in shared memory).
+extern "C" int bond_attention_bwd_scratch(int* per_block, int Nl, int H,
+                                          int n_heads) {
+  return (int)rowbwd::scratch_floats(
+      H > 256 ? bond_attention_bwd_kernel<true, false>
+              : bond_attention_bwd_kernel<false, false>,
+      bond_bwd_floats(Nl, H, n_heads), per_block);
+}
+
 // Backward: G blocks over the B*Nl rows, then the fixed-order slot sum into
-// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same]).
+// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same]). scratch:
+// G times bond_attention_bwd_scratch's floats, or null when that is 0.
+// *route: 1 when the row buffers went to the scratch, else 0.
 extern "C" int bond_attention_bwd(
     const float* h_bond, const float* x, const float* mask, const float* q,
     const float* g,
@@ -316,7 +350,9 @@ extern "C" int bond_attention_bwd(
     const float* v_lnb, const float* v_woT, const float* v_weT,
     float* d_hbond, float* d_x, float* d_q, float* d_trow_k, float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    int B, int Nl, int H, int n_heads, int pos, int G, void* stream) {
+    float* scratch, int* route, int B, int Nl, int H, int n_heads, int pos,
+    int G, void* stream) {
+  *route = 0;
   if (B * Nl == 0 || G <= 0) return 0;
   BondBwdArgs a{
       BondArgs{h_bond, x, mask, q,
@@ -324,13 +360,10 @@ extern "C" int bond_attention_bwd(
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                nullptr, Nl, H, n_heads, pos},
       g, k_woT, v_woT, k_weT, v_weT, d_hbond, d_x, d_q, d_trow_k, d_tsrc_k,
-      d_trow_v, d_tsrc_v, slots, B * Nl};
-  const size_t smem =
-      sizeof(float) * (CH * H + rowbwd::row_smem_floats(Nl, H, n_heads));
-  cudaError_t err = allow_smem(bond_attention_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bond_attention_bwd_kernel<<<G, H, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
+      d_trow_v, d_tsrc_v, slots, B * Nl, nullptr, 0};
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = H > 256 ? launch_bwd<true>(a, G, scratch, route, s)
+                            : launch_bwd<false>(a, G, scratch, route, s);
   if (err != cudaSuccess) return (int)err;
   const size_t P = rowbwd::branch_slot_floats(H, H, H) +
                    rowbwd::branch_slot_floats(H, H, pos ? n_heads : H);

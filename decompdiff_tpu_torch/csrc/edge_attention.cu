@@ -65,7 +65,10 @@
 // buffers (their order varies between runs, within float32 rounding).
 // d w_feat is accumulated per edge type, only for the 21 (42) rows of each
 // edge's own types. The distance chain gives 0 where |x_i - x_s|^2 < 1e-12,
-// like the clamp of the plain version's safe_norm.
+// like the clamp of the plain version's safe_norm. Blocks of H > 256
+// threads take a 1024-thread build; where the row buffers do not fit in
+// shared memory (H >= 512, or large K) they live in a device-memory scratch
+// that the wrapper allocates (row_attention_bwd.cuh).
 //
 // The m-gate (uni_o2, ew_net_type 'm') is the template parameter GATE of
 // both kernels; the launchers take it when wm is not null. In the forward
@@ -617,10 +620,15 @@ struct EdgeBwdArgs {
   float* d_tsrc_v;
   float* slots;          // [gridDim.x][P] zeroed parameter-gradient slots
   int rows;              // B * N
+  float* scratch;        // row buffers in device memory (SCRATCH kernels)
+  int per_block;         //   floats of them per block
 };
 
-template <bool GATE>
-__global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
+// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// a.scratch (row_attention_bwd.cuh).
+template <bool GATE, bool WIDE, bool SCRATCH>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+    edge_attention_bwd_kernel(EdgeBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ EdgeChunk ch;
@@ -630,7 +638,8 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
   const int H = f.H, K = f.K, N = f.N, F = f.n_types, nh = f.n_heads;
   const bool pos = f.pos != 0;
   const int c = threadIdx.x;
-  const RowSmem s = carve(smem, K, H, nh, GATE);
+  const RowSmem s = carve(row_base<SCRATCH>(smem, a.scratch, a.per_block),
+                          K, H, nh, GATE);
   const float scale = 1.f / sqrtf((float)(H / nh));
   GradSlot sk, sv;
   block_slots(a.slots, F * (R + 1), H, pos ? nh : H, sk, sv,
@@ -800,13 +809,22 @@ cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool GATE>
-cudaError_t launch_bwd(const EdgeBwdArgs& a, int G, size_t smem,
-                       cudaStream_t stream) {
-  cudaError_t err = allow_smem(edge_attention_bwd_kernel<GATE>, smem);
-  if (err != cudaSuccess) return err;
-  edge_attention_bwd_kernel<GATE><<<G, a.f.H, smem, stream>>>(a);
-  return cudaGetLastError();
+// The backward kernel that keeps its row buffers in shared memory.
+using EdgeBwdKernel = void (*)(EdgeBwdArgs);
+EdgeBwdKernel bwd_kernel(bool gate, int H) {
+  if (gate)
+    return H > 256 ? edge_attention_bwd_kernel<true, true, false>
+                   : edge_attention_bwd_kernel<true, false, false>;
+  return H > 256 ? edge_attention_bwd_kernel<false, true, false>
+                 : edge_attention_bwd_kernel<false, false, false>;
+}
+
+template <bool GATE, bool WIDE>
+cudaError_t launch_bwd(EdgeBwdArgs& a, int G, size_t floats, float* scratch,
+                       int* route, cudaStream_t stream) {
+  return rowbwd::launch_rows(edge_attention_bwd_kernel<GATE, WIDE, false>,
+                             edge_attention_bwd_kernel<GATE, WIDE, true>, a,
+                             G, floats, scratch, route, stream);
 }
 
 }  // namespace
@@ -843,10 +861,22 @@ extern "C" int edge_attention_fwd(
   }
 }
 
+// Floats per block of the device-memory scratch that the backward needs at
+// these sizes (0: its row buffers fit in shared memory); gate: the m-gated
+// kernel.
+extern "C" int edge_attention_bwd_scratch(int* per_block, int K, int H,
+                                          int n_heads, int gate) {
+  return (int)rowbwd::scratch_floats(
+      bwd_kernel(gate != 0, H),
+      rowbwd::row_smem_floats(K, H, n_heads, gate != 0), per_block);
+}
+
 // Backward: G blocks over the B*N rows, then the fixed-order slot sum into
 // d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same] and, with
 // the gate, [d wm (H) | d bm]). d_xs: the sources' coordinate cotangent, a
-// zeroed buffer of its own when xs is not x, else d_x.
+// zeroed buffer of its own when xs is not x, else d_x. scratch: G times
+// edge_attention_bwd_scratch's floats, or null when that is 0. *route: 1
+// when the row buffers went to the scratch, else 0.
 extern "C" int edge_attention_bwd(
     const float* x, const float* xs, const float* lig, const float* group,
     const int* idx, const float* mask, const float* ew, const float* q,
@@ -860,8 +890,9 @@ extern "C" int edge_attention_bwd(
     float* d_x, float* d_xs, float* d_ew, float* d_q, float* d_trow_k,
     float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    int B, int N, int K, int H, int n_heads, int n_types, int pos, int G,
-    void* stream) {
+    float* scratch, int* route, int B, int N, int K, int H, int n_heads,
+    int n_types, int pos, int G, void* stream) {
+  *route = 0;
   if (B * N == 0 || G <= 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeBwdArgs a{
@@ -870,13 +901,17 @@ extern "C" int edge_attention_bwd(
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                nullptr, N, K, H, n_heads, n_types, pos, Gate{wm, bm}},
       g, k_woT, v_woT, d_x, d_xs, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-      d_tsrc_v, slots, B * N};
-  const bool gate = wm != nullptr;
-  const size_t smem =
-      sizeof(float) * rowbwd::row_smem_floats(K, H, n_heads, gate);
-  cudaError_t err =
-      gate ? launch_bwd<true>(a, G, smem, (cudaStream_t)stream)
-           : launch_bwd<false>(a, G, smem, (cudaStream_t)stream);
+      d_tsrc_v, slots, B * N, nullptr, 0};
+  const bool gate = wm != nullptr, wide = H > 256;
+  const size_t floats = rowbwd::row_smem_floats(K, H, n_heads, gate);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (gate)
+    err = wide ? launch_bwd<true, true>(a, G, floats, scratch, route, s)
+               : launch_bwd<true, false>(a, G, floats, scratch, route, s);
+  else
+    err = wide ? launch_bwd<false, true>(a, G, floats, scratch, route, s)
+               : launch_bwd<false, false>(a, G, floats, scratch, route, s);
   if (err != cudaSuccess) return (int)err;
   const int F = n_types * (R + 1);
   const size_t P = rowbwd::branch_slot_floats(F, H, H) +

@@ -19,6 +19,18 @@
 //           LayerNorm backward down to d pre; then the kernel's own part
 //           (d t_src, d w_feat, the feature chain back to x or angle).
 //
+// Where the row buffers live: in dynamic shared memory when they fit beside
+// the kernel's static arrays under the opt-in limit of a block, else in a
+// device-memory scratch of a fixed number of floats per block that the
+// caller allocates (SCRATCH). Every access to them is generic-address C++
+// (float4 loads in matvec, no ld.shared), and the block barriers order the
+// block's device-memory writes as they order its shared ones; so the same
+// code runs from either base. The choice is a template parameter, so the
+// shared-memory build compiles to the code it had before the scratch
+// existed. Blocks of more than 256 threads (H > 256) take a 1024-thread
+// build (WIDE, at most 64 registers a thread; the bound of one block per SM
+// is stated, as without it ptxas gave the wide triplet backward 32).
+//
 // Parameter gradients are summed across rows in a per-block slot: registers
 // for the small vectors, and for the matrices additions into the block's own
 // slot in device memory (slot_add). After the main kernel, reduce_slots adds
@@ -445,6 +457,62 @@ __device__ __forceinline__ void flush_small(const SmallGrads& acc,
   if (!pos || c < n_heads) sv.bo[c] = acc.bo_v;
   sv.lns[c] = acc.lns_v;
   sv.lnb[c] = acc.lnb_v;
+}
+
+// Floats per block of the device-memory scratch for a backward kernel whose
+// row buffers take `floats` (0 when they fit in shared memory beside the
+// kernel's static arrays); a multiple of 32, so every block's base stays
+// 128-byte aligned.
+template <typename Kernel>
+inline cudaError_t scratch_floats(Kernel kernel, size_t floats,
+                                  int* per_block) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const bool fits =
+      sizeof(float) * floats + attr.sharedSizeBytes <= (size_t)optin;
+  *per_block = fits ? 0 : (int)((floats + 31) & ~(size_t)31);
+  return cudaSuccess;
+}
+
+// The row buffers of block blockIdx.x: the scratch's share, or the dynamic
+// shared memory.
+template <bool SCRATCH>
+__device__ __forceinline__ float* row_base(float* smem, float* scratch,
+                                           int per_block) {
+  return SCRATCH ? scratch + (size_t)blockIdx.x * per_block : smem;
+}
+
+// Launches a backward kernel over G blocks of H threads (a.f.H) with its
+// `floats` row buffers in shared memory (in_smem) or, when they do not fit,
+// in `scratch` (in_scratch, which then must hold G * per_block floats from
+// scratch_floats). *route: 1 for the scratch, else 0.
+template <typename Args>
+inline cudaError_t launch_rows(void (*in_smem)(Args),
+                               void (*in_scratch)(Args), Args& a, int G,
+                               size_t floats, float* scratch, int* route,
+                               cudaStream_t stream) {
+  int per_block = 0;
+  cudaError_t err = scratch_floats(in_smem, floats, &per_block);
+  if (err != cudaSuccess) return err;
+  *route = per_block > 0;
+  if (per_block > 0) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    a.scratch = scratch;
+    a.per_block = per_block;
+    in_scratch<<<G, a.f.H, 0, stream>>>(a);
+  } else {
+    const size_t bytes = sizeof(float) * floats;
+    err = allow_smem(in_smem, bytes);
+    if (err != cudaSuccess) return err;
+    in_smem<<<G, a.f.H, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 // out[p] = sum over the G slots of slots[g][p], in slot order.

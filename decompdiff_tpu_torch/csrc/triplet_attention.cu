@@ -51,7 +51,11 @@
 // d t_src[j, :, :] of both branches ([Nl][H] each) in shared memory, so the
 // sum is deterministic and written once; d t_row, d q and d angle are per
 // row and written directly. d Wa stays in registers per thread until the
-// block ends. Every per-triplet intermediate is recomputed in shared memory.
+// block ends. Every per-triplet intermediate is recomputed in shared memory,
+// or, where the d t_src sums and row buffers do not fit there (H >= 512, or
+// Nl above 40 at H = 256), in a device-memory scratch that the wrapper
+// allocates; blocks of H > 256 threads take a 1024-thread build
+// (row_attention_bwd.cuh).
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
 
@@ -428,9 +432,20 @@ struct TripletBwdArgs {
   float* d_tsrc_v;
   float* slots;          // [gridDim.x][P] zeroed parameter-gradient slots
   int items;             // B * Nl work items (b, j)
+  float* scratch;        // row buffers in device memory (SCRATCH kernels)
+  int per_block;         //   floats of them per block
 };
 
-__global__ void triplet_attention_bwd_kernel(TripletBwdArgs a) {
+// The row buffers: the d t_src sums of both branches, then RowSmem.
+inline size_t triplet_bwd_floats(int Nl, int H, int n_heads) {
+  return 2 * (size_t)Nl * H + rowbwd::row_smem_floats(Nl, H, n_heads);
+}
+
+// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// a.scratch (row_attention_bwd.cuh).
+template <bool WIDE, bool SCRATCH>
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+    triplet_attention_bwd_kernel(TripletBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
@@ -440,7 +455,8 @@ __global__ void triplet_attention_bwd_kernel(TripletBwdArgs a) {
   const TripletArgs& f = a.f;
   const int H = f.H, Nl = f.Nl, nh = f.n_heads;
   const int c = threadIdx.x;
-  float* TSk = smem;                     // [Nl][H] d t_src[j, k] sums
+  // [Nl][H] d t_src[j, k] sums
+  float* TSk = row_base<SCRATCH>(smem, a.scratch, a.per_block);
   float* TSv = TSk + (size_t)Nl * H;
   const RowSmem s = carve(TSv + (size_t)Nl * H, Nl, H, nh);
   const float scale = 1.f / sqrtf((float)(H / nh));
@@ -569,6 +585,16 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
   return cudaGetLastError();
 }
 
+template <bool WIDE>
+cudaError_t launch_bwd(TripletBwdArgs& a, int G, float* scratch, int* route,
+                       cudaStream_t stream) {
+  return rowbwd::launch_rows(
+      triplet_attention_bwd_kernel<WIDE, false>,
+      triplet_attention_bwd_kernel<WIDE, true>, a, G,
+      triplet_bwd_floats(a.f.Nl, a.f.H, a.f.n_heads), scratch, route,
+      stream);
+}
+
 }  // namespace
 
 // Forward. bf16 != 0: the second linears on bf16-rounded y and Wo (the TPU
@@ -601,8 +627,20 @@ extern "C" int triplet_attention_fwd(
   }
 }
 
+// Floats per block of the device-memory scratch that the backward needs at
+// these sizes (0: its row buffers fit in shared memory).
+extern "C" int triplet_attention_bwd_scratch(int* per_block, int Nl, int H,
+                                             int n_heads) {
+  return (int)rowbwd::scratch_floats(
+      H > 256 ? triplet_attention_bwd_kernel<true, false>
+              : triplet_attention_bwd_kernel<false, false>,
+      triplet_bwd_floats(Nl, H, n_heads), per_block);
+}
+
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order
 // slot sum into d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: same]).
+// scratch: G times triplet_attention_bwd_scratch's floats, or null when that
+// is 0. *route: 1 when the row buffers went to the scratch, else 0.
 extern "C" int triplet_attention_bwd(
     const float* angle, const float* mask, const float* q, const float* g,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -613,7 +651,9 @@ extern "C" int triplet_attention_bwd(
     const float* v_lnb, const float* v_woT,
     float* d_angle, float* d_q, float* d_trow_k, float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    int B, int Nl, int H, int n_heads, int G, void* stream) {
+    float* scratch, int* route, int B, int Nl, int H, int n_heads, int G,
+    void* stream) {
+  *route = 0;
   if (B * Nl == 0 || G <= 0) return 0;
   TripletBwdArgs a{
       TripletArgs{angle, mask, q,
@@ -621,13 +661,10 @@ extern "C" int triplet_attention_bwd(
                   Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                   nullptr, Nl, H, n_heads},
       g, k_woT, v_woT, d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
-      slots, B * Nl};
-  const size_t smem = sizeof(float) * (2 * (size_t)Nl * H +
-                                       rowbwd::row_smem_floats(Nl, H, n_heads));
-  cudaError_t err = allow_smem(triplet_attention_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  triplet_attention_bwd_kernel<<<G, H, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
+      slots, B * Nl, nullptr, 0};
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = H > 256 ? launch_bwd<true>(a, G, scratch, route, s)
+                            : launch_bwd<false>(a, G, scratch, route, s);
   if (err != cudaSuccess) return (int)err;
   const size_t P = 2 * rowbwd::branch_slot_floats(A, H, H);
   return (int)rowbwd::launch_reduce(slots, d_params, G, P,

@@ -76,9 +76,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return logs
 
 
-def load(name: str, symbol: str, n_ptrs: int, n_ints: int):
-    """The C launcher `symbol` of csrc/<name>.cu, typed as n_ptrs pointers,
-    n_ints ints and a trailing stream pointer, returning a cudaError_t."""
+def load(name: str, symbol: str, n_ptrs: int, n_ints: int,
+         stream: bool = True):
+    """The C function `symbol` of csrc/<name>.cu, typed as n_ptrs pointers,
+    n_ints ints and (a launcher) a trailing stream pointer, returning a
+    cudaError_t."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)
@@ -87,6 +89,6 @@ def load(name: str, symbol: str, n_ptrs: int, n_ints: int):
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn

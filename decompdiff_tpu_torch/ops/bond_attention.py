@@ -15,11 +15,14 @@ For every ligand atom i (destination) and every ligand atom j (source):
 
 On CUDA tensors `bond_attention` is differentiable: its autograd node saves
 only the inputs, and `bond_attention_backward` recomputes the rest in the
-backward kernel.
+backward kernel. Its launches with the row buffers in a device-memory
+scratch (wide H; the launcher decides and reports it) also count in
+`bond_attention_backward.scratch_launches`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -28,8 +31,8 @@ from torch.autograd.function import once_differentiable
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
-    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs,
-    launch, on_cpu, ptr)
+    backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
+    check_inputs, launch, on_cpu, ptr)
 
 
 def bond_attention_reference(h_bond, x, mask, q, k: Branch, v: Branch, *,
@@ -151,18 +154,24 @@ def bond_attention_backward(g: torch.Tensor, h_bond, x, mask, q, k: Branch,
     woT_k, weT_k, weT_v = (w.t().contiguous()
                            for w in (k.wo, k.w_feat, v.w_feat))
     woT_v = None if pos_mode else v.wo.t().contiguous()
-    fn = _build.load('bond_attention', 'bond_attention_bwd', 32, 6)
+    scratch = backward_scratch('bond_attention', [Nl, H, n_heads], blocks,
+                               dev)
+    route = ctypes.c_int(0)               # 1: row buffers in the scratch
+    fn = _build.load('bond_attention', 'bond_attention_bwd', 34, 6)
     args = ([ptr(h_bond), ptr(x if pos_mode else None), ptr(mask), ptr(q),
              ptr(g)] + branch_ptrs(k) + [ptr(woT_k), ptr(weT_k)]
             + branch_ptrs(v) + [ptr(woT_v), ptr(weT_v)]
             + [ptr(t) for t in (d_hb, d_x, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-                                d_tsrc_v, pg.slots, pg.out)]
-            + [B, Nl, H, n_heads, int(pos_mode), blocks])
+                                d_tsrc_v, pg.slots, pg.out, scratch)]
+            + [ctypes.byref(route), B, Nl, H, n_heads, int(pos_mode),
+               blocks])
     launch(fn, args, dev, 'bond_attention_backward')
     bond_attention_backward.launches += 1
+    bond_attention_backward.scratch_launches += route.value
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
     return d_hb, d_x, d_q, dk, dv
 
 
 bond_attention.launches = 0
 bond_attention_backward.launches = 0
+bond_attention_backward.scratch_launches = 0

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from decompdiff_tpu_torch.models.common import layer_norm, masked_softmax
+from decompdiff_tpu_torch.ops import _build
 
 
 class Branch(NamedTuple):
@@ -116,11 +117,15 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def launch(fn, args: list, device: torch.device, name: str) -> None:
-    """Call a C launcher on the current stream and raise on a CUDA error."""
+def launch(fn, args: list, device: torch.device, name: str,
+           stream: bool = True) -> None:
+    """Call a C launcher on the current stream (or, without `stream`, a C
+    function that takes none) and raise on a CUDA error."""
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, ctypes.c_void_p(stream))
+        if stream:
+            args = args + [ctypes.c_void_p(
+                torch.cuda.current_stream(device).cuda_stream)]
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f'{name} kernel launch failed with cudaError {rc}')
 
@@ -147,6 +152,22 @@ def backward_blocks(items: int, device: torch.device) -> int:
     no more than there are rows or work items."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(items, 2 * sms))
+
+
+def backward_scratch(kernel: str, sizes: list, blocks: int,
+                     device: torch.device) -> Optional[torch.Tensor]:
+    """The device-memory scratch of a backward launch of csrc/<kernel>.cu at
+    these sizes: None when its row buffers fit in shared memory, else
+    `blocks` times the floats per block that its <kernel>_bwd_scratch
+    reports."""
+    query = _build.load(kernel, f'{kernel}_bwd_scratch', 1, len(sizes),
+                        stream=False)
+    per_block = ctypes.c_int(0)
+    launch(query, [ctypes.byref(per_block)] + sizes, device,
+           f'{kernel}_backward', stream=False)
+    if per_block.value == 0:
+        return None
+    return torch.empty(blocks * per_block.value, device=device)
 
 
 class ParamGrads:

@@ -42,7 +42,12 @@ the route it took, and the per-row launches, of any mode, also count in
 On CUDA tensors `edge_attention` is differentiable: its autograd node saves
 only the inputs, and `edge_attention_backward` recomputes the rest in the
 backward kernel and returns the gradients of x, e_w, q, both branches, the
-gate and x_src.
+gate and x_src. Where the backward kernel's per-block row buffers do not
+fit in shared memory (wide H or many sources), the launcher says how many
+floats a block needs, the wrapper allocates that scratch in device memory,
+and the launcher reports the route it took: such launches also count in
+`edge_attention_backward.scratch_launches` (the same for the bond and
+triplet backward).
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ from decompdiff_tpu_torch.models.common import (
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
-    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs, launch,
-    on_cpu, ptr)
+    backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
+    check_inputs, launch, on_cpu, ptr)
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -294,17 +299,23 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
     woT_k = k.wo.t().contiguous()
     woT_v = None if pos_mode else v.wo.t().contiguous()
     wm, bm = gate or (None, None)
-    fn = _build.load('edge_attention', 'edge_attention_bwd', 37, 8)
+    scratch = backward_scratch('edge_attention',
+                               [K, H, n_heads, int(gate is not None)],
+                               blocks, dev)
+    route = ctypes.c_int(0)               # 1: row buffers in the scratch
+    fn = _build.load('edge_attention', 'edge_attention_bwd', 39, 8)
     args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
              ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q), ptr(g)]
             + branch_ptrs(k) + [ptr(woT_k)]
             + branch_ptrs(v) + [ptr(woT_v), ptr(wm), ptr(bm)]
             + [ptr(t) for t in (d_x, d_x if d_xs is None else d_xs, d_ew,
                                 d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
-                                pg.slots, pg.out)]
-            + [B, N, K, H, n_heads, n_et, int(pos_mode), blocks])
+                                pg.slots, pg.out, scratch)]
+            + [ctypes.byref(route), B, N, K, H, n_heads, n_et, int(pos_mode),
+               blocks])
     launch(fn, args, dev, 'edge_attention_backward')
     _count(edge_attention_backward, gate, x_src)
+    edge_attention_backward.scratch_launches += route.value
     grads = (d_x, d_ew, d_q) + pg.branches(d_trow_k, d_tsrc_k, d_trow_v,
                                            d_tsrc_v)
     if gate is not None:
@@ -316,3 +327,4 @@ edge_attention.launches = edge_attention.gated_launches = 0
 edge_attention.gather_launches = edge_attention.row_launches = 0
 edge_attention_backward.launches = edge_attention_backward.gated_launches = 0
 edge_attention_backward.gather_launches = 0
+edge_attention_backward.scratch_launches = 0

@@ -31,7 +31,9 @@ of either variant, also count in `triplet_attention.row_launches`.
 
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
-in the backward kernel.
+in the backward kernel. Its launches with the row buffers in a device-memory
+scratch (wide H or large Nl; the launcher decides and reports it) also count
+in `triplet_attention_backward.scratch_launches`.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ from decompdiff_tpu_torch.models.common import (
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
-    branch_checks, branch_mlp, branch_ptrs, check_heads, check_inputs, launch,
-    on_cpu, ptr)
+    backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
+    check_inputs, launch, on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -188,14 +190,18 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
     blocks = backward_blocks(B * Nl, dev)
     pg = ParamGrads(blocks, ANGULAR_DIM, H, H, dev)
     woT_k, woT_v = k.wo.t().contiguous(), v.wo.t().contiguous()
-    fn = _build.load('triplet_attention', 'triplet_attention_bwd', 28, 5)
+    scratch = backward_scratch('triplet_attention', [Nl, H, n_heads], blocks,
+                               dev)
+    route = ctypes.c_int(0)               # 1: row buffers in the scratch
+    fn = _build.load('triplet_attention', 'triplet_attention_bwd', 30, 5)
     args = ([ptr(angle), ptr(mask), ptr(q), ptr(g)] + branch_ptrs(k)
             + [ptr(woT_k)] + branch_ptrs(v) + [ptr(woT_v)]
             + [ptr(t) for t in (d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-                                d_tsrc_v, pg.slots, pg.out)]
-            + [B, Nl, H, n_heads, blocks])
+                                d_tsrc_v, pg.slots, pg.out, scratch)]
+            + [ctypes.byref(route), B, Nl, H, n_heads, blocks])
     launch(fn, args, dev, 'triplet_attention_backward')
     triplet_attention_backward.launches += 1
+    triplet_attention_backward.scratch_launches += route.value
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
     return d_angle, d_q, dk, dv
 
@@ -203,3 +209,4 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
 triplet_attention.launches = triplet_attention.bf16_launches = 0
 triplet_attention.row_launches = 0
 triplet_attention_backward.launches = 0
+triplet_attention_backward.scratch_launches = 0

@@ -18,11 +18,15 @@ The gather_bf16 edge kernels (sources from x_src) run forward and backward
 in both modes with 4 and 6 edge types, and with an x_src far from x on both
 forward routes; the edge and triplet forwards run at widths outside the
 tensor-core kernels' (H = 96, 256, 1024) on their per-row kernels, and the
-bond forward at H = 512 and 1024 (blocks of more than 256 threads).
+bond forward at H = 512 and 1024 (blocks of more than 256 threads). The
+backward kernels run at H = 512 and 1024 (1024-thread builds, row buffers
+in device memory) and the triplet backward also at H = 256 with Nl = 48.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -510,16 +514,38 @@ def _dev(a, cuda):
     return _to(a, cuda)
 
 
-def _check_backward(fn, g, args, kw, cuda, counter, count='launches'):
+def _without_ambiguous_gates(fn, g, dev_args, dev_kw):
+    """g zeroed on the output rows that hold a relu gate within float32
+    rounding of 0 (chip_smoke.py ambiguous_rows, GATE_MARGIN): among millions
+    of gates a few can fall on the other side of 0 in the kernel's
+    recomputed LayerNorm than in torch's, and move a gradient by their whole
+    upstream value. At most MAX_DROPPED of the live rows are zeroed."""
+    import chip_smoke
+    mod = importlib.import_module(fn.__module__)
+    drop, live, _ = chip_smoke.ambiguous_rows(
+        torch, mod, fn.__name__.replace('_backward', ''), g, dev_args,
+        dev_kw)
+    assert int(drop.sum()) <= chip_smoke.MAX_DROPPED * int(live.sum())
+    return g * (~drop)[..., None].to(g.dtype)
+
+
+def _check_backward(fn, g, args, kw, cuda, counter, count='launches',
+                    scratch=False):
     """The backward wrapper on CPU tensors (plain autograd) against the same
-    wrapper on CUDA tensors (the kernel), which adds one to `count`."""
-    want = _flat_grads(fn(g, *args, **kw))
+    wrapper on CUDA tensors (the kernel), which adds one to `count`, and to
+    `scratch_launches` when `scratch` (its row buffers in device memory; at
+    those sizes the cotangent is zeroed on the rows that hold an ambiguous
+    relu gate)."""
     dev_args = [_dev(a, cuda) for a in args]
     dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
-    before = getattr(counter, count)
+    if scratch:
+        g = _without_ambiguous_gates(fn, g.to(cuda), dev_args, dev_kw).cpu()
+    want = _flat_grads(fn(g, *args, **kw))
+    before = getattr(counter, count), counter.scratch_launches
     got = _flat_grads(fn(g.to(cuda), *dev_args, **dev_kw))
     torch.cuda.synchronize()
-    assert getattr(counter, count) == before + 1
+    assert (getattr(counter, count), counter.scratch_launches) == (
+        before[0] + 1, before[1] + scratch)
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         if b is None:
@@ -634,6 +660,79 @@ def test_triplet_backward_kernel(cuda, H, heads, Nl):
     _check_backward(triplet_ops.triplet_attention_backward, g,
                     (angle, bm, q, k, v), dict(n_heads=heads), cuda,
                     triplet_ops.triplet_attention_backward)
+
+
+# The backward kernels at the widths above 256 that check_heads admits:
+# 1024-thread builds, with the row buffers in device memory (they exceed a
+# block's shared memory at H >= 512 for these sources), so every launch
+# counts in scratch_launches. The triplet also at H = 256 with Nl = 48,
+# where its d t_src sums and row buffers exceed shared memory in the
+# 256-thread build.
+WIDE_WIDTHS = [(512, 16), (1024, 32)]
+WIDE_IDS = [f'H{h}' for h, _ in WIDE_WIDTHS]
+
+
+@pytest.mark.parametrize('H,heads', WIDE_WIDTHS, ids=WIDE_IDS)
+@pytest.mark.parametrize('mode', ['node', 'pos', 'gated'])
+def test_edge_wide_backward_kernel(cuda, mode, H, heads):
+    rng = np.random.default_rng(70 + H)
+    args, kw = _edge_case(rng, H, heads, mode)
+    g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
+              scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
+                    edge_ops.edge_attention_backward, EDGE_COUNTS[mode],
+                    scratch=True)
+
+
+def _bond_case(rng, H, heads, pos_mode, B=2, Nl=20):
+    """(args, kw) of a bond launch; complex 1 has 9 real atoms."""
+    lm = torch.ones(B, Nl, dtype=torch.bool)
+    lm[1, 9:] = False
+    bm = (lm[:, :, None] & lm[:, None, :] & ~torch.eye(Nl, dtype=torch.bool)
+          ).float()
+    k = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, H)
+    v = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, heads if pos_mode
+                     else H)
+    hb, q = _rand(rng, B, Nl, Nl, H, scale=1.0), _rand(rng, B, Nl, H,
+                                                        scale=1.0)
+    x = _rand(rng, B, Nl, 3, scale=2.0) if pos_mode else None
+    return (hb, x, bm, q, k, v), dict(n_heads=heads, pos_mode=pos_mode)
+
+
+@pytest.mark.parametrize('H,heads', WIDE_WIDTHS, ids=WIDE_IDS)
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_wide_backward_kernel(cuda, pos_mode, H, heads):
+    rng = np.random.default_rng(72 + H)
+    args, kw = _bond_case(rng, H, heads, pos_mode)
+    g = _rand(rng, *args[3].shape[:2], 3 if pos_mode else H, scale=1.0)
+    _check_backward(bond_ops.bond_attention_backward, g, args, kw, cuda,
+                    bond_ops.bond_attention_backward, scratch=True)
+
+
+def _triplet_case(rng, H, heads, Nl, B=2):
+    """(args, kw) of a triplet launch; rows (4, j) of complex 0 have no
+    bond."""
+    bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.3)
+          & ~torch.eye(Nl, dtype=torch.bool)).float()
+    bm[0, 4] = 0.0
+    k = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    v = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
+    angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
+                            dtype=torch.float32)
+    q = _rand(rng, B, Nl, Nl, H, scale=1.0)
+    return (angle, bm, q, k, v), dict(n_heads=heads)
+
+
+@pytest.mark.parametrize('H,heads,Nl', [(512, 16, 20), (1024, 32, 20),
+                                        (256, 16, 48)],
+                         ids=['H512', 'H1024', 'H256-Nl48'])
+def test_triplet_wide_backward_kernel(cuda, H, heads, Nl):
+    rng = np.random.default_rng(74 + H)
+    args, kw = _triplet_case(rng, H, heads, Nl)
+    g = _rand(rng, *args[2].shape, scale=1.0)
+    _check_backward(triplet_ops.triplet_attention_backward, g, args, kw,
+                    cuda, triplet_ops.triplet_attention_backward,
+                    scratch=True)
 
 
 @pytest.mark.parametrize('which', ['edge_node', 'edge_pos', 'bond_node',

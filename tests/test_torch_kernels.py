@@ -89,9 +89,9 @@ def _jax_edge_data(x, nbr_idx, nbr_mask, mask_ligand, group_idx, pallas):
                          edge_type=edge_type)
 
 
-def _edge_inputs(group, seed, B=2, N=16, Np=10, K=4):
+def _edge_inputs(group, seed, B=2, N=16, Np=10, K=4, width=H, heads=HEADS):
     rng = np.random.default_rng(seed)
-    h = rng.normal(size=(B, N, H)).astype(np.float32)
+    h = rng.normal(size=(B, N, width)).astype(np.float32)
     x = (rng.normal(size=(B, N, 3)) * 3).astype(np.float32)
     mask = np.ones((B, N), bool)
     mask[0, 12:] = False                       # padded slots: masked rows
@@ -107,8 +107,8 @@ def _edge_inputs(group, seed, B=2, N=16, Np=10, K=4):
         _t(nbr_idx, torch.int32), _t(nbr_mask, torch.float32),
         _t(mask_ligand, torch.float32),
         None if group_idx is None else _t(group_idx, torch.float32))
-    return dict(h=h, x=x, e_w=e_w, Np=Np, ed_dense=ed_dense,
-                ed_pallas=ed_pallas, graph=graph,
+    return dict(h=h, x=x, e_w=e_w, Np=Np, H=width, heads=heads,
+                ed_dense=ed_dense, ed_pallas=ed_pallas, graph=graph,
                 n_etypes=6 if group else 4, nbr_idx=nbr_idx,
                 nbr_mask=nbr_mask, mask_ligand=mask_ligand,
                 group_idx=group_idx)
@@ -128,12 +128,15 @@ def _jax_edge(mode, pallas, c, gather=False):
     kw = dict(use_pallas=pallas, num_protein=c['Np'])
     if gather:
         kw['gather_bf16'] = True
+    width, heads = c['H'], c['heads']
     if mode == 'mgate':
-        mod = jo2.X2HAttention(H, HEADS, ew_net_type='m', out_fc=False, **kw)
+        mod = jo2.X2HAttention(width, heads, ew_net_type='m', out_fc=False,
+                               **kw)
     elif mode == 'pos':
-        mod = jutb.PosEdgeAttention(H, HEADS, n_etypes=c['n_etypes'], **kw)
+        mod = jutb.PosEdgeAttention(width, heads, n_etypes=c['n_etypes'],
+                                    **kw)
     else:
-        mod = jutb.NodeEdgeAttention(H, HEADS, out_fc=False,
+        mod = jutb.NodeEdgeAttention(width, heads, out_fc=False,
                                      n_etypes=c['n_etypes'], **kw)
 
     def args(h, x, e_w):
@@ -150,13 +153,15 @@ def _jax_edge(mode, pallas, c, gather=False):
             lambda params, h, x, e_w: mod.apply(params, *args(h, x, e_w)))
 
 
-def _port_edge(mode, n_etypes, gather=False):
+def _port_edge(mode, c, gather=False):
+    width, heads, n_etypes = c['H'], c['heads'], c['n_etypes']
     if mode == 'mgate':
-        return to2.X2HAttention(H, HEADS, 'm', out_fc=False, use_kernels=True)
+        return to2.X2HAttention(width, heads, 'm', out_fc=False,
+                                use_kernels=True)
     if mode == 'pos':
-        return tutb.PosEdgeAttention(H, HEADS, n_etypes, use_kernels=True,
-                                     gather_bf16=gather)
-    return tutb.NodeEdgeAttention(H, HEADS, n_etypes, out_fc=False,
+        return tutb.PosEdgeAttention(width, heads, n_etypes,
+                                     use_kernels=True, gather_bf16=gather)
+    return tutb.NodeEdgeAttention(width, heads, n_etypes, out_fc=False,
                                   use_kernels=True, gather_bf16=gather)
 
 
@@ -180,7 +185,7 @@ def test_edge_kernel_modes(mode, group):
     args = (c['h'], c['x'], c['e_w'])
     dense = _jax_edge(mode, False, c)[1](params, *args)
     pallas = _jax_edge(mode, True, c)[1](params, *args)
-    tmod = _load(_port_edge(mode, c['n_etypes']), params)
+    tmod = _load(_port_edge(mode, c), params)
     counts = (edge_ops.edge_attention.launches,
               edge_ops.edge_attention.gated_launches)
     got = tmod(_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0]))
@@ -210,7 +215,7 @@ def test_edge_kernel_gather_bf16(mode, group):
     args = (c['h'], c['x'], c['e_w'])
     want = np.asarray(_jax_edge(mode, True, c, gather=True)[1](params, *args))
     f32 = np.asarray(_jax_edge(mode, True, c)[1](params, *args))
-    tmod = _load(_port_edge(mode, c['n_etypes'], gather=True), params)
+    tmod = _load(_port_edge(mode, c, gather=True), params)
     counts = (edge_ops.edge_attention.launches,
               edge_ops.edge_attention.gather_launches)
     got = tmod(_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0]))
@@ -239,10 +244,10 @@ def test_node_edge_out_fc_matches_dense():
 # bond attention
 # --------------------------------------------------------------------------
 
-def _bond_inputs(seed, B=2, Nl=8):
+def _bond_inputs(seed, B=2, Nl=8, width=H):
     rng = np.random.default_rng(seed)
-    h_lig = rng.normal(size=(B, Nl, H)).astype(np.float32)
-    h_bond = rng.normal(size=(B, Nl, Nl, H)).astype(np.float32)
+    h_lig = rng.normal(size=(B, Nl, width)).astype(np.float32)
+    h_bond = rng.normal(size=(B, Nl, Nl, width)).astype(np.float32)
     x_lig = (rng.normal(size=(B, Nl, 3)) * 2).astype(np.float32)
     lig_mask = np.ones((B, Nl), bool)
     lig_mask[0, 6:] = False                    # ragged: rows 6, 7 masked
@@ -250,9 +255,11 @@ def _bond_inputs(seed, B=2, Nl=8):
     return h_lig, h_bond, x_lig, bond_mask
 
 
-@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
-def test_bond_kernel_modes(pos_mode):
-    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=4 + pos_mode)
+def _check_bond_modes(pos_mode, seed, Nl=8):
+    """The bond module with use_kernels on (the plain version) against the
+    JAX dense module and its Pallas kernel in interpret mode; the rows past
+    6 of complex 0 are masked and give exactly zero in node mode."""
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=seed, Nl=Nl)
     tbm = _t(bond_mask, torch.float32)
     if pos_mode:
         rel = x_lig[:, :, None, :] - x_lig[:, None, :, :]
@@ -276,6 +283,18 @@ def test_bond_kernel_modes(pos_mode):
     launches = bond_ops.bond_attention.launches
     _check(got, jmod.apply(params, *args), jfused.apply(params, *args))
     assert bond_ops.bond_attention.launches == launches
+
+
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_kernel_modes(pos_mode):
+    _check_bond_modes(pos_mode, seed=4 + pos_mode)
+
+
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_kernel_modes_two_chunks(pos_mode):
+    """Nl = 40: more sources than the card kernel's 32-source chunk (the
+    second one ragged)."""
+    _check_bond_modes(pos_mode, seed=14 + pos_mode, Nl=40)
 
 
 def test_node_bond_full_context_scatter():
@@ -426,12 +445,19 @@ def _torch_grads(module, inputs, diff, cot):
 @pytest.mark.parametrize('mode,group', EDGE_CASES, ids=EDGE_IDS)
 def test_edge_kernel_grads(mode, group):
     """With the m-gate this covers d wm and d bm (ew_kernel, ew_bias)."""
-    pos_mode = mode == 'pos'
-    c = _edge_inputs(group, seed=21 + 2 * pos_mode + group + 5 * (
+    c = _edge_inputs(group, seed=21 + 2 * (mode == 'pos') + group + 5 * (
         mode == 'mgate'))
+    _check_edge_grads(mode, c, (False, True))
+
+
+def _check_edge_grads(mode, c, paths):
+    """Parameter, h, x and e_w gradients of the port's edge module (the
+    plain backward) against jax.grad of the JAX module on each of `paths`
+    (False: dense, True: Pallas in interpret mode)."""
     params = _edge_params(mode, c)
+    B, N = c['h'].shape[:2]
     cot = np.random.default_rng(9).normal(
-        size=(2, 16, 3 if pos_mode else H)).astype(np.float32)
+        size=(B, N, 3 if mode == 'pos' else c['H'])).astype(np.float32)
 
     def jax_grads(pallas):
         apply = _jax_edge(mode, pallas, c)[1]
@@ -441,13 +467,13 @@ def test_edge_kernel_grads(mode, group):
         return jax.grad(f, argnums=(0, 1, 2, 3))(params, c['h'], c['x'],
                                                  c['e_w'])
 
-    tmod = _load(_port_edge(mode, c['n_etypes']), params)
+    tmod = _load(_port_edge(mode, c), params)
     got_p, got_in = _torch_grads(
         tmod, (_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
         (0, 1, 3), cot)
     if mode == 'mgate':
         assert {'ew_kernel', 'ew_bias'} <= {n for n, _ in got_p}
-    for pallas in (False, True):
+    for pallas in paths:
         gp, gh, gx, gew = jax_grads(pallas)
         label = 'pallas' if pallas else 'dense'
         _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
@@ -494,7 +520,7 @@ def test_edge_kernel_gather_bf16_grads(mode, group):
         return jnp.sum(apply(params, h, x, e_w) * cot)
     gp, gh, gx, gew = jax.grad(f, argnums=(0, 1, 2, 3))(params, c['h'],
                                                         c['x'], c['e_w'])
-    tmod = _load(_port_edge(mode, c['n_etypes'], gather=True), params)
+    tmod = _load(_port_edge(mode, c, gather=True), params)
     got_p, got_in = _torch_grads(
         tmod, (_t(c['h']), _t(c['x']), c['graph'], _t(c['e_w'][..., 0])),
         (0, 1, 3), cot)
@@ -507,18 +533,26 @@ def test_edge_kernel_gather_bf16_grads(mode, group):
 
 @pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
 def test_bond_kernel_grads(pos_mode):
-    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=24 + pos_mode)
+    _check_bond_grads(pos_mode, 24 + pos_mode, (False, True))
+
+
+def _check_bond_grads(pos_mode, seed, paths, B=2, width=H, heads=HEADS):
+    """Parameter and input gradients of the port's bond module (the plain
+    backward) against jax.grad of the JAX module on each of `paths` (False:
+    dense, True: Pallas in interpret mode)."""
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=seed, B=B,
+                                                   width=width)
     tbm = _t(bond_mask, torch.float32)
     cot = np.random.default_rng(9).normal(
-        size=(2, 8, 3 if pos_mode else H)).astype(np.float32)
+        size=(B, 8, 3 if pos_mode else width)).astype(np.float32)
     if pos_mode:
         def rel(x):
             return x[:, :, None, :] - x[:, None, :, :]
-        mods = [jutb.PosBondAttention(H, HEADS, use_pallas=p)
-                for p in (False, True)]
-        params = mods[0].init(jax.random.PRNGKey(0), h_lig, rel(x_lig),
-                              h_bond, bond_mask)
-        tmod = _load(tutb.PosBondAttention(H, HEADS, use_kernels=True),
+        mods = [jutb.PosBondAttention(width, heads, use_pallas=p)
+                for p in paths]
+        params = jutb.PosBondAttention(width, heads).init(
+            jax.random.PRNGKey(0), h_lig, rel(x_lig), h_bond, bond_mask)
+        tmod = _load(tutb.PosBondAttention(width, heads, use_kernels=True),
                      params)
         got_p, got_in = _torch_grads(
             tmod, (_t(h_lig), _t(x_lig), _t(h_bond), tbm), (0, 1, 2), cot)
@@ -531,10 +565,11 @@ def test_bond_kernel_grads(pos_mode):
                                                      h_bond)
         labels = ('h_lig', 'x_lig', 'h_bond')
     else:
-        mods = [jutb.NodeBondAttention(H, HEADS, out_fc=False, use_pallas=p)
-                for p in (False, True)]
-        params = mods[0].init(jax.random.PRNGKey(0), h_lig, h_bond, bond_mask)
-        tmod = _load(tutb.NodeBondAttention(H, HEADS, out_fc=False,
+        mods = [jutb.NodeBondAttention(width, heads, out_fc=False,
+                                       use_pallas=p) for p in paths]
+        params = jutb.NodeBondAttention(width, heads, out_fc=False).init(
+            jax.random.PRNGKey(0), h_lig, h_bond, bond_mask)
+        tmod = _load(tutb.NodeBondAttention(width, heads, out_fc=False,
                                             use_kernels=True), params)
         got_p, got_in = _torch_grads(tmod, (_t(h_lig), _t(h_bond), tbm),
                                      (0, 1), cot)
@@ -544,7 +579,8 @@ def test_bond_kernel_grads(pos_mode):
                 return jnp.sum(mod.apply(params, h, hb, bond_mask) * cot)
             return jax.grad(f, argnums=(0, 1, 2))(params, h_lig, h_bond)
         labels = ('h_lig', 'h_bond')
-    for mod, label in zip(mods, ('dense', 'pallas')):
+    for mod, pallas in zip(mods, paths):
+        label = 'pallas' if pallas else 'dense'
         gp, *gin = jax_grads(mod)
         _assert_grads(got_p, [b for _, b in _param_grads(gp)], label)
         _assert_grads(zip(labels, got_in), gin, label)
@@ -552,19 +588,32 @@ def test_bond_kernel_grads(pos_mode):
 
 @pytest.mark.parametrize('include_h_node', [True, False])
 def test_triplet_kernel_grads(include_h_node):
-    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=26)
-    mods = [jutb.BondTripletAttention(H, HEADS, include_h_node=include_h_node,
-                                      use_pallas=p) for p in (False, True)]
-    params = mods[0].init(jax.random.PRNGKey(0), h_lig, h_bond, x_lig,
-                          bond_mask)
-    cot = np.random.default_rng(9).normal(size=(2, 8, 8, H)).astype(
+    _check_triplet_grads(include_h_node, 26, (False, True))
+
+
+def _check_triplet_grads(include_h_node, seed, paths, B=2, width=H,
+                         heads=HEADS):
+    """Parameter and input gradients of the port's triplet module (the
+    plain backward) against jax.grad of the JAX module on each of `paths`
+    (False: dense, True: Pallas in interpret mode)."""
+    h_lig, h_bond, x_lig, bond_mask = _bond_inputs(seed=seed, B=B,
+                                                   width=width)
+    mods = [jutb.BondTripletAttention(width, heads,
+                                      include_h_node=include_h_node,
+                                      use_pallas=p) for p in paths]
+    params = jutb.BondTripletAttention(
+        width, heads, include_h_node=include_h_node).init(
+            jax.random.PRNGKey(0), h_lig, h_bond, x_lig, bond_mask)
+    cot = np.random.default_rng(9).normal(size=(B, 8, 8, width)).astype(
         np.float32)
     tmod = _load(tutb.BondTripletAttention(
-        H, HEADS, include_h_node=include_h_node, use_kernels=True), params)
+        width, heads, include_h_node=include_h_node, use_kernels=True),
+        params)
     got_p, got_in = _torch_grads(
         tmod, (_t(h_lig), _t(h_bond), _t(x_lig), _t(bond_mask, torch.float32)),
         (0, 1, 2), cot)
-    for mod, label in zip(mods, ('dense', 'pallas')):
+    for mod, pallas in zip(mods, paths):
+        label = 'pallas' if pallas else 'dense'
         def f(params, h, hb, x):
             return jnp.sum(mod.apply(params, h, hb, x, bond_mask) * cot)
         gp, *gin = jax.grad(f, argnums=(0, 1, 2, 3))(params, h_lig, h_bond,
@@ -598,3 +647,26 @@ def test_triplet_kernel_bf16_grads(include_h_node):
     _assert_grads(got_p, [b for _, b in _param_grads(gp)], 'pallas bf16')
     _assert_grads(zip(('h_lig', 'h_bond', 'x_lig'), got_in), gin,
                   'pallas bf16')
+
+
+# The plain backward versions at a width of the wide card kernels (H = 512,
+# 16 heads: 1024-thread builds with the row buffers in device memory), which
+# the card tests hold those kernels to, against jax.grad of the JAX modules
+# through the Pallas kernels in interpret mode, at the gradient tolerance
+# above. B = 1 and 16 nodes (edge) or Nl = 8 (bond, triplet) keep interpret
+# mode quick.
+WIDE_H, WIDE_HEADS = 512, 16
+
+
+@pytest.mark.parametrize('case', ['edge-node', 'edge-pos', 'edge-mgate',
+                                  'bond-node', 'bond-pos', 'triplet'])
+def test_wide_kernel_grads(case):
+    kernel, _, mode = case.partition('-')
+    wide = dict(width=WIDE_H, heads=WIDE_HEADS)
+    if kernel == 'edge':
+        c = _edge_inputs(mode == 'pos', seed=61 + len(mode), B=1, **wide)
+        _check_edge_grads(mode, c, (True,))
+    elif kernel == 'bond':
+        _check_bond_grads(mode == 'pos', 64 + len(mode), (True,), B=1, **wide)
+    else:
+        _check_triplet_grads(True, 66, (True,), B=1, **wide)
