@@ -12,14 +12,15 @@
    the m-gated edge mode in the first layer of a released-width uni_o2
    (ew_net_type 'm') denoiser call, those of the edge modes with
    pallas_gather_bf16 (x_src) in the first layer of a released-config call
-   with that key, and those of the edge and triplet modes in the first layer
-   of denoiser calls at the widths of the per-row forward kernels
-   (WIDTHS, B=2); then holds every forward kernel against its plain PyTorch
-   version on those inputs (the triplet kernel also with its bf16 option
-   against the bf16 plain version), and every backward kernel against plain
-   autograd for a seeded cotangent (zeroed on the rows that hold a relu
-   gate within rounding of 0, see GATE_MARGIN), timing each with CUDA
-   events beside the previous time (PREVIOUS_MS) and its bounds.
+   with that key, and those of the edge, bond and triplet modes in the
+   first layer of denoiser calls at the widths of the per-row forward
+   kernels (WIDTHS, B=2) and at WIDE (B=2); then holds every forward kernel
+   against its plain PyTorch version on those inputs (the triplet kernel
+   also with its bf16 option against the bf16 plain version; WIDE: the
+   backward only), and every backward kernel against plain autograd for a
+   seeded cotangent (zeroed on the rows that hold a relu gate within
+   rounding of 0, see GATE_MARGIN), timing each with CUDA events beside the
+   previous time (PREVIOUS_MS) and its bounds.
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
    the same with pallas_bf16, then with pallas_gather_bf16, then with the
@@ -33,11 +34,13 @@
    and r.
 5. Training paths: training steps (forward, backward, clip and Adam) at B=8,
    Np=320, Nl=32 with kernels on, counters set to 0 just before and read
-   just after, for uni_o2_bond, then with pallas_gather_bf16, then uni_o2;
-   the same steps with every kernel replaced by its plain version; seconds
-   per step and peak device memory of both; one step's loss, grad norm and
-   parameter gradients, kernels on against off (with pallas_gather_bf16
-   also against a plain step that rounds as the kernels do, FLIP_COUNT).
+   just after, for uni_o2_bond, then with pallas_gather_bf16, then uni_o2,
+   then uni_o2_bond at WIDE (B=2: per-row forwards, backward row buffers in
+   device memory, launches exact in every counter); the same steps with
+   every kernel replaced by its plain version; seconds per step and peak
+   device memory of both; one step's loss, grad norm and parameter
+   gradients, kernels on against off (with pallas_gather_bf16 also against
+   a plain step that rounds as the kernels do, FLIP_COUNT).
 6. Prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check exits non-zero. Needs torch and numpy only.
@@ -60,16 +63,22 @@ TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 # (hidden width, heads) of uni_o2_bond runs on the per-row forward kernels
 # (widths outside the tensor-core kernels'), at B=2 and WIDTH_STEPS steps
 WIDTHS, WIDTH_B, WIDTH_STEPS = ((96, 12), (256, 16)), 2, 5
+# (hidden width, heads) of a uni_o2_bond training step (at WIDTH_B) whose
+# backward kernels take their 1024-thread builds with the row buffers in
+# device memory (the *_backward_wide records)
+WIDE = (512, 16)
 # H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth,
 # dense bf16 on the tensor cores
 PEAK_FLOPS, PEAK_BYTES, TENSOR_PEAK = 67e12, 3.35e12, 989e12
-# bf16 tensor-core passes that the [H, H] second linears of each forward
-# record's function take at its accuracy (row_mma.cuh: hi*hi + hi*lo + lo*hi
-# for float32, hi*hi with bf16). The bound is the function's, whichever
-# kernel computes it: the per-row (_row) records, which run those products
-# on CUDA cores, are bounded as the tensor-core widths are.
+# bf16 tensor-core passes that the [H, H] products (the second linears, and
+# the bond's first linears) of each forward record's function take at its
+# accuracy (row_mma.cuh: hi*hi + hi*lo + lo*hi for float32, hi*hi with
+# bf16). The bound is the function's, whichever kernel computes it: the
+# per-row (_row) records, which run those products on CUDA cores, are
+# bounded as the tensor-core widths are.
 TENSOR_PASSES = {'edge_attention': 3, 'edge_attention_mgate': 3,
                  'edge_attention_gather': 3, 'edge_attention_row': 3,
+                 'bond_attention': 3, 'bond_attention_row': 3,
                  'triplet_attention': 3, 'triplet_attention_row': 3,
                  'triplet_attention_bf16': 1}
 # kernel vs plain version: both float32, different summation order
@@ -90,13 +99,16 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 # 0 can fall on the other side in the kernel's recomputed LayerNorm than in
 # torch's, and the gradient through it then differs by its whole upstream
 # value. At these sizes (tens of millions of gates per call) a few such
-# gates exist. So the backward check zeroes the cotangent on the output rows
-# that hold a gate with a nonzero upstream gradient and |y| within
-# GATE_MARGIN times the plain version's largest float32 error of y (measured
-# against float64): no gradient then passes through an ambiguous gate, and
-# every gradient is held elementwise. At most MAX_DROPPED of the rows may be
-# zeroed. The full cotangent's count of elements outside the tolerance is
-# printed beside it.
+# gates exist. So where some gradient element lies outside the tolerance
+# under the full cotangent, the backward check zeroes the cotangent on the
+# output rows that hold a gate with a nonzero upstream gradient and |y|
+# within GATE_MARGIN times the plain version's largest float32 error of y
+# (measured against float64): no gradient then passes through an ambiguous
+# gate, and every gradient is held elementwise. At most MAX_DROPPED of the
+# rows may be zeroed for each 128 channels of H (drop_cap): a row's gates,
+# and so its chance of holding an ambiguous one, grow with H (at H = 512,
+# 16% of the edge pos rows hold one). The full cotangent's count of
+# elements outside the tolerance is printed beside it.
 GATE_MARGIN, MAX_DROPPED = 8.0, 0.1
 GRAD_NAMES = {   # the differentiable inputs, then the two Branch fields (and
                  # the gate's and x_src's)
@@ -127,7 +139,8 @@ LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-4, 2e-3, 1e-4
 FLIP_COUNT, FLIP_CAP = 16, 1e-3
 # the TPU kernel each record replaces; the m-gated and gather records are
 # the m_gate and gather_bf16 variants of the same two pallas_calls, the
-# per-row (_row) records the same pallas_calls at the other widths
+# per-row (_row) records the same pallas_calls at the other widths, the
+# _backward_wide records the backward pallas_calls at WIDE
 KERNEL_SOURCES = {
     'edge_attention': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
     'edge_attention_mgate': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
@@ -138,6 +151,13 @@ KERNEL_SOURCES = {
     'triplet_attention_row':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
     'bond_attention': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
+    'bond_attention_row': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
+    'edge_attention_backward_wide':
+        'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
+    'bond_attention_backward_wide':
+        'decompdiff_tpu/ops/pallas/bond_kernel.py:307',
+    'triplet_attention_backward_wide':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
     'triplet_attention': 'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
     'triplet_attention_bf16':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
@@ -148,16 +168,15 @@ KERNEL_SOURCES = {
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
 }
-# Each kernel mode's ms as this script measured it before the edge and
-# triplet forward kernels moved to the tensor cores (the per-row CUDA-core
-# kernels; PERF.md kernel table, NVIDIA H100 80GB HBM3, 700 W), printed
-# beside this run's.
+# Each kernel mode's ms as this script measured it before its forward
+# kernel moved to the tensor cores (the per-row CUDA-core kernels; PERF.md
+# kernel table, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
 PREVIOUS_MS = {
     ('edge_attention', 'node'): '0.4334-0.4361',
     ('edge_attention', 'pos'): '0.3852-0.3888',
     ('edge_attention_mgate', 'node'): '0.4622-0.4671',
-    ('bond_attention', 'node'): '0.1040-0.1043',
-    ('bond_attention', 'pos'): '0.0968-0.0986',
+    ('bond_attention', 'node'): '0.0997-0.0999',
+    ('bond_attention', 'pos'): '0.0934-0.0937',
     ('triplet_attention', 'node'): '1.8163-1.8297',
     ('edge_attention_backward', 'node'): '2.9431-2.9450',
     ('edge_attention_backward', 'pos'): '2.8171-2.8196',
@@ -273,7 +292,7 @@ def plain_versions(ops):
             setattr(mod, name, wrappers[name])
 
 
-RECORD_SUFFIXES = ('_mgate', '_bf16', '_gather', '_row')
+RECORD_SUFFIXES = ('_mgate', '_bf16', '_gather', '_row', '_wide')
 
 
 def op_name(rec):
@@ -315,9 +334,10 @@ def work(torch, name, args, kw, out):
         per_pair = 2 * 2 * 21 * n_types * H + attn
         if kw.get('gate') is not None:
             per_pair += 2 * H
-    elif name == 'bond_attention':        # (h_bond, x, mask, ...)
+    elif name.startswith('bond_attention'):   # (h_bond, x, mask, ...)
         pairs = int((args[2] > 0.5).sum())
         per_pair = 2 * 2 * H * H + attn
+        square += 2 * 2 * H * H           # and the [H, H] first linears
     else:                                 # (angle, mask, ...)
         from decompdiff_tpu_torch.ops.triplet_attention import triplet_mask
         pairs = int(triplet_mask(args[1]).sum())
@@ -340,12 +360,14 @@ def bounds(name, flops, square, nbytes):
 
 def modes(captured):
     """The captured modes in a fixed order, the m-gated ones after the
-    others, then the gather ones, then the per-row ones: each earlier mode
-    then draws the cotangent and follows the launches it did before the
-    later ones existed, so its numbers stay comparable across runs."""
+    others, then the gather ones, then the per-row ones, then the wide ones:
+    each earlier mode then draws the cotangent and follows the launches it
+    did before the later ones existed, so its numbers stay comparable across
+    runs."""
     def rank(kv):
         name = kv[0][0]
-        return ([s in name for s in ('_row', '_gather', '_mgate')], kv[0])
+        return ([s in name for s in ('_wide', '_row', '_gather', '_mgate')],
+                kv[0])
     return sorted(captured.items(), key=rank)
 
 
@@ -392,8 +414,12 @@ def check_forward(torch, results, name, mode, args, kw, rtol, atol, frac=0.0,
 
 
 def kernel_phase(torch, captured):
+    """Every forward record; the _wide modes are inputs of the backward
+    records only."""
     results = {}
     for (name, mode), (args, kw) in modes(captured):
+        if name.endswith('_wide'):
+            continue
         out = check_forward(torch, results, name, mode, args, kw,
                             KERNEL_RTOL, KERNEL_ATOL)
         if name == 'triplet_attention':   # its pallas_bf16 option
@@ -403,9 +429,9 @@ def kernel_phase(torch, captured):
             print(f'kernel {name}_bf16: the option moves the kernel output '
                   f'by max_abs {float((out_bf16 - out).abs().max()):.3e} '
                   f'against the float32 kernel', flush=True)
-    # 6 modes of the released configs, 2 gather modes, and per width the
-    # edge node and pos modes and the triplet
-    want = 8 + 3 * len(WIDTHS)
+    # 6 modes of the released configs, 2 gather modes, per width the edge
+    # and bond node and pos modes and the triplet, and the 5 wide modes
+    want = 8 + 5 * len(WIDTHS) + 5
     check(len(captured) == want,
           f'expected {want} kernel modes, saw {sorted(captured)}')
     return results
@@ -437,6 +463,12 @@ def grad_close(torch, a, b, rtol, atol):
     err = float(diff.max())
     ok = bool(torch.isfinite(a).all()) and outliers == 0
     return ok, err, err / scale, outliers
+
+
+def drop_cap(H):
+    """The share of a backward check's live rows that it may zero at width
+    H: MAX_DROPPED for each 128 channels."""
+    return MAX_DROPPED * max(1, H // 128)
 
 
 def ambiguous_rows(torch, mod, name, g, args, kw):
@@ -495,7 +527,8 @@ def backward_phase(torch, ops, captured):
     autograd backward, on the card) for a seeded cotangent, zeroed on the
     rows that ambiguous_rows drops, on the inputs the first layer gives each
     mode. The per-row records are forward kernels only (the backward
-    kernels are per-row at every width)."""
+    kernels are per-row at every width); the _wide modes give the
+    <kernel>_backward_wide records."""
     from decompdiff_tpu_torch.ops.common import Branch
     results = {}
     gen = torch.Generator(device='cuda').manual_seed(2)
@@ -510,12 +543,14 @@ def backward_phase(torch, ops, captured):
             out = getattr(mod, f'{op}_reference')(*args, **kw)
         g_full = torch.randn(out.shape, generator=gen, device=out.device)
         drop, live, tau = ambiguous_rows(torch, mod, op, g_full, args, kw)
+        full = [grad_close(torch, a, b, GRAD_RTOL, GRAD_ATOL)
+                for a, b in zip(flat_grads(kernel(g_full, *args, **kw)),
+                                flat_grads(plain(g_full, *args, **kw)))
+                if b is not None]
+        full_out = sum(r[3] for r in full)
+        if all(r[0] for r in full):   # no gate flipped where it counts
+            drop = torch.zeros_like(drop)
         n_drop, n_live = int(drop.sum()), int(live.sum())
-        full_out = sum(
-            grad_close(torch, a, b, GRAD_RTOL, GRAD_ATOL)[3]
-            for a, b in zip(flat_grads(kernel(g_full, *args, **kw)),
-                            flat_grads(plain(g_full, *args, **kw)))
-            if b is not None)
         g = g_full * (~drop)[..., None].to(g_full.dtype)
         want = flat_grads(plain(g, *args, **kw))
         got = flat_grads(kernel(g, *args, **kw))
@@ -546,22 +581,25 @@ def backward_phase(torch, ops, captured):
         moved = (nbytes(call_inputs(torch, args, kw)) + nbytes([g])
                  + nbytes(got))
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
-        print(f'kernel {name}_backward[{mode}] {len(got)} gradients: '
+        rec = (f'{op}_backward_wide' if name.endswith('_wide')
+               else f'{name}_backward')
+        print(f'kernel {rec}[{mode}] {len(got)} gradients: '
               f'max_abs_err {max_abs:.3e} max_err/scale {worst:.3e}, '
               f'{n_out} elements outside rtol {GRAD_RTOL} / atol {GRAD_ATOL} '
               f'x max(1, |grad|max) '
               f'{"ok" if ok else "MISMATCH"} with the cotangent zeroed on '
               f'{n_drop} of {n_live} live rows (a gate within {tau:.3e} of '
               f'0; {full_out} elements outside with none zeroed); kernel '
-              f'{ms:.4f} ms{previous_note(f"{name}_backward", mode)}, plain '
+              f'{ms:.4f} ms{previous_note(rec, mode)}, plain '
               f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
               f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
         check(ok, f'{name} backward disagrees with plain autograd')
-        check(n_drop <= MAX_DROPPED * n_live,
+        cap = drop_cap(args[-3].shape[-1])    # (..., q, k, v)
+        check(n_drop <= cap * n_live,
               f'{name} backward: {n_drop} of {n_live} rows hold an ambiguous '
-              f'gate, more than {MAX_DROPPED:.0%}')
-        r = results.setdefault(f'{name}_backward', dict(err=0.0, modes=[]))
+              f'gate, more than {cap:.0%}')
+        r = results.setdefault(rec, dict(err=0.0, modes=[]))
         r['err'] = max(r['err'], max_abs)
         r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_ops))
     return results
@@ -721,7 +759,8 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
         elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated() / 2**20
         counts = get_launches(ops)
-        print(f'{label} train path {key}: {TRAIN_STEPS} steps at B={B} '
+        print(f'{label} train path {key}: {TRAIN_STEPS} steps at '
+              f'B={batch.batch_size} '
               f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
               f'device memory {peak:.1f} MiB; last step loss '
               f'{float(metrics["loss"]):.5f} grad_norm '
@@ -891,32 +930,35 @@ def denoiser_on_off(torch, model, plain_model, batch, state, label,
 
 
 def width_phase(torch, bond_cfg, batch):
-    """uni_o2_bond at each of WIDTHS (kernel and plain models, seed 0):
-    the inputs of the first layer's edge and triplet calls, as the records
-    edge_attention_row and triplet_attention_row with modes 'H<width>
-    node' / 'pos'. Returns (captured, {width: models})."""
+    """uni_o2_bond at each of WIDTHS and at WIDE (kernel and plain models,
+    seed 0): the inputs of the first layer's edge, bond and triplet calls,
+    as the records <kernel>_row (WIDTHS) and <kernel>_wide (WIDE) with modes
+    'H<width> node' / 'pos'. Returns (captured, {width: models})."""
     ops = model_ops()
     captured, models = {}, {}
     t = torch.zeros((batch.batch_size,), dtype=torch.long, device='cuda')
     state = (batch.ligand_pos, batch.ligand_v, batch.bond_type, t)
-    for H, heads in WIDTHS:
+    for H, heads in WIDTHS + (WIDE,):
         cfg = dict(bond_cfg, hidden_dim=H, n_heads=heads)
         models[H] = cfg, make_models(torch, cfg)
+        suffix = '_wide' if (H, heads) == WIDE else '_row'
         for (name, mode), call in capture_inputs(torch, ops, models[H][1][1],
                                                  batch, state).items():
-            if name in ('edge_attention', 'triplet_attention'):
-                captured[(f'{name}_row', f'H{H} {mode}')] = call
+            captured[(f'{name}{suffix}', f'H{H} {mode}')] = call
     return captured, models
+
+
+def row_calls(per_call):
+    """per_call with each kernel's forward launches also in its per-row
+    counter."""
+    return dict(per_call, **{f'{n}_row': c for n, c in per_call.items()})
 
 
 def width_path_phase(torch, models, batch, full_protein, per_call):
     """WIDTH_STEPS guided steps of each width's kernel model, launches
-    counted (the edge and triplet forwards also in their per-row counters),
-    and one denoiser call kernels on vs off. Returns the launches summed
-    over the widths."""
-    per_call = dict(per_call,
-                    edge_attention_row=per_call['edge_attention'],
-                    triplet_attention_row=per_call['triplet_attention'])
+    counted (the forwards also in their per-row counters), and one denoiser
+    call kernels on vs off. Returns the launches summed over the widths."""
+    per_call = row_calls(per_call)
     total = {}
     for H, (cfg, (model, plain)) in models.items():
         label = f'uni_o2_bond[H{H}]'
@@ -978,7 +1020,9 @@ def launch_counters(ops):
     """{record name: (wrapper, counter attribute)} of every forward and
     backward kernel; the m-gated and gather edge launches and the triplet's
     bf16 launches have counters of their own; the per-row forward launches
-    (edge and triplet, any mode) count in their per-row counters as well."""
+    (any mode) count in their per-row counters as well, and the backward
+    launches with the row buffers in device memory in <kernel>_backward_wide
+    (scratch_launches)."""
     counters = {}
     for name, mod in ops.items():
         for n in (name, f'{name}_backward'):
@@ -990,8 +1034,9 @@ def launch_counters(ops):
                         getattr(mod, n), attr)
         if name == 'triplet_attention':
             counters[f'{name}_bf16'] = (getattr(mod, name), 'bf16_launches')
-        if name != 'bond_attention':
-            counters[f'{name}_row'] = (getattr(mod, name), 'row_launches')
+        counters[f'{name}_row'] = (getattr(mod, name), 'row_launches')
+        counters[f'{name}_backward_wide'] = (getattr(mod, f'{name}_backward'),
+                                             'scratch_launches')
     return counters
 
 
@@ -1070,6 +1115,7 @@ def main():
             key = ('edge_attention_gather', mode)
             captured[key] = gather_modes[key]
         width_modes, width_models = width_phase(torch, bond_cfg, width_batch)
+        wide_cfg = width_models.pop(WIDE[0])[0]
         captured.update(width_modes)
         with torch.no_grad():
             results = kernel_phase(torch, captured)
@@ -1109,6 +1155,13 @@ def main():
             'uni_o2_bond[gather_bf16]', wrapped=True)
         o2_train_launches = train_phase(torch, batch, o2_cfg, o2_calls,
                                         'uni_o2[m]')
+        # at WIDE every forward runs its per-row kernel and every backward
+        # launch keeps its row buffers in device memory
+        wide_train_launches = train_phase(
+            torch, width_batch, wide_cfg,
+            dict(row_calls(bond_calls),
+                 **{f'{n}_wide': c for n, c in bond_calls.items()}),
+            f'uni_o2_bond[H{WIDE[0]}]')
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1
@@ -1116,7 +1169,8 @@ def main():
     # each kernel's launches on the path that runs it: the m-gated ones on
     # the uni_o2 paths, the triplet's bf16 one on the pallas_bf16 sampling
     # path, the gather ones on the pallas_gather_bf16 paths, the per-row
-    # ones on the width paths, the others on the uni_o2_bond paths
+    # ones on the width paths, the wide backward ones on the WIDE training
+    # path, the others on the uni_o2_bond paths
     launches = {}
     for n in results:
         sampled, trained = ((o2_sample_launches, o2_train_launches)
@@ -1128,7 +1182,9 @@ def main():
             sampled = bf16_launches
         if n.endswith('_row'):
             sampled = width_launches
-        launches[n] = (trained if n.endswith('_backward') else sampled)[n]
+        if n.endswith('_wide'):
+            trained = wide_train_launches
+        launches[n] = (trained if '_backward' in n else sampled)[n]
     print(json.dumps({'kernels': kernel_records(results, launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -14,21 +14,35 @@
 // projected per atom before the launch.
 //
 // Bound on an H100: operations. At the released shapes (B=8, Nl=32, H=128)
-// one node-mode forward is ~1.0 GFLOP of per-pair [H, H] products against
-// ~5 MB of inputs and output, as chip_smoke.py counts them, so FP32
-// CUDA-core throughput bounds it. The backward adds two products per
-// forward product (d_h_bond = d pre We^T and d We = h_bond^T d pre among
-// them), so it is bound the same way.
+// one node-mode forward is ~1.0 GFLOP of per-pair [H, H] products (first
+// linears h_bond @ We and second linears y @ Wo) against ~5 MB of inputs
+// and output, as chip_smoke.py counts them; at three bf16 tensor-core
+// passes per product that is ~3 us, above the ~1.5 us of its bytes. The
+// backward adds two products per forward product (d_h_bond = d pre We^T and
+// d We = h_bond^T d pre among them) and runs them on CUDA cores, so FP32
+// throughput bounds it.
 //
-// Forward design: one block per (complex, atom i), one thread per channel;
-// sources j go in chunks of 16 (row_attention.cuh). The chunk's h_bond rows
-// are staged in shared memory and multiplied by We in-kernel; the relative
-// vectors of pos mode are formed from the coordinates in-kernel instead of
-// reading a [B, Nl, Nl, 3] tensor. Only B * Nl blocks exist at these
-// shapes, fewer than two waves on 132 SMs: a later version should split
-// rows or batch several layers' calls. At H = 128 it takes 174 registers a
-// thread, so blocks of H > 256 threads are compiled for 1024 threads (at
-// most 64 registers) to launch at all.
+// Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
+// 512-thread block per SM over tiles of 2 destination rows x 32 sources
+// (more sources: an online softmax across chunks of 32). The TPU kernel
+// computes h_bond @ We in its body, and so does this one: the tile's h_bond
+// rows are split into bf16 hi + lo in shared memory and multiplied by We on
+// the tensor cores in three bf16 passes (float32 accuracy), then t_row and
+// t_src are added, LayerNorm and relu run a warp per four rows, and the
+// second linear runs on the tensor cores as well; logits, online softmax
+// and the sums of alpha v stay float32 (pos mode: v [H, heads] on CUDA
+// cores, x_i - x_j formed in-kernel). We and Wo of one branch as bf16 hi +
+// lo take 139 KB at H = 128; both branches' would take 278 KB, more than a
+// block's 227 KB, so a block stages the k branch's pair, runs the k branch
+// to its logits, then stages the v branch's pair over it. At the released
+// shapes B * Nl / 2 = 128 tiles fill 128 of the 132 SMs once, so each
+// block stages each pair once.
+//
+// Forward design at every other width (row_attention.cuh): one block per
+// (complex, atom i), one thread per channel; sources j go in chunks of 16.
+// The chunk's h_bond rows are staged in shared memory and multiplied by We
+// in-kernel. At H = 128 it took 174 registers a thread, so blocks of
+// H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
 // Backward design (row_attention_bwd.cuh): one block per row as well (the
 // grid is capped at two blocks per SM, each looping over rows), every
@@ -41,6 +55,7 @@
 // build; at H >= 512 the row buffers do not fit in shared memory and live in
 // a device-memory scratch that the wrapper allocates (row_attention_bwd.cuh).
 #include "row_attention_bwd.cuh"
+#include "row_mma.cuh"
 
 using namespace rowattn;
 
@@ -56,8 +71,8 @@ struct BondArgs {
   int Nl, H, n_heads, pos;
 };
 
-// The chunk code of the forward and the backward kernel. It is written as
-// macros over the caller's locals (A the BondArgs; c, H, Nl, pos, row, b,
+// The chunk code of the per-row forward and of the backward kernel, written
+// as macros over the caller's locals (A the BondArgs; c, H, Nl, pos, row, b,
 // m0, nm). As __forceinline__ functions with the same statements, ptxas
 // gave the forward 138 registers instead of 174 and it ran 43% slower on an
 // H100 (1.98 against 1.39 ms of device time for a training step's 12
@@ -104,11 +119,238 @@ __device__ __forceinline__ bool row_has_source(const float* mrow, int Nl) {
   return __syncthreads_or(any);
 }
 
+// ---------------------------------------------------------------------------
+// forward, H in 32, 64, 128: tensor-core stage of row_mma.cuh
+// ---------------------------------------------------------------------------
+
+namespace rm = rowmma;
+
+// Offsets into the forward kernel's dynamic shared memory; the launcher
+// builds the same layout to size the launch. W1 holds one branch's We and
+// W2 its Wo (pos mode's v: Wo_v [H][heads] float32 in WV, staged once).
+struct BondLayout {
+  size_t w1_hi, w1_lo, w2_hi, w2_lo, wv, p, e, vs, sc, m, l, a3, q, scratch,
+      valid, coef, rel, bytes;
+  __host__ __device__ BondLayout(int H, int NH, bool pos) {
+    rm::Carve c;
+    w1_hi = c.take(rm::wo_bytes(H));
+    w1_lo = c.take(rm::wo_bytes(H));
+    w2_hi = c.take(rm::wo_bytes(H));
+    w2_lo = c.take(rm::wo_bytes(H));
+    wv = pos ? c.take(sizeof(float) * H * NH) : 0;
+    p = c.take(rm::p_bytes(H));
+    e = c.take(sizeof(float) * NH * rm::EH);
+    vs = pos ? c.take(sizeof(float) * NH * rm::EH) : 0;
+    sc = c.take(sizeof(float) * rm::TI * NH);
+    m = c.take(sizeof(float) * rm::TI * NH);
+    l = c.take(sizeof(float) * rm::TI * NH);
+    a3 = pos ? c.take(sizeof(float) * rm::TI * NH * 3) : 0;
+    q = c.take(sizeof(float) * rm::TI * H);
+    scratch = c.take(sizeof(float) * rm::THREADS);
+    valid = c.take(sizeof(int) * rm::TILE);
+    coef = pos ? c.take(sizeof(float) * rm::TILE) : 0;
+    rel = pos ? c.take(sizeof(float) * rm::TILE * 3) : 0;
+    bytes = c.off;
+  }
+};
+
+// Pair row r of a tile: destination row0 + r / KC (flat b * Nl + i), source
+// j = k0 + r % KC; `in` when both lie in the graph.
+struct BondPair {
+  int row, b, j;
+  bool in;
+  __device__ __forceinline__ BondPair(int r, int row0, int rows, int k0,
+                                      int Nl)
+      : row(row0 + r / rm::KC), b(row / Nl), j(k0 + r % rm::KC),
+        in(row < rows && j < Nl) {}
+};
+
+// Threads r < TILE: validity of pair row r and, in pos mode, its x_i - x_j
+// (with a weight of 1 for chunk_acc_pos). Returns the thread's validity.
+// No barrier.
+__device__ __forceinline__ int bond_tile_setup(const BondArgs& a, int* valid,
+                                               float* coef, float* rel,
+                                               int row0, int rows, int k0) {
+  const int r = threadIdx.x;
+  if (r >= rm::TILE) return 0;
+  const BondPair p(r, row0, rows, k0, a.Nl);
+  const int ok = p.in && a.mask[(size_t)p.row * a.Nl + p.j] > 0.5f;
+  valid[r] = ok;
+  if (a.pos) {
+    const float* xi = a.x + (size_t)p.row * 3;
+    const float* xj = a.x + ((size_t)p.b * a.Nl + p.j) * 3;
+    for (int d = 0; d < 3; ++d) rel[r * 3 + d] = p.in ? xi[d] - xj[d] : 0.f;
+    coef[r] = 1.f;
+  }
+  return ok;
+}
+
+// Rows w, w + WARPS, ... of P for warp w <- the tile's h_bond rows (0
+// outside the graph), split into bf16 hi + lo as ln_write splits y, for the
+// first linear on the tensor cores. A lane loads channels lane + 32 v. No
+// barrier.
+template <int H>
+__device__ __forceinline__ void bond_tile_split(const BondArgs& a, float* P,
+                                                int row0, int rows, int k0) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float x[rm::RW][NV];
+#pragma unroll
+  for (int q = 0; q < rm::RW; ++q) {
+    const BondPair p(warp + q * rm::WARPS, row0, rows, k0, a.Nl);
+    const float* src = a.h_bond + ((size_t)p.row * a.Nl + p.j) * H;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      x[q][v] = p.in ? __ldg(src + lane + 32 * v) : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < rm::RW; ++q) {
+    rm::bf16* rb = reinterpret_cast<rm::bf16*>(
+        P + (warp + q * rm::WARPS) * rm::p_ld(H));
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = lane + 32 * v;
+      const rm::bf16 h = __float2bfloat16_rn(x[q][v]);
+      rb[c] = h;
+      rb[rm::lo_off(H) + c] =
+          __float2bfloat16_rn(x[q][v] - __bfloat162float(h));
+    }
+  }
+}
+
+// Rows of warp w (as in bond_tile_split): pre = P (h_bond @ We) + t_row[row]
+// + t_src[b, j] (0 outside the graph), then y in the form FORM
+// (rm::ln_write). No barrier.
+template <int H, int FORM>
+__device__ __forceinline__ void bond_tile_y(const BondArgs& a,
+                                            const Branch& br, float* P,
+                                            int row0, int rows, int k0) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float x[rm::RW][NV];
+#pragma unroll
+  for (int q = 0; q < rm::RW; ++q) {
+    const int r = warp + q * rm::WARPS;
+    const BondPair p(r, row0, rows, k0, a.Nl);
+    const float* tr = br.t_row + (size_t)p.row * H;
+    const float* ts = br.t_src + ((size_t)p.b * a.Nl + p.j) * H;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = lane + 32 * v;
+      x[q][v] = p.in ? P[r * rm::p_ld(H) + c] + __ldg(tr + c) + __ldg(ts + c)
+                     : 0.f;
+    }
+  }
+  rm::ln_write<H, FORM>(P, x, br.lns, br.lnb);
+}
+
+// Persistent: block g takes the tiles g, g + gridDim.x, ... of 2
+// destination rows each. Per chunk of 32 sources, the k branch (its We and
+// Wo staged as bf16 hi + lo; h_bond @ We, LayerNorm, @ Wo, logits), then
+// the v branch (its weights staged over the k branch's), then the sums of
+// alpha v: both branches' four [H, H] matrices would not fit in shared
+// memory together.
+template <int H, bool POS>
+__global__ void __launch_bounds__(rm::THREADS, 1)
+    bond_attention_kernel(BondArgs a, int B) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int Nl = a.Nl, NH = a.n_heads, rows = B * Nl;
+  const BondLayout lay(H, NH, POS);
+  rm::bf16* w1h = reinterpret_cast<rm::bf16*>(dyn + lay.w1_hi);
+  rm::bf16* w1l = reinterpret_cast<rm::bf16*>(dyn + lay.w1_lo);
+  rm::bf16* w2h = reinterpret_cast<rm::bf16*>(dyn + lay.w2_hi);
+  rm::bf16* w2l = reinterpret_cast<rm::bf16*>(dyn + lay.w2_lo);
+  float* WV = reinterpret_cast<float*>(dyn + lay.wv);
+  float* P = reinterpret_cast<float*>(dyn + lay.p);
+  float* VS = reinterpret_cast<float*>(dyn + lay.vs);
+  float* A3 = reinterpret_cast<float*>(dyn + lay.a3);
+  const rm::Softmax sm{reinterpret_cast<float*>(dyn + lay.e),
+                       reinterpret_cast<float*>(dyn + lay.sc),
+                       reinterpret_cast<float*>(dyn + lay.m),
+                       reinterpret_cast<float*>(dyn + lay.l)};
+  float* Q = reinterpret_cast<float*>(dyn + lay.q);
+  float* scratch = reinterpret_cast<float*>(dyn + lay.scratch);
+  int* valid = reinterpret_cast<int*>(dyn + lay.valid);
+  float* coef = reinterpret_cast<float*>(dyn + lay.coef);
+  float* rel = reinterpret_cast<float*>(dyn + lay.rel);
+
+  if (POS)  // Wo_v [H][NH], float32
+    for (int e = threadIdx.x; e < H * NH; e += rm::THREADS)
+      WV[e] = __ldg(a.v.wo + e);
+  const float scale = 1.f / sqrtf((float)(H / NH));
+  const int n_tiles = (rows + rm::TI - 1) / rm::TI;
+  bool k_staged = false;  // W1 and W2 hold the k branch's weights
+
+  // A tile without a valid bond skips all its chunks and writes zeros.
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * rm::TI, n_rows = min(rm::TI, rows - row0);
+    float* out0 = a.out + (size_t)row0 * (POS ? 3 : H);
+    float acc = 0.f;
+
+    for (int k0 = 0; k0 < Nl; k0 += rm::KC) {
+      __syncthreads();  // the last chunk (tile) is done with the shared data
+      if (k0 == 0) {    // the tile's rows: q and the softmax state
+        for (int e = threadIdx.x; e < rm::TI * H; e += rm::THREADS)
+          Q[e] = e / H < n_rows ? a.q[(size_t)row0 * H + e] : 0.f;
+        rm::softmax_reset(sm, NH);
+        if (POS)
+          for (int e = threadIdx.x; e < rm::TI * NH * 3; e += rm::THREADS)
+            A3[e] = 0.f;
+      }
+      const int live = bond_tile_setup(a, valid, coef, rel, row0, rows, k0);
+      if (!__syncthreads_or(live)) continue;  // no bond in the chunk
+
+      // k: first linear, LayerNorm and relu, second linear, logits
+      if (!k_staged) {
+        rm::stage_wo<H>(a.k.w_feat, w1h, w1l);
+        rm::stage_wo<H>(a.k.wo, w2h, w2l);
+        k_staged = true;
+      }
+      bond_tile_split<H>(a, P, row0, rows, k0);
+      __syncthreads();
+      rm::tile_product<H, true, rm::WARPS, false>(P, w1h, w1l, nullptr);
+      bond_tile_y<H, rm::kHiLo>(a, a.k, P, row0, rows, k0);
+      __syncthreads();
+      rm::tile_product<H, true>(P, w2h, w2l, a.k.bo);
+      rm::chunk_logits<H>(P, Q, valid, NH, scale, sm);
+      __syncthreads();  // the k branch is done with W1, W2 and P
+
+      // v: first linear, LayerNorm and relu, second linear, sum of alpha v
+      rm::stage_wo<H>(a.v.w_feat, w1h, w1l);
+      if (!POS) rm::stage_wo<H>(a.v.wo, w2h, w2l);
+      k_staged = false;
+      bond_tile_split<H>(a, P, row0, rows, k0);
+      __syncthreads();
+      rm::tile_product<H, true, rm::WARPS, false>(P, w1h, w1l, nullptr);
+      bond_tile_y<H, POS ? rm::kF32 : rm::kHiLo>(a, a.v, P, row0, rows, k0);
+      __syncthreads();
+      if (POS) {  // v [H, heads] on CUDA cores
+        rm::tile_heads<H>(P, WV, a.v.bo, NH, VS);
+        __syncthreads();
+        rm::chunk_acc_pos(VS, sm, coef, rel, A3, NH);
+      } else {
+        rm::tile_product<H, true>(P, w2h, w2l, a.v.bo);
+        acc = rm::chunk_acc_node<H>(acc, P, sm, nullptr, NH);
+      }
+    }
+    if (POS) {
+      __syncthreads();
+      rm::finish_pos(sm, A3, NH, out0, n_rows);
+    } else {
+      rm::finish_node<H>(acc, sm, NH, scratch, out0, H, n_rows);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward at the other widths: per-row kernel of row_attention.cuh
+// ---------------------------------------------------------------------------
+
 // WIDE: the block may have up to 1024 threads (H > 256; at most 64
 // registers a thread).
 template <bool WIDE>
 __global__ void __launch_bounds__(WIDE ? 1024 : 256)
-    bond_attention_kernel(BondArgs a) {
+    bond_attention_row_kernel(BondArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
 
@@ -174,7 +416,7 @@ inline size_t bond_bwd_floats(int Nl, int H, int n_heads) {
 // WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
 template <bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
     bond_attention_bwd_kernel(BondBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
@@ -291,6 +533,37 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
   flush_small(acc, sk, sv, nh, pos);
 }
 
+// One block per SM (at most one per tile).
+template <int H>
+cudaError_t launch_fwd(const BondArgs& a, int B, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const size_t smem = BondLayout(H, a.n_heads, a.pos != 0).bytes;
+  void (*kernel)(BondArgs, int) = a.pos ? bond_attention_kernel<H, true>
+                                        : bond_attention_kernel<H, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B * a.Nl + rm::TI - 1) / rm::TI;
+  kernel<<<std::min(sms, tiles), rm::THREADS, smem, stream>>>(a, B);
+  return cudaGetLastError();
+}
+
+// The per-row forward: [CH][H] pre of both branches, the chunk's h_bond rows
+// and [CH][heads] v (pos mode).
+cudaError_t launch_fwd_row(const BondArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.H, a.n_heads, 1);
+  void (*kernel)(BondArgs) = a.H > 256 ? bond_attention_row_kernel<true>
+                                       : bond_attention_row_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B * a.Nl, a.H, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <bool WIDE>
 cudaError_t launch_bwd(BondBwdArgs& a, int G, float* scratch, int* route,
                        cudaStream_t stream) {
@@ -302,6 +575,9 @@ cudaError_t launch_bwd(BondBwdArgs& a, int G, float* scratch, int* route,
 
 }  // namespace
 
+// Forward. H in 32, 64, 128: the tensor-core kernel; any other width the
+// wrapper admits: the per-row kernel. *row: 1 when the per-row kernel was
+// launched, else 0 (the wrapper counts the route from it).
 extern "C" int bond_attention_fwd(
     const float* h_bond, const float* x, const float* mask, const float* q,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -310,19 +586,21 @@ extern "C" int bond_attention_fwd(
     const float* v_row, const float* v_src, const float* v_feat,
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb,
-    float* out, int B, int Nl, int H, int n_heads, int pos, void* stream) {
+    float* out, int* row, int B, int Nl, int H, int n_heads, int pos,
+    void* stream) {
+  *row = 0;
   if (B * Nl == 0) return 0;
   BondArgs a{h_bond, x, mask, q,
              Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, Nl, H, n_heads, pos};
-  const size_t smem = smem_bytes(H, n_heads, 1);
-  void (*kernel)(BondArgs) = H > 256 ? bond_attention_kernel<true>
-                                     : bond_attention_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B * Nl, H, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 32: return (int)launch_fwd<32>(a, B, s);
+    case 64: return (int)launch_fwd<64>(a, B, s);
+    case 128: return (int)launch_fwd<128>(a, B, s);
+    default: *row = 1; return (int)launch_fwd_row(a, B, s);
+  }
 }
 
 // Floats per block of the device-memory scratch that the backward needs at

@@ -627,7 +627,7 @@ struct EdgeBwdArgs {
 // WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
 template <bool GATE, bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
     edge_attention_bwd_kernel(EdgeBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];

@@ -1,19 +1,22 @@
-// The tensor-core stage of the triplet and edge forward kernels (sm_90a).
+// The tensor-core stage of the triplet, edge and bond forward kernels
+// (sm_90a).
 //
-// Both forward kernels compute, for every destination row and each of its
-// sources, two branches (k and v) of the form
+// The three forward kernels compute, for every destination row and each of
+// its sources, two branches (k and v) of the form
 //   pre = (per-pair features) @ w_feat + t_row[row] + t_src[source]
 //   y   = relu(LayerNorm(pre) * ln_scale + ln_bias)
 //   out = y @ Wo + bo
 // then a masked softmax over the sources of the head-grouped q . k and the
-// sum of alpha v. About 90% of the operations are the [H, H] products
-// y @ Wo; this header runs them on the tensor cores.
+// sum of alpha v. Most of the operations are the [H, H] products y @ Wo
+// (and, in the bond kernel, the [H, H] w_feat); this header runs them on
+// the tensor cores.
 //
 // Shape of a launch: one block of 512 threads per SM, looping over tiles.
 // A tile is TI = 2 destination rows x KC = 32 sources (one per lane of a
 // warp): 64 pair rows. For one branch the edge kernel writes the tile's
 // `pre` into P ([64][H] float32, row stride H + 4) (the triplet kernel
-// builds it in registers and calls ln_write itself), then
+// builds it in registers and calls ln_write itself; the bond kernel takes
+// its per-pair [H, H] first linear on the tensor cores as well), then
 //   * ln_relu / ln_write: LayerNorm (eps 1e-5), scale, bias, relu, each
 //     warp on its four rows at once; y = hi + lo is split into two bf16
 //     halves written over the row (hi at its start, lo H + 8 bf16 on);
@@ -146,16 +149,43 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Wo [H][H] float32 in device memory -> hi (and, if lo is not null, lo)
-// [H][w_ld(H)] bf16 in shared memory, Wo = hi + lo. No barrier.
+// [H][w_ld(H)] bf16 in shared memory, Wo = hi + lo. A thread takes four
+// consecutive elements at a time (one 16-byte load where wo is 16-byte
+// aligned) and issues all its loads before the first conversion, so their
+// latencies overlap (the bond kernel stages per tile). No barrier.
 template <int H>
 __device__ __forceinline__ void stage_wo(const float* __restrict__ wo,
                                          bf16* hi, bf16* lo) {
-  for (int e = threadIdx.x; e < H * H; e += THREADS) {
-    const int k = e / H, n = e - k * H;
-    const float w = __ldg(wo + e);
-    const bf16 h = __float2bfloat16_rn(w);
-    hi[k * w_ld(H) + n] = h;
-    if (lo) lo[k * w_ld(H) + n] = __float2bfloat16_rn(w - __bfloat162float(h));
+  constexpr int N4 = H * H / 4;                      // groups of four
+  constexpr int PER = (N4 + THREADS - 1) / THREADS;  // groups a thread
+  const bool vec = (reinterpret_cast<uintptr_t>(wo) & 15) == 0;
+  float4 w[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * THREADS;
+    if (e >= N4) break;
+    w[u] = vec ? __ldg(reinterpret_cast<const float4*>(wo) + e)
+               : make_float4(__ldg(wo + 4 * e), __ldg(wo + 4 * e + 1),
+                             __ldg(wo + 4 * e + 2), __ldg(wo + 4 * e + 3));
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = threadIdx.x + u * THREADS;
+    if (e >= N4) break;
+    const int k = 4 * e / H, n = 4 * e - k * H;
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(w[u].x, w[u].y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(w[u].z, w[u].w);
+    __nv_bfloat162* ph =
+        reinterpret_cast<__nv_bfloat162*>(hi + k * w_ld(H) + n);
+    ph[0] = h01;
+    ph[1] = h23;
+    if (lo) {
+      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+      __nv_bfloat162* pl =
+          reinterpret_cast<__nv_bfloat162*>(lo + k * w_ld(H) + n);
+      pl[0] = __floats2bfloat162_rn(w[u].x - f01.x, w[u].y - f01.y);
+      pl[1] = __floats2bfloat162_rn(w[u].z - f23.x, w[u].w - f23.y);
+    }
   }
 }
 
@@ -255,10 +285,11 @@ struct MmaPlan {
 // P <- P @ Wo + bo for the TILE rows of P, which hold y from ln_write
 // (bf16 hi, and lo if SPLIT), by a group of W warps (warp: the caller's
 // index in its group). SPLIT: hi*hi + hi*lo + lo*hi (float32 accuracy);
-// otherwise one bf16 pass hi*hi. Whi / wlo: Wo staged by stage_wo. The
-// float32 result replaces the rows of P. Contains block barriers, as many
-// for every group of a launch, and ends with one.
-template <int H, bool SPLIT, int W = WARPS>
+// otherwise one bf16 pass hi*hi. Whi / wlo: Wo staged by stage_wo. Without
+// BIAS, bo is not read (P <- P @ Wo). The float32 result replaces the rows
+// of P. Contains block barriers, as many for every group of a launch, and
+// ends with one.
+template <int H, bool SPLIT, int W = WARPS, bool BIAS = true>
 __device__ __forceinline__ void tile_product(float* P, const bf16* whi,
                                              const bf16* wlo,
                                              const float* __restrict__ bo,
@@ -333,7 +364,8 @@ __device__ __forceinline__ void tile_product(float* P, const bf16* whi,
           float2* p1 = reinterpret_cast<float2*>(P + (r + 8) * p_ld(H) + c);
           const float* a4 = acc[mb][nt];
           if (s == 0) {
-            const float b0 = __ldg(bo + c), b1 = __ldg(bo + c + 1);
+            const float b0 = BIAS ? __ldg(bo + c) : 0.f;
+            const float b1 = BIAS ? __ldg(bo + c + 1) : 0.f;
             *p0 = make_float2(a4[0] + b0, a4[1] + b1);
             *p1 = make_float2(a4[2] + b0, a4[3] + b1);
           } else {

@@ -444,7 +444,7 @@ inline size_t triplet_bwd_floats(int Nl, int H, int n_heads) {
 // WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
 template <bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, 1)
+__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
     triplet_attention_bwd_kernel(TripletBwdArgs a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];

@@ -13,6 +13,12 @@ For every ligand atom i (destination) and every ligand atom j (source):
 
 `t_row` is h @ Wi + be and `t_src` is h @ Wj; in pos mode Wo_v is [H, heads].
 
+The forward launcher chooses its kernel by width: for H in 32, 64, 128 the
+tensor-core kernel (csrc/row_mma.cuh, h_bond @ We included), for every
+other width that check_heads admits the per-row kernel
+(csrc/row_attention.cuh). It reports the route it took, and the per-row
+launches also count in `bond_attention.row_launches`.
+
 On CUDA tensors `bond_attention` is differentiable: its autograd node saves
 only the inputs, and `bond_attention_backward` recomputes the rest in the
 backward kernel. Its launches with the row buffers in a device-memory
@@ -83,12 +89,14 @@ def _forward(h_bond, x, mask, q, k, v, n_heads, pos_mode):
                                    pos_mode))
     out = torch.empty((B, Nl, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
-    fn = _build.load('bond_attention', 'bond_attention_fwd', 19, 5)
+    row = ctypes.c_int(0)                 # 1: the per-row kernel launched
+    fn = _build.load('bond_attention', 'bond_attention_fwd', 20, 5)
     args = ([ptr(h_bond), ptr(x if pos_mode else None), ptr(mask), ptr(q)]
-            + branch_ptrs(k) + branch_ptrs(v) + [ptr(out)]
+            + branch_ptrs(k) + branch_ptrs(v) + [ptr(out), ctypes.byref(row)]
             + [B, Nl, H, n_heads, int(pos_mode)])
     launch(fn, args, q.device, 'bond_attention')
     bond_attention.launches += 1
+    bond_attention.row_launches += row.value
     return out
 
 
@@ -172,6 +180,6 @@ def bond_attention_backward(g: torch.Tensor, h_bond, x, mask, q, k: Branch,
     return d_hb, d_x, d_q, dk, dv
 
 
-bond_attention.launches = 0
+bond_attention.launches = bond_attention.row_launches = 0
 bond_attention_backward.launches = 0
 bond_attention_backward.scratch_launches = 0
