@@ -14,13 +14,14 @@
    pallas_gather_bf16 (x_src) in the first layer of a released-config call
    with that key, and those of the edge, bond and triplet modes in the
    first layer of denoiser calls at the widths of the per-row forward
-   kernels (WIDTHS, B=2) and at WIDE (B=2); then holds every forward kernel
-   against its plain PyTorch version on those inputs (the triplet kernel
-   also with its bf16 option against the bf16 plain version; WIDE: the
-   backward only), and every backward kernel against plain autograd for a
-   seeded cotangent (zeroed on the rows that hold a relu gate within
-   rounding of 0, see GATE_MARGIN), timing each with CUDA events beside the
-   previous time (PREVIOUS_MS) and its bounds.
+   kernels (WIDTHS, B=2); then holds every forward kernel against its plain
+   PyTorch version on those inputs (the triplet kernel also with its bf16
+   option against the bf16 plain version), and every backward kernel
+   against plain autograd for a seeded cotangent (zeroed where needed on
+   the rows that hold a relu gate within rounding of 0, see GATE_MARGIN),
+   timing each with CUDA events beside the previous time (PREVIOUS_MS) and
+   its bounds; then the same for the backward kernels on the inputs of a
+   denoiser call at WIDE (B=2).
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
    the same with pallas_bf16, then with pallas_gather_bf16, then with the
@@ -360,14 +361,12 @@ def bounds(name, flops, square, nbytes):
 
 def modes(captured):
     """The captured modes in a fixed order, the m-gated ones after the
-    others, then the gather ones, then the per-row ones, then the wide ones:
-    each earlier mode then draws the cotangent and follows the launches it
-    did before the later ones existed, so its numbers stay comparable across
-    runs."""
+    others, then the gather ones, then the per-row ones: each earlier mode
+    then draws the cotangent and follows the launches it did before the
+    later ones existed, so its numbers stay comparable across runs."""
     def rank(kv):
         name = kv[0][0]
-        return ([s in name for s in ('_wide', '_row', '_gather', '_mgate')],
-                kv[0])
+        return ([s in name for s in ('_row', '_gather', '_mgate')], kv[0])
     return sorted(captured.items(), key=rank)
 
 
@@ -414,12 +413,8 @@ def check_forward(torch, results, name, mode, args, kw, rtol, atol, frac=0.0,
 
 
 def kernel_phase(torch, captured):
-    """Every forward record; the _wide modes are inputs of the backward
-    records only."""
     results = {}
     for (name, mode), (args, kw) in modes(captured):
-        if name.endswith('_wide'):
-            continue
         out = check_forward(torch, results, name, mode, args, kw,
                             KERNEL_RTOL, KERNEL_ATOL)
         if name == 'triplet_attention':   # its pallas_bf16 option
@@ -429,9 +424,9 @@ def kernel_phase(torch, captured):
             print(f'kernel {name}_bf16: the option moves the kernel output '
                   f'by max_abs {float((out_bf16 - out).abs().max()):.3e} '
                   f'against the float32 kernel', flush=True)
-    # 6 modes of the released configs, 2 gather modes, per width the edge
-    # and bond node and pos modes and the triplet, and the 5 wide modes
-    want = 8 + 5 * len(WIDTHS) + 5
+    # 6 modes of the released configs, 2 gather modes, and per width the
+    # edge and bond node and pos modes and the triplet
+    want = 8 + 5 * len(WIDTHS)
     check(len(captured) == want,
           f'expected {want} kernel modes, saw {sorted(captured)}')
     return results
@@ -929,19 +924,18 @@ def denoiser_on_off(torch, model, plain_model, batch, state, label,
         check(ok, f'{label} denoiser {key} differs with kernels on')
 
 
-def width_phase(torch, bond_cfg, batch):
-    """uni_o2_bond at each of WIDTHS and at WIDE (kernel and plain models,
-    seed 0): the inputs of the first layer's edge, bond and triplet calls,
-    as the records <kernel>_row (WIDTHS) and <kernel>_wide (WIDE) with modes
-    'H<width> node' / 'pos'. Returns (captured, {width: models})."""
+def width_phase(torch, bond_cfg, batch, widths, suffix):
+    """uni_o2_bond at each of `widths` (kernel and plain models, seed 0):
+    the inputs of the first layer's edge, bond and triplet calls, as the
+    records <kernel><suffix> with modes 'H<width> node' / 'pos'. Returns
+    (captured, {width: (cfg, models)})."""
     ops = model_ops()
     captured, models = {}, {}
     t = torch.zeros((batch.batch_size,), dtype=torch.long, device='cuda')
     state = (batch.ligand_pos, batch.ligand_v, batch.bond_type, t)
-    for H, heads in WIDTHS + (WIDE,):
+    for H, heads in widths:
         cfg = dict(bond_cfg, hidden_dim=H, n_heads=heads)
         models[H] = cfg, make_models(torch, cfg)
-        suffix = '_wide' if (H, heads) == WIDE else '_row'
         for (name, mode), call in capture_inputs(torch, ops, models[H][1][1],
                                                  batch, state).items():
             captured[(f'{name}{suffix}', f'H{H} {mode}')] = call
@@ -1114,13 +1108,20 @@ def main():
         for mode in ('node', 'pos'):
             key = ('edge_attention_gather', mode)
             captured[key] = gather_modes[key]
-        width_modes, width_models = width_phase(torch, bond_cfg, width_batch)
-        wide_cfg = width_models.pop(WIDE[0])[0]
+        width_modes, width_models = width_phase(torch, bond_cfg, width_batch,
+                                                WIDTHS, '_row')
         captured.update(width_modes)
         with torch.no_grad():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
         del captured, o2_modes, gather_modes, width_modes, gather_model
+        # the WIDE backward records after the others, so that their models
+        # and inputs do not change the device memory those run in
+        wide_modes, wide_models = width_phase(torch, bond_cfg, width_batch,
+                                              (WIDE,), '_wide')
+        wide_cfg = wide_models.pop(WIDE[0])[0]
+        results.update(backward_phase(torch, ops, wide_modes))
+        del wide_modes, wide_models
 
         # forward launches per denoiser call; the m-gate runs in x2h only
         layers = bond_cfg['num_layers'] * bond_cfg['num_blocks']

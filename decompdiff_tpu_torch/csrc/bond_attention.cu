@@ -413,11 +413,10 @@ inline size_t bond_bwd_floats(int Nl, int H, int n_heads) {
   return (size_t)CH * H + rowbwd::row_smem_floats(Nl, H, n_heads);
 }
 
-// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// The backward of the rows of block blockIdx.x. SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
-template <bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
-    bond_attention_bwd_kernel(BondBwdArgs a) {
+template <bool SCRATCH>
+__device__ __forceinline__ void bond_bwd_rows(const BondBwdArgs& a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
@@ -533,6 +532,19 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
   flush_small(acc, sk, sv, nh, pos);
 }
 
+// The 256-thread build (H <= 256) and the 1024-thread build
+// (row_attention_bwd.cuh).
+template <bool SCRATCH>
+__global__ void bond_attention_bwd_kernel(BondBwdArgs a) {
+  bond_bwd_rows<SCRATCH>(a);
+}
+
+template <bool SCRATCH>
+__global__ void __launch_bounds__(1024, 1)
+    bond_attention_bwd_wide_kernel(BondBwdArgs a) {
+  bond_bwd_rows<SCRATCH>(a);
+}
+
 // One block per SM (at most one per tile).
 template <int H>
 cudaError_t launch_fwd(const BondArgs& a, int B, cudaStream_t stream) {
@@ -564,13 +576,15 @@ cudaError_t launch_fwd_row(const BondArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool WIDE>
-cudaError_t launch_bwd(BondBwdArgs& a, int G, float* scratch, int* route,
-                       cudaStream_t stream) {
-  return rowbwd::launch_rows(
-      bond_attention_bwd_kernel<WIDE, false>,
-      bond_attention_bwd_kernel<WIDE, true>, a, G,
-      bond_bwd_floats(a.f.Nl, a.f.H, a.f.n_heads), scratch, route, stream);
+// The backward kernel of width H, with its row buffers in the scratch or
+// in shared memory.
+using BondBwdKernel = void (*)(BondBwdArgs);
+BondBwdKernel bwd_kernel(int H, bool scratch) {
+  if (H > 256)
+    return scratch ? bond_attention_bwd_wide_kernel<true>
+                   : bond_attention_bwd_wide_kernel<false>;
+  return scratch ? bond_attention_bwd_kernel<true>
+                 : bond_attention_bwd_kernel<false>;
 }
 
 }  // namespace
@@ -608,9 +622,7 @@ extern "C" int bond_attention_fwd(
 extern "C" int bond_attention_bwd_scratch(int* per_block, int Nl, int H,
                                           int n_heads) {
   return (int)rowbwd::scratch_floats(
-      H > 256 ? bond_attention_bwd_kernel<true, false>
-              : bond_attention_bwd_kernel<false, false>,
-      bond_bwd_floats(Nl, H, n_heads), per_block);
+      bwd_kernel(H, false), bond_bwd_floats(Nl, H, n_heads), per_block);
 }
 
 // Backward: G blocks over the B*Nl rows, then the fixed-order slot sum into
@@ -639,9 +651,9 @@ extern "C" int bond_attention_bwd(
                nullptr, Nl, H, n_heads, pos},
       g, k_woT, v_woT, k_weT, v_weT, d_hbond, d_x, d_q, d_trow_k, d_tsrc_k,
       d_trow_v, d_tsrc_v, slots, B * Nl, nullptr, 0};
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = H > 256 ? launch_bwd<true>(a, G, scratch, route, s)
-                            : launch_bwd<false>(a, G, scratch, route, s);
+  cudaError_t err = rowbwd::launch_rows(
+      bwd_kernel(H, false), bwd_kernel(H, true), a, G,
+      bond_bwd_floats(Nl, H, n_heads), scratch, route, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const size_t P = rowbwd::branch_slot_floats(H, H, H) +
                    rowbwd::branch_slot_floats(H, H, pos ? n_heads : H);

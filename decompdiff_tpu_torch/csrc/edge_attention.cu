@@ -624,11 +624,10 @@ struct EdgeBwdArgs {
   int per_block;         //   floats of them per block
 };
 
-// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// The backward of the rows of block blockIdx.x. SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
-template <bool GATE, bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
-    edge_attention_bwd_kernel(EdgeBwdArgs a) {
+template <bool GATE, bool SCRATCH>
+__device__ __forceinline__ void edge_bwd_rows(const EdgeBwdArgs& a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ EdgeChunk ch;
@@ -787,6 +786,19 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
   }
 }
 
+// The 256-thread build (H <= 256) and the 1024-thread build
+// (row_attention_bwd.cuh).
+template <bool GATE, bool SCRATCH>
+__global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
+  edge_bwd_rows<GATE, SCRATCH>(a);
+}
+
+template <bool GATE, bool SCRATCH>
+__global__ void __launch_bounds__(1024, 1)
+    edge_attention_bwd_wide_kernel(EdgeBwdArgs a) {
+  edge_bwd_rows<GATE, SCRATCH>(a);
+}
+
 // One block per SM (at most one per tile).
 template <int H>
 cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
@@ -809,22 +821,22 @@ cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The backward kernel that keeps its row buffers in shared memory.
+// The backward kernel of width H, with or without the gate, with its row
+// buffers in the scratch or in shared memory.
 using EdgeBwdKernel = void (*)(EdgeBwdArgs);
-EdgeBwdKernel bwd_kernel(bool gate, int H) {
+EdgeBwdKernel bwd_kernel(bool gate, int H, bool scratch) {
+  if (H > 256) {
+    if (gate)
+      return scratch ? edge_attention_bwd_wide_kernel<true, true>
+                     : edge_attention_bwd_wide_kernel<true, false>;
+    return scratch ? edge_attention_bwd_wide_kernel<false, true>
+                   : edge_attention_bwd_wide_kernel<false, false>;
+  }
   if (gate)
-    return H > 256 ? edge_attention_bwd_kernel<true, true, false>
-                   : edge_attention_bwd_kernel<true, false, false>;
-  return H > 256 ? edge_attention_bwd_kernel<false, true, false>
-                 : edge_attention_bwd_kernel<false, false, false>;
-}
-
-template <bool GATE, bool WIDE>
-cudaError_t launch_bwd(EdgeBwdArgs& a, int G, size_t floats, float* scratch,
-                       int* route, cudaStream_t stream) {
-  return rowbwd::launch_rows(edge_attention_bwd_kernel<GATE, WIDE, false>,
-                             edge_attention_bwd_kernel<GATE, WIDE, true>, a,
-                             G, floats, scratch, route, stream);
+    return scratch ? edge_attention_bwd_kernel<true, true>
+                   : edge_attention_bwd_kernel<true, false>;
+  return scratch ? edge_attention_bwd_kernel<false, true>
+                 : edge_attention_bwd_kernel<false, false>;
 }
 
 }  // namespace
@@ -867,7 +879,7 @@ extern "C" int edge_attention_fwd(
 extern "C" int edge_attention_bwd_scratch(int* per_block, int K, int H,
                                           int n_heads, int gate) {
   return (int)rowbwd::scratch_floats(
-      bwd_kernel(gate != 0, H),
+      bwd_kernel(gate != 0, H, false),
       rowbwd::row_smem_floats(K, H, n_heads, gate != 0), per_block);
 }
 
@@ -902,16 +914,11 @@ extern "C" int edge_attention_bwd(
                nullptr, N, K, H, n_heads, n_types, pos, Gate{wm, bm}},
       g, k_woT, v_woT, d_x, d_xs, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
       d_tsrc_v, slots, B * N, nullptr, 0};
-  const bool gate = wm != nullptr, wide = H > 256;
-  const size_t floats = rowbwd::row_smem_floats(K, H, n_heads, gate);
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (gate)
-    err = wide ? launch_bwd<true, true>(a, G, floats, scratch, route, s)
-               : launch_bwd<true, false>(a, G, floats, scratch, route, s);
-  else
-    err = wide ? launch_bwd<false, true>(a, G, floats, scratch, route, s)
-               : launch_bwd<false, false>(a, G, floats, scratch, route, s);
+  const bool gate = wm != nullptr;
+  cudaError_t err = rowbwd::launch_rows(
+      bwd_kernel(gate, H, false), bwd_kernel(gate, H, true), a, G,
+      rowbwd::row_smem_floats(K, H, n_heads, gate), scratch, route,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const int F = n_types * (R + 1);
   const size_t P = rowbwd::branch_slot_floats(F, H, H) +

@@ -28,10 +28,11 @@
 // code runs from either base. The choice is a template parameter, so the
 // shared-memory build compiles to the code it had before the scratch
 // existed. Blocks of more than 256 threads (H > 256) take a 1024-thread
-// build (WIDE, at most 64 registers a thread). Its launch bound names one
-// block per SM: without it ptxas gave the wide triplet backward 32
-// registers (5.3 KB of spill stores) and no more blocks fit an SM anyway.
-// The 256-thread build names none (0), which leaves its code as it was.
+// build: each kernel's body is a device function, called by a kernel
+// without a launch bound (H <= 256: as before, so it keeps its machine
+// code) and by one bound to 1024 threads and one block per SM (at most 64
+// registers a thread; without the block count ptxas gave the triplet's
+// 32).
 //
 // Parameter gradients are summed across rows in a per-block slot: registers
 // for the small vectors, and for the matrices additions into the block's own

@@ -149,43 +149,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Wo [H][H] float32 in device memory -> hi (and, if lo is not null, lo)
-// [H][w_ld(H)] bf16 in shared memory, Wo = hi + lo. A thread takes four
-// consecutive elements at a time (one 16-byte load where wo is 16-byte
-// aligned) and issues all its loads before the first conversion, so their
-// latencies overlap (the bond kernel stages per tile). No barrier.
+// [H][w_ld(H)] bf16 in shared memory, Wo = hi + lo. No barrier.
 template <int H>
 __device__ __forceinline__ void stage_wo(const float* __restrict__ wo,
                                          bf16* hi, bf16* lo) {
-  constexpr int N4 = H * H / 4;                      // groups of four
-  constexpr int PER = (N4 + THREADS - 1) / THREADS;  // groups a thread
-  const bool vec = (reinterpret_cast<uintptr_t>(wo) & 15) == 0;
-  float4 w[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    if (e >= N4) break;
-    w[u] = vec ? __ldg(reinterpret_cast<const float4*>(wo) + e)
-               : make_float4(__ldg(wo + 4 * e), __ldg(wo + 4 * e + 1),
-                             __ldg(wo + 4 * e + 2), __ldg(wo + 4 * e + 3));
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    if (e >= N4) break;
-    const int k = 4 * e / H, n = 4 * e - k * H;
-    const __nv_bfloat162 h01 = __floats2bfloat162_rn(w[u].x, w[u].y);
-    const __nv_bfloat162 h23 = __floats2bfloat162_rn(w[u].z, w[u].w);
-    __nv_bfloat162* ph =
-        reinterpret_cast<__nv_bfloat162*>(hi + k * w_ld(H) + n);
-    ph[0] = h01;
-    ph[1] = h23;
-    if (lo) {
-      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-      __nv_bfloat162* pl =
-          reinterpret_cast<__nv_bfloat162*>(lo + k * w_ld(H) + n);
-      pl[0] = __floats2bfloat162_rn(w[u].x - f01.x, w[u].y - f01.y);
-      pl[1] = __floats2bfloat162_rn(w[u].z - f23.x, w[u].w - f23.y);
-    }
+  for (int e = threadIdx.x; e < H * H; e += THREADS) {
+    const int k = e / H, n = e - k * H;
+    const float w = __ldg(wo + e);
+    const bf16 h = __float2bfloat16_rn(w);
+    hi[k * w_ld(H) + n] = h;
+    if (lo) lo[k * w_ld(H) + n] = __float2bfloat16_rn(w - __bfloat162float(h));
   }
 }
 

@@ -441,11 +441,10 @@ inline size_t triplet_bwd_floats(int Nl, int H, int n_heads) {
   return 2 * (size_t)Nl * H + rowbwd::row_smem_floats(Nl, H, n_heads);
 }
 
-// WIDE: blocks of up to 1024 threads (H > 256). SCRATCH: the row buffers in
+// The backward of the rows of block blockIdx.x. SCRATCH: the row buffers in
 // a.scratch (row_attention_bwd.cuh).
-template <bool WIDE, bool SCRATCH>
-__global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
-    triplet_attention_bwd_kernel(TripletBwdArgs a) {
+template <bool SCRATCH>
+__device__ __forceinline__ void triplet_bwd_rows(const TripletBwdArgs& a) {
   using namespace rowbwd;
   extern __shared__ __align__(16) float smem[];
   __shared__ ChunkSources cs;
@@ -559,6 +558,19 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256, WIDE ? 1 : 0)
   flush_small(acc, sk, sv, nh, false);
 }
 
+// The 256-thread build (H <= 256) and the 1024-thread build
+// (row_attention_bwd.cuh).
+template <bool SCRATCH>
+__global__ void triplet_attention_bwd_kernel(TripletBwdArgs a) {
+  triplet_bwd_rows<SCRATCH>(a);
+}
+
+template <bool SCRATCH>
+__global__ void __launch_bounds__(1024, 1)
+    triplet_attention_bwd_wide_kernel(TripletBwdArgs a) {
+  triplet_bwd_rows<SCRATCH>(a);
+}
+
 // One block per SM (at most one per work item). t_src is staged when the
 // whole layout fits the block's shared memory.
 template <int H>
@@ -585,14 +597,15 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
   return cudaGetLastError();
 }
 
-template <bool WIDE>
-cudaError_t launch_bwd(TripletBwdArgs& a, int G, float* scratch, int* route,
-                       cudaStream_t stream) {
-  return rowbwd::launch_rows(
-      triplet_attention_bwd_kernel<WIDE, false>,
-      triplet_attention_bwd_kernel<WIDE, true>, a, G,
-      triplet_bwd_floats(a.f.Nl, a.f.H, a.f.n_heads), scratch, route,
-      stream);
+// The backward kernel of width H, with its row buffers in the scratch or
+// in shared memory.
+using TripletBwdKernel = void (*)(TripletBwdArgs);
+TripletBwdKernel bwd_kernel(int H, bool scratch) {
+  if (H > 256)
+    return scratch ? triplet_attention_bwd_wide_kernel<true>
+                   : triplet_attention_bwd_wide_kernel<false>;
+  return scratch ? triplet_attention_bwd_kernel<true>
+                 : triplet_attention_bwd_kernel<false>;
 }
 
 }  // namespace
@@ -632,9 +645,7 @@ extern "C" int triplet_attention_fwd(
 extern "C" int triplet_attention_bwd_scratch(int* per_block, int Nl, int H,
                                              int n_heads) {
   return (int)rowbwd::scratch_floats(
-      H > 256 ? triplet_attention_bwd_kernel<true, false>
-              : triplet_attention_bwd_kernel<false, false>,
-      triplet_bwd_floats(Nl, H, n_heads), per_block);
+      bwd_kernel(H, false), triplet_bwd_floats(Nl, H, n_heads), per_block);
 }
 
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order
@@ -662,9 +673,10 @@ extern "C" int triplet_attention_bwd(
                   nullptr, Nl, H, n_heads},
       g, k_woT, v_woT, d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
       slots, B * Nl, nullptr, 0};
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = H > 256 ? launch_bwd<true>(a, G, scratch, route, s)
-                            : launch_bwd<false>(a, G, scratch, route, s);
+  cudaError_t err = rowbwd::launch_rows(
+      bwd_kernel(H, false), bwd_kernel(H, true), a, G,
+      triplet_bwd_floats(Nl, H, n_heads), scratch, route,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const size_t P = 2 * rowbwd::branch_slot_floats(A, H, H);
   return (int)rowbwd::launch_reduce(slots, d_params, G, P,
