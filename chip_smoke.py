@@ -17,8 +17,9 @@
    kernels (WIDTHS, B=2); then holds every forward kernel against its plain
    PyTorch version on those inputs (the triplet kernel also with its bf16
    option against the bf16 plain version), and every backward kernel
-   against plain autograd for a seeded cotangent (zeroed where needed on
-   the rows that hold a relu gate within rounding of 0, see GATE_MARGIN),
+   against plain autograd for a seeded cotangent (zeroed, where elements
+   lie outside the tolerance, on the few rows whose relu gates within
+   rounding of 0 explain them: decompdiff_tpu_torch/utils/gradcheck.py),
    timing each with CUDA events beside the previous time (PREVIOUS_MS) and
    its bounds; then the same for the backward kernels on the inputs of a
    denoiser call at WIDE (B=2).
@@ -41,7 +42,9 @@
    every kernel replaced by its plain version; seconds per step and peak
    device memory of both; one step's loss, grad norm and parameter
    gradients, kernels on against off (with pallas_gather_bf16 also against
-   a plain step that rounds as the kernels do, FLIP_COUNT).
+   a plain step that rounds as the kernels do, FLIP_COUNT). Then the
+   backward kernels held and timed on the inputs of denoiser calls at
+   WIDER (B=2), printed only.
 6. Prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check exits non-zero. Needs torch and numpy only.
@@ -66,8 +69,10 @@ TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 WIDTHS, WIDTH_B, WIDTH_STEPS = ((96, 12), (256, 16)), 2, 5
 # (hidden width, heads) of a uni_o2_bond training step (at WIDTH_B) whose
 # backward kernels take their 1024-thread builds with the row buffers in
-# device memory (the *_backward_wide records)
-WIDE = (512, 16)
+# device memory (the *_backward_wide records), and of the further widths at
+# which those kernels are held and timed on a denoiser call's inputs too
+# (printed only: the records are WIDE's, the width trained)
+WIDE, WIDER = (512, 16), ((1024, 32),)
 # H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth,
 # dense bf16 on the tensor cores
 PEAK_FLOPS, PEAK_BYTES, TENSOR_PEAK = 67e12, 3.35e12, 989e12
@@ -91,32 +96,10 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-3, 1e-4
 # outside BF16_RTOL / BF16_ATOL, and none beyond BF16_CAP
 # (tests/test_torch_cuda.py)
 BF16_RTOL, BF16_ATOL, BF16_FRAC, BF16_CAP = 1e-3, 1e-3, 1e-3, 1e-2
-# backward kernel vs plain autograd, every element: atol relative to the
-# gradient's largest magnitude; the kernels sum source-node cotangents with
-# atomicAdd (order varies between runs) and parameter gradients over rows in
-# another order.
-GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
-# A relu gate whose input y = LayerNorm(pre) lies within float32 rounding of
-# 0 can fall on the other side in the kernel's recomputed LayerNorm than in
-# torch's, and the gradient through it then differs by its whole upstream
-# value. At these sizes (tens of millions of gates per call) a few such
-# gates exist. So where some gradient element lies outside the tolerance
-# under the full cotangent, the backward check zeroes the cotangent on the
-# output rows that hold a gate with a nonzero upstream gradient and |y|
-# within GATE_MARGIN times the plain version's largest float32 error of y
-# (measured against float64): no gradient then passes through an ambiguous
-# gate, and every gradient is held elementwise. At most MAX_DROPPED of the
-# rows may be zeroed for each 128 channels of H (drop_cap): a row's gates,
-# and so its chance of holding an ambiguous one, grow with H (at H = 512,
-# 16% of the edge pos rows hold one). The full cotangent's count of
-# elements outside the tolerance is printed beside it.
-GATE_MARGIN, MAX_DROPPED = 8.0, 0.1
-GRAD_NAMES = {   # the differentiable inputs, then the two Branch fields (and
-                 # the gate's and x_src's)
-    'edge_attention': ('x', 'e_w', 'q'),
-    'bond_attention': ('h_bond', 'x', 'q'),
-    'triplet_attention': ('angle', 'q'),
-}
+# backward kernel vs plain autograd: every element at GRAD_RTOL / GRAD_ATOL x
+# max(1, |grad|max), with the cotangent zeroed on the rows whose relu gates
+# lie within float32 rounding of 0 where they explain the elements outside
+# (decompdiff_tpu_torch/utils/gradcheck.py)
 # one denoiser call, kernels on vs off: six layers of the above, on
 # coordinates of a few Angstrom and logits of order one
 PATH_RTOL, PATH_ATOL = 1e-3, 1e-3
@@ -437,14 +420,6 @@ def previous_note(name, mode):
     return f' (previous: {ref} ms)' if ref else ''
 
 
-def flat_grads(grads):
-    """A backward wrapper's result as a flat list (Branch fields spread)."""
-    out = []
-    for g in grads:
-        out += list(g) if isinstance(g, tuple) else [g]
-    return out
-
-
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -460,71 +435,17 @@ def grad_close(torch, a, b, rtol, atol):
     return ok, err, err / scale, outliers
 
 
-def drop_cap(H):
-    """The share of a backward check's live rows that it may zero at width
-    H: MAX_DROPPED for each 128 channels."""
-    return MAX_DROPPED * max(1, H // 128)
-
-
-def ambiguous_rows(torch, mod, name, g, args, kw):
-    """(drop, live, tau) for cotangent g of one kernel mode, both bool over
-    the output rows g.shape[:-1]: `live` rows hold a relu gate with a nonzero
-    upstream gradient, and `drop` rows one whose input y also lies within
-    tau = GATE_MARGIN x max |y - y64| of 0, where y64 is the plain version's
-    y from the same inputs in float64."""
-    from decompdiff_tpu_torch.models.common import layer_norm
-    from decompdiff_tpu_torch.ops.common import Branch
-    plain, mlp = getattr(mod, f'{name}_reference'), mod.branch_mlp
-
-    def cast(a, dtype):
-        if isinstance(a, Branch):
-            return Branch(*(cast(t, dtype) for t in a))
-        if isinstance(a, tuple):                 # the m-gate (wm, bm)
-            return tuple(cast(t, dtype) for t in a)
-        if torch.is_tensor(a) and a.is_floating_point():
-            return a.detach().to(dtype)
-        return a
-
-    def run(dtype):
-        """The plain output, and per branch call y and relu(y) as a leaf."""
-        recs = []
-
-        def record(pre, p):
-            y = layer_norm(pre, p.ln_scale, p.ln_bias)
-            r = torch.relu(y).detach().requires_grad_(True)
-            recs.append((y.detach(), r))
-            return r @ p.wo + p.bo
-        mod.branch_mlp = record
-        try:
-            with torch.enable_grad():
-                out = plain(*(cast(a, dtype) for a in args),
-                            **{k: cast(a, dtype) for k, a in kw.items()})
-        finally:
-            mod.branch_mlp = mlp
-        return out, recs
-
-    out, recs = run(torch.float32)
-    ups = torch.autograd.grad(out, [r for _, r in recs], g)
-    recs64 = run(torch.float64)[1]
-    tau = GATE_MARGIN * max(float((y - y64).abs().max())
-                            for (y, _), (y64, _) in zip(recs, recs64))
-    nd = g.ndim - 1
-    drop = live = torch.zeros(g.shape[:-1], dtype=torch.bool, device=g.device)
-    for (y, _), u in zip(recs, ups):
-        hot = u != 0
-        drop = drop | ((y.abs() <= tau) & hot).flatten(nd).any(-1)
-        live = live | hot.flatten(nd).any(-1)
-    return drop, live, tau
-
-
 def backward_phase(torch, ops, captured):
     """Each backward kernel against plain autograd (the plain forward's
-    autograd backward, on the card) for a seeded cotangent, zeroed on the
-    rows that ambiguous_rows drops, on the inputs the first layer gives each
-    mode. The per-row records are forward kernels only (the backward
-    kernels are per-row at every width); the _wide modes give the
-    <kernel>_backward_wide records."""
-    from decompdiff_tpu_torch.ops.common import Branch
+    autograd backward, on the card) for a seeded cotangent, on the inputs
+    the first layer gives each mode, by compare_backward
+    (decompdiff_tpu_torch/utils/gradcheck.py: the cotangent zeroed on the
+    few rows whose ambiguous relu gates explain the elements outside the
+    tolerance, where any are). The per-row records are forward kernels only
+    (the backward kernels are per-row at every width); the _wide modes give
+    the <kernel>_backward_wide records."""
+    from decompdiff_tpu_torch.utils.gradcheck import (
+        GRAD_ATOL, GRAD_RTOL, compare_backward)
     results = {}
     gen = torch.Generator(device='cuda').manual_seed(2)
     for (name, mode), (args, kw) in modes(captured):
@@ -537,37 +458,19 @@ def backward_phase(torch, ops, captured):
         with torch.no_grad():
             out = getattr(mod, f'{op}_reference')(*args, **kw)
         g_full = torch.randn(out.shape, generator=gen, device=out.device)
-        drop, live, tau = ambiguous_rows(torch, mod, op, g_full, args, kw)
-        full = [grad_close(torch, a, b, GRAD_RTOL, GRAD_ATOL)
-                for a, b in zip(flat_grads(kernel(g_full, *args, **kw)),
-                                flat_grads(plain(g_full, *args, **kw)))
-                if b is not None]
-        full_out = sum(r[3] for r in full)
-        if all(r[0] for r in full):   # no gate flipped where it counts
-            drop = torch.zeros_like(drop)
-        n_drop, n_live = int(drop.sum()), int(live.sum())
-        g = g_full * (~drop)[..., None].to(g_full.dtype)
-        want = flat_grads(plain(g, *args, **kw))
-        got = flat_grads(kernel(g, *args, **kw))
+        v = compare_backward(op, lambda g: kernel(g, *args, **kw),
+                             lambda g: plain(g, *args, **kw), g_full, args,
+                             kw)
         torch.cuda.synchronize()
-        check(len(got) == len(want), f'{name} backward: gradient count')
-        labels = GRAD_NAMES[op] + tuple(
-            f'{b}.{f}' for b in 'kv' for f in Branch._fields) + (
-            ('gate.wm', 'gate.bm') if kw.get('gate') is not None else ()) + (
-            ('x_src',) if kw.get('x_src') is not None else ())
-        max_abs, worst, n_out, ok = 0.0, 0.0, 0, True
-        for label, a, b in zip(labels, got, want):
-            if b is None:
-                ok = ok and a is None
-                continue
-            good, err, rel, out_i = grad_close(torch, a, b, GRAD_RTOL,
-                                               GRAD_ATOL)
-            ok = ok and good
-            max_abs, worst, n_out = max(max_abs, err), max(worst, rel), \
-                n_out + out_i
-            if not good:
-                print(f'  d {label} {tuple(b.shape)}: {out_i} elements '
-                      f'outside, max_err/scale {rel:.3e} MISMATCH', flush=True)
+        check(bool(v.errors), f'{name}[{mode}] backward: {v.message}')
+        g, got = v.g, v.got
+        for label, (err, rel, n_out) in v.errors.items():
+            if n_out:
+                print(f'  d {label}: {n_out} elements outside, max_err/scale '
+                      f'{rel:.3e} MISMATCH', flush=True)
+        max_abs = max(e[0] for e in v.errors.values())
+        worst = max(e[1] for e in v.errors.values())
+        n_out = sum(e[2] for e in v.errors.values())
         ms = time_ms(torch, lambda: kernel(g, *args, **kw))
         plain_ms = time_ms(torch, lambda: plain(g, *args, **kw), iters=5)
         # recompute plus two products per forward product; every input and
@@ -578,22 +481,20 @@ def backward_phase(torch, ops, captured):
         t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
         rec = (f'{op}_backward_wide' if name.endswith('_wide')
                else f'{name}_backward')
+        zeroed = (f'the cotangent zeroed on {v.zeroed} of {v.live} live '
+                  f'rows ({v.ambiguous} hold a gate within {v.tau:.3e} of 0)'
+                  if v.live else 'the full cotangent')
         print(f'kernel {rec}[{mode}] {len(got)} gradients: '
               f'max_abs_err {max_abs:.3e} max_err/scale {worst:.3e}, '
               f'{n_out} elements outside rtol {GRAD_RTOL} / atol {GRAD_ATOL} '
-              f'x max(1, |grad|max) '
-              f'{"ok" if ok else "MISMATCH"} with the cotangent zeroed on '
-              f'{n_drop} of {n_live} live rows (a gate within {tau:.3e} of '
-              f'0; {full_out} elements outside with none zeroed); kernel '
-              f'{ms:.4f} ms{previous_note(rec, mode)}, plain '
+              f'x max(1, |grad|max) {"ok" if v.ok else "MISMATCH"} with '
+              f'{zeroed}; {v.full_outside} elements outside with none '
+              f'zeroed; kernel {ms:.4f} ms{previous_note(rec, mode)}, plain '
               f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
               f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
-        check(ok, f'{name} backward disagrees with plain autograd')
-        cap = drop_cap(args[-3].shape[-1])    # (..., q, k, v)
-        check(n_drop <= cap * n_live,
-              f'{name} backward: {n_drop} of {n_live} rows hold an ambiguous '
-              f'gate, more than {cap:.0%}')
+        check(v.ok, f'{name}[{mode}] backward disagrees with plain autograd: '
+              f'{v.message}')
         r = results.setdefault(rec, dict(err=0.0, modes=[]))
         r['err'] = max(r['err'], max_abs)
         r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_ops))
@@ -612,6 +513,7 @@ def table_roundings(rec, like=None):
     unchanged), so the two runs round alike; rec['flips'] counts those
     elements, forward and backward."""
     from decompdiff_tpu_torch.models import uni_transformer_bond as tutb
+    from decompdiff_tpu_torch.utils.gradcheck import GRAD_RTOL
     orig = tutb.gather_table
     rec.update(calls=[], flips=[0, 0])
 
@@ -1163,6 +1065,11 @@ def main():
             dict(row_calls(bond_calls),
                  **{f'{n}_wide': c for n, c in bond_calls.items()}),
             f'uni_o2_bond[H{WIDE[0]}]')
+        # last, so that their large models and float64 checks do not change
+        # the device memory the paths run in
+        for width in WIDER:
+            backward_phase(torch, ops, width_phase(
+                torch, bond_cfg, width_batch, (width,), '_wide')[0])
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -539,10 +539,9 @@ __global__ void bond_attention_bwd_kernel(BondBwdArgs a) {
   bond_bwd_rows<SCRATCH>(a);
 }
 
-template <bool SCRATCH>
 __global__ void __launch_bounds__(1024, 1)
     bond_attention_bwd_wide_kernel(BondBwdArgs a) {
-  bond_bwd_rows<SCRATCH>(a);
+  bond_bwd_rows<true>(a);
 }
 
 // One block per SM (at most one per tile).
@@ -577,12 +576,11 @@ cudaError_t launch_fwd_row(const BondArgs& a, int B, cudaStream_t stream) {
 }
 
 // The backward kernel of width H, with its row buffers in the scratch or
-// in shared memory.
+// in shared memory (H <= 256; the 1024-thread build always takes the
+// scratch).
 using BondBwdKernel = void (*)(BondBwdArgs);
 BondBwdKernel bwd_kernel(int H, bool scratch) {
-  if (H > 256)
-    return scratch ? bond_attention_bwd_wide_kernel<true>
-                   : bond_attention_bwd_wide_kernel<false>;
+  if (H > 256) return bond_attention_bwd_wide_kernel;
   return scratch ? bond_attention_bwd_kernel<true>
                  : bond_attention_bwd_kernel<false>;
 }
@@ -622,7 +620,8 @@ extern "C" int bond_attention_fwd(
 extern "C" int bond_attention_bwd_scratch(int* per_block, int Nl, int H,
                                           int n_heads) {
   return (int)rowbwd::scratch_floats(
-      bwd_kernel(H, false), bond_bwd_floats(Nl, H, n_heads), per_block);
+      bwd_kernel(H, false), H, bond_bwd_floats(Nl, H, n_heads),
+      per_block);
 }
 
 // Backward: G blocks over the B*Nl rows, then the fixed-order slot sum into

@@ -793,10 +793,10 @@ __global__ void edge_attention_bwd_kernel(EdgeBwdArgs a) {
   edge_bwd_rows<GATE, SCRATCH>(a);
 }
 
-template <bool GATE, bool SCRATCH>
+template <bool GATE>
 __global__ void __launch_bounds__(1024, 1)
     edge_attention_bwd_wide_kernel(EdgeBwdArgs a) {
-  edge_bwd_rows<GATE, SCRATCH>(a);
+  edge_bwd_rows<GATE, true>(a);
 }
 
 // One block per SM (at most one per tile).
@@ -822,16 +822,13 @@ cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
 }
 
 // The backward kernel of width H, with or without the gate, with its row
-// buffers in the scratch or in shared memory.
+// buffers in the scratch or in shared memory (H <= 256; the 1024-thread
+// build always takes the scratch).
 using EdgeBwdKernel = void (*)(EdgeBwdArgs);
 EdgeBwdKernel bwd_kernel(bool gate, int H, bool scratch) {
-  if (H > 256) {
-    if (gate)
-      return scratch ? edge_attention_bwd_wide_kernel<true, true>
-                     : edge_attention_bwd_wide_kernel<true, false>;
-    return scratch ? edge_attention_bwd_wide_kernel<false, true>
-                   : edge_attention_bwd_wide_kernel<false, false>;
-  }
+  if (H > 256)
+    return gate ? edge_attention_bwd_wide_kernel<true>
+                : edge_attention_bwd_wide_kernel<false>;
   if (gate)
     return scratch ? edge_attention_bwd_kernel<true, true>
                    : edge_attention_bwd_kernel<true, false>;
@@ -879,7 +876,7 @@ extern "C" int edge_attention_fwd(
 extern "C" int edge_attention_bwd_scratch(int* per_block, int K, int H,
                                           int n_heads, int gate) {
   return (int)rowbwd::scratch_floats(
-      bwd_kernel(gate != 0, H, false),
+      bwd_kernel(gate != 0, H, false), H,
       rowbwd::row_smem_floats(K, H, n_heads, gate != 0), per_block);
 }
 

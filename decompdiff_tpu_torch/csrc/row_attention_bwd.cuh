@@ -30,9 +30,11 @@
 // existed. Blocks of more than 256 threads (H > 256) take a 1024-thread
 // build: each kernel's body is a device function, called by a kernel
 // without a launch bound (H <= 256: as before, so it keeps its machine
-// code) and by one bound to 1024 threads and one block per SM (at most 64
-// registers a thread; without the block count ptxas gave the triplet's
-// 32).
+// code; shared memory or scratch) and by one bound to 1024 threads and one
+// block per SM (at most 64 registers a thread; without the block count
+// ptxas gave the triplet's 32), which always takes the scratch: at the
+// widths the configs use (H >= 512) the row buffers exceed shared memory
+// anyway, and one route per build keeps each build to one tested variant.
 //
 // Parameter gradients are summed across rows in a per-block slot: registers
 // for the small vectors, and for the matrices additions into the block's own
@@ -462,23 +464,25 @@ __device__ __forceinline__ void flush_small(const SmallGrads& acc,
   sv.lnb[c] = acc.lnb_v;
 }
 
-// Floats per block of the device-memory scratch for a backward kernel whose
-// row buffers take `floats` (0 when they fit in shared memory beside the
-// kernel's static arrays); a multiple of 32, so every block's base stays
-// 128-byte aligned.
+// Floats per block of the device-memory scratch for a backward kernel of
+// width H whose row buffers take `floats`: 0 when they stay in shared
+// memory (H <= 256, and they fit beside the kernel's static arrays), else a
+// multiple of 32, so every block's base stays 128-byte aligned.
 template <typename Kernel>
-inline cudaError_t scratch_floats(Kernel kernel, size_t floats,
+inline cudaError_t scratch_floats(Kernel kernel, int H, size_t floats,
                                   int* per_block) {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  const bool fits =
-      sizeof(float) * floats + attr.sharedSizeBytes <= (size_t)optin;
+  bool fits = false;
+  if (H <= 256) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    fits = sizeof(float) * floats + attr.sharedSizeBytes <= (size_t)optin;
+  }
   *per_block = fits ? 0 : (int)((floats + 31) & ~(size_t)31);
   return cudaSuccess;
 }
@@ -501,7 +505,7 @@ inline cudaError_t launch_rows(void (*in_smem)(Args),
                                size_t floats, float* scratch, int* route,
                                cudaStream_t stream) {
   int per_block = 0;
-  cudaError_t err = scratch_floats(in_smem, floats, &per_block);
+  cudaError_t err = scratch_floats(in_smem, a.f.H, floats, &per_block);
   if (err != cudaSuccess) return err;
   *route = per_block > 0;
   if (per_block > 0) {

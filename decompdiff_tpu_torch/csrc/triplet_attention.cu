@@ -565,10 +565,9 @@ __global__ void triplet_attention_bwd_kernel(TripletBwdArgs a) {
   triplet_bwd_rows<SCRATCH>(a);
 }
 
-template <bool SCRATCH>
 __global__ void __launch_bounds__(1024, 1)
     triplet_attention_bwd_wide_kernel(TripletBwdArgs a) {
-  triplet_bwd_rows<SCRATCH>(a);
+  triplet_bwd_rows<true>(a);
 }
 
 // One block per SM (at most one per work item). t_src is staged when the
@@ -598,12 +597,11 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
 }
 
 // The backward kernel of width H, with its row buffers in the scratch or
-// in shared memory.
+// in shared memory (H <= 256; the 1024-thread build always takes the
+// scratch).
 using TripletBwdKernel = void (*)(TripletBwdArgs);
 TripletBwdKernel bwd_kernel(int H, bool scratch) {
-  if (H > 256)
-    return scratch ? triplet_attention_bwd_wide_kernel<true>
-                   : triplet_attention_bwd_wide_kernel<false>;
+  if (H > 256) return triplet_attention_bwd_wide_kernel;
   return scratch ? triplet_attention_bwd_kernel<true>
                  : triplet_attention_bwd_kernel<false>;
 }
@@ -645,7 +643,8 @@ extern "C" int triplet_attention_fwd(
 extern "C" int triplet_attention_bwd_scratch(int* per_block, int Nl, int H,
                                              int n_heads) {
   return (int)rowbwd::scratch_floats(
-      bwd_kernel(H, false), triplet_bwd_floats(Nl, H, n_heads), per_block);
+      bwd_kernel(H, false), H, triplet_bwd_floats(Nl, H, n_heads),
+      per_block);
 }
 
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order

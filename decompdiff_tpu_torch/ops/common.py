@@ -16,6 +16,7 @@ followed by a masked softmax over the sources of the head-grouped q . k.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -154,20 +155,28 @@ def backward_blocks(items: int, device: torch.device) -> int:
     return max(1, min(items, 2 * sms))
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(kernel: str, sizes: tuple, device: torch.device) -> int:
+    """What <kernel>_bwd_scratch of csrc/<kernel>.cu reports for these sizes
+    (a property of the build and the card, so asked once)."""
+    query = _build.load(kernel, f'{kernel}_bwd_scratch', 1, len(sizes),
+                        stream=False)
+    per_block = ctypes.c_int(0)
+    launch(query, [ctypes.byref(per_block)] + list(sizes), device,
+           f'{kernel}_backward', stream=False)
+    return per_block.value
+
+
 def backward_scratch(kernel: str, sizes: list, blocks: int,
                      device: torch.device) -> Optional[torch.Tensor]:
     """The device-memory scratch of a backward launch of csrc/<kernel>.cu at
     these sizes: None when its row buffers fit in shared memory, else
     `blocks` times the floats per block that its <kernel>_bwd_scratch
     reports."""
-    query = _build.load(kernel, f'{kernel}_bwd_scratch', 1, len(sizes),
-                        stream=False)
-    per_block = ctypes.c_int(0)
-    launch(query, [ctypes.byref(per_block)] + sizes, device,
-           f'{kernel}_backward', stream=False)
-    if per_block.value == 0:
+    per_block = _scratch_floats(kernel, tuple(sizes), device)
+    if per_block == 0:
         return None
-    return torch.empty(blocks * per_block.value, device=device)
+    return torch.empty(blocks * per_block, device=device)
 
 
 class ParamGrads:

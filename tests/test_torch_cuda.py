@@ -27,7 +27,6 @@ Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
 """
 
-import importlib
 
 import numpy as np
 import pytest
@@ -40,6 +39,7 @@ from decompdiff_tpu_torch.ops import edge_attention as edge_ops
 from decompdiff_tpu_torch.ops import triplet_attention as triplet_ops
 from decompdiff_tpu_torch.ops.common import Branch
 from decompdiff_tpu_torch.ops.knn import knn_neighbors
+from decompdiff_tpu_torch.utils.gradcheck import compare_backward
 from decompdiff_tpu_torch.utils.testing import (
     random_complex_batch, tiny_model_config)
 
@@ -491,17 +491,6 @@ def _rand_branch(rng, row_shape, src_shape, feat_rows, H, dout):
                   _rand(rng, dout), 1.0 + _rand(rng, H), _rand(rng, H))
 
 
-def _flat_grads(grads):
-    """Branch fields and the gate's (d_wm, d_bm) spread."""
-    out = []
-    for g in grads:
-        if isinstance(g, tuple):
-            out += list(g)
-        else:
-            out.append(g)
-    return out
-
-
 def _dev(a, cuda):
     if isinstance(a, tuple):
         return type(a)(*(t.to(cuda) for t in a)) if isinstance(a, Branch) \
@@ -509,62 +498,33 @@ def _dev(a, cuda):
     return _to(a, cuda)
 
 
-def _without_ambiguous_gates(fn, g, dev_args, dev_kw):
-    """g zeroed on the output rows that hold a relu gate within float32
-    rounding of 0 (chip_smoke.py ambiguous_rows, GATE_MARGIN): among millions
-    of gates a few can fall on the other side of 0 in the kernel's
-    recomputed LayerNorm than in torch's, and move a gradient by their whole
-    upstream value. At most chip_smoke.drop_cap(H) of the live rows are
-    zeroed."""
-    import chip_smoke
-    mod = importlib.import_module(fn.__module__)
-    drop, live, _ = chip_smoke.ambiguous_rows(
-        torch, mod, fn.__name__.replace('_backward', ''), g, dev_args,
-        dev_kw)
-    cap = chip_smoke.drop_cap(dev_args[-3].shape[-1])    # (..., q, k, v)
-    assert int(drop.sum()) <= cap * int(live.sum())
-    return g * (~drop)[..., None].to(g.dtype)
-
-
-def _mismatch(got, want):
-    """The first gradient of `got` (card) outside the tolerance of `want`
-    (CPU), as a message, or None."""
-    assert len(got) == len(want)
-    for i, (a, b) in enumerate(zip(got, want)):
-        if b is None:
-            assert a is None, i
-            continue
-        scale = max(1.0, float(b.abs().max()))
-        try:
-            torch.testing.assert_close(a.cpu(), b, rtol=1e-3,
-                                       atol=1e-4 * scale)
-        except AssertionError as e:
-            return f'gradient {i}: {e}'
-    return None
-
-
 def _check_backward(fn, g, args, kw, cuda, counter, count='launches',
                     scratch=False):
     """The backward wrapper on CPU tensors (plain autograd) against the same
     wrapper on CUDA tensors (the kernel), which adds one to `count`, and to
-    `scratch_launches` when `scratch` (its row buffers in device memory). At
-    those sizes, where a gradient lies outside the tolerance, the comparison
-    is made again with the cotangent zeroed on the rows that hold an
-    ambiguous relu gate, as chip_smoke.py makes it."""
+    `scratch_launches` when `scratch` (its row buffers in device memory).
+    At those sizes, where a gradient lies outside the tolerance, the
+    comparison is made again with the cotangent zeroed on the few rows whose
+    ambiguous relu gates explain the elements outside, as chip_smoke.py
+    makes it (decompdiff_tpu_torch/utils/gradcheck.py compare_backward)."""
     dev_args = [_dev(a, cuda) for a in args]
     dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
-    want = _flat_grads(fn(g, *args, **kw))
     before = getattr(counter, count), counter.scratch_launches
-    got = _flat_grads(fn(g.to(cuda), *dev_args, **dev_kw))
+    fn(g.to(cuda), *dev_args, **dev_kw)
     torch.cuda.synchronize()
     assert (getattr(counter, count), counter.scratch_launches) == (
         before[0] + 1, before[1] + scratch)
-    failed = _mismatch(got, want)
-    if failed and scratch:
-        g = _without_ambiguous_gates(fn, g.to(cuda), dev_args, dev_kw).cpu()
-        failed = _mismatch(_flat_grads(fn(g.to(cuda), *dev_args, **dev_kw)),
-                           _flat_grads(fn(g, *args, **kw)))
-    assert failed is None, failed
+    verdict = compare_backward(
+        fn.__name__.replace('_backward', ''),
+        lambda g: fn(g, *dev_args, **dev_kw),
+        lambda g: fn(g.cpu(), *args, **kw), g.to(cuda), dev_args, dev_kw,
+        retry=scratch)
+    if verdict.live:
+        print(f'{fn.__name__}: cotangent zeroed on {verdict.zeroed} of '
+              f'{verdict.live} live rows ({verdict.ambiguous} hold an '
+              f'ambiguous gate); {verdict.full_outside} elements outside '
+              'under the full cotangent')
+    assert verdict.ok, verdict.message
 
 
 @pytest.mark.parametrize('H,heads', [(32, 4), (128, 16)])
