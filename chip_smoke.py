@@ -16,18 +16,22 @@
    first layer of denoiser calls at the widths of the per-row forward
    kernels (WIDTHS, B=2); then holds every forward kernel against its plain
    PyTorch version on those inputs (the triplet kernel also with its bf16
-   option against the bf16 plain version), and every backward kernel
+   option against the bf16 plain version, at the released width and on the
+   per-row kernel at WIDTHS, and the per-row edge kernel with an x_src
+   shifted from x), and every backward kernel
    against plain autograd for a seeded cotangent (zeroed, where elements
    lie outside the tolerance, on the few rows whose relu gates within
    rounding of 0 explain them: decompdiff_tpu_torch/utils/gradcheck.py),
    timing each with CUDA events beside the previous time (PREVIOUS_MS) and
-   its bounds; then the same for the backward kernels on the inputs of a
-   denoiser call at WIDE (B=2).
+   its bounds (the triplet backward's from its head-factorized least work,
+   the old all-FP32 count beside it); then the same for the backward
+   kernels on the inputs of a denoiser call at WIDE (B=2).
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
    the same with pallas_bf16, then with pallas_gather_bf16, then with the
    released-width uni_o2 config, then uni_o2_bond at each of WIDTHS (B=2,
-   WIDTH_STEPS steps), each with every launch counter set to 0 just before
+   WIDTH_STEPS steps), and again there with pallas_bf16 and
+   pallas_gather_bf16, each with every launch counter set to 0 just before
    and read just after; then one denoiser call with kernels on against
    kernels off (for pallas_bf16 against the float32 kernels: the option's
    cost, printed; for pallas_gather_bf16 against the same model with every
@@ -38,7 +42,9 @@
    Np=320, Nl=32 with kernels on, counters set to 0 just before and read
    just after, for uni_o2_bond, then with pallas_gather_bf16, then uni_o2,
    then uni_o2_bond at WIDE (B=2: per-row forwards, backward row buffers in
-   device memory, launches exact in every counter); the same steps with
+   device memory, launches exact in every counter; the triplet backward is
+   the head-factorized kernel at the released width, with no per-row
+   launch, and the per-row kernel at WIDE, every launch); the same steps with
    every kernel replaced by its plain version; seconds per step and peak
    device memory of both; one step's loss, grad norm and parameter
    gradients, kernels on against off (with pallas_gather_bf16 also against
@@ -84,9 +90,11 @@ PEAK_FLOPS, PEAK_BYTES, TENSOR_PEAK = 67e12, 3.35e12, 989e12
 # bounded as the tensor-core widths are.
 TENSOR_PASSES = {'edge_attention': 3, 'edge_attention_mgate': 3,
                  'edge_attention_gather': 3, 'edge_attention_row': 3,
+                 'edge_attention_row_gather': 3,
                  'bond_attention': 3, 'bond_attention_row': 3,
                  'triplet_attention': 3, 'triplet_attention_row': 3,
-                 'triplet_attention_bf16': 1}
+                 'triplet_attention_bf16': 1,
+                 'triplet_attention_row_bf16': 1}
 # kernel vs plain version: both float32, different summation order
 KERNEL_RTOL, KERNEL_ATOL = 1e-3, 1e-4
 # the triplet kernel's bf16 option vs the bf16 plain version: a y within
@@ -132,7 +140,11 @@ KERNEL_SOURCES = {
     'edge_attention_gather_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
     'edge_attention_row': 'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
+    'edge_attention_row_gather':
+        'decompdiff_tpu/ops/pallas/edge_kernel.py:540',
     'triplet_attention_row':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
+    'triplet_attention_row_bf16':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:172',
     'bond_attention': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
     'bond_attention_row': 'decompdiff_tpu/ops/pallas/bond_kernel.py:128',
@@ -152,9 +164,11 @@ KERNEL_SOURCES = {
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
 }
-# Each kernel mode's ms as this script measured it before its forward
-# kernel moved to the tensor cores (the per-row CUDA-core kernels; PERF.md
-# kernel table, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's.
+# Each kernel mode's ms as this script measured it on the per-row
+# CUDA-core kernel, before that kernel's redesign (the forwards onto the
+# tensor cores, the triplet backward head-factorized; the other backward
+# kernels are still per-row; PERF.md kernel table, NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's.
 PREVIOUS_MS = {
     ('edge_attention', 'node'): '0.4334-0.4361',
     ('edge_attention', 'pos'): '0.3852-0.3888',
@@ -167,7 +181,7 @@ PREVIOUS_MS = {
     ('edge_attention_mgate_backward', 'node'): '3.0699-3.0760',
     ('bond_attention_backward', 'node'): '0.5065-0.5089',
     ('bond_attention_backward', 'pos'): '0.5330-0.5357',
-    ('triplet_attention_backward', 'node'): '6.9968-7.0292',
+    ('triplet_attention_backward', 'node'): '6.3579-6.9527',
 }
 
 
@@ -397,6 +411,7 @@ def check_forward(torch, results, name, mode, args, kw, rtol, atol, frac=0.0,
 
 def kernel_phase(torch, captured):
     results = {}
+    gen = torch.Generator(device='cuda').manual_seed(5)
     for (name, mode), (args, kw) in modes(captured):
         out = check_forward(torch, results, name, mode, args, kw,
                             KERNEL_RTOL, KERNEL_ATOL)
@@ -407,11 +422,26 @@ def kernel_phase(torch, captured):
             print(f'kernel {name}_bf16: the option moves the kernel output '
                   f'by max_abs {float((out_bf16 - out).abs().max()):.3e} '
                   f'against the float32 kernel', flush=True)
+        if name == 'triplet_attention_row':   # the per-row kernel's bf16
+            check_forward(torch, results, f'{name}_bf16', mode, args,
+                          dict(kw, bf16=True), BF16_RTOL, BF16_ATOL,
+                          BF16_FRAC, BF16_CAP)
+        if name == 'edge_attention_row':  # per-row, sources from an x_src
+            x = args[0]               # shifted from x (pallas_gather_bf16)
+            x_src = x + 0.5 * torch.randn(x.shape, generator=gen,
+                                          device=x.device)
+            check_forward(torch, results, f'{name}_gather', mode, args,
+                          dict(kw, x_src=x_src), KERNEL_RTOL, KERNEL_ATOL)
     # 6 modes of the released configs, 2 gather modes, and per width the
     # edge and bond node and pos modes and the triplet
     want = 8 + 5 * len(WIDTHS)
     check(len(captured) == want,
           f'expected {want} kernel modes, saw {sorted(captured)}')
+    # a record per mode, and the bf16 options of the triplet (released
+    # width and per width) and the per-row edge modes with an x_src
+    checked = sum(len(r['modes']) for r in results.values())
+    check(checked == want + 1 + 3 * len(WIDTHS),
+          f'{checked} forward checks, expected {want + 1 + 3 * len(WIDTHS)}')
     return results
 
 
@@ -433,6 +463,23 @@ def grad_close(torch, a, b, rtol, atol):
     err = float(diff.max())
     ok = bool(torch.isfinite(a).all()) and outliers == 0
     return ok, err, err / scale, outliers
+
+
+def triplet_backward_work(torch, args, kw):
+    """(FLOPs, product FLOPs among them) of the least work of the triplet
+    backward on these inputs, head-factorized (csrc/head_bwd.cuh), 2 per
+    multiply-add: per valid triplet the first linears of both branches
+    again, d Wa and d angle (13 wide each), the LayerNorm and relu forward
+    (6 a channel) and backward (8) of both branches, and the six heads-wide
+    products (logits, d alpha, d y of both branches, Yd, Ya); per live row
+    (one with a valid triplet) the five [H, H] products (Qk, Gv, d q, and d
+    Wo of both branches). The products are the tensor-core share."""
+    from decompdiff_tpu_torch.ops.triplet_attention import triplet_mask
+    valid = triplet_mask(args[1])
+    pairs, rows = int(valid.sum()), int(valid.any(-1).sum())
+    H, nh = args[2].shape[-1], kw['n_heads']
+    square = pairs * 2 * 6 * nh * H + rows * 2 * 5 * H * H
+    return pairs * (3 * 2 * 2 * 13 * H + 2 * (6 + 8) * H) + square, square
 
 
 def backward_phase(torch, ops, captured):
@@ -473,12 +520,21 @@ def backward_phase(torch, ops, captured):
         n_out = sum(e[2] for e in v.errors.values())
         ms = time_ms(torch, lambda: kernel(g, *args, **kw))
         plain_ms = time_ms(torch, lambda: plain(g, *args, **kw), iters=5)
-        # recompute plus two products per forward product; every input and
-        # the cotangent read once, every gradient written once
+        # recompute plus two products per forward product, all at the FP32
+        # peak; the triplet's: its head-factorized least work, the products
+        # at three bf16 tensor-core passes (as TENSOR_PASSES counts the
+        # forwards), the rest at the FP32 peak, whichever kernel runs it;
+        # every input and the cotangent read once, every gradient written
+        # once
         flops = 3 * work(torch, name, args, kw, out)[0]
         moved = (nbytes(call_inputs(torch, args, kw)) + nbytes([g])
                  + nbytes(got))
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        t_fp32, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        t_ops = t_fp32
+        if op == 'triplet_attention':
+            flops, square = triplet_backward_work(torch, args, kw)
+            t_ops = ((flops - square) / PEAK_FLOPS
+                     + 3 * square / TENSOR_PEAK) * 1e3
         rec = (f'{op}_backward_wide' if name.endswith('_wide')
                else f'{name}_backward')
         zeroed = (f'the cotangent zeroed on {v.zeroed} of {v.live} live '
@@ -492,12 +548,14 @@ def backward_phase(torch, ops, captured):
               f'zeroed; kernel {ms:.4f} ms{previous_note(rec, mode)}, plain '
               f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by '
               f'{"operations" if t_ops >= t_bytes else "bytes"} '
-              f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)', flush=True)
+              f'({flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB; all-FP32 '
+              f'bound of 3x the forward {max(t_fp32, t_bytes):.4f} ms)',
+              flush=True)
         check(v.ok, f'{name}[{mode}] backward disagrees with plain autograd: '
               f'{v.message}')
         r = results.setdefault(rec, dict(err=0.0, modes=[]))
         r['err'] = max(r['err'], max_abs)
-        r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_ops))
+        r['modes'].append((ms, plain_ms, t_ops, t_bytes, t_fp32))
     return results
 
 
@@ -866,6 +924,33 @@ def width_path_phase(torch, models, batch, full_protein, per_call):
     return total
 
 
+def width_option_phase(torch, models, batch, full_protein, per_call):
+    """WIDTH_STEPS guided steps at each width (the models' weights) with
+    pallas_bf16 and pallas_gather_bf16: every triplet forward launch is the
+    per-row kernel's bf16 option, every edge launch the per-row kernel with
+    an x_src; launches counted. Returns the launches summed over the
+    widths."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    expect = dict(per_call, **{f'{n}_row': c for n, c in per_call.items()},
+                  triplet_attention_bf16=per_call['triplet_attention'],
+                  triplet_attention=0,
+                  edge_attention_gather=per_call['edge_attention'],
+                  edge_attention=0)
+    total = {}
+    for H, (cfg, (model, _)) in models.items():
+        opt = DecompDiffModel.create(
+            dict(cfg, use_pallas=True, pallas_bf16=True,
+                 pallas_gather_bf16=True), 8, device=model.device, seed=0)
+        opt.denoiser.load_state_dict(model.denoiser.state_dict())
+        launches = sample_counted(torch, opt, batch, full_protein, expect,
+                                  f'uni_o2_bond[H{H} bf16 gather_bf16]',
+                                  WIDTH_STEPS)[0]
+        del opt
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
 def kernel_records(results, launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
@@ -916,8 +1001,10 @@ def launch_counters(ops):
     """{record name: (wrapper, counter attribute)} of every forward and
     backward kernel; the m-gated and gather edge launches and the triplet's
     bf16 launches have counters of their own; the per-row forward launches
-    (any mode) count in their per-row counters as well, and the backward
-    launches with the row buffers in device memory in <kernel>_backward_wide
+    (any mode) count in their per-row counters as well, the triplet's
+    per-row backward launches (every width but 32, 64, 128) in
+    triplet_attention_backward_row, and the backward launches with the row
+    buffers in device memory in <kernel>_backward_wide
     (scratch_launches)."""
     counters = {}
     for name, mod in ops.items():
@@ -933,6 +1020,8 @@ def launch_counters(ops):
         counters[f'{name}_row'] = (getattr(mod, name), 'row_launches')
         counters[f'{name}_backward_wide'] = (getattr(mod, f'{name}_backward'),
                                              'scratch_launches')
+    counters['triplet_attention_backward_row'] = (
+        ops['triplet_attention'].triplet_attention_backward, 'row_launches')
     return counters
 
 
@@ -1041,6 +1130,8 @@ def main():
                                             full_protein, bond_calls)
         width_launches = width_path_phase(torch, width_models, width_batch,
                                           width_full, bond_calls)
+        width_option_launches = width_option_phase(
+            torch, width_models, width_batch, width_full, bond_calls)
         del width_models
         o2_sample_launches = path_phase(torch, o2_model, o2_plain, batch,
                                         full_protein, o2_calls, 'uni_o2[m]')
@@ -1077,10 +1168,14 @@ def main():
     # each kernel's launches on the path that runs it: the m-gated ones on
     # the uni_o2 paths, the triplet's bf16 one on the pallas_bf16 sampling
     # path, the gather ones on the pallas_gather_bf16 paths, the per-row
-    # ones on the width paths, the wide backward ones on the WIDE training
+    # ones on the width paths (their bf16 and gather variants on the width
+    # paths with both options), the wide backward ones on the WIDE training
     # path, the others on the uni_o2_bond paths
     launches = {}
     for n in results:
+        if n in ('triplet_attention_row_bf16', 'edge_attention_row_gather'):
+            launches[n] = width_option_launches[n.replace('_row', '')]
+            continue
         sampled, trained = ((o2_sample_launches, o2_train_launches)
                             if '_mgate' in n else
                             (gather_launches, gather_train_launches)

@@ -56,6 +56,7 @@
 // Nl above 40 at H = 256), in a device-memory scratch that the wrapper
 // allocates; blocks of H > 256 threads take a 1024-thread build
 // (row_attention_bwd.cuh).
+#include "head_bwd.cuh"
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
 
@@ -570,6 +571,419 @@ __global__ void __launch_bounds__(1024, 1)
   triplet_bwd_rows<true>(a);
 }
 
+// ---------------------------------------------------------------------------
+// backward, H in 32, 64, 128: head-factorized (head_bwd.cuh)
+// ---------------------------------------------------------------------------
+
+namespace hb = headbwd;
+
+// Offsets into the head-factorized backward's dynamic shared memory, fixed
+// at compile time (sized for NLMAX atoms and MAXNH heads) so that no
+// register holds them.
+template <int H>
+struct HeadLayout {
+  static constexpr int NLMAX = 48;  // the largest ligand bucket
+  static constexpr size_t F = sizeof(float);
+  static constexpr size_t dwo = 0;                                // [2][H][MS]
+  static constexpr size_t ts = dwo + F * 2 * H * hb::mstride(H);  // [2][NLMAX][H]
+  static constexpr size_t tile = ts + F * 2 * NLMAX * H;          // [KC][H]
+  static constexpr size_t m = tile + F * hb::KC * H;          // [2 MAXNH][MS]
+  static constexpr size_t lg = m + F * 2 * hb::MAXNH * hb::mstride(H);
+  static constexpr size_t da = lg + F * NLMAX * hb::MAXNH;        // [Nl][NH]
+  static constexpr size_t vl = da + F * NLMAX * hb::MAXNH;
+  static constexpr size_t ang = vl + sizeof(int) * NLMAX;         // [KC][AP]
+  static constexpr size_t dco = ang + F * hb::KC * AP;
+  static constexpr size_t qg = dco + F * hb::KC * AP;             // q | g
+  static constexpr size_t hs = qg + F * 2 * H;                    // qb|gb|S
+  static constexpr size_t bytes = hs + F * 4 * hb::MAXNH;
+  static_assert(ts % 16 == 0 && m % 16 == 0 && lg % 16 == 0, "aligned");
+};
+
+// The angular code of the chunk's sources k0 + r, r < KC, of row `row`
+// (x = 0 past the atoms), with its derivative in the angle (dco) or the
+// sources' validity (VL, for k < Nl). No barrier.
+__device__ __forceinline__ void head_chunk_setup(const TripletArgs& f,
+                                                 size_t row, int i,
+                                                 const float* mrow_j, int k0,
+                                                 float (*ang)[AP],
+                                                 float (*dco)[AP], int* VL) {
+  const int Nl = f.Nl;
+  for (int u = threadIdx.x; u < hb::KC * 7; u += hb::THREADS) {
+    const int r = u / 7, fq = u - r * 7, k = k0 + r;
+    const bool in = k < Nl;
+    const float x = in ? f.angle[row * Nl + k] : 0.f;
+    if (fq == 6) {
+      ang[r][0] = x;
+      if (dco) dco[r][0] = 1.f;
+      if (VL && in) VL[k] = k != i && mrow_j[k] > 0.5f;
+    } else {
+      float s, co;
+      sincosf(x * kFreqs[fq], &s, &co);
+      ang[r][1 + fq] = s;
+      ang[r][7 + fq] = co;
+      if (dco) {
+        dco[r][1 + fq] = kFreqs[fq] * co;
+        dco[r][7 + fq] = -kFreqs[fq] * s;
+      }
+    }
+  }
+}
+
+// Warp map, one branch: pre of the pair rows r_s = warp + WARPS s (sources
+// k0 + r_s, clamped to the atoms) = t_row + t_src[k] + ang[r_s] @ Wa, then
+// its LayerNorm: xh = xhat, rs = 1 / std, y = relu(xhat lns + lnb). No
+// barrier.
+template <int H>
+__device__ __forceinline__ void head_tile_pre(
+    const float (*ang)[AP], const Branch& br, const float* wa,
+    const float* t_row, const float* ts, int k0, int Nl,
+    float (&xh)[hb::RW][H / 32], float (&rs)[hb::RW],
+    float (&y)[hb::RW][H / 32]) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float x[hb::RW][NV];
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    const float* tsr = ts + (size_t)min(k0 + warp + hb::WARPS * s, Nl - 1) * H;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      x[s][v] = __ldg(t_row + lane + 32 * v) + __ldg(tsr + lane + 32 * v);
+  }
+#pragma unroll
+  for (int t = 0; t < A; ++t)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float w = __ldg(wa + t * H + lane + 32 * v);
+#pragma unroll
+      for (int s = 0; s < hb::RW; ++s)
+        x[s][v] = fmaf(ang[warp + hb::WARPS * s][t], w, x[s][v]);
+    }
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) sum += x[s][v];
+    const float mean = rm::warp_sum(sum) / H;
+    float s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float d = x[s][v] - mean;
+      s2 += d * d;
+    }
+    rs[s] = rsqrtf(rm::warp_sum(s2) / H + 1e-5f);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      xh[s][v] = (x[s][v] - mean) * rs[s];
+      y[s][v] = fmaxf(xh[s][v] * __ldg(br.lns + lane + 32 * v) +
+                          __ldg(br.lnb + lane + 32 * v),
+                      0.f);
+    }
+  }
+}
+
+// What pass B of one branch adds to: the block's sums over its rows (d Wa
+// rows t = part + P s in the channel map, d ln_scale and d ln_bias of the
+// lanes' channels in the warp map) and the row's (Y: Yd or Ya of the
+// thread's heads, trow: sum over the sources of d pre at its channel).
+template <int H>
+struct HeadBranchSums {
+  static constexpr int NT = (A + hb::Map<H>::P - 1) / hb::Map<H>::P;
+  float wa[NT];
+  float lns[H / 32], lnb[H / 32];
+  float Y[hb::MAXHP];
+  float trow;
+};
+
+// Pass B of one branch over a chunk (sources k0 .. k0 + KC - 1): y again,
+// the row's head sums Y += C^T y (channel map, over the tile T), d y = cf C M
+// (M: Qk or Gv, C: dh or alpha [Nl][NH]), the relu and LayerNorm backward
+// to d pre, added to the item's d t_src rows TS and, through wd, to e[s]
+// (d angle of the pair rows), then d Wa and d t_row (channel map, over T).
+// Contains block barriers and ends with one.
+template <int H>
+__device__ __forceinline__ void head_branch_back(
+    const float (*ang)[AP], const float (*dco)[AP], const Branch& br,
+    const float* wa, const float* t_row, const float* ts, const float* M,
+    const float* C,
+    float cf, int k0, int Nl, int NH, float* T, float* TS,
+    HeadBranchSums<H>& acc, float (&e)[hb::RW]) {
+  constexpr int NV = H / 32, P = hb::Map<H>::P;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = threadIdx.x % H, part = threadIdx.x / H;
+  const int nr = min(hb::KC, Nl - k0);
+  float xh[hb::RW][NV], rs[hb::RW], dp[hb::RW][NV];
+  unsigned gate = 0;  // bit s NV + v: y[s][v] > 0
+  {
+    float y[hb::RW][NV];
+    head_tile_pre<H>(ang, br, wa, t_row, ts, k0, Nl, xh, rs, y);
+#pragma unroll
+    for (int s = 0; s < hb::RW; ++s)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        T[(warp + hb::WARPS * s) * H + lane + 32 * v] = y[s][v];
+        gate |= (y[s][v] > 0.f ? 1u : 0u) << (s * NV + v);
+      }
+  }
+  __syncthreads();
+  hb::accumulate_heads<H>(acc.Y, T, C, k0, nr, NH);
+  __syncthreads();  // T is overwritten below
+
+  hb::head_expand<H>(dp, M, C, cf, k0, Nl, NH);
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float du = (gate >> (s * NV + v)) & 1u ? dp[s][v] : 0.f;
+      acc.lns[v] = fmaf(du, xh[s][v], acc.lns[v]);
+      acc.lnb[v] += du;
+      const float dx = du * __ldg(br.lns + lane + 32 * v);
+      dp[s][v] = dx;
+      s1 += dx;
+      s2 = fmaf(dx, xh[s][v], s2);
+    }
+    const float m1 = rm::warp_sum(s1) / H, m2 = rm::warp_sum(s2) / H;
+    const int k = k0 + warp + hb::WARPS * s;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      dp[s][v] = rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
+      if (k < Nl) TS[(size_t)k * H + lane + 32 * v] += dp[s][v];
+      T[(warp + hb::WARPS * s) * H + lane + 32 * v] = dp[s][v];
+    }
+  }
+  // the angle's chain: e[s] += sum_t dco[r_s][t] (d pre . Wa[t])
+#pragma unroll
+  for (int t = 0; t < A; ++t)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float w = __ldg(wa + t * H + lane + 32 * v);
+#pragma unroll
+      for (int s = 0; s < hb::RW; ++s)
+        e[s] = fmaf(dco[warp + hb::WARPS * s][t] * w, dp[s][v], e[s]);
+    }
+  __syncthreads();
+  for (int r = 0; r < nr; ++r) {
+    const float d = T[r * H + c];
+    acc.trow += d;
+#pragma unroll
+    for (int s = 0; s < HeadBranchSums<H>::NT; ++s) {
+      const int t = part + P * s;
+      if (t < A) acc.wa[s] = fmaf(ang[r][t], d, acc.wa[s]);
+    }
+  }
+  __syncthreads();
+}
+
+// Persistent: block g takes work items (b, j) = g, g + gridDim.x, ...; the
+// item's d t_src rows of both branches stay in shared memory, and the block's
+// d Wo of both branches too, transposed, until the block ends.
+template <int H>
+__global__ void __launch_bounds__(hb::THREADS, 1)
+    triplet_attention_bwd_head_kernel(TripletBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  constexpr int MS = hb::mstride(H), NV = H / 32, P = hb::Map<H>::P;
+  const TripletArgs& f = a.f;
+  const int Nl = f.Nl, NH = f.n_heads, hd = H / NH;
+  using lay = HeadLayout<H>;
+  float* DWk = reinterpret_cast<float*>(dyn + lay::dwo);  // [H][MS] d Wo^T
+  float* DWv = DWk + H * MS;
+  float* TSk = reinterpret_cast<float*>(dyn + lay::ts);   // [Nl][H] d t_src
+  float* TSv = TSk + lay::NLMAX * H;
+  float* T = reinterpret_cast<float*>(dyn + lay::tile);   // [KC][H]
+  float* M = reinterpret_cast<float*>(dyn + lay::m);      // Qk | Gv, then Yd
+  float* LG = reinterpret_cast<float*>(dyn + lay::lg);    // [Nl][NH]
+  float* DA = reinterpret_cast<float*>(dyn + lay::da);
+  int* VL = reinterpret_cast<int*>(dyn + lay::vl);
+  float(*ang)[AP] = reinterpret_cast<float(*)[AP]>(dyn + lay::ang);
+  float(*dco)[AP] = reinterpret_cast<float(*)[AP]>(dyn + lay::dco);
+  float* QR = reinterpret_cast<float*>(dyn + lay::qg);    // q, g of the row
+  float* GR = QR + H;
+  float* HS = reinterpret_cast<float*>(dyn + lay::hs);    // qb | gb | S
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % H, part = tid / H;
+  const float scale = 1.f / sqrtf((float)hd);
+
+  for (int e = tid; e < 2 * H * MS; e += hb::THREADS) DWk[e] = 0.f;
+  const float* wak = f.k.w_feat;
+  const float* wav = f.v.w_feat;
+  HeadBranchSums<H> sk{}, sv{};
+  float bo_k = 0.f, bo_v = 0.f;
+
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int b = item / Nl, j = item % Nl;
+    const float* mrow_j = f.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
+    const size_t src0 = ((size_t)b * Nl + j) * Nl * H;
+    __syncthreads();  // the last item's d t_src rows are written out
+    for (int e = tid; e < Nl * H; e += hb::THREADS) TSk[e] = TSv[e] = 0.f;
+
+    for (int i = 0; i < Nl; ++i) {
+      const size_t row = ((size_t)b * Nl + i) * Nl + j;
+      // a barrier too: the last row is done with the buffers
+      if (!row_has_source(f, (int)row, i, mrow_j)) {
+        if (tid < H) {
+          a.d_q[row * H + tid] = 0.f;
+          a.d_trow_k[row * H + tid] = 0.f;
+          a.d_trow_v[row * H + tid] = 0.f;
+        }
+        continue;
+      }
+      if (tid < H) {
+        QR[tid] = f.q[row * H + tid];
+        GR[tid] = a.g[row * H + tid];
+      }
+      __syncthreads();
+      hb::row_matrices<H>(f.k.wo, f.v.wo, f.k.bo, f.v.bo, QR, GR, NH, M, HS,
+                          HS + hb::MAXNH);
+
+      // pass A: logits and d alpha of every source
+      for (int k0 = 0; k0 < Nl; k0 += hb::KC) {
+        __syncthreads();  // M and HS written; the last chunk is done
+        head_chunk_setup(f, row, i, mrow_j, k0, ang, nullptr, VL);
+        __syncthreads();
+        float xh[hb::RW][NV], rs[hb::RW], y[hb::RW][NV];
+        const int s = lane % hb::RW, h = lane / hb::RW;
+        const int k = k0 + warp + hb::WARPS * s;
+        head_tile_pre<H>(ang, f.k, wak, f.k.t_row + row * H, f.k.t_src + src0,
+                         k0, Nl, xh, rs, y);
+        float p = hb::head_products<H>(y, M, NH);
+        if (h < NH && k < Nl) LG[k * NH + h] = scale * (p + HS[h]);
+        head_tile_pre<H>(ang, f.v, wav, f.v.t_row + row * H, f.v.t_src + src0,
+                         k0, Nl, xh, rs, y);
+        p = hb::head_products<H>(y, M + NH * MS, NH);
+        if (h < NH && k < Nl) DA[k * NH + h] = p + HS[hb::MAXNH + h];
+      }
+      __syncthreads();
+      hb::head_softmax(LG, DA, VL, Nl, NH, HS + 2 * hb::MAXNH);
+
+      // pass B
+#pragma unroll
+      for (int u = 0; u < hb::MAXHP; ++u) sk.Y[u] = sv.Y[u] = 0.f;
+      sk.trow = sv.trow = 0.f;
+      for (int k0 = 0; k0 < Nl; k0 += hb::KC) {
+        __syncthreads();  // alpha and dh written; the last chunk is done
+        head_chunk_setup(f, row, i, mrow_j, k0, ang, dco, nullptr);
+        __syncthreads();
+        float e[hb::RW] = {};
+        head_branch_back<H>(ang, dco, f.k, wak, f.k.t_row + row * H,
+                            f.k.t_src + src0, M, DA, scale, k0, Nl, NH, T,
+                            TSk, sk, e);
+        head_branch_back<H>(ang, dco, f.v, wav, f.v.t_row + row * H,
+                            f.v.t_src + src0, M + NH * MS, LG, 1.f, k0, Nl,
+                            NH, T, TSv, sv, e);
+#pragma unroll
+        for (int s = 0; s < hb::RW; ++s) {
+          const float d = rm::warp_sum(e[s]);
+          const int k = k0 + warp + hb::WARPS * s;
+          if (lane == 0 && k < Nl) a.d_angle[row * Nl + k] = d;
+        }
+      }
+
+      // the row's d t_row, d bo, d Wo and d q
+      const float* S = HS + 2 * hb::MAXNH;
+      if (tid < H) {
+        a.d_trow_k[row * H + c] = sk.trow;
+        a.d_trow_v[row * H + c] = sv.trow;
+        bo_k = fmaf(scale * QR[c], S[c / hd], bo_k);
+        bo_v = fmaf(GR[c], S[hb::MAXNH + c / hd], bo_v);
+      }
+      hb::update_dwo<H>(DWk, sk.Y, QR, scale, NH);
+      hb::update_dwo<H>(DWv, sv.Y, GR, 1.f, NH);
+      hb::store_heads<H>(M, sk.Y, NH);  // M is free: pass B ended in a barrier
+      __syncthreads();
+      hb::dq_partial<H>(T, M, f.k.wo, NH);
+      __syncthreads();
+      if (tid < H) {
+        float t = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) t += T[p * H + c];
+        a.d_q[row * H + c] = scale * (t + __ldg(f.k.bo + c) * S[c / hd]);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < Nl * H; e += hb::THREADS) {
+      a.d_tsrc_k[src0 + e] = TSk[e];
+      a.d_tsrc_v[src0 + e] = TSv[e];
+    }
+  }
+
+  // the block's slot
+  rowbwd::GradSlot gk, gv;
+  rowbwd::block_slots(a.slots, A, H, H, gk, gv);
+#pragma unroll
+  for (int s = 0; s < HeadBranchSums<H>::NT; ++s) {
+    const int t = part + P * s;
+    if (t < A) {
+      gk.wfeat[t * H + c] = sk.wa[s];
+      gv.wfeat[t * H + c] = sv.wa[s];
+    }
+  }
+  if (tid < H) {
+    gk.bo[c] = bo_k;
+    gv.bo[c] = bo_v;
+  }
+  __syncthreads();
+  for (int e = tid; e < H * H; e += hb::THREADS) {
+    const int jj = e / H, cc = e - jj * H;
+    gk.wo[e] = DWk[cc * MS + jj];
+    gv.wo[e] = DWv[cc * MS + jj];
+  }
+  __syncthreads();  // DWk holds the warps' LayerNorm sums next
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int cc = lane + 32 * v;
+    DWk[(warp * 4 + 0) * H + cc] = sk.lns[v];
+    DWk[(warp * 4 + 1) * H + cc] = sk.lnb[v];
+    DWk[(warp * 4 + 2) * H + cc] = sv.lns[v];
+    DWk[(warp * 4 + 3) * H + cc] = sv.lnb[v];
+  }
+  __syncthreads();
+  if (tid < 4 * H) {
+    const int qn = tid / H, cc = tid % H;
+    float t = 0.f;
+    for (int w = 0; w < hb::WARPS; ++w) t += DWk[(w * 4 + qn) * H + cc];
+    float* out = qn == 0 ? gk.lns : qn == 1 ? gk.lnb : qn == 2 ? gv.lns
+                                                                : gv.lnb;
+    out[cc] = t;
+  }
+}
+
+// Whether the head-factorized backward takes these sizes: H in 32, 64, 128,
+// at most MAXNH heads, at most NLMAX atoms, and its layout within a block's
+// shared memory.
+template <int H>
+cudaError_t head_fits(int NH, int Nl, bool* ok) {
+  *ok = false;
+  if (!hb::heads_ok(H, NH) || Nl > HeadLayout<H>::NLMAX) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *ok = err == cudaSuccess && HeadLayout<H>::bytes <= (size_t)optin;
+  return err;
+}
+
+cudaError_t head_route(int H, int NH, int Nl, bool* ok) {
+  switch (H) {
+    case 32: return head_fits<32>(NH, Nl, ok);
+    case 64: return head_fits<64>(NH, Nl, ok);
+    case 128: return head_fits<128>(NH, Nl, ok);
+    default: *ok = false; return cudaSuccess;
+  }
+}
+
+template <int H>
+cudaError_t launch_bwd_head(const TripletBwdArgs& a, int G,
+                            cudaStream_t stream) {
+  constexpr size_t smem = HeadLayout<H>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      triplet_attention_bwd_head_kernel<H>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  triplet_attention_bwd_head_kernel<H><<<G, hb::THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // One block per SM (at most one per work item). t_src is staged when the
 // whole layout fits the block's shared memory.
 template <int H>
@@ -608,6 +1022,7 @@ TripletBwdKernel bwd_kernel(int H, bool scratch) {
 
 }  // namespace
 
+
 // Forward. bf16 != 0: the second linears on bf16-rounded y and Wo (the TPU
 // kernel's `bf16` option); otherwise float32 accuracy. H in 32, 64, 128:
 // the tensor-core kernel; any other width the wrapper admits: the per-row
@@ -642,15 +1057,34 @@ extern "C" int triplet_attention_fwd(
 // these sizes (0: its row buffers fit in shared memory).
 extern "C" int triplet_attention_bwd_scratch(int* per_block, int Nl, int H,
                                              int n_heads) {
+  bool head = false;
+  *per_block = 0;
+  cudaError_t err = head_route(H, n_heads, Nl, &head);
+  if (err != cudaSuccess || head) return (int)err;
   return (int)rowbwd::scratch_floats(
       bwd_kernel(H, false), H, triplet_bwd_floats(Nl, H, n_heads),
       per_block);
 }
 
+// Whether the backward at these sizes runs the per-row kernel (*row = 1) or
+// the head-factorized one (*row = 0): the wrapper sizes the launch from it.
+extern "C" int triplet_attention_bwd_route(int* row, int Nl, int H,
+                                           int n_heads) {
+  bool head = false;
+  const cudaError_t err = head_route(H, n_heads, Nl, &head);
+  *row = !head;
+  return (int)err;
+}
+
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order
 // slot sum into d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: same]).
-// scratch: G times triplet_attention_bwd_scratch's floats, or null when that
-// is 0. *route: 1 when the row buffers went to the scratch, else 0.
+// H in 32, 64, 128 with at most 16 heads and Nl up to 48: the
+// head-factorized kernel, one block per SM; any other
+// width: the per-row kernel, two blocks per SM, which alone reads k_woT and
+// v_woT (the transposed Wo) and the scratch: G times
+// triplet_attention_bwd_scratch's floats, or null when that is 0.
+// *route: 1 when the row buffers went to the scratch, else 0; *row: 1 when
+// the per-row kernel was launched, else 0.
 extern "C" int triplet_attention_bwd(
     const float* angle, const float* mask, const float* q, const float* g,
     const float* k_row, const float* k_src, const float* k_feat,
@@ -661,9 +1095,10 @@ extern "C" int triplet_attention_bwd(
     const float* v_lnb, const float* v_woT,
     float* d_angle, float* d_q, float* d_trow_k, float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    float* scratch, int* route, int B, int Nl, int H, int n_heads, int G,
-    void* stream) {
+    float* scratch, int* route, int* row, int B, int Nl, int H, int n_heads,
+    int G, void* stream) {
   *route = 0;
+  *row = 0;
   if (B * Nl == 0 || G <= 0) return 0;
   TripletBwdArgs a{
       TripletArgs{angle, mask, q,
@@ -672,12 +1107,23 @@ extern "C" int triplet_attention_bwd(
                   nullptr, Nl, H, n_heads},
       g, k_woT, v_woT, d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
       slots, B * Nl, nullptr, 0};
-  cudaError_t err = rowbwd::launch_rows(
-      bwd_kernel(H, false), bwd_kernel(H, true), a, G,
-      triplet_bwd_floats(Nl, H, n_heads), scratch, route,
-      (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  bool head = false;
+  cudaError_t err = head_route(H, n_heads, Nl, &head);
+  if (err != cudaSuccess) return (int)err;
+  if (head) {
+    switch (H) {
+      case 32: err = launch_bwd_head<32>(a, G, s); break;
+      case 64: err = launch_bwd_head<64>(a, G, s); break;
+      default: err = launch_bwd_head<128>(a, G, s); break;
+    }
+  } else {
+    *row = 1;
+    err = rowbwd::launch_rows(bwd_kernel(H, false), bwd_kernel(H, true), a,
+                              G, triplet_bwd_floats(Nl, H, n_heads), scratch,
+                              route, s);
+  }
   if (err != cudaSuccess) return (int)err;
   const size_t P = 2 * rowbwd::branch_slot_floats(A, H, H);
-  return (int)rowbwd::launch_reduce(slots, d_params, G, P,
-                                    (cudaStream_t)stream);
+  return (int)rowbwd::launch_reduce(slots, d_params, G, P, s);
 }

@@ -148,23 +148,23 @@ def branch_checks(tag: str, p: Branch, row_shape: tuple, src_shape: tuple,
 # backward plumbing
 # ---------------------------------------------------------------------------
 
-def backward_blocks(items: int, device: torch.device) -> int:
-    """Blocks of a backward launch: two per SM (each loops over rows), and
-    no more than there are rows or work items."""
+def backward_blocks(items: int, device: torch.device, per_sm: int = 2) -> int:
+    """Blocks of a backward launch: `per_sm` per SM (each loops over rows or
+    work items), and no more than there are work items."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(items, 2 * sms))
+    return max(1, min(items, per_sm * sms))
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(kernel: str, sizes: tuple, device: torch.device) -> int:
-    """What <kernel>_bwd_scratch of csrc/<kernel>.cu reports for these sizes
-    (a property of the build and the card, so asked once)."""
-    query = _build.load(kernel, f'{kernel}_bwd_scratch', 1, len(sizes),
-                        stream=False)
-    per_block = ctypes.c_int(0)
-    launch(query, [ctypes.byref(per_block)] + list(sizes), device,
+def kernel_query(kernel: str, symbol: str, sizes: tuple,
+                 device: torch.device) -> int:
+    """The int that the query `symbol` of csrc/<kernel>.cu reports for these
+    sizes (a property of the build and the card, so asked once)."""
+    query = _build.load(kernel, symbol, 1, len(sizes), stream=False)
+    value = ctypes.c_int(0)
+    launch(query, [ctypes.byref(value)] + list(sizes), device,
            f'{kernel}_backward', stream=False)
-    return per_block.value
+    return value.value
 
 
 def backward_scratch(kernel: str, sizes: list, blocks: int,
@@ -173,7 +173,8 @@ def backward_scratch(kernel: str, sizes: list, blocks: int,
     these sizes: None when its row buffers fit in shared memory, else
     `blocks` times the floats per block that its <kernel>_bwd_scratch
     reports."""
-    per_block = _scratch_floats(kernel, tuple(sizes), device)
+    per_block = kernel_query(kernel, f'{kernel}_bwd_scratch', tuple(sizes),
+                             device)
     if per_block == 0:
         return None
     return torch.empty(blocks * per_block, device=device)

@@ -31,25 +31,34 @@ of either variant, also count in `triplet_attention.row_launches`.
 
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
-in the backward kernel. Its launches with the row buffers in a device-memory
-scratch (wide H or large Nl; the launcher decides and reports it) also count
-in `triplet_attention_backward.scratch_launches`.
+in a backward kernel, which the launcher also chooses by width and reports:
+for H in 32, 64, 128 with at most 16 heads (and Nl up to 48 at H = 128,
+within a block's shared memory) the head-factorized kernel (csrc/head_bwd.cuh:
+the cotangents of k and v factorize by head, so no per-triplet [H, H]
+product is left; one block per SM), for every other width the per-row
+kernel (csrc/row_attention_bwd.cuh; two blocks per SM), whose launches also
+count in `triplet_attention_backward.row_launches`, and, with the row
+buffers in a device-memory scratch (wide H or large Nl), in
+`triplet_attention_backward.scratch_launches`.
+`triplet_attention_backward_factored` is the head-factorized algorithm in
+plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from decompdiff_tpu_torch.models.common import (
-    ANGULAR_DIM, angular_encoding, layer_norm)
+    ANGULAR_DIM, ANGULAR_FREQS, angular_encoding, layer_norm)
 from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, launch, on_cpu, ptr)
+    check_inputs, kernel_query, launch, on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -90,6 +99,88 @@ def triplet_attention_backward_reference(g, angle, mask, q, k: Branch,
             angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]), n_heads=n_heads)
     d = autograd_grads(fn, g, [angle, q, *k, *v])
     return d[0], d[1], Branch(*d[2:9]), Branch(*d[9:])
+
+
+def triplet_attention_backward_factored(g, angle, mask, q, k: Branch,
+                                        v: Branch, *, n_heads: int):
+    """The head-factorized backward that the tensor-core-width backward
+    kernel computes, in plain PyTorch (for tests; no path calls it). Returns
+    what triplet_attention_backward_reference returns.
+
+    q[i, j] and g[i, j] belong to the row, so the cotangents of k and v
+    factorize by head: d k[k, c] = scale dh[k, h(c)] q[c] and
+    d v[k, c] = alpha[k, h(c)] g[c]. With Qk[h] = Wo_k[:, h] q[h] and
+    Gv[h] = Wo_v[:, h] g[h] ([heads, H] per row) no per-triplet [H, H]
+    product is left: the logits are scale (y_k . Qk[h] + q_h . bo_k,h), d
+    alpha is y_v . Gv[h] + g_h . bo_v,h, d y_k = scale sum_h dh Qk[h],
+    d y_v = sum_h alpha Gv[h], and d q and d Wo come from the per-row sums
+    Yd[h] = sum_k dh[k, h] y_k[k] and Ya[h] = sum_k alpha[k, h] y_v[k]."""
+    B, Nl = angle.shape[:2]
+    H = q.shape[-1]
+    hd = H // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    a_feat = angular_encoding(angle)                          # [B,i,j,k,13]
+    freqs = torch.as_tensor(ANGULAR_FREQS, device=angle.device)
+    af = angle[..., None] * freqs
+    d_code = torch.cat([torch.ones_like(angle[..., None]),
+                        freqs * torch.cos(af), -freqs * torch.sin(af)], -1)
+
+    def recompute(p: Branch):
+        pre = (a_feat @ p.w_feat + p.t_src[:, None, :, :, :]
+               + p.t_row[:, :, :, None, :])
+        mu = pre.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((pre - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+        xhat = (pre - mu) * rstd
+        return xhat, rstd, torch.relu(xhat * p.ln_scale + p.ln_bias)
+
+    def heads(t):                                   # [..., H] -> [..., NH, hd]
+        return t.reshape(t.shape[:-1] + (n_heads, hd))
+
+    xk, rk, yk = recompute(k)
+    xv, rv, yv = recompute(v)
+    wok, wov = heads(k.wo), heads(v.wo)             # [H(in), NH, hd]
+    Qk = torch.einsum('xhd,bijhd->bijhx', wok, heads(q))
+    Gv = torch.einsum('xhd,bijhd->bijhx', wov, heads(g))
+    logit = scale * (torch.einsum('bijkx,bijhx->bijkh', yk, Qk)
+                     + heads(q * k.bo).sum(-1)[..., None, :])
+    d_alpha = (torch.einsum('bijkx,bijhx->bijkh', yv, Gv)
+               + heads(g * v.bo).sum(-1)[..., None, :])
+    valid = triplet_mask(mask)[..., None]
+    m = torch.where(valid, logit, -1e30).amax(3, keepdim=True).clamp_min(
+        -1e29)
+    e = torch.where(valid, torch.exp(logit - m), 0.0)
+    alpha = e / e.sum(3, keepdim=True).clamp_min(1e-16)
+    dh = alpha * (d_alpha - (alpha * d_alpha).sum(3, keepdim=True))
+
+    def branch_bwd(dy, xhat, rstd, y, p: Branch):
+        du = torch.where(y > 0, dy, 0.0)
+        dx = du * p.ln_scale
+        d_pre = rstd * (dx - dx.mean(-1, keepdim=True)
+                        - xhat * (dx * xhat).mean(-1, keepdim=True))
+        return d_pre, (du * xhat).sum((0, 1, 2, 3)), du.sum((0, 1, 2, 3))
+
+    dpk, dlns_k, dlnb_k = branch_bwd(
+        scale * torch.einsum('bijkh,bijhx->bijkx', dh, Qk), xk, rk, yk, k)
+    dpv, dlns_v, dlnb_v = branch_bwd(
+        torch.einsum('bijkh,bijhx->bijkx', alpha, Gv), xv, rv, yv, v)
+    d_angle = ((dpk @ k.w_feat.t() + dpv @ v.w_feat.t()) * d_code).sum(-1)
+    Yd = torch.einsum('bijkh,bijkx->bijhx', dh, yk)
+    Ya = torch.einsum('bijkh,bijkx->bijhx', alpha, yv)
+    sdh, sal = dh.sum(3), alpha.sum(3)               # [B, i, j, NH]
+    d_q = scale * (torch.einsum('bijhx,xhd->bijhd', Yd, wok)
+                   + heads(k.bo) * sdh[..., None]).reshape(q.shape)
+    dwo_k = scale * torch.einsum('bijhx,bijhd->xhd', Yd, heads(q))
+    dwo_v = torch.einsum('bijhx,bijhd->xhd', Ya, heads(g))
+    dbo_k = scale * (heads(q) * sdh[..., None]).sum((0, 1, 2))
+    dbo_v = (heads(g) * sal[..., None]).sum((0, 1, 2))
+
+    def grads(d_pre, dwo, dbo, dlns, dlnb):
+        return Branch(d_pre.sum(3), d_pre.sum(1),
+                      torch.einsum('bijkt,bijkc->tc', a_feat, d_pre),
+                      dwo.reshape(H, H), dbo.reshape(H), dlns, dlnb)
+
+    return (d_angle, d_q, grads(dpk, dwo_k, dbo_k, dlns_k, dlnb_k),
+            grads(dpv, dwo_v, dbo_v, dlns_v, dlnb_v))
 
 
 def _checks(angle, mask, q, k, v, n_heads):
@@ -187,21 +278,28 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
     d_angle = torch.zeros((B, Nl, Nl, Nl), device=dev)
     d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v = (
         torch.empty((B, Nl, Nl, H), device=dev) for _ in range(5))
-    blocks = backward_blocks(B * Nl, dev)
+    row = kernel_query('triplet_attention', 'triplet_attention_bwd_route',
+                       (Nl, H, n_heads), dev)
+    blocks = backward_blocks(B * Nl, dev, per_sm=2 if row else 1)
     pg = ParamGrads(blocks, ANGULAR_DIM, H, H, dev)
-    woT_k, woT_v = k.wo.t().contiguous(), v.wo.t().contiguous()
-    scratch = backward_scratch('triplet_attention', [Nl, H, n_heads], blocks,
-                               dev)
+    # the per-row kernel alone reads the transposed Wo and the scratch
+    woT_k, woT_v = ((k.wo.t().contiguous(), v.wo.t().contiguous()) if row
+                    else (None, None))
+    scratch = (backward_scratch('triplet_attention', [Nl, H, n_heads],
+                                blocks, dev) if row else None)
     route = ctypes.c_int(0)               # 1: row buffers in the scratch
-    fn = _build.load('triplet_attention', 'triplet_attention_bwd', 30, 5)
+    launched_row = ctypes.c_int(0)        # 1: the per-row kernel launched
+    fn = _build.load('triplet_attention', 'triplet_attention_bwd', 31, 5)
     args = ([ptr(angle), ptr(mask), ptr(q), ptr(g)] + branch_ptrs(k)
             + [ptr(woT_k)] + branch_ptrs(v) + [ptr(woT_v)]
             + [ptr(t) for t in (d_angle, d_q, d_trow_k, d_tsrc_k, d_trow_v,
                                 d_tsrc_v, pg.slots, pg.out, scratch)]
-            + [ctypes.byref(route), B, Nl, H, n_heads, blocks])
+            + [ctypes.byref(route), ctypes.byref(launched_row), B, Nl, H,
+               n_heads, blocks])
     launch(fn, args, dev, 'triplet_attention_backward')
     triplet_attention_backward.launches += 1
     triplet_attention_backward.scratch_launches += route.value
+    triplet_attention_backward.row_launches += launched_row.value
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
     return d_angle, d_q, dk, dv
 
@@ -210,3 +308,4 @@ triplet_attention.launches = triplet_attention.bf16_launches = 0
 triplet_attention.row_launches = 0
 triplet_attention_backward.launches = 0
 triplet_attention_backward.scratch_launches = 0
+triplet_attention_backward.row_launches = 0

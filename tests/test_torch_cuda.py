@@ -499,26 +499,32 @@ def _dev(a, cuda):
 
 
 def _check_backward(fn, g, args, kw, cuda, counter, count='launches',
-                    scratch=False):
+                    scratch=False, row=None, retry=False):
     """The backward wrapper on CPU tensors (plain autograd) against the same
     wrapper on CUDA tensors (the kernel), which adds one to `count`, and to
-    `scratch_launches` when `scratch` (its row buffers in device memory).
-    At those sizes, where a gradient lies outside the tolerance, the
-    comparison is made again with the cotangent zeroed on the few rows whose
-    ambiguous relu gates explain the elements outside, as chip_smoke.py
-    makes it (decompdiff_tpu_torch/utils/gradcheck.py compare_backward)."""
+    `scratch_launches` when `scratch` (its row buffers in device memory);
+    with `row` (the triplet), row_launches rises by `row` (1: the per-row
+    kernel, 0: the head-factorized one).
+    At those sizes, or with `retry`, where a gradient lies outside the
+    tolerance, the comparison is made again with the cotangent zeroed on the
+    few rows whose ambiguous relu gates explain the elements outside, as
+    chip_smoke.py makes it (decompdiff_tpu_torch/utils/gradcheck.py
+    compare_backward)."""
     dev_args = [_dev(a, cuda) for a in args]
     dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
     before = getattr(counter, count), counter.scratch_launches
+    rows = getattr(counter, 'row_launches', 0)
     fn(g.to(cuda), *dev_args, **dev_kw)
     torch.cuda.synchronize()
     assert (getattr(counter, count), counter.scratch_launches) == (
         before[0] + 1, before[1] + scratch)
+    if row is not None:
+        assert counter.row_launches == rows + row
     verdict = compare_backward(
         fn.__name__.replace('_backward', ''),
         lambda g: fn(g, *dev_args, **dev_kw),
         lambda g: fn(g.cpu(), *args, **kw), g.to(cuda), dev_args, dev_kw,
-        retry=scratch)
+        retry=scratch or retry)
     if verdict.live:
         print(f'{fn.__name__}: cotangent zeroed on {verdict.zeroed} of '
               f'{verdict.live} live rows ({verdict.ambiguous} hold an '
@@ -614,14 +620,21 @@ def test_bond_backward_kernel(cuda, pos_mode, Nl):
                     bond_ops.bond_attention_backward)
 
 
-@pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
-@pytest.mark.parametrize('H,heads', [(32, 4), (128, 16)])
+# The head-factorized triplet backward (H in 32, 64, 128) at Nl below, at
+# and above its 32-source chunk, up to the largest ligand bucket (48); atom
+# 4 of complex 0 has no bonds, and complex 2 none at all. Its pre sums run in
+# another order than autograd's, so a relu gate within rounding of 0 can flip
+# (at H = 128, Nl = 32: one row of 779): compare_backward zeroes only the
+# rows whose ambiguous gates explain the elements outside.
+@pytest.mark.parametrize('Nl', [13, 20, 32, 40, 48])
+@pytest.mark.parametrize('H,heads', [(32, 4), (64, 8), (128, 16)])
 def test_triplet_backward_kernel(cuda, H, heads, Nl):
     rng = np.random.default_rng(7)
-    B = 2
+    B = 3
     bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.4)
           & ~torch.eye(Nl, dtype=torch.bool)).float()
     bm[0, 4] = 0.0                              # atom 4 of complex 0: no bonds
+    bm[2] = 0.0                                 # complex 2: no bonds
     k = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
     v = _rand_branch(rng, (B, Nl, Nl, H), (B, Nl, Nl, H), 13, H, H)
     angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
@@ -630,7 +643,23 @@ def test_triplet_backward_kernel(cuda, H, heads, Nl):
     g = _rand(rng, B, Nl, Nl, H, scale=1.0)
     _check_backward(triplet_ops.triplet_attention_backward, g,
                     (angle, bm, q, k, v), dict(n_heads=heads), cuda,
-                    triplet_ops.triplet_attention_backward)
+                    triplet_ops.triplet_attention_backward, row=0, retry=True)
+
+
+@pytest.mark.parametrize('H,heads', [(128, 16), (256, 16)],
+                         ids=['head', 'per-row'])
+def test_triplet_backward_deterministic(cuda, H, heads):
+    """Two launches on the same inputs give bitwise-equal gradients (every
+    sum is owned by one thread or taken over the blocks in a fixed order)."""
+    args, kw = _triplet_case(np.random.default_rng(9), H, heads, 32)
+    g = _rand(np.random.default_rng(10), *args[2].shape, scale=1.0)
+    dev_args = [_dev(a, cuda) for a in args]
+    first, second = (triplet_ops.triplet_attention_backward(
+        g.to(cuda), *dev_args, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    flat = [[a[0], a[1], *a[2], *a[3]] for a in (first, second)]
+    for x, y in zip(*flat):
+        assert torch.equal(x, y)
 
 
 # The backward kernels at the widths above 256 that check_heads admits:
@@ -703,7 +732,7 @@ def test_triplet_wide_backward_kernel(cuda, H, heads, Nl):
     g = _rand(rng, *args[2].shape, scale=1.0)
     _check_backward(triplet_ops.triplet_attention_backward, g, args, kw,
                     cuda, triplet_ops.triplet_attention_backward,
-                    scratch=True)
+                    scratch=True, row=1)
 
 
 @pytest.mark.parametrize('which', ['edge_node', 'edge_pos', 'bond_node',
