@@ -482,21 +482,23 @@ def triplet_backward_work(torch, args, kw):
     return pairs * (3 * 2 * 2 * 13 * H + 2 * (6 + 8) * H) + square, square
 
 
-def backward_phase(torch, ops, captured):
+def backward_phase(torch, ops, captured, rows=False):
     """Each backward kernel against plain autograd (the plain forward's
     autograd backward, on the card) for a seeded cotangent, on the inputs
     the first layer gives each mode, by compare_backward
     (decompdiff_tpu_torch/utils/gradcheck.py: the cotangent zeroed on the
     few rows whose ambiguous relu gates explain the elements outside the
-    tolerance, where any are). The per-row records are forward kernels only
-    (the backward kernels are per-row at every width); the _wide modes give
-    the <kernel>_backward_wide records."""
+    tolerance, where any are). The per-row (_row) modes are forward records,
+    skipped unless `rows` (then <kernel>_backward_row: the edge and bond
+    backward kernels are per-row at every width, the triplet's outside
+    H in 32, 64, 128); the _wide modes give the <kernel>_backward_wide
+    records."""
     from decompdiff_tpu_torch.utils.gradcheck import (
         GRAD_ATOL, GRAD_RTOL, compare_backward)
     results = {}
     gen = torch.Generator(device='cuda').manual_seed(2)
     for (name, mode), (args, kw) in modes(captured):
-        if name.endswith('_row'):
+        if name.endswith('_row') != rows:
             continue
         op = op_name(name)
         mod = ops[op]
@@ -536,7 +538,7 @@ def backward_phase(torch, ops, captured):
             t_ops = ((flops - square) / PEAK_FLOPS
                      + 3 * square / TENSOR_PEAK) * 1e3
         rec = (f'{op}_backward_wide' if name.endswith('_wide')
-               else f'{name}_backward')
+               else f'{op}_backward_row' if rows else f'{name}_backward')
         zeroed = (f'the cotangent zeroed on {v.zeroed} of {v.live} live '
                   f'rows ({v.ambiguous} hold a gate within {v.tau:.3e} of 0)'
                   if v.live else 'the full cotangent')
@@ -1105,6 +1107,10 @@ def main():
         with torch.no_grad():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
+        # the per-row triplet backward at WIDTHS (printed only)
+        backward_phase(torch, ops, {
+            k: c for k, c in width_modes.items()
+            if k[0] == 'triplet_attention_row'}, rows=True)
         del captured, o2_modes, gather_modes, width_modes, gather_model
         # the WIDE backward records after the others, so that their models
         # and inputs do not change the device memory those run in

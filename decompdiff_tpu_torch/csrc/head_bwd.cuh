@@ -17,6 +17,8 @@
 // Per source this is 6 heads x H multiply-adds in place of 3 x 2 x H^2.
 //
 // Shape of a launch: one block of THREADS threads per SM. Two thread maps:
+// (the logits and d alpha, [KC, H] x [H, heads] per chunk, run on the
+// tensor cores: head_products_tc)
 //   warp map:    warp w holds the pair rows (sources) w + WARPS s of a chunk
 //                of KC sources, a lane the channels lane + 32 v (as the
 //                forward's row_mma.cuh), so LayerNorm needs only shuffles;
@@ -39,9 +41,8 @@ constexpr int THREADS = 512;        // 16 warps, one block per SM
 constexpr int WARPS = THREADS / 32;
 constexpr int KC = 32;              // sources per chunk
 constexpr int RW = KC / WARPS;      // pair rows per warp
-constexpr int MAXNH = 16;           // heads: RW x MAXNH products per lane
+constexpr int MAXNH = 16;           // heads: two 8-wide mma tiles
 constexpr int MAXHP = 4;            // heads per thread in the channel map
-static_assert(RW * MAXNH == 32, "each lane receives one product");
 
 template <int H>
 struct Map {
@@ -54,29 +55,13 @@ struct Map {
 // reads of several heads at one channel fall in distinct banks.
 __host__ __device__ constexpr int mstride(int H) { return H + 1; }
 
-// Whether a width and head count take this route: every channel-map thread
-// then owns at most MAXHP heads.
-__host__ __device__ constexpr bool heads_ok(int H, int NH) {
-  return NH <= MAXNH && NH > 0 && H % NH == 0;
-}
+// Row stride of the [KC][H] tile: the tensor-core fragment loads of eight
+// rows at four columns fall in distinct banks.
+__host__ __device__ constexpr int tstride(int H) { return H + 4; }
 
-// v[u] summed over the warp's lanes lands in lanes 2 u and 2 u + 1 (a
-// reduce-scatter: 16 shuffles for 16 sums). Destroys v.
-__device__ __forceinline__ float reduce_scatter(float (&v)[MAXNH]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int step = 0; step < 4; ++step) {
-    const int o = 16 >> step, n = 8 >> step;  // lanes o apart; 2 n values
-    const bool up = lane & o;
-#pragma unroll
-    for (int u = 0; u < n; ++u) {
-      const float send = up ? v[u] : v[u + n];
-      const float keep = up ? v[u + n] : v[u];
-      v[u] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
-}
+// Whether a head count takes this route (NH divides H): every channel-map
+// thread then owns at most MAXHP heads.
+__host__ __device__ constexpr bool heads_ok(int NH) { return NH <= MAXNH; }
 
 // Channel map: the heads of a thread's columns, h0 .. h0 + n - 1, each
 // covering `span` of them (several threads share a head wider than CR).
@@ -104,19 +89,32 @@ __device__ __forceinline__ void row_matrices(
   const int hd = H / NH;
   if ((hd & 3) == 0) {
     constexpr int Q = H / 4;                 // column quads of a row
-    static_assert(2 * H * Q % THREADS == 0, "whole warps per iteration");
-    for (int e = threadIdx.x; e < 2 * H * Q; e += THREADS) {
-      const int br = e / (H * Q), j = e / Q - br * H, c = (e % Q) * 4;
-      const float4 w = __ldg(reinterpret_cast<const float4*>(
-          (br ? wo_v : wo_k) + (size_t)j * H + c));
-      const float* x = (br ? g : q) + c;
-      float s = w.x * x[0];
-      s = fmaf(w.y, x[1], s);
-      s = fmaf(w.z, x[2], s);
-      s = fmaf(w.w, x[3], s);
-      for (int o = hd / 8; o > 0; o >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (c % hd == 0) M[(br * NH + c / hd) * mstride(H) + j] = s;
+    constexpr int N = 2 * H * Q / THREADS;   // quads per thread
+    constexpr int NB = N < 4 ? N : 4;        // loads in flight at once
+    static_assert(N % NB == 0, "whole batches");
+#pragma unroll 1
+    for (int n0 = 0; n0 < N; n0 += NB) {
+      float4 w[NB];
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int e = threadIdx.x + (n0 + u) * THREADS;
+        const int br = e / (H * Q), j = e / Q - br * H, c = (e % Q) * 4;
+        w[u] = __ldg(reinterpret_cast<const float4*>(
+            (br ? wo_v : wo_k) + (size_t)j * H + c));
+      }
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int e = threadIdx.x + (n0 + u) * THREADS;
+        const int br = e / (H * Q), j = e / Q - br * H, c = (e % Q) * 4;
+        const float* x = (br ? g : q) + c;
+        float s = w[u].x * x[0];
+        s = fmaf(w[u].y, x[1], s);
+        s = fmaf(w[u].z, x[2], s);
+        s = fmaf(w[u].w, x[3], s);
+        for (int o = hd / 8; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (c % hd == 0) M[(br * NH + c / hd) * mstride(H) + j] = s;
+      }
     }
   } else {
     static_assert(2 * H * H % THREADS == 0, "whole warps per iteration");
@@ -140,30 +138,69 @@ __device__ __forceinline__ void row_matrices(
   }
 }
 
-// Warp map: the NH-wide products of a chunk's pair rows with M ([NH] rows of
-// stride mstride), y [RW][NV] in the lanes' channels; lane l receives the
-// product of pair row l % RW with head l / RW (0 for heads >= NH).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, each a tf32 value (about 21 significant bits together).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, column-major), tf32 -> float32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The heads-wide products of a chunk on the tensor cores: for source row m
+// of the tile T ([KC][tstride], float32 y) and head h < NH,
+//   out[(k0 + m) NH + h] = f (T[m] . M[h] + bias[h])    (k0 + m < n)
+// with M [NH][mstride]. Warps 0 .. 3 each take 16 rows x 8 heads over the
+// whole depth H, in three tf32 passes (hi hi + hi lo + lo hi: float32
+// accuracy, as row_mma.cuh's bf16 split); the other warps return at once.
+// No barrier.
 template <int H>
-__device__ __forceinline__ float head_products(const float (&y)[RW][H / 32],
-                                               const float* M, int NH) {
-  static_assert(RW == 2, "lane l takes pair row l % 2");
-  const int lane = threadIdx.x & 31;
-  float out = 0.f;
-#pragma unroll
-  for (int s = 0; s < RW; ++s) {
-    float p[MAXNH];
-#pragma unroll
-    for (int h = 0; h < MAXNH; ++h) {
-      p[h] = 0.f;
-      if (h < NH)
-#pragma unroll
-        for (int v = 0; v < H / 32; ++v)
-          p[h] = fmaf(y[s][v], M[h * mstride(H) + lane + 32 * v], p[h]);
-    }
-    const float r = reduce_scatter(p);
-    if ((lane & 1) == s) out = r;
+__device__ __forceinline__ void head_products_tc(const float* T,
+                                                 const float* M, int NH,
+                                                 int k0, int n, float f,
+                                                 const float* bias,
+                                                 float* out) {
+  static_assert(KC == 32 && MAXNH == 16, "2 x 2 tiles of 16 x 8");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 4) return;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 1) * 16, h0 = (warp & 1) * 8;
+  if (h0 >= NH) return;
+  const bool hb = h0 + g < NH;  // this lane's column of B is a real head
+  const float* a_row = T + (m0 + g) * tstride(H) + t;
+  const float* b_row = M + (h0 + g) * mstride(H) + t;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int k = 0; k < H; k += 8) {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    split_tf32(a_row[k], ah[0], al[0]);
+    split_tf32(a_row[8 * tstride(H) + k], ah[1], al[1]);
+    split_tf32(a_row[k + 4], ah[2], al[2]);
+    split_tf32(a_row[8 * tstride(H) + k + 4], ah[3], al[3]);
+    split_tf32(hb ? b_row[k] : 0.f, bh[0], bl[0]);
+    split_tf32(hb ? b_row[k + 4] : 0.f, bh[1], bl[1]);
+    mma_tf32(acc, al, bh[0], bh[1]);
+    mma_tf32(acc, ah, bl[0], bl[1]);
+    mma_tf32(acc, ah, bh[0], bh[1]);
   }
-  return out;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = k0 + m0 + g + (q >> 1) * 8, h = h0 + 2 * t + (q & 1);
+    if (m < n && h < NH) out[m * NH + h] = f * (acc[q] + bias[h]);
+  }
 }
 
 // Warp map: dy[s][v] = sum_h cf C[m_s][h] M[h][c_v] for the pair rows' sources
@@ -196,16 +233,29 @@ __device__ __forceinline__ void head_expand(float (&dy)[RW][H / 32],
 }
 
 // Channel map: Y[u] += sum_{r < nr} C[k0 + r][h0 + u] T[r][c], T the [KC][H]
-// tile of the chunk's y, C [.][NH] the sources' dh or alpha. No barrier.
+// tile (row stride tstride) of the chunk's y, C [.][NH] the sources' dh or alpha. No barrier.
 template <int H>
 __device__ __forceinline__ void accumulate_heads(float (&Y)[MAXHP],
                                                  const float* T,
                                                  const float* C, int k0,
                                                  int nr, int NH) {
+  static_assert(MAXHP == 4, "a thread's heads are one float4 of C");
   const int c = threadIdx.x % H;
   const HeadSlots<H> hs(H / NH);
+  if (hs.n == 4) {  // h0 % 4 == 0 and NH % 4 == 0: aligned
+    for (int r = 0; r < nr; ++r) {
+      const float y = T[r * tstride(H) + c];
+      const float4 w =
+          *reinterpret_cast<const float4*>(C + (k0 + r) * NH + hs.h0);
+      Y[0] = fmaf(w.x, y, Y[0]);
+      Y[1] = fmaf(w.y, y, Y[1]);
+      Y[2] = fmaf(w.z, y, Y[2]);
+      Y[3] = fmaf(w.w, y, Y[3]);
+    }
+    return;
+  }
   for (int r = 0; r < nr; ++r) {
-    const float y = T[r * H + c];
+    const float y = T[r * tstride(H) + c];
     const float* cr = C + (k0 + r) * NH + hs.h0;
 #pragma unroll
     for (int u = 0; u < MAXHP; ++u)

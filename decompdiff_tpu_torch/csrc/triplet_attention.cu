@@ -16,8 +16,9 @@
 // one forward is ~19 GFLOP of per-triplet products against ~26 MB of
 // inputs and output, as chip_smoke.py counts them; the two [H, H] second
 // linears are ~17 GFLOP of it, and the largest kernel of a denoiser call.
-// The backward recomputes the forward and adds two products per forward
-// product (~52 GFLOP), still against O(Nl^3) bytes.
+// The backward, head-factorized (head_bwd.cuh), needs no per-triplet
+// [H, H] product: ~13 GFLOP at those shapes (chip_smoke.py), against
+// O(Nl^3) bytes.
 //
 // Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
 // 512-thread block per SM. Each block stages Wo_k and Wo_v, split into
@@ -45,17 +46,38 @@
 // (j -> i) is masked writes zeros without computing. The blocks of
 // H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
-// Backward design (row_attention_bwd.cuh): the TPU kernel sums
-// d t_src[j, k] = sum_i d pre[i, j, k] over its sequential grid. Here a
-// block owns one (complex, j) at a time and loops over the rows i, keeping
-// d t_src[j, :, :] of both branches ([Nl][H] each) in shared memory, so the
-// sum is deterministic and written once; d t_row, d q and d angle are per
-// row and written directly. d Wa stays in registers per thread until the
-// block ends. Every per-triplet intermediate is recomputed in shared memory,
-// or, where the d t_src sums and row buffers do not fit there (H >= 512, or
-// Nl above 40 at H = 256), in a device-memory scratch that the wrapper
-// allocates; blocks of H > 256 threads take a 1024-thread build
-// (row_attention_bwd.cuh).
+// Backward: the TPU kernel sums d t_src[j, k] = sum_i d pre[i, j, k] over
+// its sequential grid. Here a block owns one (complex, j) at a time and
+// loops over the rows i, keeping d t_src[j, :, :] of both branches ([Nl][H]
+// each) in shared memory, so the sum is deterministic and written once;
+// d t_row, d q and d angle are per row and written directly. Parameter
+// gradients are summed per block and then over the blocks' slots in a fixed
+// order, so two launches give bitwise-equal gradients.
+//
+// Backward design, H in 32, 64, 128 with at most 16 heads and Nl up to 48
+// (head_bwd.cuh): the output cotangent factorizes by head, so the [H, H]
+// products move to the row (Qk, Gv, d q, d Wo: five per row) and the
+// per-triplet ones shrink to heads-wide products, on the CUDA cores. A
+// persistent grid of one 512-thread block per SM over the items (b, j); a
+// row i goes in chunks of 32 sources k: pass A rebuilds pre of both
+// branches (the angular code, Wa, t_row, t_src), LayerNorm and relu, and
+// keeps logit and d alpha per (source, head) in shared memory; the softmax
+// and its backward per head give alpha and dh; pass B rebuilds pre again
+// and forms the head sums Yd, Ya, d y, the relu and LayerNorm backward to
+// d pre, d t_src, d t_row, d Wa and d angle. d Wo of both branches stays in
+// shared memory ([H][H + 1] each, 129 KB at H = 128) until the block ends.
+// What bounds it (clock64 phase counts at the released shapes, an H100):
+// the heads-wide products and the per-source sums are shared-memory bound
+// (each value read from shared memory serves two multiply-adds), and the
+// per-row Qk, Gv and d q read both Wo through L2 for every row (no room
+// beside the d Wo sums); 128 registers a thread, with spills.
+//
+// Backward design at every other width (row_attention_bwd.cuh): one row per
+// block iteration, one thread per channel, two blocks per SM; every
+// per-triplet intermediate is recomputed in shared memory, or, where the
+// d t_src sums and row buffers do not fit there (H >= 512, or Nl above 40
+// at H = 256), in a device-memory scratch that the wrapper allocates;
+// blocks of H > 256 threads take a 1024-thread build.
 #include "head_bwd.cuh"
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
@@ -586,8 +608,8 @@ struct HeadLayout {
   static constexpr size_t F = sizeof(float);
   static constexpr size_t dwo = 0;                                // [2][H][MS]
   static constexpr size_t ts = dwo + F * 2 * H * hb::mstride(H);  // [2][NLMAX][H]
-  static constexpr size_t tile = ts + F * 2 * NLMAX * H;          // [KC][H]
-  static constexpr size_t m = tile + F * hb::KC * H;          // [2 MAXNH][MS]
+  static constexpr size_t tile = ts + F * 2 * NLMAX * H;  // [KC][tstride]
+  static constexpr size_t m = tile + F * hb::KC * hb::tstride(H);
   static constexpr size_t lg = m + F * 2 * hb::MAXNH * hb::mstride(H);
   static constexpr size_t da = lg + F * NLMAX * hb::MAXNH;        // [Nl][NH]
   static constexpr size_t vl = da + F * NLMAX * hb::MAXNH;
@@ -614,6 +636,7 @@ __device__ __forceinline__ void head_chunk_setup(const TripletArgs& f,
     const float x = in ? f.angle[row * Nl + k] : 0.f;
     if (fq == 6) {
       ang[r][0] = x;
+      for (int t = A; t < AP; ++t) ang[r][t] = 0.f;
       if (dco) dco[r][0] = 1.f;
       if (VL && in) VL[k] = k != i && mrow_j[k] > 0.5f;
     } else {
@@ -682,12 +705,14 @@ __device__ __forceinline__ void head_tile_pre(
 }
 
 // What pass B of one branch adds to: the block's sums over its rows (d Wa
-// rows t = part + P s in the channel map, d ln_scale and d ln_bias of the
+// rows t = part NT + s in the channel map, d ln_scale and d ln_bias of the
 // lanes' channels in the warp map) and the row's (Y: Yd or Ya of the
 // thread's heads, trow: sum over the sources of d pre at its channel).
 template <int H>
 struct HeadBranchSums {
   static constexpr int NT = (A + hb::Map<H>::P - 1) / hb::Map<H>::P;
+  static_assert(NT * hb::Map<H>::P <= AP && AP % NT == 0,
+                "a part's code rows are NT aligned floats of a row of ang");
   float wa[NT];
   float lns[H / 32], lnb[H / 32];
   float Y[hb::MAXHP];
@@ -697,9 +722,9 @@ struct HeadBranchSums {
 // Pass B of one branch over a chunk (sources k0 .. k0 + KC - 1): y again,
 // the row's head sums Y += C^T y (channel map, over the tile T), d y = cf C M
 // (M: Qk or Gv, C: dh or alpha [Nl][NH]), the relu and LayerNorm backward
-// to d pre, added to the item's d t_src rows TS and, through wd, to e[s]
-// (d angle of the pair rows), then d Wa and d t_row (channel map, over T).
-// Contains block barriers and ends with one.
+// to d pre, added to the item's d t_src rows TS and, through dco and Wa,
+// to e[s] (d angle of the pair rows), then d Wa and d t_row (channel map,
+// over T). Contains block barriers and ends with one.
 template <int H>
 __device__ __forceinline__ void head_branch_back(
     const float (*ang)[AP], const float (*dco)[AP], const Branch& br,
@@ -707,7 +732,7 @@ __device__ __forceinline__ void head_branch_back(
     const float* C,
     float cf, int k0, int Nl, int NH, float* T, float* TS,
     HeadBranchSums<H>& acc, float (&e)[hb::RW]) {
-  constexpr int NV = H / 32, P = hb::Map<H>::P;
+  constexpr int NV = H / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = threadIdx.x % H, part = threadIdx.x / H;
   const int nr = min(hb::KC, Nl - k0);
@@ -720,7 +745,7 @@ __device__ __forceinline__ void head_branch_back(
     for (int s = 0; s < hb::RW; ++s)
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        T[(warp + hb::WARPS * s) * H + lane + 32 * v] = y[s][v];
+        T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] = y[s][v];
         gate |= (y[s][v] > 0.f ? 1u : 0u) << (s * NV + v);
       }
   }
@@ -748,7 +773,7 @@ __device__ __forceinline__ void head_branch_back(
     for (int v = 0; v < NV; ++v) {
       dp[s][v] = rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
       if (k < Nl) TS[(size_t)k * H + lane + 32 * v] += dp[s][v];
-      T[(warp + hb::WARPS * s) * H + lane + 32 * v] = dp[s][v];
+      T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] = dp[s][v];
     }
   }
   // the angle's chain: e[s] += sum_t dco[r_s][t] (d pre . Wa[t])
@@ -762,14 +787,20 @@ __device__ __forceinline__ void head_branch_back(
         e[s] = fmaf(dco[warp + hb::WARPS * s][t] * w, dp[s][v], e[s]);
     }
   __syncthreads();
+  constexpr int NT = HeadBranchSums<H>::NT;
   for (int r = 0; r < nr; ++r) {
-    const float d = T[r * H + c];
+    const float d = T[r * hb::tstride(H) + c];
     acc.trow += d;
+    float a[NT];  // ang[r][part NT + s]; rows past A are 0
+    if constexpr (NT == 4) {
+      const float4 a4 = reinterpret_cast<const float4*>(ang[r])[part];
+      a[0] = a4.x, a[1] = a4.y, a[2] = a4.z, a[3] = a4.w;
+    } else {
 #pragma unroll
-    for (int s = 0; s < HeadBranchSums<H>::NT; ++s) {
-      const int t = part + P * s;
-      if (t < A) acc.wa[s] = fmaf(ang[r][t], d, acc.wa[s]);
+      for (int s = 0; s < NT; ++s) a[s] = ang[r][part * NT + s];
     }
+#pragma unroll
+    for (int s = 0; s < NT; ++s) acc.wa[s] = fmaf(a[s], d, acc.wa[s]);
   }
   __syncthreads();
 }
@@ -789,7 +820,7 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
   float* DWv = DWk + H * MS;
   float* TSk = reinterpret_cast<float*>(dyn + lay::ts);   // [Nl][H] d t_src
   float* TSv = TSk + lay::NLMAX * H;
-  float* T = reinterpret_cast<float*>(dyn + lay::tile);   // [KC][H]
+  float* T = reinterpret_cast<float*>(dyn + lay::tile);   // [KC][H + 4]
   float* M = reinterpret_cast<float*>(dyn + lay::m);      // Qk | Gv, then Yd
   float* LG = reinterpret_cast<float*>(dyn + lay::lg);    // [Nl][NH]
   float* DA = reinterpret_cast<float*>(dyn + lay::da);
@@ -840,17 +871,25 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
         __syncthreads();  // M and HS written; the last chunk is done
         head_chunk_setup(f, row, i, mrow_j, k0, ang, nullptr, VL);
         __syncthreads();
-        float xh[hb::RW][NV], rs[hb::RW], y[hb::RW][NV];
-        const int s = lane % hb::RW, h = lane / hb::RW;
-        const int k = k0 + warp + hb::WARPS * s;
-        head_tile_pre<H>(ang, f.k, wak, f.k.t_row + row * H, f.k.t_src + src0,
-                         k0, Nl, xh, rs, y);
-        float p = hb::head_products<H>(y, M, NH);
-        if (h < NH && k < Nl) LG[k * NH + h] = scale * (p + HS[h]);
-        head_tile_pre<H>(ang, f.v, wav, f.v.t_row + row * H, f.v.t_src + src0,
-                         k0, Nl, xh, rs, y);
-        p = hb::head_products<H>(y, M + NH * MS, NH);
-        if (h < NH && k < Nl) DA[k * NH + h] = p + HS[hb::MAXNH + h];
+        // y of each branch through the tile T, its heads-wide products on
+        // the tensor cores
+        for (int br = 0; br < 2; ++br) {
+          float xh[hb::RW][NV], rs[hb::RW], y[hb::RW][NV];
+          const Branch& bp = br ? f.v : f.k;
+          head_tile_pre<H>(ang, bp, br ? wav : wak, bp.t_row + row * H,
+                           bp.t_src + src0, k0, Nl, xh, rs, y);
+          if (br) __syncthreads();  // the k products are done with T
+#pragma unroll
+          for (int s = 0; s < hb::RW; ++s)
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] =
+                  y[s][v];
+          __syncthreads();
+          hb::head_products_tc<H>(T, M + br * NH * MS, NH, k0, Nl,
+                                  br ? 1.f : scale, HS + br * hb::MAXNH,
+                                  br ? DA : LG);
+        }
       }
       __syncthreads();
       hb::head_softmax(LG, DA, VL, Nl, NH, HS + 2 * hb::MAXNH);
@@ -911,7 +950,7 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
   rowbwd::block_slots(a.slots, A, H, H, gk, gv);
 #pragma unroll
   for (int s = 0; s < HeadBranchSums<H>::NT; ++s) {
-    const int t = part + P * s;
+    const int t = part * HeadBranchSums<H>::NT + s;
     if (t < A) {
       gk.wfeat[t * H + c] = sk.wa[s];
       gv.wfeat[t * H + c] = sv.wa[s];
@@ -953,7 +992,7 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
 template <int H>
 cudaError_t head_fits(int NH, int Nl, bool* ok) {
   *ok = false;
-  if (!hb::heads_ok(H, NH) || Nl > HeadLayout<H>::NLMAX) return cudaSuccess;
+  if (!hb::heads_ok(NH) || Nl > HeadLayout<H>::NLMAX) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
