@@ -17,8 +17,6 @@
 // Per source this is 6 heads x H multiply-adds in place of 3 x 2 x H^2.
 //
 // Shape of a launch: one block of THREADS threads per SM. Two thread maps:
-// (the logits and d alpha, [KC, H] x [H, heads] per chunk, run on the
-// tensor cores: head_products_tc)
 //   warp map:    warp w holds the pair rows (sources) w + WARPS s of a chunk
 //                of KC sources, a lane the channels lane + 32 v (as the
 //                forward's row_mma.cuh), so LayerNorm needs only shuffles;
@@ -28,7 +26,12 @@
 // The per-source sums over a chunk (Yd, Ya, and the kernel's own) run in the
 // channel map over a [KC][H] tile that the warp map writes; each element of
 // every accumulator is owned by one thread and summed in a fixed order, so
-// the block's sums are deterministic.
+// the block's sums are deterministic. The logits and d alpha ([KC, H] x
+// [H, heads] a chunk) run on the tensor cores from that tile
+// (head_products_tc); the other heads-wide products on the CUDA cores, each
+// shared-memory value feeding RW multiply-adds: tensor-core versions of
+// them (one warp per 8 channels, three dependent mma.sync a step) were no
+// faster at the released shapes.
 #pragma once
 
 #include <cuda_runtime.h>

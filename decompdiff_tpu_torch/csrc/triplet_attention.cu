@@ -57,7 +57,7 @@
 // Backward design, H in 32, 64, 128 with at most 16 heads and Nl up to 48
 // (head_bwd.cuh): the output cotangent factorizes by head, so the [H, H]
 // products move to the row (Qk, Gv, d q, d Wo: five per row) and the
-// per-triplet ones shrink to heads-wide products, on the CUDA cores. A
+// per-triplet ones shrink to heads-wide products. A
 // persistent grid of one 512-thread block per SM over the items (b, j); a
 // row i goes in chunks of 32 sources k: pass A rebuilds pre of both
 // branches (the angular code, Wa, t_row, t_src), LayerNorm and relu, and
@@ -66,11 +66,14 @@
 // and forms the head sums Yd, Ya, d y, the relu and LayerNorm backward to
 // d pre, d t_src, d t_row, d Wa and d angle. d Wo of both branches stays in
 // shared memory ([H][H + 1] each, 129 KB at H = 128) until the block ends.
-// What bounds it (clock64 phase counts at the released shapes, an H100):
-// the heads-wide products and the per-source sums are shared-memory bound
-// (each value read from shared memory serves two multiply-adds), and the
-// per-row Qk, Gv and d q read both Wo through L2 for every row (no room
-// beside the d Wo sums); 128 registers a thread, with spills.
+// The logits and d alpha run on the tensor cores (three tf32 passes), the
+// other heads-wide products on the CUDA cores. What bounds it (clock64
+// phase counts at the released shapes, an H100, PERF.md): latency between
+// the block's barriers more than any unit's rate; the per-row Qk, Gv and
+// d q read both Wo through L2 for every row (no room beside the d Wo sums:
+// about a fifth of the cycles), and rebuilding pre (four times a row) and
+// the CUDA-core products and sums, each shared-memory value feeding two
+// multiply-adds, take most of the rest.
 //
 // Backward design at every other width (row_attention_bwd.cuh): one row per
 // block iteration, one thread per channel, two blocks per SM; every

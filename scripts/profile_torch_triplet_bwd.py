@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Where the head-factorized triplet-attention backward spends its cycles.
+
+    python3 scripts/profile_torch_triplet_bwd.py     # on a machine with a GPU
+
+Copies decompdiff_tpu_torch into build/profile_triplet_bwd (git-ignored),
+inserts clock64 counters into the copy of csrc/triplet_attention.cu at the
+phase boundaries of triplet_attention_bwd_head_kernel (thread 0 of each
+block adds the cycles since its last counter, most of them just after a
+block barrier, so a phase's count is the block's time in it), builds the
+copy, runs one launch at the released training shapes (B=8, Nl=32, H=128,
+16 heads, every ligand atom bonded to every other, seeded random inputs)
+and prints each phase's share of the cycles, summed over the blocks. The
+repository's own sources are not changed. The counters cost a few percent
+of the kernel's time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+COPY = REPO / 'build' / 'profile_triplet_bwd'
+
+COUNTERS = '''namespace hb = headbwd;
+__device__ unsigned long long g_prof[16];
+#define PROF(n) do { if (threadIdx.x == 0) { long long t_ = clock64(); \\
+  atomicAdd(&g_prof[n], (unsigned long long)(t_ - t_last)); t_last = t_; } \\
+  } while (0)
+'''
+READER = '''extern "C" int prof_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  unsigned long long z[16] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+  return (int)e;
+}
+
+extern "C" int triplet_attention_bwd_route('''
+# (text in the kernel, the same text with a counter) in the kernel's order
+MARKS = [
+    ('  for (int e = tid; e < 2 * H * MS; e += hb::THREADS) DWk[e] = 0.f;\n',
+     '  long long t_last = clock64();\n'
+     '  for (int e = tid; e < 2 * H * MS; e += hb::THREADS) DWk[e] = 0.f;\n'),
+    ('      if (!row_has_source(f, (int)row, i, mrow_j)) {',
+     '      PROF(0);\n      if (!row_has_source(f, (int)row, i, mrow_j)) {'),
+    ('      // pass A: logits and d alpha of every source\n',
+     '      __syncthreads(); PROF(1);\n'
+     '      // pass A: logits and d alpha of every source\n'),
+    ('      hb::head_softmax(LG, DA, VL, Nl, NH, HS + 2 * hb::MAXNH);\n',
+     '      PROF(2);\n'
+     '      hb::head_softmax(LG, DA, VL, Nl, NH, HS + 2 * hb::MAXNH);\n'
+     '      __syncthreads(); PROF(3);\n'),
+    ('        float e[hb::RW] = {};\n', '        PROF(4);\n'
+     '        float e[hb::RW] = {};\n'),
+    ("      // the row's d t_row, d bo, d Wo and d q\n",
+     "      PROF(9);\n      // the row's d t_row, d bo, d Wo and d q\n"),
+    ('      hb::store_heads<H>(M, sk.Y, NH);  // M is free: pass B ended in a '
+     'barrier\n      __syncthreads();\n',
+     '      hb::store_heads<H>(M, sk.Y, NH);  // M is free: pass B ended in a '
+     'barrier\n      __syncthreads(); PROF(10);\n'),
+    ('        a.d_q[row * H + c] = scale * (t + __ldg(f.k.bo + c) * '
+     'S[c / hd]);\n      }\n',
+     '        a.d_q[row * H + c] = scale * (t + __ldg(f.k.bo + c) * '
+     'S[c / hd]);\n      }\n      __syncthreads(); PROF(11);\n'),
+]
+PHASES = ['row start, row_has_source', 'q, g; Qk and Gv (Wo through L2)',
+          'pass A: pre, logits, d alpha', 'softmax and its backward',
+          'pass B: chunk set-up', 'pass B: pre again, y to the tile',
+          'pass B: Yd, Ya sums', 'pass B: d y, LayerNorm backward, d angle',
+          'pass B: d Wa, d t_row', 'pass B: end of the row',
+          'end: d Wo update, Yd to shared memory',
+          'end: d q (Wo_k through L2)']
+
+
+def instrument(src: str) -> str:
+    """The kernel source with the counters of MARKS and, inside
+    head_branch_back, one after each of its block barriers (phases 5-8,
+    both branches summed)."""
+    src = src.replace('namespace hb = headbwd;', COUNTERS, 1)
+    for plain, counted in MARKS:
+        if plain not in src:
+            raise SystemExit(f'profile: the kernel changed; not found:\n{plain}')
+        src = src.replace(plain, counted, 1)
+    start = src.index('__device__ __forceinline__ void head_branch_back(')
+    end = src.index('// Persistent: block g takes work items', start)
+    body = src[start:end].replace(
+        '    HeadBranchSums<H>& acc, float (&e)[hb::RW]) {',
+        '    HeadBranchSums<H>& acc, float (&e)[hb::RW], long long& t_last) {',
+        1)
+    parts = body.split('__syncthreads();')
+    if len(parts) != 5:
+        raise SystemExit('profile: head_branch_back no longer has 4 barriers')
+    body = ''.join(p + f'__syncthreads(); PROF({5 + n});'
+                   for n, p in enumerate(parts[:-1])) + parts[-1]
+    src = src[:start] + body + src[end:]
+    src = src.replace('TSk, sk, e);', 'TSk, sk, e, t_last);', 1)
+    src = src.replace('NH, T, TSv, sv, e);', 'NH, T, TSv, sv, e, t_last);', 1)
+    return src.replace('extern "C" int triplet_attention_bwd_route(', READER,
+                       1)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print('profile: needs a CUDA device', file=sys.stderr)
+        return 1
+    shutil.rmtree(COPY, ignore_errors=True)
+    shutil.copytree(REPO / 'decompdiff_tpu_torch',
+                    COPY / 'decompdiff_tpu_torch')
+    cu = COPY / 'decompdiff_tpu_torch' / 'csrc' / 'triplet_attention.cu'
+    cu.write_text(instrument(cu.read_text()))
+    sys.path.insert(0, str(COPY))
+    from decompdiff_tpu_torch.ops import _build
+    from decompdiff_tpu_torch.ops import triplet_attention as T
+    from decompdiff_tpu_torch.ops.common import Branch
+    _build.BUILD_DIR = COPY / 'lib'
+    _build.build(['triplet_attention'])
+    lib = ctypes.CDLL(str(_build.library_path('triplet_attention')))
+
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    B, Nl, H, heads = 8, 32, 128, 16
+
+    def rand(*shape, scale=0.3):
+        return torch.as_tensor(rng.normal(size=shape) * scale,
+                               dtype=torch.float32, device=dev)
+
+    def branch():
+        return Branch(rand(B, Nl, Nl, H, scale=1.0),
+                      rand(B, Nl, Nl, H, scale=1.0), rand(13, H), rand(H, H),
+                      rand(H), 1.0 + rand(H), rand(H))
+    mask = (1.0 - torch.eye(Nl, device=dev)).expand(B, Nl, Nl).contiguous()
+    k, v = branch(), branch()
+    angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
+                            dtype=torch.float32, device=dev)
+    q, g = rand(B, Nl, Nl, H, scale=1.0), rand(B, Nl, Nl, H, scale=1.0)
+    counts = (ctypes.c_ulonglong * 16)()
+    for _ in range(2):      # the first launch warms up; the second counts
+        lib.prof_read(counts)
+        T.triplet_attention_backward(g, angle, mask, q, k, v, n_heads=heads)
+        torch.cuda.synchronize()
+    lib.prof_read(counts)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip() or torch.cuda.get_device_name(0))
+    blocks = min(B * Nl, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    total = sum(counts[n] for n in range(len(PHASES)))
+    print(f'triplet backward, B={B} Nl={Nl} H={H} heads={heads}: '
+          f'{total / blocks / 1e6:.3f} Mcycles per block')
+    for n, name in enumerate(PHASES):
+        print(f'  {name:42s} {100 * counts[n] / total:6.2f}%  '
+              f'({counts[n] / blocks / 1e6:.3f} Mcycles per block)')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

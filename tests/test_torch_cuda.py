@@ -21,7 +21,10 @@ tensor-core kernels' (H = 96, 256, 1024) on their per-row kernels, and the
 bond forward at H = 512 and 1024 (blocks of more than 256 threads) on its
 per-row kernel and at H = 32, 64 and 128 on its tensor-core kernel. The
 backward kernels run at H = 512 and 1024 (1024-thread builds, row buffers
-in device memory) and the triplet backward also at H = 256 with Nl = 48.
+in device memory) and the triplet backward also at H = 256 with Nl = 48
+(per-row); at H = 32, 64 and 128 the triplet backward is head-factorized,
+at Nl = 13, 20, 32, 40 and 48, with a complex without bonds, and two of
+its launches give bitwise-equal gradients.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
