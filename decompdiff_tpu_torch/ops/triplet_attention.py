@@ -32,13 +32,13 @@ of either variant, also count in `triplet_attention.row_launches`.
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
 in a backward kernel, which the launcher also chooses by width and reports:
-for H in 32, 64, 128 with at most 16 heads (and Nl up to 48 at H = 128,
-within a block's shared memory) the head-factorized kernel (csrc/head_bwd.cuh:
-the cotangents of k and v factorize by head, so no per-triplet [H, H]
-product is left; one block per SM), for every other width the per-row
-kernel (csrc/row_attention_bwd.cuh; two blocks per SM), whose launches also
-count in `triplet_attention_backward.row_launches`, and, with the row
-buffers in a device-memory scratch (wide H or large Nl), in
+for H in 32, 64, 128 with at most 16 heads and Nl up to 48 the
+head-factorized kernel (csrc/head_bwd.cuh: the cotangents of k and v
+factorize by head, so no per-triplet [H, H] product is left; one block per
+SM), otherwise the per-row kernel (csrc/row_attention_bwd.cuh; two blocks
+per SM), whose launches also count in
+`triplet_attention_backward.row_launches`, and, with the row buffers in a
+device-memory scratch (wide H or large Nl), in
 `triplet_attention_backward.scratch_launches`.
 `triplet_attention_backward_factored` is the head-factorized algorithm in
 plain PyTorch, for the tests.
@@ -103,8 +103,8 @@ def triplet_attention_backward_reference(g, angle, mask, q, k: Branch,
 
 def triplet_attention_backward_factored(g, angle, mask, q, k: Branch,
                                         v: Branch, *, n_heads: int):
-    """The head-factorized backward that the tensor-core-width backward
-    kernel computes, in plain PyTorch (for tests; no path calls it). Returns
+    """The head-factorized backward that the backward kernel computes at H
+    in 32, 64, 128, in plain PyTorch (for tests; no path calls it). Returns
     what triplet_attention_backward_reference returns.
 
     q[i, j] and g[i, j] belong to the row, so the cotangents of k and v
@@ -120,7 +120,8 @@ def triplet_attention_backward_factored(g, angle, mask, q, k: Branch,
     hd = H // n_heads
     scale = 1.0 / math.sqrt(hd)
     a_feat = angular_encoding(angle)                          # [B,i,j,k,13]
-    freqs = torch.as_tensor(ANGULAR_FREQS, device=angle.device)
+    freqs = torch.as_tensor(ANGULAR_FREQS, dtype=angle.dtype,
+                            device=angle.device)
     af = angle[..., None] * freqs
     d_code = torch.cat([torch.ones_like(angle[..., None]),
                         freqs * torch.cos(af), -freqs * torch.sin(af)], -1)
