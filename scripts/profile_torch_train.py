@@ -45,7 +45,8 @@ B, NUM_PROTEIN, NUM_LIGAND, NUM_GROUPS = 8, 320, 32, 6
 TRAIN_GROUPS = (
     ('edge_attention backward', ('edge_attention_bwd_kernel',)),
     ('bond_attention backward', ('bond_attention_bwd_kernel',)),
-    ('triplet_attention backward', ('triplet_attention_bwd_kernel',)),
+    ('triplet_attention backward', ('triplet_attention_bwd_kernel',
+                                    'triplet_attention_bwd_head_kernel')),
     ('backward slot sums', ('reduce_slots',)),
     ('optimizer (Adam, clip)', ('multi_tensor', 'foreach', 'adam', 'Adam')),
 ) + GROUPS
