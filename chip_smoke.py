@@ -23,9 +23,10 @@
    lie outside the tolerance, on the few rows whose relu gates within
    rounding of 0 explain them: decompdiff_tpu_torch/utils/gradcheck.py),
    timing each with CUDA events beside the previous time (PREVIOUS_MS) and
-   its bounds (the triplet backward's from its head-factorized least work,
-   the old all-FP32 count beside it); then the same for the backward
-   kernels on the inputs of a denoiser call at WIDE (B=2).
+   its bounds (the triplet and edge backward's from their head-factorized
+   least work, the old all-FP32 count beside it); then the per-row edge
+   and triplet backward at WIDTHS (printed only), and the backward kernels
+   on the inputs of a denoiser call at WIDE (B=2).
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
    the same with pallas_bf16, then with pallas_gather_bf16, then with the
@@ -42,9 +43,10 @@
    Np=320, Nl=32 with kernels on, counters set to 0 just before and read
    just after, for uni_o2_bond, then with pallas_gather_bf16, then uni_o2,
    then uni_o2_bond at WIDE (B=2: per-row forwards, backward row buffers in
-   device memory, launches exact in every counter; the triplet backward is
-   the head-factorized kernel at the released width, with no per-row
-   launch, and the per-row kernel at WIDE, every launch); the same steps with
+   device memory, launches exact in every counter; the edge and triplet
+   backward are the head-factorized kernels at the released width, with no
+   per-row launch, and the per-row kernels at WIDE, every launch); the
+   same steps with
    every kernel replaced by its plain version; seconds per step and peak
    device memory of both; one step's loss, grad norm and parameter
    gradients, kernels on against off (with pallas_gather_bf16 also against
@@ -166,9 +168,10 @@ KERNEL_SOURCES = {
 }
 # Each kernel mode's ms as this script measured it on the per-row
 # CUDA-core kernel, before that kernel's redesign (the forwards onto the
-# tensor cores, the triplet backward head-factorized; the other backward
-# kernels are still per-row; PERF.md kernel table, NVIDIA H100 80GB HBM3,
-# 700 W), printed beside this run's.
+# tensor cores, the triplet and edge backward head-factorized; the bond
+# backward is still per-row; PERF.md kernel table, NVIDIA H100 80GB HBM3,
+# 700 W; the edge backward's from the last run of its per-row kernel at
+# these shapes), printed beside this run's.
 PREVIOUS_MS = {
     ('edge_attention', 'node'): '0.4334-0.4361',
     ('edge_attention', 'pos'): '0.3852-0.3888',
@@ -176,9 +179,11 @@ PREVIOUS_MS = {
     ('bond_attention', 'node'): '0.0997-0.0999',
     ('bond_attention', 'pos'): '0.0934-0.0937',
     ('triplet_attention', 'node'): '1.8163-1.8297',
-    ('edge_attention_backward', 'node'): '2.9431-2.9450',
-    ('edge_attention_backward', 'pos'): '2.8171-2.8196',
-    ('edge_attention_mgate_backward', 'node'): '3.0699-3.0760',
+    ('edge_attention_backward', 'node'): '2.9100-2.9114',
+    ('edge_attention_backward', 'pos'): '2.8446-2.8465',
+    ('edge_attention_mgate_backward', 'node'): '2.9901-2.9944',
+    ('edge_attention_gather_backward', 'node'): '2.8993-2.8997',
+    ('edge_attention_gather_backward', 'pos'): '2.8403-2.8424',
     ('bond_attention_backward', 'node'): '0.5065-0.5089',
     ('bond_attention_backward', 'pos'): '0.5330-0.5357',
     ('triplet_attention_backward', 'node'): '6.3579-6.9527',
@@ -482,6 +487,30 @@ def triplet_backward_work(torch, args, kw):
     return pairs * (3 * 2 * 2 * 13 * H + 2 * (6 + 8) * H) + square, square
 
 
+def edge_backward_work(torch, args, kw):
+    """(FLOPs, product FLOPs among them) of the least work of the edge
+    backward on these inputs, head-factorized (csrc/head_bwd.cuh), 2 per
+    multiply-add: per valid edge the first linears of both branches again,
+    d w_feat and the distance chain (21 wide for each of the edge's 1 or 2
+    types), the LayerNorm and relu forward (6 a channel) and backward (8)
+    of both branches, and the six heads-wide products (logits, d alpha or
+    pos mode's v, d y of both branches, Yd, Ya or pos mode's d Wo_v), with
+    the m-gate three H-wide ones more (s, its d y_v, Ys); per live row (one
+    with a valid edge) the [H, H] products: Qk, d q and d Wo_k, and in
+    node mode Gv and d Wo_v; with the m-gate once Wo_v wm and Wo_v^T Ys.
+    The products are the tensor-core share."""
+    valid = args[4] > 0.5                 # (x, lig, group, idx, mask, ...)
+    pairs, rows = int(valid.sum()), int(valid.any(-1).sum())
+    H, nh = args[-3].shape[-1], kw['n_heads']
+    n_types = 1 if args[2] is None else 2
+    gate = kw.get('gate') is not None
+    square = (pairs * 2 * (6 * nh + 3 * gate) * H
+              + rows * 2 * (3 if kw.get('pos_mode', False) else 5) * H * H
+              + 2 * 2 * H * H * gate)
+    return (pairs * (3 * 2 * 2 * 21 * n_types * H + 2 * (6 + 8) * H)
+            + square, square)
+
+
 def backward_phase(torch, ops, captured, rows=False):
     """Each backward kernel against plain autograd (the plain forward's
     autograd backward, on the card) for a seeded cotangent, on the inputs
@@ -489,9 +518,9 @@ def backward_phase(torch, ops, captured, rows=False):
     (decompdiff_tpu_torch/utils/gradcheck.py: the cotangent zeroed on the
     few rows whose ambiguous relu gates explain the elements outside the
     tolerance, where any are). The per-row (_row) modes are forward records,
-    skipped unless `rows` (then <kernel>_backward_row: the edge and bond
-    backward kernels are per-row at every width, the triplet's outside
-    H in 32, 64, 128); the _wide modes give the <kernel>_backward_wide
+    skipped unless `rows` (then <kernel>_backward_row: the bond backward
+    kernel is per-row at every width, the edge and triplet's outside H in
+    32, 64, 128); the _wide modes give the <kernel>_backward_wide
     records."""
     from decompdiff_tpu_torch.utils.gradcheck import (
         GRAD_ATOL, GRAD_RTOL, compare_backward)
@@ -523,18 +552,20 @@ def backward_phase(torch, ops, captured, rows=False):
         ms = time_ms(torch, lambda: kernel(g, *args, **kw))
         plain_ms = time_ms(torch, lambda: plain(g, *args, **kw), iters=5)
         # recompute plus two products per forward product, all at the FP32
-        # peak; the triplet's: its head-factorized least work, the products
-        # at three bf16 tensor-core passes (as TENSOR_PASSES counts the
-        # forwards), the rest at the FP32 peak, whichever kernel runs it;
-        # every input and the cotangent read once, every gradient written
-        # once
+        # peak; the triplet's and the edge's: their head-factorized least
+        # work, the products at three bf16 tensor-core passes (as
+        # TENSOR_PASSES counts the forwards), the rest at the FP32 peak,
+        # whichever kernel runs it; every input and the cotangent read once,
+        # every gradient written once
         flops = 3 * work(torch, name, args, kw, out)[0]
         moved = (nbytes(call_inputs(torch, args, kw)) + nbytes([g])
                  + nbytes(got))
         t_fp32, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
         t_ops = t_fp32
-        if op == 'triplet_attention':
-            flops, square = triplet_backward_work(torch, args, kw)
+        least = {'triplet_attention': triplet_backward_work,
+                 'edge_attention': edge_backward_work}.get(op)
+        if least:
+            flops, square = least(torch, args, kw)
             t_ops = ((flops - square) / PEAK_FLOPS
                      + 3 * square / TENSOR_PEAK) * 1e3
         rec = (f'{op}_backward_wide' if name.endswith('_wide')
@@ -1003,9 +1034,9 @@ def launch_counters(ops):
     """{record name: (wrapper, counter attribute)} of every forward and
     backward kernel; the m-gated and gather edge launches and the triplet's
     bf16 launches have counters of their own; the per-row forward launches
-    (any mode) count in their per-row counters as well, the triplet's
-    per-row backward launches (every width but 32, 64, 128) in
-    triplet_attention_backward_row, and the backward launches with the row
+    (any mode) count in their per-row counters as well, the edge and
+    triplet's per-row backward launches (every width but 32, 64, 128) in
+    <kernel>_backward_row, and the backward launches with the row
     buffers in device memory in <kernel>_backward_wide
     (scratch_launches)."""
     counters = {}
@@ -1022,8 +1053,9 @@ def launch_counters(ops):
         counters[f'{name}_row'] = (getattr(mod, name), 'row_launches')
         counters[f'{name}_backward_wide'] = (getattr(mod, f'{name}_backward'),
                                              'scratch_launches')
-    counters['triplet_attention_backward_row'] = (
-        ops['triplet_attention'].triplet_attention_backward, 'row_launches')
+    for name in ('edge_attention', 'triplet_attention'):
+        counters[f'{name}_backward_row'] = (
+            getattr(ops[name], f'{name}_backward'), 'row_launches')
     return counters
 
 
@@ -1107,10 +1139,11 @@ def main():
         with torch.no_grad():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
-        # the per-row triplet backward at WIDTHS (printed only)
+        # the per-row edge and triplet backward at WIDTHS (printed only)
         backward_phase(torch, ops, {
             k: c for k, c in width_modes.items()
-            if k[0] == 'triplet_attention_row'}, rows=True)
+            if k[0] in ('edge_attention_row', 'triplet_attention_row')},
+            rows=True)
         del captured, o2_modes, gather_modes, width_modes, gather_model
         # the WIDE backward records after the others, so that their models
         # and inputs do not change the device memory those run in

@@ -26,8 +26,9 @@
 // H=128) one node-mode forward is ~6.9 GFLOP of per-edge products (the two
 // [H, H] second linears dominate; pos mode ~4.3 GFLOP) against ~10 MB of
 // inputs and output, as chip_smoke.py counts them, not the 3.35 TB/s of
-// device memory. The backward recomputes the forward and adds two products
-// per forward product, about 3x the operations, so it is bound the same way.
+// device memory. The backward, head-factorized, needs no per-edge [H, H]
+// product: its least work is the edge features' first linears, d w_feat
+// and distance chain on the CUDA cores (chip_smoke.py edge_backward_work).
 //
 // Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
 // 512-thread block per SM. Each block stages the [H, H] second linears
@@ -57,18 +58,59 @@
 // online softmax. Shared memory grows with H (128 KB at 1024); the blocks
 // of H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
-// Backward design (row_attention_bwd.cuh): a fixed grid of blocks, each
-// looping over destination rows, recomputes every per-edge intermediate in
-// shared memory (nothing per edge is saved by the forward). The TPU kernel
-// scatter-adds the source-node cotangents with a one-hot matmul over its
-// sequential grid; here d t_src and d x[src] are atomicAdds into zeroed
-// buffers (their order varies between runs, within float32 rounding).
-// d w_feat is accumulated per edge type, only for the 21 (42) rows of each
-// edge's own types. The distance chain gives 0 where |x_i - x_s|^2 < 1e-12,
-// like the clamp of the plain version's safe_norm. Blocks of H > 256
-// threads take a 1024-thread build; where the row buffers do not fit in
-// shared memory (H >= 512, or large K) they live in a device-memory scratch
-// that the wrapper allocates (row_attention_bwd.cuh).
+// Backward: the TPU kernel scatter-adds the source-node cotangents with a
+// one-hot matmul over its sequential grid; here d t_src and d x[src] are
+// atomicAdds into zeroed buffers (their order varies between runs, within
+// float32 rounding). Every parameter gradient is summed per block, each
+// element by one thread in row order, then over the blocks' slots in a
+// fixed order, so two launches give bitwise-equal parameter gradients.
+// The distance chain gives 0 where |x_i - x_s|^2 < 1e-12, like the clamp of
+// the plain version's safe_norm.
+//
+// Backward design, H in 32, 64, 128 with at most 16 heads and K up to 64
+// (head_bwd.cuh, as the triplet backward): q and the output cotangent g
+// belong to the destination row, so the cotangents of k and v factorize by
+// head and the [H, H] products move to the row (Qk, Gv, d q, d Wo of both
+// branches; pos mode: Qk, d q, d Wo_k, its v branch's Wo_v being [H, heads]
+// already). A persistent grid of one 512-thread block per SM over
+// contiguous ranges of destination rows; a row's sources go in chunks of
+// 32: pass A rebuilds pre of both branches (t_row, the gathered t_src and
+// the typed RBF product, in the channel map), LayerNorm and relu (warp
+// map), and forms the logits and d alpha (pos mode: v) on the tensor cores
+// (three tf32 passes); the softmax and its backward per head; pass B forms
+// the head sums Yd, Ya, d y of both branches heads-wide, the relu and
+// LayerNorm backward to d pre, then d t_row, d t_src, d w_feat and the
+// distance chain to d x. With one chunk (K <= 32, the released shapes) y
+// stays in the tiles and xhat in registers from pass A to pass B, so pre is
+// built once a row. d Wo of both branches stays in shared memory ([H][H+1]
+// each, 129 KB at H = 128) until the block ends; d w_feat (84 or 126 rows
+// of both branches) does not fit beside it. A row touches at most four
+// edge types (its own ligand flag fixes two of the four 4-way types, and
+// groups add two), so each thread sums, for every source of the row, its
+// 1/P share of each such type's 21 rows at its channel in registers (the
+// same work in every thread, whatever the mix of types), and adds them to
+// the block's device-memory slot once a chunk (a row at K <= 32), a
+// coalesced reduction per row of w_feat. The distance chain needs d pre /
+// d dist per source and channel: pass A forms it beside pre, where each
+// type's weights are in registers already, and keeps it in registers. The
+// m-gate adds the heads-wide vector Wo_v wm: s per source in the warp map,
+// d s Wo_v wm in d y_v, and Ys = sum d s y_v summed over the block's rows,
+// from which d wm and the gate's part of d Wo_v follow once at the end.
+// What bounds it (clock64 phase counts, scripts/profile_torch_edge_bwd.py,
+// PERF.md): latency between the block's barriers, at 128 registers with a
+// few hundred bytes of spills at H = 128; rebuilding pre and the d w_feat
+// sums take about two fifths of the cycles, Qk and Gv (Wo through L2) a
+// tenth.
+//
+// Backward design at every other width (row_attention_bwd.cuh): a fixed
+// grid of two blocks per SM, each looping over destination rows with one
+// thread per channel, recomputes every per-edge intermediate in shared
+// memory (nothing per edge is saved by the forward), with the [H, H]
+// products per source on the CUDA cores; d w_feat is accumulated per edge
+// type, only for the 21 (42) rows of each edge's own types. Blocks of H >
+// 256 threads take a 1024-thread build; where the row buffers do not fit
+// in shared memory (H >= 512, or large K) they live in a device-memory
+// scratch that the wrapper allocates (row_attention_bwd.cuh).
 //
 // The m-gate (uni_o2, ew_net_type 'm') is the template parameter GATE of
 // both kernels; the launchers take it when wm is not null. In the forward
@@ -76,6 +118,7 @@
 // (edge_gate); the backward keeps each source's gate and
 // v before the gate in shared memory, and sums d wm and d bm per block in
 // registers into a slot of their own after the v branch's.
+#include "head_bwd.cuh"
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
 
@@ -799,6 +842,699 @@ __global__ void __launch_bounds__(1024, 1)
   edge_bwd_rows<GATE, true>(a);
 }
 
+// ---------------------------------------------------------------------------
+// backward, H in 32, 64, 128: head-factorized (head_bwd.cuh)
+// ---------------------------------------------------------------------------
+
+namespace hb = headbwd;
+
+// Pair rows of the chunk that one thread of the channel map builds.
+template <int H>
+struct PreRows {
+  static constexpr int RPT = hb::KC * H / hb::THREADS;
+};
+
+// Offsets into the head-factorized backward's dynamic shared memory, fixed
+// at compile time (sized for KMAX sources and MAXNH heads).
+template <int H>
+struct EdgeHeadLayout {
+  static constexpr int KMAX = 64;  // sources a row: two chunks
+  static constexpr size_t F = sizeof(float);
+  static constexpr int MS = hb::mstride(H), TS = hb::tstride(H);
+  static constexpr size_t dwo = 0;                            // [2][H][MS]
+  static constexpr size_t tk = dwo + F * 2 * H * MS;          // [KC][TS]
+  static constexpr size_t tv = tk + F * hb::KC * TS;
+  static constexpr size_t m = tv + F * hb::KC * TS;           // [2 MAXNH][MS]
+  static constexpr size_t lg = m + F * 2 * hb::MAXNH * MS;    // [KMAX][NH]
+  static constexpr size_t da = lg + F * KMAX * hb::MAXNH;
+  static constexpr size_t cv = da + F * KMAX * hb::MAXNH;
+  static constexpr size_t rbf = cv + F * KMAX * hb::MAXNH;    // [TILE][R]
+  static constexpr size_t cf = rbf + F * hb::KC * R;          // [KC][R]
+  static constexpr size_t e = cf + F * hb::KC * R;            // [WARPS][RPT]
+  static constexpr size_t vec = e + F * hb::WARPS * PreRows<H>::RPT;  // [4][H]
+  static constexpr size_t hs = vec + F * 4 * H;               // [6][MAXNH]
+  static constexpr size_t sc = hs + F * 6 * hb::MAXNH;        // [6][TILE]
+  static constexpr size_t rel = sc + F * 6 * rm::TILE;        // [TILE][3]
+  static constexpr size_t src = rel + F * 3 * rm::TILE;       // [6][KMAX]
+  static constexpr size_t bytes = src + F * 6 * KMAX;
+  static_assert(rbf % 16 == 0 && tk % 16 == 0 && m % 16 == 0, "aligned");
+};
+
+// The edge type that d w_feat slot s of a destination row sums: 0, 1: the
+// 4-way type of a ligand, a protein source (they depend on the row's own
+// ligand flag), 2, 3: the group types 4, 5.
+__device__ __forceinline__ int slot_type(int slot, int lig_d) {
+  return slot < 2 ? 2 * slot + (lig_d ? 0 : 1) : slot + 2;
+}
+
+// One branch's first-linear outputs of the chunk's KC pair rows into P (row
+// stride tstride): t_row + the gathered t_src + the edge-feature product,
+// type by type, only for the rows of each type, in edge_tile_pre's order
+// of operations (one branch at a time: the backward has no registers for
+// both branches' weights). With the type's weights at hand, z[m] <- d pre
+// / d dist of the thread's row m at its channel (the RBF rows of the row's
+// types times CF, d rbf / d dist), for the distance chain of pass B.
+// Thread t: channel t % H of RPT consecutive rows (a warp shares its rows,
+// so the type tests are uniform over it). No barrier.
+template <int H>
+__device__ __forceinline__ void edge_tile_pre_branch(
+    const Branch& br, const EdgeTile& t, const float* CF, int F, float tr,
+    float* P, float (&z)[PreRows<H>::RPT]) {
+  constexpr int RPT = PreRows<H>::RPT;
+  const int c = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
+  unsigned types = 0;  // the types among the thread's rows
+#pragma unroll
+  for (int m = 0; m < RPT; ++m)
+    types |= 1u << t.ta[r0 + m] | (t.tb[r0 + m] < 0 ? 0u : 1u << t.tb[r0 + m]);
+  float p[RPT];
+#pragma unroll
+  for (int m = 0; m < RPT; ++m) {
+    p[m] = tr + __ldg(br.t_src + (size_t)t.src[r0 + m] * H + c);
+    z[m] = 0.f;
+  }
+  for (; types; types &= types - 1) {
+    const int ty = __ffs(types) - 1;
+    float w[R + 1];
+    load_type(w, br.w_feat, F, ty, H, c);
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int r = r0 + m;
+      if (t.ta[r] != ty && t.tb[r] != ty) continue;
+      const float4* rb = reinterpret_cast<const float4*>(t.rbf + r * R);
+      const float4* cb = reinterpret_cast<const float4*>(CF + r * R);
+      float s = w[R], e = 0.f;
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        const float4 b = rb[q], d = cb[q];
+        s = fmaf(b.x, w[4 * q], s);
+        s = fmaf(b.y, w[4 * q + 1], s);
+        s = fmaf(b.z, w[4 * q + 2], s);
+        s = fmaf(b.w, w[4 * q + 3], s);
+        e = fmaf(d.x, w[4 * q], e);
+        e = fmaf(d.y, w[4 * q + 1], e);
+        e = fmaf(d.z, w[4 * q + 2], e);
+        e = fmaf(d.w, w[4 * q + 3], e);
+      }
+      p[m] += s;
+      z[m] += e;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < RPT; ++m) P[(r0 + m) * hb::tstride(H) + c] = p[m];
+}
+
+// Warp map: LayerNorm and relu of one branch's pre rows in the tile T (pair
+// rows warp + WARPS s), keeping xhat (xh) and 1 / std (rs); y replaces pre
+// in T. No barrier.
+template <int H>
+__device__ __forceinline__ void edge_tile_ln(float* T, const Branch& br,
+                                             float (&xh)[hb::RW][H / 32],
+                                             float (&rs)[hb::RW]) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    float* row = T + (warp + hb::WARPS * s) * hb::tstride(H);
+    float x[NV], sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      x[v] = row[lane + 32 * v];
+      sum += x[v];
+    }
+    const float mean = rm::warp_sum(sum) / H;
+    float s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float d = x[v] - mean;
+      s2 += d * d;
+    }
+    rs[s] = rsqrtf(rm::warp_sum(s2) / H + 1e-5f);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      xh[s][v] = (x[v] - mean) * rs[s];
+      row[lane + 32 * v] = fmaxf(xh[s][v] * __ldg(br.lns + lane + 32 * v) +
+                                     __ldg(br.lnb + lane + 32 * v),
+                                 0.f);
+    }
+  }
+}
+
+// The m-gate in the warp map: GT[k0 + r] <- sigmoid(y_v[r] . wvm + bvm) for
+// the warp's pair rows r (y_v in T), wvm = Wo_v wm, bvm = bo_v . wm + bm.
+// No barrier.
+template <int H>
+__device__ __forceinline__ void edge_tile_gate(const float* T,
+                                               const float* wvm, float bvm,
+                                               int k0, int K, float* GT) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    const float* row = T + (warp + hb::WARPS * s) * hb::tstride(H);
+    float d = 0.f;
+#pragma unroll
+    for (int v = 0; v < H / 32; ++v)
+      d = fmaf(row[lane + 32 * v], wvm[lane + 32 * v], d);
+    d = rm::warp_sum(d) + bvm;
+    const int m = k0 + warp + hb::WARPS * s;
+    if (lane == 0 && m < K) GT[m] = 1.f / (1.f + expf(-d));
+  }
+}
+
+// The chunk's sources k0 .. k0 + KC - 1 of `row`: their scalars (the tile's,
+// and VL, EW, pos mode's GRL = rel . g), the RBF features and their
+// derivatives in the distance (CF), both branches' pre into Tk and Tv (and
+// d pre / d dist of the thread's rows into zk, zv), then their LayerNorm
+// and relu (y in the tiles, xhat and 1 / std kept), and the m-gate. Begins
+// after a barrier; ends without one.
+template <int H, bool POS, bool GATE>
+__device__ __forceinline__ void edge_head_chunk(
+    const EdgeArgs& f, const EdgeTile& et, float* CF, int row, int k0,
+    float trk, float trv, const float* g3, int* VL, float* EW, float* GRL,
+    float* GT, const float* wvm, float bvm, float* Tk, float* Tv,
+    float (&xhk)[hb::RW][H / 32], float (&rsk)[hb::RW],
+    float (&xhv)[hb::RW][H / 32], float (&rsv)[hb::RW],
+    float (&zk)[PreRows<H>::RPT], float (&zv)[PreRows<H>::RPT]) {
+  const int r = threadIdx.x, K = f.K;
+  const int ok = edge_tile_setup(f, et, row, row + 1, k0);
+  if (r < hb::KC && k0 + r < K) {
+    VL[k0 + r] = ok;
+    EW[k0 + r] = et.coef[r];
+    if (POS)
+      GRL[k0 + r] = et.rel[r * 3] * g3[0] + et.rel[r * 3 + 1] * g3[1] +
+                    et.rel[r * 3 + 2] * g3[2];
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < hb::KC * R; u += hb::THREADS) {
+    const int m = u % hb::KC, q = u / hb::KC;
+    const float v = et.dist[m] - kRbfOffsets[q], e = expf(-0.5f * v * v);
+    et.rbf[m * R + q] = e;
+    CF[m * R + q] = -v * e;
+  }
+  __syncthreads();
+  edge_tile_pre_branch<H>(f.k, et, CF, f.n_types, trk, Tk, zk);
+  edge_tile_pre_branch<H>(f.v, et, CF, f.n_types, trv, Tv, zv);
+  __syncthreads();
+  edge_tile_ln<H>(Tk, f.k, xhk, rsk);
+  edge_tile_ln<H>(Tv, f.v, xhv, rsv);
+  if (GATE) edge_tile_gate<H>(Tv, wvm, bvm, k0, K, GT);
+}
+
+// Warp map, one branch of pass B: d y = cf sum_h C[m][h] M[h] (with GATE
+// plus d s wvm), the relu and LayerNorm backward to d pre, which replaces y
+// in T; lns, lnb: the block's sums of d ln_scale and d ln_bias at the
+// lanes' channels. No barrier.
+template <int H, bool GATE>
+__device__ __forceinline__ void edge_branch_back(
+    float* T, const Branch& br, const float* M, const float* C, float cf,
+    int k0, int K, int NH, const float (&xh)[hb::RW][H / 32],
+    const float (&rs)[hb::RW], float (&lns)[H / 32], float (&lnb)[H / 32],
+    const float* DS, const float* wvm) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float dp[hb::RW][NV];
+  hb::head_expand<H>(dp, M, C, cf, k0, K, NH);
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s) {
+    if (GATE) {
+      const int m = k0 + warp + hb::WARPS * s;
+      const float ds = m < K ? DS[m] : 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        dp[s][v] = fmaf(ds, wvm[lane + 32 * v], dp[s][v]);
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float ls = __ldg(br.lns + lane + 32 * v);
+      const float du =
+          xh[s][v] * ls + __ldg(br.lnb + lane + 32 * v) > 0.f ? dp[s][v]
+                                                              : 0.f;
+      lns[v] = fmaf(du, xh[s][v], lns[v]);
+      lnb[v] += du;
+      const float dx = du * ls;
+      dp[s][v] = dx;
+      s1 += dx;
+      s2 = fmaf(dx, xh[s][v], s2);
+    }
+    const float m1 = rm::warp_sum(s1) / H, m2 = rm::warp_sum(s2) / H;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] =
+          rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
+  }
+}
+
+// Channel map: the chunk's d pre of both branches (tiles Tk, Tv) into the
+// thread's d w_feat sums, gk and gv: at channel c, rows r_lo ..
+// r_lo + n_r - 1 (an RBF row below R, the type's own row at R) of each of
+// the row's edge-type slots (a source's 4-way type is slot 0 for a ligand
+// source, 1 for a protein one; its group type 4, 5 slot 2, 3; slot_type).
+// Every thread takes every source, so the work does not depend on the
+// types' mix. seen: the slots the chunk's valid sources hold. No barrier.
+template <int H, int NR>
+__device__ __forceinline__ void edge_wfeat_back(const float* Tk,
+                                                const float* Tv,
+                                                const EdgeTile& t, int r_lo,
+                                                int n_r, float (&gk)[4][NR],
+                                                float (&gv)[4][NR],
+                                                unsigned& seen) {
+  const int c = threadIdx.x % H;
+  for (int m = 0; m < hb::KC; ++m) {
+    if (!t.valid[m]) continue;  // uniform over the block
+    const float dk = Tk[m * hb::tstride(H) + c];
+    const float dv = Tv[m * hb::tstride(H) + c];
+    const int sa = t.ta[m] < 2 ? 0 : 1, sb = t.tb[m] - 2;  // sb < 0: none
+    seen |= 1u << sa | (sb < 0 ? 0u : 1u << sb);
+    float fr[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = r_lo + i;
+      fr[i] = i < n_r ? (r < R ? t.rbf[m * R + r] : 1.f) : 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s != sa && s != sb) continue;  // uniform over the block
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        gk[s][i] = fmaf(fr[i], dk, gk[s][i]);
+        gv[s][i] = fmaf(fr[i], dv, gv[s][i]);
+      }
+    }
+  }
+}
+
+// Adds the thread's d w_feat sums of a chunk (edge-type slots `seen`, rows
+// r_lo ..) to the block's slot. Each slot element has one adding thread,
+// so its sum is taken in row order; a warp's adds are one coalesced
+// reduction per row of w_feat.
+template <int H, int NR>
+__device__ __forceinline__ void flush_wfeat(float (&gw)[4][NR], float* wfeat,
+                                            unsigned seen, int F, int lig_d,
+                                            int r_lo, int n_r) {
+  const int c = threadIdx.x % H;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (seen >> s & 1u) {
+      const int ty = slot_type(s, lig_d);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (i >= n_r) break;
+        const int r = r_lo + i, rowf = r < R ? ty * R + r : F * R + ty;
+        rowbwd::slot_add(wfeat + (size_t)rowf * H + c, gw[s][i]);
+      }
+    }
+  }
+}
+
+// Channel map: the distance chain of the thread's pair rows r0 + u (those
+// it built pre for): E[warp][u] = sum over the warp's channels of the
+// chunk's d pre times d pre / d dist (zk, zv), both branches. No barrier.
+template <int H>
+__device__ __forceinline__ void edge_dist_partial(
+    const float* Tk, const float* Tv, const float (&zk)[PreRows<H>::RPT],
+    const float (&zv)[PreRows<H>::RPT], float* E) {
+  constexpr int RPT = PreRows<H>::RPT;
+  const int c = threadIdx.x % H, r0 = (threadIdx.x / H) * RPT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int o = (r0 + u) * hb::tstride(H) + c;
+    const float e = rm::warp_sum(fmaf(Tk[o], zk[u], Tv[o] * zv[u]));
+    if (lane == 0) E[warp * RPT + u] = e;
+  }
+}
+
+// Persistent: block g takes the destination rows [g rows / G, (g + 1) rows
+// / G). d Wo of both branches stays in shared memory, transposed, until the
+// block ends; d w_feat goes to the block's slot once a chunk of sources.
+template <int H, bool POS, bool GATE>
+__global__ void __launch_bounds__(hb::THREADS, 1)
+    edge_attention_bwd_head_kernel(EdgeBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  using lay = EdgeHeadLayout<H>;
+  constexpr int MS = hb::mstride(H), TS = hb::tstride(H), NV = H / 32;
+  constexpr int P = hb::Map<H>::P, KMAX = lay::KMAX;
+  constexpr int RPT = PreRows<H>::RPT;
+  // the rows r_lo .. r_lo + n_r - 1 of each edge type's R + 1 rows of
+  // w_feat whose d w_feat this thread sums
+  constexpr int NR = (R + 1 + P - 1) / P;
+  const EdgeArgs& f = a.f;
+  const int K = f.K, NH = f.n_heads, hd = H / NH, F = f.n_types;
+  float* DWk = reinterpret_cast<float*>(dyn + lay::dwo);  // [H][MS] d Wo^T
+  float* DWv = DWk + H * MS;
+  float* Tk = reinterpret_cast<float*>(dyn + lay::tk);    // [KC][TS]: y,
+  float* Tv = reinterpret_cast<float*>(dyn + lay::tv);    //   then d pre
+  float* M = reinterpret_cast<float*>(dyn + lay::m);      // Qk, then Yd
+  float* Mv = M + NH * MS;                                // Gv (pos: Wo_v^T)
+  float* LG = reinterpret_cast<float*>(dyn + lay::lg);    // logit, alpha
+  float* DA = reinterpret_cast<float*>(dyn + lay::da);    // d alpha, dh
+  float* CV = reinterpret_cast<float*>(dyn + lay::cv);    // v's coefficients
+  float* CF = reinterpret_cast<float*>(dyn + lay::cf);
+  float* E = reinterpret_cast<float*>(dyn + lay::e);
+  float* QR = reinterpret_cast<float*>(dyn + lay::vec);   // q of the row
+  float* GR = QR + H;                                     // g (pos: [3])
+  float* WVM = GR + H;                                    // Wo_v wm
+  float* YS = WVM + H;                                    // sum d s y_v
+  float* HS = reinterpret_cast<float*>(dyn + lay::hs);    // qb|gb|S dh|S
+                                                          // alpha|S cv
+  int* sc = reinterpret_cast<int*>(dyn + lay::sc);
+  const EdgeTile et{reinterpret_cast<float*>(dyn + lay::rbf),
+                    reinterpret_cast<float*>(sc), sc + rm::TILE,
+                    sc + 2 * rm::TILE,
+                    reinterpret_cast<float*>(sc + 3 * rm::TILE),
+                    reinterpret_cast<float*>(dyn + lay::rel),
+                    sc + 4 * rm::TILE, sc + 5 * rm::TILE};
+  int* VL = reinterpret_cast<int*>(dyn + lay::src);       // [KMAX] each
+  float* EW = reinterpret_cast<float*>(VL + KMAX);
+  float* GRL = EW + KMAX;                                 // pos: rel . g
+  float* GT = GRL + KMAX;                                 // the m-gate
+  float* DS = GT + KMAX;                                  // d s
+  float* WR = DS + KMAX;                                  // pos: d rel / g
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % H, part = tid / H;
+  const float scale = 1.f / sqrtf((float)hd);
+
+  // the block's slot, formed where it is used (no registers hold it)
+  const auto slots = [&](rowbwd::GradSlot& gk, rowbwd::GradSlot& gv) {
+    rowbwd::block_slots(a.slots, F * (R + 1), H, POS ? NH : H, gk, gv,
+                        GATE ? H + 1 : 0);
+  };
+  for (int e = tid; e < 2 * H * MS; e += hb::THREADS) DWk[e] = 0.f;
+  float bvm = 0.f;
+  if (POS) {  // the v branch's [H, heads] second linear, as heads rows
+    for (int e = tid; e < H * NH; e += hb::THREADS)
+      Mv[(e % NH) * MS + e / NH] = __ldg(f.v.wo + e);
+    if (tid < NH) HS[hb::MAXNH + tid] = __ldg(f.v.bo + tid);
+  }
+  if (GATE) {  // Wo_v wm, and bvm = bo_v . wm + bm in every thread
+    if (tid < H) {
+      float s = 0.f;
+      for (int j = 0; j < H; ++j)
+        s = fmaf(__ldg(f.v.wo + (size_t)tid * H + j), __ldg(f.gate.wm + j), s);
+      WVM[tid] = s;
+    }
+    for (int j = 0; j < H; ++j)
+      bvm = fmaf(__ldg(f.v.bo + j), __ldg(f.gate.wm + j), bvm);
+    bvm += __ldg(f.gate.bm);
+  }
+
+  // the block's sums over its rows
+  float lsk[NV] = {}, lbk[NV] = {}, lsv[NV] = {}, lbv[NV] = {};
+  float ywo[hb::MAXHP] = {};           // pos: d Wo_v [H, heads]
+  float bo_k = 0.f, bo_v = 0.f, ys = 0.f, dsum = 0.f;
+  const int r_lo = part * (R + 1) / P, n_r = (part + 1) * (R + 1) / P - r_lo;
+  const int row_end = (int)((long long)(blockIdx.x + 1) * a.rows / gridDim.x);
+  __syncthreads();
+
+  for (int row = (int)((long long)blockIdx.x * a.rows / gridDim.x);
+       row < row_end; ++row) {
+    // a barrier too: the last row is done with the buffers
+    if (!row_has_source(f.mask + (size_t)row * K, K)) {
+      if (tid < H) {
+        a.d_q[(size_t)row * H + tid] = 0.f;
+        a.d_trow_k[(size_t)row * H + tid] = 0.f;
+        a.d_trow_v[(size_t)row * H + tid] = 0.f;
+      }
+      for (int t = tid; t < K; t += hb::THREADS)
+        a.d_ew[(size_t)row * K + t] = 0.f;
+      continue;
+    }
+    const int lig = f.lig[row] > 0.5f;
+    if (tid < H) {
+      QR[tid] = f.q[(size_t)row * H + tid];
+      if (!POS) GR[tid] = a.g[(size_t)row * H + tid];
+    }
+    if (POS && tid < 3) GR[tid] = a.g[(size_t)row * 3 + tid];
+    __syncthreads();
+    hb::row_matrices<H, POS ? 1 : 2>(f.k.wo, f.v.wo, f.k.bo, f.v.bo, QR, GR,
+                                     NH, M, HS, HS + hb::MAXNH);
+    const float trk = __ldg(f.k.t_row + (size_t)row * H + c);
+    const float trv = __ldg(f.v.t_row + (size_t)row * H + c);
+    // one chunk: y stays in the tiles and xhat, 1 / std in registers from
+    // pass A to pass B
+    const bool one = K <= hb::KC;
+    float xh[2][hb::RW][NV], rs[2][hb::RW], zk[RPT], zv[RPT];
+
+    // pass A: logits and the raw v products of every source
+    for (int k0 = 0; k0 < K; k0 += hb::KC) {
+      __syncthreads();  // M and HS written; the last chunk is done
+      edge_head_chunk<H, POS, GATE>(f, et, CF, row, k0, trk, trv, GR, VL, EW,
+                                    GRL, GT, WVM, bvm, Tk, Tv, xh[0], rs[0],
+                                    xh[1], rs[1], zk, zv);
+      __syncthreads();
+      hb::head_products_tc<H>(Tk, M, NH, k0, K, scale, HS, LG);
+      hb::head_products_tc<H>(Tv, Mv, NH, k0, K, 1.f, HS + hb::MAXNH, DA, 4);
+    }
+    __syncthreads();
+    // d alpha; CV keeps the raw products (node: y_v . Gv + gb, pos: v_h)
+    for (int e = tid; e < K * NH; e += hb::THREADS) {
+      const int m = e / NH;
+      const float raw = DA[e];
+      CV[e] = raw;
+      DA[e] = raw * (POS ? GRL[m] * EW[m] / NH
+                         : EW[m] * (GATE ? GT[m] : 1.f));
+    }
+    __syncthreads();
+    hb::head_softmax(LG, DA, VL, K, NH, HS + 2 * hb::MAXNH);
+    __syncthreads();
+    // per source: d e_w, the gate's d s, pos mode's d rel / g, and CV <- the
+    // v branch's head coefficients (node: e_w gate alpha; pos: d v_h); a
+    // thread per (source, head), 16 lanes a source (alpha is 0 at an
+    // invalid source)
+    for (int u = tid; u < ((K * hb::MAXNH + 31) & ~31); u += hb::THREADS) {
+      const int m = u / hb::MAXNH, h = u % hb::MAXNH;
+      const bool in = m < K && h < NH;
+      const float al = in ? LG[m * NH + h] : 0.f;
+      float dew = in ? al * CV[m * NH + h] : 0.f;
+      for (int o = hb::MAXNH / 2; o > 0; o >>= 1)
+        dew += __shfl_xor_sync(0xffffffffu, dew, o);
+      float cf = in ? EW[m] : 0.f;
+      const bool lead = h == 0 && m < K;
+      if (POS) {
+        cf *= in ? GRL[m] / NH : 0.f;
+        if (lead) {
+          a.d_ew[(size_t)row * K + m] = dew * GRL[m] / NH;
+          WR[m] = dew * EW[m] / NH;
+        }
+      } else if (GATE) {
+        const float gt = in ? GT[m] : 0.f;
+        cf *= gt;
+        if (lead) {
+          DS[m] = EW[m] * dew * gt * (1.f - gt);
+          a.d_ew[(size_t)row * K + m] = dew * gt;
+        }
+      } else if (lead) {
+        a.d_ew[(size_t)row * K + m] = dew;
+      }
+      if (in) CV[m * NH + h] = al * cf;
+    }
+    __syncthreads();
+    if (warp < NH) {  // S cv[h] = sum_m CV[m][h]
+      float s = 0.f;
+      for (int m = lane; m < K; m += 32) s += CV[m * NH + warp];
+      s = rm::warp_sum(s);
+      if (lane == 0) HS[4 * hb::MAXNH + warp] = s;
+    }
+
+    // pass B: the head sums, d y and d pre of both branches, then the edge
+    // features
+    float Yd[hb::MAXHP] = {}, Ya[hb::MAXHP] = {};
+    float trow_k = 0.f, trow_v = 0.f;
+    float dxd[3] = {0.f, 0.f, 0.f};  // d x of the destination (tid < KC)
+    for (int k0 = 0; k0 < K; k0 += hb::KC) {
+      const int nr = min(hb::KC, K - k0);
+      if (!one) {
+        __syncthreads();  // the last chunk is done with the tiles
+        edge_head_chunk<H, POS, GATE>(f, et, CF, row, k0, trk, trv, GR, VL,
+                                      EW, GRL, GT, WVM, bvm, Tk, Tv, xh[0],
+                                      rs[0], xh[1], rs[1], zk, zv);
+      }
+      __syncthreads();  // y of both branches in the tiles; CV, HS written
+      hb::accumulate_heads<H>(Yd, Tk, DA, k0, nr, NH);
+      if (POS)
+        hb::accumulate_heads<H>(ywo, Tv, CV, k0, nr, NH);
+      else
+        hb::accumulate_heads<H>(Ya, Tv, CV, k0, nr, NH);
+      if (GATE && tid < H)
+        for (int r = 0; r < nr; ++r) {
+          ys = fmaf(DS[k0 + r], Tv[r * TS + c], ys);
+          dsum += DS[k0 + r];
+        }
+      __syncthreads();  // the tiles take d pre below
+      edge_branch_back<H, false>(Tk, f.k, M, DA, scale, k0, K, NH, xh[0],
+                                 rs[0], lsk, lbk, nullptr, nullptr);
+      edge_branch_back<H, GATE>(Tv, f.v, Mv, CV, 1.f, k0, K, NH, xh[1],
+                                rs[1], lsv, lbv, DS, WVM);
+      __syncthreads();
+      if (tid < H)
+        for (int r = 0; r < nr; ++r) {
+          trow_k += Tk[r * TS + c];
+          trow_v += Tv[r * TS + c];
+        }
+      for (int r = part; r < nr; r += P)  // d t_src of the sources
+        if (et.valid[r]) {
+          const size_t s = (size_t)et.src[r] * H + c;
+          atomicAdd(a.d_tsrc_k + s, Tk[r * TS + c]);
+          atomicAdd(a.d_tsrc_v + s, Tv[r * TS + c]);
+        }
+      edge_dist_partial<H>(Tk, Tv, zk, zv, E);
+      {  // the chunk's d w_feat, added to the block's slot at once
+        float wk[4][NR] = {}, wv[4][NR] = {};
+        unsigned seen = 0;
+        edge_wfeat_back<H, NR>(Tk, Tv, et, r_lo, n_r, wk, wv, seen);
+        rowbwd::GradSlot gk, gv;
+        slots(gk, gv);
+        flush_wfeat<H>(wk, gk.wfeat, seen, F, lig, r_lo, n_r);
+        flush_wfeat<H>(wv, gv.wfeat, seen, F, lig, r_lo, n_r);
+      }
+      __syncthreads();
+      // d rel = d dist rel / dist (+ pos mode: WR g) -> both endpoints
+      if (tid < nr && et.valid[tid]) {
+        const int pr = tid / RPT, u = tid - pr * RPT;  // E's part and row
+        float dd = 0.f;
+        for (int j = 0; j < H / 32; ++j) dd += E[(pr * H / 32 + j) * RPT + u];
+        const float* rl = et.rel + tid * 3;
+        const float d2 = rl[0] * rl[0] + rl[1] * rl[1] + rl[2] * rl[2];
+        const float fd = d2 >= 1e-12f ? dd / et.dist[tid] : 0.f;
+        const float wr = POS ? WR[k0 + tid] : 0.f;
+        const size_t src = (size_t)et.src[tid] * 3;
+        for (int d = 0; d < 3; ++d) {
+          const float dr = fd * rl[d] + (POS ? wr * GR[d] : 0.f);
+          dxd[d] += dr;
+          atomicAdd(a.d_xs + src + d, -dr);
+        }
+      }
+    }
+
+    // the row's d t_row, d x, d bo, d Wo and d q
+    if (tid < H) {
+      a.d_trow_k[(size_t)row * H + c] = trow_k;
+      a.d_trow_v[(size_t)row * H + c] = trow_v;
+    }
+    if (tid < 32)
+      for (int d = 0; d < 3; ++d) {
+        const float t = rm::warp_sum(dxd[d]);
+        if (tid == 0) atomicAdd(a.d_x + (size_t)row * 3 + d, t);
+      }
+    const float* SH = HS + 2 * hb::MAXNH;  // S dh | S alpha | S cv
+    if (tid < H) {
+      bo_k = fmaf(scale * QR[c], SH[c / hd], bo_k);
+      if (!POS) bo_v = fmaf(GR[c], SH[2 * hb::MAXNH + c / hd], bo_v);
+    }
+    if (POS && tid < NH) bo_v += SH[2 * hb::MAXNH + tid];
+    hb::update_dwo<H>(DWk, Yd, QR, scale, NH);
+    if (!POS) hb::update_dwo<H>(DWv, Ya, GR, 1.f, NH);
+    hb::store_heads<H>(M, Yd, NH);  // Qk is done: pass B ended in a barrier
+    __syncthreads();
+    hb::dq_partial<H>(Tk, M, f.k.wo, NH);
+    __syncthreads();
+    if (tid < H) {
+      float t = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) t += Tk[p * H + c];
+      a.d_q[(size_t)row * H + c] =
+          scale * (t + __ldg(f.k.bo + c) * SH[c / hd]);
+    }
+  }
+
+  // the block's slot
+  rowbwd::GradSlot gk, gv;
+  slots(gk, gv);
+  if (GATE && tid < H) YS[c] = ys;
+  __syncthreads();
+  if (GATE)  // d Wo_v += Ys wm^T
+    for (int e = tid; e < H * H; e += hb::THREADS) {
+      const int cc = e / H, j = e - cc * H;
+      DWv[cc * MS + j] = fmaf(__ldg(f.gate.wm + cc), YS[j], DWv[cc * MS + j]);
+    }
+  if (tid < H) {
+    gk.bo[c] = bo_k;
+    if (!POS) gv.bo[c] = GATE ? fmaf(__ldg(f.gate.wm + c), dsum, bo_v) : bo_v;
+    if (GATE) {  // d wm = Wo_v^T Ys + bo_v sum d s, d bm = sum d s
+      float s = 0.f;
+      for (int j = 0; j < H; ++j)
+        s = fmaf(__ldg(f.v.wo + (size_t)j * H + c), YS[j], s);
+      float* sg = gv.lnb + H;
+      sg[c] = fmaf(__ldg(f.v.bo + c), dsum, s);
+      if (c == 0) sg[H] = dsum;
+    }
+  }
+  if (POS) {
+    if (tid < NH) gv.bo[tid] = bo_v;
+    const hb::HeadSlots<H> hs(hd);
+    if ((part * hb::Map<H>::CR) % hd == 0)  // one writer per element
+#pragma unroll
+      for (int u = 0; u < hb::MAXHP; ++u)
+        if (u < hs.n) gv.wo[c * NH + hs.h0 + u] = ywo[u];
+  }
+  __syncthreads();
+  for (int e = tid; e < H * H; e += hb::THREADS) {
+    const int jj = e / H, cc = e - jj * H;
+    gk.wo[e] = DWk[cc * MS + jj];
+    if (!POS) gv.wo[e] = DWv[cc * MS + jj];
+  }
+  __syncthreads();  // DWk holds the warps' LayerNorm sums next
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int cc = lane + 32 * v;
+    DWk[(warp * 4 + 0) * H + cc] = lsk[v];
+    DWk[(warp * 4 + 1) * H + cc] = lbk[v];
+    DWk[(warp * 4 + 2) * H + cc] = lsv[v];
+    DWk[(warp * 4 + 3) * H + cc] = lbv[v];
+  }
+  __syncthreads();
+  if (tid < 4 * H) {
+    const int qn = tid / H, cc = tid % H;
+    float t = 0.f;
+    for (int w = 0; w < hb::WARPS; ++w) t += DWk[(w * 4 + qn) * H + cc];
+    float* out = qn == 0 ? gk.lns : qn == 1 ? gk.lnb : qn == 2 ? gv.lns
+                                                                : gv.lnb;
+    out[cc] = t;
+  }
+}
+
+// Whether the head-factorized backward takes these sizes: H in 32, 64, 128,
+// at most MAXNH heads, 1 to KMAX sources, and its layout within a block's
+// shared memory.
+template <int H>
+cudaError_t edge_head_fits(int NH, int K, bool* ok) {
+  *ok = false;
+  if (!hb::heads_ok(NH) || K < 1 || K > EdgeHeadLayout<H>::KMAX)
+    return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *ok = err == cudaSuccess && EdgeHeadLayout<H>::bytes <= (size_t)optin;
+  return err;
+}
+
+cudaError_t edge_head_route(int H, int NH, int K, bool* ok) {
+  switch (H) {
+    case 32: return edge_head_fits<32>(NH, K, ok);
+    case 64: return edge_head_fits<64>(NH, K, ok);
+    case 128: return edge_head_fits<128>(NH, K, ok);
+    default: *ok = false; return cudaSuccess;
+  }
+}
+
+template <int H>
+cudaError_t launch_bwd_head(const EdgeBwdArgs& a, int G,
+                            cudaStream_t stream) {
+  constexpr size_t smem = EdgeHeadLayout<H>::bytes;
+  void (*kernel)(EdgeBwdArgs) = edge_attention_bwd_head_kernel<H, false, false>;
+  if (a.f.pos)
+    kernel = edge_attention_bwd_head_kernel<H, true, false>;
+  else if (a.f.gate.wm)
+    kernel = edge_attention_bwd_head_kernel<H, false, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<G, hb::THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // One block per SM (at most one per tile).
 template <int H>
 cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
@@ -871,21 +1607,40 @@ extern "C" int edge_attention_fwd(
 }
 
 // Floats per block of the device-memory scratch that the backward needs at
-// these sizes (0: its row buffers fit in shared memory); gate: the m-gated
-// kernel.
+// these sizes (0: its row buffers fit in shared memory, or the
+// head-factorized kernel runs); gate: the m-gated kernel.
 extern "C" int edge_attention_bwd_scratch(int* per_block, int K, int H,
                                           int n_heads, int gate) {
+  bool head = false;
+  *per_block = 0;
+  cudaError_t err = edge_head_route(H, n_heads, K, &head);
+  if (err != cudaSuccess || head) return (int)err;
   return (int)rowbwd::scratch_floats(
       bwd_kernel(gate != 0, H, false), H,
       rowbwd::row_smem_floats(K, H, n_heads, gate != 0), per_block);
 }
 
+// Whether the backward at these sizes runs the per-row kernel (*row = 1) or
+// the head-factorized one (*row = 0), in every mode: the wrapper sizes the
+// launch from it.
+extern "C" int edge_attention_bwd_route(int* row, int K, int H,
+                                        int n_heads) {
+  bool head = false;
+  const cudaError_t err = edge_head_route(H, n_heads, K, &head);
+  *row = !head;
+  return (int)err;
+}
+
 // Backward: G blocks over the B*N rows, then the fixed-order slot sum into
 // d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same] and, with
 // the gate, [d wm (H) | d bm]). d_xs: the sources' coordinate cotangent, a
-// zeroed buffer of its own when xs is not x, else d_x. scratch: G times
-// edge_attention_bwd_scratch's floats, or null when that is 0. *route: 1
-// when the row buffers went to the scratch, else 0.
+// zeroed buffer of its own when xs is not x, else d_x. H in 32, 64, 128
+// with at most 16 heads and K up to 64: the head-factorized kernel, one
+// block per SM; any other width: the per-row kernel, two blocks per SM,
+// which alone reads k_woT and v_woT (the transposed Wo) and the scratch: G
+// times edge_attention_bwd_scratch's floats, or null when that is 0.
+// *route: 1 when the row buffers went to the scratch, else 0; *row: 1 when
+// the per-row kernel was launched, else 0.
 extern "C" int edge_attention_bwd(
     const float* x, const float* xs, const float* lig, const float* group,
     const int* idx, const float* mask, const float* ew, const float* q,
@@ -899,9 +1654,10 @@ extern "C" int edge_attention_bwd(
     float* d_x, float* d_xs, float* d_ew, float* d_q, float* d_trow_k,
     float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    float* scratch, int* route, int B, int N, int K, int H, int n_heads,
-    int n_types, int pos, int G, void* stream) {
+    float* scratch, int* route, int* row, int B, int N, int K, int H,
+    int n_heads, int n_types, int pos, int G, void* stream) {
   *route = 0;
+  *row = 0;
   if (B * N == 0 || G <= 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeBwdArgs a{
@@ -912,15 +1668,26 @@ extern "C" int edge_attention_bwd(
       g, k_woT, v_woT, d_x, d_xs, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
       d_tsrc_v, slots, B * N, nullptr, 0};
   const bool gate = wm != nullptr;
-  cudaError_t err = rowbwd::launch_rows(
-      bwd_kernel(gate, H, false), bwd_kernel(gate, H, true), a, G,
-      rowbwd::row_smem_floats(K, H, n_heads, gate), scratch, route,
-      (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  bool head = false;
+  cudaError_t err = edge_head_route(H, n_heads, K, &head);
+  if (err != cudaSuccess) return (int)err;
+  if (head) {
+    switch (H) {
+      case 32: err = launch_bwd_head<32>(a, G, s); break;
+      case 64: err = launch_bwd_head<64>(a, G, s); break;
+      default: err = launch_bwd_head<128>(a, G, s); break;
+    }
+  } else {
+    *row = 1;
+    err = rowbwd::launch_rows(
+        bwd_kernel(gate, H, false), bwd_kernel(gate, H, true), a, G,
+        rowbwd::row_smem_floats(K, H, n_heads, gate), scratch, route, s);
+  }
   if (err != cudaSuccess) return (int)err;
   const int F = n_types * (R + 1);
   const size_t P = rowbwd::branch_slot_floats(F, H, H) +
                    rowbwd::branch_slot_floats(F, H, pos ? n_heads : H) +
                    (gate ? H + 1 : 0);
-  return (int)rowbwd::launch_reduce(slots, d_params, G, P,
-                                    (cudaStream_t)stream);
+  return (int)rowbwd::launch_reduce(slots, d_params, G, P, s);
 }

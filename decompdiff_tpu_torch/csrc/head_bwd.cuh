@@ -80,11 +80,12 @@ struct HeadSlots {
 };
 
 // M [2 NH][mstride] <- Qk (rows 0 .. NH-1) and Gv (rows NH ..), and qb[h] =
-// q_h . bo_k,h, gb[h] = g_h . bo_v,h; q and g in shared memory. Consecutive
+// q_h . bo_k,h, gb[h] = g_h . bo_v,h; q and g in shared memory. NB = 1: Qk
+// and qb alone (wo_v, bo_v and g unread). Consecutive
 // threads read consecutive columns of a row j of Wo (four at a time where a
 // head spans a multiple of four), and a head's sum is reduced by shuffles
 // among the threads of its columns. No barrier.
-template <int H>
+template <int H, int NB = 2>
 __device__ __forceinline__ void row_matrices(
     const float* __restrict__ wo_k, const float* __restrict__ wo_v,
     const float* __restrict__ bo_k, const float* __restrict__ bo_v,
@@ -92,22 +93,26 @@ __device__ __forceinline__ void row_matrices(
   const int hd = H / NH;
   if ((hd & 3) == 0) {
     constexpr int Q = H / 4;                 // column quads of a row
-    constexpr int N = 2 * H * Q / THREADS;   // quads per thread
-    constexpr int NB = N < 4 ? N : 4;        // loads in flight at once
-    static_assert(N % NB == 0, "whole batches");
+    constexpr int E = NB * H * Q;            // quads in all
+    // quads per thread (a thread past E, in whole warps, takes none)
+    constexpr int N = (E + THREADS - 1) / THREADS;
+    constexpr int NL = N < 4 ? N : 4;        // loads in flight at once
+    static_assert(N % NL == 0 && E % 32 == 0, "whole batches and warps");
 #pragma unroll 1
-    for (int n0 = 0; n0 < N; n0 += NB) {
-      float4 w[NB];
+    for (int n0 = 0; n0 < N; n0 += NL) {
+      float4 w[NL];
 #pragma unroll
-      for (int u = 0; u < NB; ++u) {
+      for (int u = 0; u < NL; ++u) {
         const int e = threadIdx.x + (n0 + u) * THREADS;
         const int br = e / (H * Q), j = e / Q - br * H, c = (e % Q) * 4;
-        w[u] = __ldg(reinterpret_cast<const float4*>(
-            (br ? wo_v : wo_k) + (size_t)j * H + c));
+        if (E % THREADS == 0 || e < E)
+          w[u] = __ldg(reinterpret_cast<const float4*>(
+              (br ? wo_v : wo_k) + (size_t)j * H + c));
       }
 #pragma unroll
-      for (int u = 0; u < NB; ++u) {
+      for (int u = 0; u < NL; ++u) {
         const int e = threadIdx.x + (n0 + u) * THREADS;
+        if (E % THREADS != 0 && e >= E) break;  // uniform over the warp
         const int br = e / (H * Q), j = e / Q - br * H, c = (e % Q) * 4;
         const float* x = (br ? g : q) + c;
         float s = w[u].x * x[0];
@@ -120,8 +125,8 @@ __device__ __forceinline__ void row_matrices(
       }
     }
   } else {
-    static_assert(2 * H * H % THREADS == 0, "whole warps per iteration");
-    for (int e = threadIdx.x; e < 2 * H * H; e += THREADS) {
+    static_assert(NB * H * H % THREADS == 0, "whole warps per iteration");
+    for (int e = threadIdx.x; e < NB * H * H; e += THREADS) {
       const int br = e / (H * H), j = e / H - br * H, c = e % H;
       float s = __ldg((br ? wo_v : wo_k) + (size_t)j * H + c) *
                 (br ? g : q)[c];
@@ -131,7 +136,7 @@ __device__ __forceinline__ void row_matrices(
     }
   }
   const int t = threadIdx.x;
-  if (t < 2 * NH) {
+  if (t < NB * NH) {
     const int h = t % NH;
     const float* bo = t < NH ? bo_k : bo_v;
     const float* xr = t < NH ? q : g;
@@ -168,17 +173,18 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 //   out[(k0 + m) NH + h] = f (T[m] . M[h] + bias[h])    (k0 + m < n)
 // with M [NH][mstride]. Warps 0 .. 3 each take 16 rows x 8 heads over the
 // whole depth H, in three tf32 passes (hi hi + hi lo + lo hi: float32
-// accuracy, as row_mma.cuh's bf16 split); the other warps return at once.
-// No barrier.
+// accuracy, as row_mma.cuh's bf16 split); the other warps return at once
+// (w0: warps w0 .. w0 + 3 take the tiles instead, so that two products can
+// run at once). No barrier.
 template <int H>
 __device__ __forceinline__ void head_products_tc(const float* T,
                                                  const float* M, int NH,
                                                  int k0, int n, float f,
                                                  const float* bias,
-                                                 float* out) {
+                                                 float* out, int w0 = 0) {
   static_assert(KC == 32 && MAXNH == 16, "2 x 2 tiles of 16 x 8");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 4) return;
+  const int warp = (threadIdx.x >> 5) - w0, lane = threadIdx.x & 31;
+  if (warp < 0 || warp >= 4) return;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp >> 1) * 16, h0 = (warp & 1) * 8;
   if (h0 >= NH) return;

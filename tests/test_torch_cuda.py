@@ -24,7 +24,10 @@ backward kernels run at H = 512 and 1024 (1024-thread builds, row buffers
 in device memory) and the triplet backward also at H = 256 with Nl = 48
 (per-row); at H = 32, 64 and 128 the triplet backward is head-factorized,
 at Nl = 13, 20, 32, 40 and 48, with a complex without bonds, and two of
-its launches give bitwise-equal gradients.
+its launches give bitwise-equal gradients. The edge backward at H = 32,
+64 and 128 is head-factorized in every mode (node, pos, gated, gather), at
+K = 20, 32 (one 32-source chunk) and 48 (two), and two of its launches give
+bitwise-equal parameter gradients; at H = 96 it stays per-row.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -334,7 +337,8 @@ def test_edge_gather_backward_kernel(cuda, mode, group):
     g = _rand(rng, *(args[0].shape if mode == 'gather_pos' else
                      args[-3].shape), scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
-                    edge_ops.edge_attention_backward, count='gather_launches')
+                    edge_ops.edge_attention_backward, count='gather_launches',
+                    row=0)
 
 
 # x_src far from x: the hi + lo table lies within about 2^-17 |x| of x, so
@@ -342,8 +346,8 @@ def test_edge_gather_backward_kernel(cuda, mode, group):
 # x, or scattered their cotangent into d x. Here x_src is x plus 0.5 times
 # a standard normal, which moves every output and gradient by far more
 # than TOL: the forward on the tensor-core route (H=128) and the per-row
-# route (H=96), and the backward (per-row at every width), node and pos
-# mode, d x and d x_src apart.
+# route (H=96), and the backward (head-factorized at H=128, per-row at
+# H=96), node and pos mode, d x and d x_src apart.
 @pytest.mark.parametrize('H,heads', [(128, 16), (96, 12)],
                          ids=['H128', 'H96'])
 @pytest.mark.parametrize('mode', ['gather', 'gather_pos'],
@@ -363,7 +367,8 @@ def test_edge_shifted_source_kernel(cuda, direction, mode, H, heads):
     g = _rand(rng, *(args[0].shape if mode == 'gather_pos' else
                      args[-3].shape), scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
-                    edge_ops.edge_attention_backward, count='gather_launches')
+                    edge_ops.edge_attention_backward, count='gather_launches',
+                    row=int(H == 96))
 
 
 # The widths outside the tensor-core kernels' run on the per-row kernels:
@@ -506,7 +511,7 @@ def _check_backward(fn, g, args, kw, cuda, counter, count='launches',
     """The backward wrapper on CPU tensors (plain autograd) against the same
     wrapper on CUDA tensors (the kernel), which adds one to `count`, and to
     `scratch_launches` when `scratch` (its row buffers in device memory);
-    with `row` (the triplet), row_launches rises by `row` (1: the per-row
+    with `row` (edge, triplet), row_launches rises by `row` (1: the per-row
     kernel, 0: the head-factorized one).
     At those sizes, or with `retry`, where a gradient lies outside the
     tolerance, the comparison is made again with the cotangent zeroed on the
@@ -552,7 +557,66 @@ def test_edge_backward_kernel(cuda, pos_mode, group, H, heads):
     args = (x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q, k, v)
     _check_backward(edge_ops.edge_attention_backward, g, args,
                     dict(n_heads=heads, pos_mode=pos_mode), cuda,
-                    edge_ops.edge_attention_backward)
+                    edge_ops.edge_attention_backward, row=0)
+
+
+# The head-factorized edge backward (H in 32, 64, 128) at K below, at and
+# above its 32-source chunk; rows N-5.. of complex 0 have no valid source.
+# Its pre sums run in another order than autograd's, so a relu gate within
+# rounding of 0 can flip: compare_backward zeroes only the rows whose
+# ambiguous gates explain the elements outside.
+@pytest.mark.parametrize('K', [20, 32, 48])
+@pytest.mark.parametrize('H,heads', [(64, 8), (128, 16)])
+@pytest.mark.parametrize('mode', ['node', 'pos'])
+def test_edge_head_backward_kernel(cuda, mode, H, heads, K):
+    rng = np.random.default_rng(15 + K)
+    args, kw = _edge_case(rng, H, heads, mode, K=K, N=61)
+    g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
+              scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
+                    edge_ops.edge_attention_backward, row=0, retry=True)
+
+
+@pytest.mark.parametrize('mode,H,heads', [
+    ('node', 128, 16), ('pos', 128, 16), ('gated', 128, 16),
+    ('node', 96, 12)], ids=['head-node', 'head-pos', 'head-gated',
+                            'per-row'])
+def test_edge_backward_deterministic(cuda, mode, H, heads):
+    """Two launches on the same inputs give bitwise-equal parameter
+    gradients (every sum is owned by one thread or taken over the blocks in
+    a fixed order); d t_src and d x are summed by atomics, so they may
+    differ within rounding."""
+    rng = np.random.default_rng(11)
+    args, kw = _edge_case(rng, H, heads, mode, K=32)
+    g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
+              scale=1.0)
+    dev_args = [_dev(a, cuda) for a in args]
+    dev_kw = {k: _dev(v, cuda) for k, v in kw.items()}
+    rows = edge_ops.edge_attention_backward.row_launches
+    first, second = (edge_ops.edge_attention_backward(
+        g.to(cuda), *dev_args, **dev_kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert edge_ops.edge_attention_backward.row_launches == rows + 2 * (
+        H == 96)
+    for name, a, b in _edge_grad_pairs(first, second):
+        if name in ('x', 'k.t_src', 'v.t_src'):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), name
+
+
+def _edge_grad_pairs(first, second):
+    """(name, first, second) of each gradient of two edge backward results."""
+    out = []
+    for i, name in enumerate(('x', 'e_w', 'q')):
+        out.append((name, first[i], second[i]))
+    for i, tag in ((3, 'k'), (4, 'v')):
+        for f, a, b in zip(Branch._fields, first[i], second[i]):
+            out.append((f'{tag}.{f}', a, b))
+    for i in range(5, len(first)):
+        for j, (a, b) in enumerate(zip(first[i], second[i])):
+            out.append((f'extra{i}.{j}', a, b))
+    return out
 
 
 def _gated_case(K, bm, seed):
@@ -599,7 +663,8 @@ def test_edge_gated_backward_kernel(cuda, K, bm):
     g = _rand(rng, *args[-3].shape, scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args,
                     dict(n_heads=16, pos_mode=False, gate=gate), cuda,
-                    edge_ops.edge_attention_backward, count='gated_launches')
+                    edge_ops.edge_attention_backward, count='gated_launches',
+                    row=0)
 
 
 @pytest.mark.parametrize('Nl', [13, 20], ids=['Nl13', 'Nl20'])
@@ -684,7 +749,7 @@ def test_edge_wide_backward_kernel(cuda, mode, H, heads):
               scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
                     edge_ops.edge_attention_backward, EDGE_COUNTS[mode],
-                    scratch=True)
+                    scratch=True, row=1)
 
 
 def _bond_case(rng, H, heads, pos_mode, B=2, Nl=20):
