@@ -18,9 +18,10 @@
 // linears h_bond @ We and second linears y @ Wo) against ~5 MB of inputs
 // and output, as chip_smoke.py counts them; at three bf16 tensor-core
 // passes per product that is ~3 us, above the ~1.5 us of its bytes. The
-// backward adds two products per forward product (d_h_bond = d pre We^T and
-// d We = h_bond^T d pre among them) and runs them on CUDA cores, so FP32
-// throughput bounds it.
+// backward, head-factorized, keeps three [H, H] products per pair and
+// branch (pre = h_bond We again, d h_bond = d pre We^T, d We = h_bond^T
+// d pre): ~1.75 GFLOP with the heads-wide and per-row ones, ~6 us at three
+// tensor-core passes, above its ~2.5 us of bytes.
 //
 // Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
 // 512-thread block per SM over tiles of 2 destination rows x 32 sources
@@ -44,16 +45,48 @@
 // in-kernel. At H = 128 it took 174 registers a thread, so blocks of
 // H > 256 threads are compiled for 1024 threads (at most 64 registers).
 //
-// Backward design (row_attention_bwd.cuh): one block per row as well (the
-// grid is capped at two blocks per SM, each looping over rows), every
-// per-pair intermediate recomputed in shared memory. The TPU kernel holds a
-// whole complex per program and sums the column cotangents d t_src[j] and,
-// in pos mode, d x[j] in-program; a block per complex would give only B=8
-// blocks here, so those two are atomicAdds into zeroed buffers instead
-// (order varies between runs, within float32 rounding). d h_bond is per
-// pair and written directly. Blocks of H > 256 threads take a 1024-thread
-// build; at H >= 512 the row buffers do not fit in shared memory and live in
-// a device-memory scratch that the wrapper allocates (row_attention_bwd.cuh).
+// Backward design, H in 32, 64, 128 with at most 16 heads and Nl up to
+// NLMAX = 64 (head_bwd.cuh), two launches:
+//   A  bond_attention_bwd_head_kernel: one 512-thread block per SM over
+//      contiguous destination rows. q and the output cotangent belong to
+//      the row, so the second linears' side is head-factorized as in the
+//      triplet and edge backward (no per-pair [H, H] product there): per
+//      row Qk and Gv, per chunk of 32 sources the first linears of both
+//      branches on the tensor cores (3xTF32 mma.sync, We read as fragments
+//      through L2), LayerNorm, the logits and d alpha on the tensor cores,
+//      the softmax backward, then the heads-wide d y, Yd and Ya, the relu
+//      and LayerNorm backward. It writes d pre of both branches to a
+//      device-memory buffer ([2][B, Nl, Nl, H]) and does all that is
+//      row-local: d q, d t_row, d t_src and d x (atomics), the LayerNorm
+//      and bias sums, and d Wo summed per block in shared memory. d Wo of
+//      both branches takes 129 KB of shared memory at H = 128; We of both
+//      branches, as float32 or as bf16 hi + lo, would take 128 KB more,
+//      past a block's 227 KB, so We stays in L2 (each element read once a
+//      chunk), and d We and d h_bond, which need all of a chunk's d pre
+//      anyway, move to
+//   B  bond_attention_bwd_gemm_kernel: a tensor-core product over the
+//      B * Nl^2 pair rows in chunks of 32, with We of both branches staged
+//      in its shared memory: d h_bond = [d pre_k | d pre_v] [We_k ; We_v]^T
+//      (K = 2H) written out, and the block's partial sums of d We_m =
+//      h_bond^T d pre_m in registers (one owner per element), stored into
+//      the block's slot.
+// The extra traffic of the buffer is ~17 MB at the released shapes (~5 us
+// at 3.35 TB/s). Every parameter gradient has one adding thread per block
+// and is summed over the blocks in a fixed order (launch_reduce); d t_src
+// and d x are atomics (order varies, within float32 rounding).
+//
+// Backward design at every other width (row_attention_bwd.cuh): one block
+// per row as well (the grid is capped at two blocks per SM, each looping
+// over rows), every per-pair intermediate recomputed in shared memory. The
+// TPU kernel holds a whole complex per program and sums the column
+// cotangents d t_src[j] and, in pos mode, d x[j] in-program; a block per
+// complex would give only B=8 blocks here, so those two are atomicAdds into
+// zeroed buffers instead (order varies between runs, within float32
+// rounding). d h_bond is per pair and written directly. Blocks of H > 256
+// threads take a 1024-thread build; at H >= 512 the row buffers do not fit
+// in shared memory and live in a device-memory scratch that the wrapper
+// allocates (row_attention_bwd.cuh).
+#include "head_bwd.cuh"
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
 
@@ -406,6 +439,7 @@ struct BondBwdArgs {
   int rows;              // B * Nl
   float* scratch;        // row buffers in device memory (SCRATCH kernels)
   int per_block;         //   floats of them per block
+  float* d_pre;          // [2][B, Nl, Nl, H] d pre_k, d pre_v (head route)
 };
 
 // The row buffers: the chunk's h_bond rows, then RowSmem.
@@ -544,6 +578,626 @@ __global__ void __launch_bounds__(1024, 1)
   bond_bwd_rows<true>(a);
 }
 
+// ---------------------------------------------------------------------------
+// backward, H in 32, 64, 128: head-factorized (head_bwd.cuh), then the
+// tensor-core products of d h_bond and d We
+// ---------------------------------------------------------------------------
+
+namespace hb = headbwd;
+
+// Phase marks of the head route's kernels, for
+// scripts/profile_torch_bond_bwd.py, which defines BOND_BWD_PHASE to count
+// each phase's cycles (n < 0: the start); empty here. Each stands where
+// every thread of the block arrives.
+#ifndef BOND_BWD_PHASE
+#define BOND_BWD_PHASE(n)
+#endif
+
+// Offsets into launch A's dynamic shared memory, fixed at compile time
+// (sized for NLMAX sources and MAXNH heads).
+template <int H>
+struct BondHeadLayout {
+  static constexpr int NLMAX = 64;  // sources a row: two chunks
+  static constexpr size_t F = sizeof(float);
+  static constexpr int MS = hb::mstride(H), TS = hb::tstride(H);
+  static constexpr size_t dwo = 0;                            // [2][H][MS]
+  static constexpr size_t tk = dwo + F * 2 * H * MS;          // [KC][TS]
+  static constexpr size_t tv = tk + F * hb::KC * TS;
+  static constexpr size_t m = tv + F * hb::KC * TS;           // [2 MAXNH][MS]
+  static constexpr size_t lg = m + F * 2 * hb::MAXNH * MS;    // [NLMAX][NH]
+  static constexpr size_t da = lg + F * NLMAX * hb::MAXNH;
+  static constexpr size_t cv = da + F * NLMAX * hb::MAXNH;
+  static constexpr size_t vec = cv + F * NLMAX * hb::MAXNH;   // [2][H]
+  static constexpr size_t hs = vec + F * 2 * H;               // [5][MAXNH]
+  static constexpr size_t src = hs + F * 5 * hb::MAXNH;       // [3][NLMAX]
+  static constexpr size_t bytes = src + F * 3 * NLMAX;
+  static_assert(tk % 16 == 0 && tv % 16 == 0 && m % 16 == 0, "aligned");
+};
+
+// Launch B's dynamic shared memory: We_k and We_v ([H][tstride] each,
+// staged once a block; at the end the block's d We sums), then the chunk's
+// h_bond rows and its d pre_k and d pre_v rows as tf32 hi and lo,
+// [KC][tstride] each.
+template <int H>
+constexpr size_t gemm_smem_bytes() {
+  return sizeof(float) * (2 * H + 5 * hb::KC) * hb::tstride(H);
+}
+
+// The chunk's first linears of both branches on the tensor cores:
+// pre_m = X We_m + t_row_m[row] + t_src_m[source] into Pk and Pv for the
+// KC pair rows of X ([KC][tstride] float32 h_bond rows; t_src 0 past the n
+// sources of the chunk, whose rows in X are 0). Pv may be X: the products
+// stay in registers until every warp has read X. We_m [H][H] is read as mma
+// fragments through L2 (it does not fit in shared memory beside the block's
+// d Wo); warp w takes the 8 output columns of n-tile w % (H / 8) for its
+// share of the (branch, m-tile) pairs, so each element of We is read once a
+// chunk. Contains a block barrier; ends without one.
+template <int H>
+__device__ __forceinline__ void bond_pre_tc(const float* X, const Branch& bk,
+                                            const Branch& bv, int row,
+                                            size_t src0, int n, float* Pk,
+                                            float* Pv) {
+  constexpr int TS = hb::tstride(H), NT = H / 8, WPN = hb::WARPS / NT;
+  constexpr int NB = WPN == 1 ? 2 : 1, NM = WPN <= 2 ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, sub = warp / NT;
+  const int n0 = (warp % NT) * 8;
+  const int br0 = NB == 2 ? 0 : NM == 2 ? sub : sub / 2;
+  const int mt0 = NM == 2 ? 0 : sub % 2;
+  const float* w[NB];
+#pragma unroll
+  for (int bi = 0; bi < NB; ++bi)
+    w[bi] = (br0 + bi ? bv : bk).w_feat + t * H + n0 + g;
+  float acc[NB][NM][4] = {};
+#pragma unroll 4
+  for (int k = 0; k < H; k += 8) {
+    uint32_t ah[NM][4], al[NM][4], bh[NB][2], bl[NB][2];
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi) {
+      hb::split_tf32(__ldg(w[bi] + k * H), bh[bi][0], bl[bi][0]);
+      hb::split_tf32(__ldg(w[bi] + (k + 4) * H), bh[bi][1], bl[bi][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < NM; ++mi)
+      hb::frag_a<TS, false>(X + ((mt0 + mi) * 16 + g) * TS + k + t, ah[mi],
+                        al[mi]);
+#pragma unroll
+    for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+      for (int mi = 0; mi < NM; ++mi)
+        hb::mma3(acc[bi][mi], ah[mi], al[mi], bh[bi], bl[bi]);
+  }
+  __syncthreads();  // every warp has read X
+#pragma unroll
+  for (int bi = 0; bi < NB; ++bi) {
+    const Branch& br = br0 + bi ? bv : bk;
+    float* P = br0 + bi ? Pv : Pk;
+    const int c = n0 + 2 * t;
+    const float2 tr =
+        __ldg(reinterpret_cast<const float2*>(br.t_row + (size_t)row * H + c));
+#pragma unroll
+    for (int mi = 0; mi < NM; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mt0 + mi) * 16 + g + 8 * hf;
+        const float2 ts =
+            r < n ? __ldg(reinterpret_cast<const float2*>(
+                        br.t_src + (src0 + r) * H + c))
+                  : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(P + r * TS + c) =
+            make_float2(acc[bi][mi][2 * hf] + tr.x + ts.x,
+                        acc[bi][mi][2 * hf + 1] + tr.y + ts.y);
+      }
+  }
+}
+
+// The chunk's sources k0 .. k0 + KC - 1 of `row` (complex b): VL and, in
+// pos mode, GRL = (x_i - x_j) . g; the h_bond rows (0 past Nl) into Tv,
+// the first linears of both branches into Tk and Tv, their LayerNorm and
+// relu (y in the tiles, xhat and 1 / std kept). Begins after a barrier;
+// ends without one.
+template <int H, bool POS>
+__device__ __forceinline__ void bond_head_chunk(
+    const BondArgs& f, int row, int b, int k0, const float* g3, int* VL,
+    float* GRL, float* Tk, float* Tv, float (&xhk)[hb::RW][H / 32],
+    float (&rsk)[hb::RW], float (&xhv)[hb::RW][H / 32],
+    float (&rsv)[hb::RW]) {
+  constexpr int TS = hb::tstride(H), Q = H / 4;
+  const int tid = threadIdx.x, Nl = f.Nl, n = min(hb::KC, Nl - k0);
+  if (tid < n) {
+    const int j = k0 + tid;
+    VL[j] = f.mask[(size_t)row * Nl + j] > 0.5f;
+    if (POS) {
+      float s = 0.f;
+      for (int d = 0; d < 3; ++d)
+        s = fmaf(f.x[(size_t)row * 3 + d] - f.x[((size_t)b * Nl + j) * 3 + d],
+                 g3[d], s);
+      GRL[j] = s;
+    }
+  }
+  const float4* hb4 = reinterpret_cast<const float4*>(
+      f.h_bond + ((size_t)row * Nl + k0) * H);
+  for (int e = tid; e < hb::KC * Q; e += hb::THREADS) {
+    const int r = e / Q, c4 = e - r * Q;
+    *reinterpret_cast<float4*>(Tv + r * TS + 4 * c4) =
+        r < n ? __ldg(hb4 + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  BOND_BWD_PHASE(3);
+  bond_pre_tc<H>(Tv, f.k, f.v, row, (size_t)b * Nl + k0, n, Tk, Tv);
+  __syncthreads();
+  BOND_BWD_PHASE(4);
+  hb::tile_ln<H>(Tk, f.k.lns, f.k.lnb, xhk, rsk);
+  hb::tile_ln<H>(Tv, f.v.lns, f.v.lnb, xhv, rsv);
+}
+
+// Launch A. Persistent: block g takes the destination rows [g rows / G,
+// (g + 1) rows / G). d Wo of both branches stays in shared memory,
+// transposed, until the block ends; d pre of both branches goes to a.d_pre
+// (zeros for the rows without a bond) for launch B.
+template <int H, bool POS>
+__global__ void __launch_bounds__(hb::THREADS, 1)
+    bond_attention_bwd_head_kernel(BondBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  using lay = BondHeadLayout<H>;
+  constexpr int MS = hb::mstride(H), TS = hb::tstride(H), NV = H / 32;
+  constexpr int P = hb::Map<H>::P, NLMAX = lay::NLMAX;
+  const BondArgs& f = a.f;
+  const int Nl = f.Nl, NH = f.n_heads, hd = H / NH;
+  float* DWk = reinterpret_cast<float*>(dyn + lay::dwo);  // [H][MS] d Wo^T
+  float* DWv = DWk + H * MS;
+  float* Tk = reinterpret_cast<float*>(dyn + lay::tk);    // [KC][TS]: pre,
+  float* Tv = reinterpret_cast<float*>(dyn + lay::tv);    //   y, then d pre
+  float* M = reinterpret_cast<float*>(dyn + lay::m);      // Qk, then Yd
+  float* Mv = M + NH * MS;                                // Gv (pos: Wo_v^T)
+  float* LG = reinterpret_cast<float*>(dyn + lay::lg);    // logit, alpha
+  float* DA = reinterpret_cast<float*>(dyn + lay::da);    // d alpha, dh
+  float* CV = reinterpret_cast<float*>(dyn + lay::cv);    // pos: v, then
+                                                          //   v's coefficients
+  float* QR = reinterpret_cast<float*>(dyn + lay::vec);   // q of the row
+  float* GR = QR + H;                                     // g (pos: [3])
+  float* HS = reinterpret_cast<float*>(dyn + lay::hs);    // qb|gb (pos:
+                                                          // bo_v)|S dh|S
+                                                          // alpha|S cv
+  int* VL = reinterpret_cast<int*>(dyn + lay::src);       // [NLMAX] each
+  float* GRL = reinterpret_cast<float*>(VL + NLMAX);      // pos: rel . g
+  float* WR = GRL + NLMAX;                                // pos: d rel / g
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % H, part = tid / H;
+  const float scale = 1.f / sqrtf((float)hd);
+  const size_t pair_floats = (size_t)a.rows * Nl * H;
+  float* dpk = a.d_pre;                                   // [B, Nl, Nl, H]
+  float* dpv = a.d_pre + pair_floats;
+  // the v branch's head coefficients, and their sums over the sources
+  const float* CVB = POS ? CV : LG;
+  const float* SCV = HS + (POS ? 4 : 3) * hb::MAXNH;
+
+  BOND_BWD_PHASE(-1);
+  for (int e = tid; e < 2 * H * MS; e += hb::THREADS) DWk[e] = 0.f;
+  if (POS) {  // the v branch's [H, heads] second linear, as heads rows
+    for (int e = tid; e < H * NH; e += hb::THREADS)
+      Mv[(e % NH) * MS + e / NH] = __ldg(f.v.wo + e);
+    if (tid < NH) HS[hb::MAXNH + tid] = __ldg(f.v.bo + tid);
+  }
+
+  // the block's sums over its rows
+  float lsk[NV] = {}, lbk[NV] = {}, lsv[NV] = {}, lbv[NV] = {};
+  float ywo[hb::MAXHP] = {};  // pos: d Wo_v [H, heads]
+  float bo_k = 0.f, bo_v = 0.f;
+  const int row_end = (int)((long long)(blockIdx.x + 1) * a.rows / gridDim.x);
+  __syncthreads();
+  BOND_BWD_PHASE(0);
+
+  for (int row = (int)((long long)blockIdx.x * a.rows / gridDim.x);
+       row < row_end; ++row) {
+    const int b = row / Nl;
+    // a barrier too: the last row is done with the buffers
+    if (!row_has_source(f.mask + (size_t)row * Nl, Nl)) {
+      if (tid < H) {
+        a.d_q[(size_t)row * H + tid] = 0.f;
+        a.d_trow_k[(size_t)row * H + tid] = 0.f;
+        a.d_trow_v[(size_t)row * H + tid] = 0.f;
+      }
+      for (int e = tid; e < Nl * H; e += hb::THREADS) {
+        dpk[(size_t)row * Nl * H + e] = 0.f;
+        dpv[(size_t)row * Nl * H + e] = 0.f;
+      }
+      continue;
+    }
+    if (tid < H) {
+      QR[tid] = f.q[(size_t)row * H + tid];
+      if (!POS) GR[tid] = a.g[(size_t)row * H + tid];
+    }
+    if (POS && tid < 3) GR[tid] = a.g[(size_t)row * 3 + tid];
+    __syncthreads();
+    BOND_BWD_PHASE(1);
+    hb::row_matrices<H, POS ? 1 : 2>(f.k.wo, f.v.wo, f.k.bo, f.v.bo, QR, GR,
+                                     NH, M, HS, HS + hb::MAXNH);
+    // one chunk: y stays in the tiles and xhat, 1 / std in registers from
+    // pass A to pass B
+    const bool one = Nl <= hb::KC;
+    float xh[2][hb::RW][NV], rs[2][hb::RW];
+
+    // pass A: logits and d alpha (pos: v) of every source
+    for (int k0 = 0; k0 < Nl; k0 += hb::KC) {
+      __syncthreads();  // M and HS written; the last chunk is done
+      BOND_BWD_PHASE(k0 ? 6 : 2);
+      bond_head_chunk<H, POS>(f, row, b, k0, GR, VL, GRL, Tk, Tv, xh[0],
+                              rs[0], xh[1], rs[1]);
+      __syncthreads();
+      BOND_BWD_PHASE(5);
+      hb::head_products_tc<H>(Tk, M, NH, k0, Nl, scale, HS, LG);
+      hb::head_products_tc<H>(Tv, Mv, NH, k0, Nl, 1.f, HS + hb::MAXNH,
+                              POS ? CV : DA, 4);
+    }
+    __syncthreads();
+    BOND_BWD_PHASE(6);
+    if (POS) {  // d alpha = v_h (rel . g) / heads; CV keeps v_h
+      for (int e = tid; e < Nl * NH; e += hb::THREADS)
+        DA[e] = CV[e] * GRL[e / NH] / NH;
+      __syncthreads();
+    }
+    hb::head_softmax(LG, DA, VL, Nl, NH, HS + 2 * hb::MAXNH);
+    __syncthreads();
+    if (POS) {
+      // per source: d rel / g = sum_h alpha v_h / heads, and CV <- the v
+      // branch's head coefficients alpha (rel . g) / heads; 16 lanes a
+      // source (alpha is 0 at an invalid source)
+      for (int u = tid; u < ((Nl * hb::MAXNH + 31) & ~31);
+           u += hb::THREADS) {
+        const int m = u / hb::MAXNH, h = u % hb::MAXNH;
+        const bool in = m < Nl && h < NH;
+        const float al = in ? LG[m * NH + h] : 0.f;
+        float dv = in ? al * CV[m * NH + h] : 0.f;
+        for (int o = hb::MAXNH / 2; o > 0; o >>= 1)
+          dv += __shfl_xor_sync(0xffffffffu, dv, o);
+        if (h == 0 && m < Nl) WR[m] = dv / NH;
+        if (in) CV[m * NH + h] = al * GRL[m] / NH;
+      }
+      __syncthreads();
+      if (warp < NH) {  // S cv[h] = sum_m CV[m][h]
+        float s = 0.f;
+        for (int m = lane; m < Nl; m += 32) s += CV[m * NH + warp];
+        s = rm::warp_sum(s);
+        if (lane == 0) HS[4 * hb::MAXNH + warp] = s;
+      }
+    }
+    BOND_BWD_PHASE(7);
+
+    // pass B: the head sums, d y and d pre of both branches
+    float Yd[hb::MAXHP] = {}, Ya[hb::MAXHP] = {};
+    float trow_k = 0.f, trow_v = 0.f;
+    float dxd[3] = {0.f, 0.f, 0.f};  // pos: d x of the destination (tid < KC)
+    for (int k0 = 0; k0 < Nl; k0 += hb::KC) {
+      const int nr = min(hb::KC, Nl - k0);
+      if (!one) {
+        __syncthreads();  // the last chunk is done with the tiles
+        bond_head_chunk<H, POS>(f, row, b, k0, GR, VL, GRL, Tk, Tv, xh[0],
+                                rs[0], xh[1], rs[1]);
+      }
+      __syncthreads();  // y of both branches in the tiles; CV, HS written
+      BOND_BWD_PHASE(8);
+      hb::accumulate_heads<H>(Yd, Tk, DA, k0, nr, NH);
+      if (POS)
+        hb::accumulate_heads<H>(ywo, Tv, CV, k0, nr, NH);
+      else
+        hb::accumulate_heads<H>(Ya, Tv, LG, k0, nr, NH);
+      __syncthreads();  // the tiles take d pre below
+      BOND_BWD_PHASE(9);
+      hb::branch_back<H, false>(Tk, f.k.lns, f.k.lnb, M, DA, scale, k0, Nl,
+                                NH, xh[0], rs[0], lsk, lbk, nullptr, nullptr);
+      hb::branch_back<H, false>(Tv, f.v.lns, f.v.lnb, Mv, CVB, 1.f, k0, Nl,
+                                NH, xh[1], rs[1], lsv, lbv, nullptr, nullptr);
+      __syncthreads();
+      BOND_BWD_PHASE(10);
+      if (tid < H)
+        for (int r = 0; r < nr; ++r) {
+          trow_k += Tk[r * TS + c];
+          trow_v += Tv[r * TS + c];
+        }
+      // d pre out for launch B; d t_src of the valid sources
+      for (int r = part; r < nr; r += P) {
+        const float vk = Tk[r * TS + c], vv = Tv[r * TS + c];
+        const size_t o = ((size_t)row * Nl + k0 + r) * H + c;
+        dpk[o] = vk;
+        dpv[o] = vv;
+        if (VL[k0 + r]) {
+          const size_t s = ((size_t)b * Nl + k0 + r) * H + c;
+          atomicAdd(a.d_tsrc_k + s, vk);
+          atomicAdd(a.d_tsrc_v + s, vv);
+        }
+      }
+      // pos mode: d rel = WR g -> +x_i, -x_j
+      if (POS && tid < nr && VL[k0 + tid]) {
+        const float wr = WR[k0 + tid];
+        for (int d = 0; d < 3; ++d) {
+          const float dr = wr * GR[d];
+          dxd[d] += dr;
+          atomicAdd(a.d_x + ((size_t)b * Nl + k0 + tid) * 3 + d, -dr);
+        }
+      }
+      BOND_BWD_PHASE(11);
+    }
+
+    // the row's d t_row, d x, d bo, d Wo and d q
+    if (tid < H) {
+      a.d_trow_k[(size_t)row * H + c] = trow_k;
+      a.d_trow_v[(size_t)row * H + c] = trow_v;
+    }
+    if (POS && tid < 32)
+      for (int d = 0; d < 3; ++d) {
+        const float t = rm::warp_sum(dxd[d]);
+        if (tid == 0) atomicAdd(a.d_x + (size_t)row * 3 + d, t);
+      }
+    const float* SH = HS + 2 * hb::MAXNH;  // S dh
+    if (tid < H) {
+      bo_k = fmaf(scale * QR[c], SH[c / hd], bo_k);
+      if (!POS) bo_v = fmaf(GR[c], SCV[c / hd], bo_v);
+    }
+    if (POS && tid < NH) bo_v += SCV[tid];
+    hb::update_dwo<H>(DWk, Yd, QR, scale, NH);
+    if (!POS) hb::update_dwo<H>(DWv, Ya, GR, 1.f, NH);
+    hb::store_heads<H>(M, Yd, NH);  // Qk is done: a barrier followed its use
+    __syncthreads();
+    hb::dq_partial<H>(Tk, M, f.k.wo, NH);
+    __syncthreads();
+    if (tid < H) {
+      float t = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) t += Tk[p * H + c];
+      a.d_q[(size_t)row * H + c] =
+          scale * (t + __ldg(f.k.bo + c) * SH[c / hd]);
+    }
+    BOND_BWD_PHASE(12);
+  }
+
+  // the block's slot (its w_feat part is launch B's)
+  rowbwd::GradSlot gk, gv;
+  rowbwd::block_slots(a.slots, H, H, POS ? NH : H, gk, gv);
+  if (tid < H) {
+    gk.bo[c] = bo_k;
+    if (!POS) gv.bo[c] = bo_v;
+  }
+  if (POS) {
+    if (tid < NH) gv.bo[tid] = bo_v;
+    const hb::HeadSlots<H> hs(hd);
+    if ((part * hb::Map<H>::CR) % hd == 0)  // one writer per element
+#pragma unroll
+      for (int u = 0; u < hb::MAXHP; ++u)
+        if (u < hs.n) gv.wo[c * NH + hs.h0 + u] = ywo[u];
+  }
+  __syncthreads();
+  for (int e = tid; e < H * H; e += hb::THREADS) {
+    const int jj = e / H, cc = e - jj * H;
+    gk.wo[e] = DWk[cc * MS + jj];
+    if (!POS) gv.wo[e] = DWv[cc * MS + jj];
+  }
+  __syncthreads();  // DWk holds the warps' LayerNorm sums next
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int cc = lane + 32 * v;
+    DWk[(warp * 4 + 0) * H + cc] = lsk[v];
+    DWk[(warp * 4 + 1) * H + cc] = lbk[v];
+    DWk[(warp * 4 + 2) * H + cc] = lsv[v];
+    DWk[(warp * 4 + 3) * H + cc] = lbv[v];
+  }
+  __syncthreads();
+  if (tid < 4 * H) {
+    const int qn = tid / H, cc = tid % H;
+    float t = 0.f;
+    for (int w = 0; w < hb::WARPS; ++w) t += DWk[(w * 4 + qn) * H + cc];
+    float* out = qn == 0 ? gk.lns : qn == 1 ? gk.lnb : qn == 2 ? gv.lns
+                                                                : gv.lnb;
+    out[cc] = t;
+  }
+  BOND_BWD_PHASE(13);
+}
+
+// d h_bond of the chunk's n < KC pair rows on the tensor cores:
+// out[r] = Dk[r] We_k^T + Dv[r] We_v^T (K = 2H; We_m[x][c] is the
+// fragment element B[c][x]; W: We_k, We_v [H][tstride] in shared memory;
+// D: the tf32 hi of d pre_k, d pre_v, then their lo, [KC][tstride] each),
+// three tf32 passes. Warp w takes the output columns of n-tile w % (H / 8)
+// for its m-tiles (at H = 32 warps 8 .. 15 have none). No barrier.
+template <int H>
+__device__ __forceinline__ void bond_dhb_tc(const uint32_t* D, const float* W,
+                                            float* out, size_t n) {
+  constexpr int TS = hb::tstride(H), NT = H / 8, TILES = 2 * NT;
+  constexpr int NM = TILES > hb::WARPS ? TILES / hb::WARPS : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= TILES) return;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (warp % NT) * 8, mt0 = NM == 2 ? 0 : warp / NT;
+  float acc[NM][4] = {};
+#pragma unroll
+  for (int br = 0; br < 2; ++br) {
+    const uint32_t* dh = D + br * hb::KC * TS;
+    const uint32_t* dl = dh + 2 * hb::KC * TS;
+    const float* w = W + (br * H + n0 + g) * TS + t;
+#pragma unroll 4
+    for (int k = 0; k < H; k += 8) {
+      uint32_t ah[NM][4], al[NM][4], bh[2], bl[2];
+      hb::split_tf32(w[k], bh[0], bl[0]);
+      hb::split_tf32(w[k + 4], bh[1], bl[1]);
+#pragma unroll
+      for (int mi = 0; mi < NM; ++mi) {
+        hb::frag_a_split<TS>(dh, dl, ((mt0 + mi) * 16 + g) * TS + k + t,
+                         ah[mi], al[mi]);
+        hb::mma3(acc[mi], ah[mi], al[mi], bh, bl);
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < NM; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = (mt0 + mi) * 16 + g + 8 * hf;
+      if ((size_t)r < n)
+        *reinterpret_cast<float2*>(out + (size_t)r * H + n0 + 2 * t) =
+            make_float2(acc[mi][2 * hf], acc[mi][2 * hf + 1]);
+    }
+}
+
+// Launch B: over the B * Nl^2 pair rows (b, i, j flattened) in chunks of
+// KC, d h_bond = [d pre_k | d pre_v] [We_k ; We_v]^T, and the block's
+// partial sums of d We_m = h_bond^T d pre_m on the tensor cores, three tf32
+// passes. Block g takes the chunks [g C / G, (g + 1) C / G), with We of
+// both branches staged in shared memory once (read through L2 a chunk, it
+// took two fifths of the launch). d pre, an operand of every warp, is split
+// into tf32 hi and lo once, as the chunk comes in. Warp w owns TPW m16n8
+// tiles of d We, all of one branch and one 16-row m-tile, in registers (64
+// floats a thread at H = 128), summed in chunk order: one owner per
+// element. At the end they go through shared memory, so that the block's
+// slot is written in coalesced rows (stored from the fragments, they took a
+// third of the launch).
+template <int H>
+__global__ void __launch_bounds__(hb::THREADS, 1)
+    bond_attention_bwd_gemm_kernel(BondBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  constexpr int TS = hb::tstride(H), NT = H / 8, KC = hb::KC, Q = H / 4;
+  constexpr int PER_BR = (H / 16) * NT;            // m16n8 tiles a branch
+  constexpr int TPW = 2 * PER_BR / hb::WARPS;      // a warp's tiles
+  static_assert(TPW >= 1 && NT % TPW == 0, "a warp's tiles share a row");
+  float* W = reinterpret_cast<float*>(dyn);        // [2][H][TS] We_k, We_v
+  float* X = W + 2 * H * TS;                       // [KC][TS] h_bond rows
+  // [hi | lo][k | v][KC][TS] d pre rows as tf32
+  uint32_t* D = reinterpret_cast<uint32_t*>(X + KC * TS);
+  const BondArgs& f = a.f;
+  const size_t pairs = (size_t)a.rows * f.Nl;
+  const float* dpk = a.d_pre;
+  const float* dpv = a.d_pre + pairs * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = warp * TPW, wbr = t0 / PER_BR;
+  const int x0 = ((t0 % PER_BR) / NT) * 16, c0 = (t0 % NT) * 8;
+  const uint32_t* Dwh = D + wbr * KC * TS;          // this warp's branch
+  const uint32_t* Dwl = Dwh + 2 * KC * TS;
+  float acc[TPW][4] = {};
+  const long long C = (long long)((pairs + KC - 1) / KC);
+  const long long c_end = (blockIdx.x + 1) * C / gridDim.x;
+
+  BOND_BWD_PHASE(-1);
+  for (int e = threadIdx.x; e < 2 * H * Q; e += hb::THREADS) {
+    const int br = e / (H * Q), x = e / Q - br * H, c4 = e % Q;
+    *reinterpret_cast<float4*>(W + (br * H + x) * TS + 4 * c4) =
+        __ldg(reinterpret_cast<const float4*>(br ? f.v.w_feat : f.k.w_feat) +
+              x * Q + c4);
+  }
+  for (long long ch = blockIdx.x * C / gridDim.x; ch < c_end; ++ch) {
+    const size_t p0 = (size_t)ch * KC;
+    const size_t n = pairs - p0 < (size_t)KC ? pairs - p0 : (size_t)KC;
+    __syncthreads();  // the last chunk is done with the tiles
+    for (int e = threadIdx.x; e < KC * Q; e += hb::THREADS) {
+      const int r = e / Q, c4 = e - r * Q;
+      const size_t o = (p0 * H) / 4 + e;
+      const bool in = (size_t)r < n;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(X + r * TS + 4 * c4) =
+          in ? __ldg(reinterpret_cast<const float4*>(f.h_bond) + o) : z;
+#pragma unroll
+      for (int br = 0; br < 2; ++br) {
+        const float4 d =
+            in ? __ldg(reinterpret_cast<const float4*>(br ? dpv : dpk) + o)
+               : z;
+        uint4 h, l;
+        hb::split_tf32(d.x, h.x, l.x);
+        hb::split_tf32(d.y, h.y, l.y);
+        hb::split_tf32(d.z, h.z, l.z);
+        hb::split_tf32(d.w, h.w, l.w);
+        const int at = (br * KC + r) * TS + 4 * c4;
+        *reinterpret_cast<uint4*>(D + at) = h;
+        *reinterpret_cast<uint4*>(D + 2 * KC * TS + at) = l;
+      }
+    }
+    __syncthreads();
+    BOND_BWD_PHASE(14);
+    bond_dhb_tc<H>(D, W, a.d_hbond + p0 * H, n);
+    BOND_BWD_PHASE(15);
+    // d We += X^T D over the chunk's pair rows (rows past n are 0)
+#pragma unroll
+    for (int k = 0; k < KC; k += 8) {
+      uint32_t ah[4], al[4];
+      hb::frag_a<TS, true>(X + (k + t) * TS + x0 + g, ah, al);
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        const int o = (k + t) * TS + c0 + 8 * i + g;
+        const uint32_t bh[2] = {Dwh[o], Dwh[o + 4 * TS]};
+        const uint32_t bl[2] = {Dwl[o], Dwl[o + 4 * TS]};
+        hb::mma3(acc[i], ah, al, bh, bl);
+      }
+    }
+    BOND_BWD_PHASE(16);
+  }
+
+  // the block's d We [H(in)][H(out)] of both branches into W, then its
+  // slot
+  __syncthreads();  // every warp is done with We
+  float* S = W + wbr * H * TS;
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(S + (x0 + g + 8 * hf) * TS + c0 + 8 * i +
+                                 2 * t) =
+          make_float2(acc[i][2 * hf], acc[i][2 * hf + 1]);
+  __syncthreads();
+  rowbwd::GradSlot gk, gv;
+  rowbwd::block_slots(a.slots, H, H, f.pos ? f.n_heads : H, gk, gv);
+  for (int e = threadIdx.x; e < 2 * H * H; e += hb::THREADS) {
+    const int br = e / (H * H), x = e / H - br * H, c = e % H;
+    (br ? gv.wfeat : gk.wfeat)[x * H + c] = W[(br * H + x) * TS + c];
+  }
+  BOND_BWD_PHASE(17);
+}
+
+// Whether the head route takes these sizes: H in 32, 64, 128, at most
+// MAXNH heads, 1 to NLMAX atoms, and its layout within a block's shared
+// memory.
+template <int H>
+cudaError_t bond_head_fits(int NH, int Nl, bool* ok) {
+  *ok = false;
+  if (!hb::heads_ok(NH) || Nl < 1 || Nl > BondHeadLayout<H>::NLMAX)
+    return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *ok = err == cudaSuccess && BondHeadLayout<H>::bytes <= (size_t)optin;
+  return err;
+}
+
+cudaError_t bond_head_route(int H, int NH, int Nl, bool* ok) {
+  switch (H) {
+    case 32: return bond_head_fits<32>(NH, Nl, ok);
+    case 64: return bond_head_fits<64>(NH, Nl, ok);
+    case 128: return bond_head_fits<128>(NH, Nl, ok);
+    default: *ok = false; return cudaSuccess;
+  }
+}
+
+// Launches A and B of the head route, G blocks each (the slots' count).
+template <int H>
+cudaError_t launch_bwd_head(const BondBwdArgs& a, int G,
+                            cudaStream_t stream) {
+  constexpr size_t smem = BondHeadLayout<H>::bytes;
+  void (*head)(BondBwdArgs) = bond_attention_bwd_head_kernel<H, false>;
+  if (a.f.pos) head = bond_attention_bwd_head_kernel<H, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      head, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  head<<<G, hb::THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t gsmem = gemm_smem_bytes<H>();
+  err = cudaFuncSetAttribute(bond_attention_bwd_gemm_kernel<H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gsmem);
+  if (err != cudaSuccess) return err;
+  bond_attention_bwd_gemm_kernel<H><<<G, hb::THREADS, gsmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // One block per SM (at most one per tile).
 template <int H>
 cudaError_t launch_fwd(const BondArgs& a, int B, cudaStream_t stream) {
@@ -616,18 +1270,39 @@ extern "C" int bond_attention_fwd(
 }
 
 // Floats per block of the device-memory scratch that the backward needs at
-// these sizes (0: its row buffers fit in shared memory).
+// these sizes (0: its row buffers fit in shared memory, or the head route
+// runs).
 extern "C" int bond_attention_bwd_scratch(int* per_block, int Nl, int H,
                                           int n_heads) {
+  bool head = false;
+  *per_block = 0;
+  cudaError_t err = bond_head_route(H, n_heads, Nl, &head);
+  if (err != cudaSuccess || head) return (int)err;
   return (int)rowbwd::scratch_floats(
       bwd_kernel(H, false), H, bond_bwd_floats(Nl, H, n_heads),
       per_block);
 }
 
-// Backward: G blocks over the B*Nl rows, then the fixed-order slot sum into
-// d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: the same]). scratch:
-// G times bond_attention_bwd_scratch's floats, or null when that is 0.
-// *route: 1 when the row buffers went to the scratch, else 0.
+// Whether the backward at these sizes runs the per-row kernel (*row = 1) or
+// the head route (*row = 0): the wrapper sizes the launch and its buffers
+// from it.
+extern "C" int bond_attention_bwd_route(int* row, int Nl, int H,
+                                        int n_heads) {
+  bool head = false;
+  const cudaError_t err = bond_head_route(H, n_heads, Nl, &head);
+  *row = !head;
+  return (int)err;
+}
+
+// Backward, then the fixed-order slot sum into d_params ([k: w_feat, wo,
+// bo, ln_scale, ln_bias | v: the same]). H in 32, 64, 128 with at most 16
+// heads and Nl up to 64: the head route, launches A and B over G blocks
+// (one per SM), which alone reads d_pre (2 B Nl^2 H floats, written by A,
+// read by B); any other width: the per-row kernel over G blocks (two per
+// SM), which alone reads k_woT, k_weT, v_woT, v_weT (the transposed
+// weights) and the scratch: G times bond_attention_bwd_scratch's floats, or
+// null when that is 0. *route: 1 when the row buffers went to the scratch,
+// else 0; *row: 1 when the per-row kernel was launched, else 0.
 extern "C" int bond_attention_bwd(
     const float* h_bond, const float* x, const float* mask, const float* q,
     const float* g,
@@ -639,9 +1314,10 @@ extern "C" int bond_attention_bwd(
     const float* v_lnb, const float* v_woT, const float* v_weT,
     float* d_hbond, float* d_x, float* d_q, float* d_trow_k, float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
-    float* scratch, int* route, int B, int Nl, int H, int n_heads, int pos,
-    int G, void* stream) {
+    float* scratch, float* d_pre, int* route, int* row, int B, int Nl, int H,
+    int n_heads, int pos, int G, void* stream) {
   *route = 0;
+  *row = 0;
   if (B * Nl == 0 || G <= 0) return 0;
   BondBwdArgs a{
       BondArgs{h_bond, x, mask, q,
@@ -649,13 +1325,26 @@ extern "C" int bond_attention_bwd(
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                nullptr, Nl, H, n_heads, pos},
       g, k_woT, v_woT, k_weT, v_weT, d_hbond, d_x, d_q, d_trow_k, d_tsrc_k,
-      d_trow_v, d_tsrc_v, slots, B * Nl, nullptr, 0};
-  cudaError_t err = rowbwd::launch_rows(
-      bwd_kernel(H, false), bwd_kernel(H, true), a, G,
-      bond_bwd_floats(Nl, H, n_heads), scratch, route, (cudaStream_t)stream);
+      d_trow_v, d_tsrc_v, slots, B * Nl, nullptr, 0, d_pre};
+  const cudaStream_t s = (cudaStream_t)stream;
+  bool head = false;
+  cudaError_t err = bond_head_route(H, n_heads, Nl, &head);
+  if (err != cudaSuccess) return (int)err;
+  if (head) {
+    if (d_pre == nullptr) return (int)cudaErrorInvalidValue;
+    switch (H) {
+      case 32: err = launch_bwd_head<32>(a, G, s); break;
+      case 64: err = launch_bwd_head<64>(a, G, s); break;
+      default: err = launch_bwd_head<128>(a, G, s); break;
+    }
+  } else {
+    *row = 1;
+    err = rowbwd::launch_rows(bwd_kernel(H, false), bwd_kernel(H, true), a,
+                              G, bond_bwd_floats(Nl, H, n_heads), scratch,
+                              route, s);
+  }
   if (err != cudaSuccess) return (int)err;
   const size_t P = rowbwd::branch_slot_floats(H, H, H) +
                    rowbwd::branch_slot_floats(H, H, pos ? n_heads : H);
-  return (int)rowbwd::launch_reduce(slots, d_params, G, P,
-                                    (cudaStream_t)stream);
+  return (int)rowbwd::launch_reduce(slots, d_params, G, P, s);
 }

@@ -943,42 +943,6 @@ __device__ __forceinline__ void edge_tile_pre_branch(
   for (int m = 0; m < RPT; ++m) P[(r0 + m) * hb::tstride(H) + c] = p[m];
 }
 
-// Warp map: LayerNorm and relu of one branch's pre rows in the tile T (pair
-// rows warp + WARPS s), keeping xhat (xh) and 1 / std (rs); y replaces pre
-// in T. No barrier.
-template <int H>
-__device__ __forceinline__ void edge_tile_ln(float* T, const Branch& br,
-                                             float (&xh)[hb::RW][H / 32],
-                                             float (&rs)[hb::RW]) {
-  constexpr int NV = H / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int s = 0; s < hb::RW; ++s) {
-    float* row = T + (warp + hb::WARPS * s) * hb::tstride(H);
-    float x[NV], sum = 0.f;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      x[v] = row[lane + 32 * v];
-      sum += x[v];
-    }
-    const float mean = rm::warp_sum(sum) / H;
-    float s2 = 0.f;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const float d = x[v] - mean;
-      s2 += d * d;
-    }
-    rs[s] = rsqrtf(rm::warp_sum(s2) / H + 1e-5f);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      xh[s][v] = (x[v] - mean) * rs[s];
-      row[lane + 32 * v] = fmaxf(xh[s][v] * __ldg(br.lns + lane + 32 * v) +
-                                     __ldg(br.lnb + lane + 32 * v),
-                                 0.f);
-    }
-  }
-}
-
 // The m-gate in the warp map: GT[k0 + r] <- sigmoid(y_v[r] . wvm + bvm) for
 // the warp's pair rows r (y_v in T), wvm = Wo_v wm, bvm = bo_v . wm + bm.
 // No barrier.
@@ -1034,54 +998,9 @@ __device__ __forceinline__ void edge_head_chunk(
   edge_tile_pre_branch<H>(f.k, et, CF, f.n_types, trk, Tk, zk);
   edge_tile_pre_branch<H>(f.v, et, CF, f.n_types, trv, Tv, zv);
   __syncthreads();
-  edge_tile_ln<H>(Tk, f.k, xhk, rsk);
-  edge_tile_ln<H>(Tv, f.v, xhv, rsv);
+  hb::tile_ln<H>(Tk, f.k.lns, f.k.lnb, xhk, rsk);
+  hb::tile_ln<H>(Tv, f.v.lns, f.v.lnb, xhv, rsv);
   if (GATE) edge_tile_gate<H>(Tv, wvm, bvm, k0, K, GT);
-}
-
-// Warp map, one branch of pass B: d y = cf sum_h C[m][h] M[h] (with GATE
-// plus d s wvm), the relu and LayerNorm backward to d pre, which replaces y
-// in T; lns, lnb: the block's sums of d ln_scale and d ln_bias at the
-// lanes' channels. No barrier.
-template <int H, bool GATE>
-__device__ __forceinline__ void edge_branch_back(
-    float* T, const Branch& br, const float* M, const float* C, float cf,
-    int k0, int K, int NH, const float (&xh)[hb::RW][H / 32],
-    const float (&rs)[hb::RW], float (&lns)[H / 32], float (&lnb)[H / 32],
-    const float* DS, const float* wvm) {
-  constexpr int NV = H / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float dp[hb::RW][NV];
-  hb::head_expand<H>(dp, M, C, cf, k0, K, NH);
-#pragma unroll
-  for (int s = 0; s < hb::RW; ++s) {
-    if (GATE) {
-      const int m = k0 + warp + hb::WARPS * s;
-      const float ds = m < K ? DS[m] : 0.f;
-#pragma unroll
-      for (int v = 0; v < NV; ++v)
-        dp[s][v] = fmaf(ds, wvm[lane + 32 * v], dp[s][v]);
-    }
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const float ls = __ldg(br.lns + lane + 32 * v);
-      const float du =
-          xh[s][v] * ls + __ldg(br.lnb + lane + 32 * v) > 0.f ? dp[s][v]
-                                                              : 0.f;
-      lns[v] = fmaf(du, xh[s][v], lns[v]);
-      lnb[v] += du;
-      const float dx = du * ls;
-      dp[s][v] = dx;
-      s1 += dx;
-      s2 = fmaf(dx, xh[s][v], s2);
-    }
-    const float m1 = rm::warp_sum(s1) / H, m2 = rm::warp_sum(s2) / H;
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-      T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] =
-          rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
-  }
 }
 
 // Channel map: the chunk's d pre of both branches (tiles Tk, Tv) into the
@@ -1361,10 +1280,10 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
           dsum += DS[k0 + r];
         }
       __syncthreads();  // the tiles take d pre below
-      edge_branch_back<H, false>(Tk, f.k, M, DA, scale, k0, K, NH, xh[0],
-                                 rs[0], lsk, lbk, nullptr, nullptr);
-      edge_branch_back<H, GATE>(Tv, f.v, Mv, CV, 1.f, k0, K, NH, xh[1],
-                                rs[1], lsv, lbv, DS, WVM);
+      hb::branch_back<H, false>(Tk, f.k.lns, f.k.lnb, M, DA, scale, k0, K,
+                                NH, xh[0], rs[0], lsk, lbk, nullptr, nullptr);
+      hb::branch_back<H, GATE>(Tv, f.v.lns, f.v.lnb, Mv, CV, 1.f, k0, K, NH,
+                               xh[1], rs[1], lsv, lbv, DS, WVM);
       __syncthreads();
       if (tid < H)
         for (int r = 0; r < nr; ++r) {

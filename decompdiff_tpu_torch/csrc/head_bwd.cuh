@@ -32,6 +32,12 @@
 // shared-memory value feeding RW multiply-adds: tensor-core versions of
 // them (one warp per 8 channels, three dependent mma.sync a step) were no
 // faster at the released shapes.
+//
+// The triplet, edge and bond backward kernels include it. Besides the
+// softmax backward it holds what they share around it: the LayerNorm of a
+// tile keeping xhat (tile_ln), one branch's d y down to d pre
+// (branch_back), and the 3xTF32 mma.sync fragments (frag_a, mma3) that
+// head_products_tc and the bond's per-pair [H, H] products use.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -168,6 +174,45 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// A's fragment of an m16n8k8 tf32 product from a float32 tile of row
+// stride S at a = &A[m0 + g][k + t] (g = lane / 4, t = lane % 4), or, with
+// TRANS, the transposed tile at a = &A[k + t][m0 + g]; split into hi + lo.
+template <int S, bool TRANS>
+__device__ __forceinline__ void frag_a(const float* a, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  constexpr int R8 = TRANS ? 8 : 8 * S, K4 = TRANS ? 4 * S : 4;
+  split_tf32(a[0], hi[0], lo[0]);
+  split_tf32(a[R8], hi[1], lo[1]);
+  split_tf32(a[K4], hi[2], lo[2]);
+  split_tf32(a[R8 + K4], hi[3], lo[3]);
+}
+
+// The same fragment (not transposed; o: the offset of A[m0 + g][k + t]) of
+// a tile already split into tf32 hi and lo, two tiles of one layout.
+template <int S>
+__device__ __forceinline__ void frag_a_split(const uint32_t* hi,
+                                             const uint32_t* lo, int o,
+                                             uint32_t (&ah)[4],
+                                             uint32_t (&al)[4]) {
+  const int at[4] = {o, o + 8 * S, o + 4, o + 8 * S + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = hi[at[i]];
+    al[i] = lo[at[i]];
+  }
+}
+
+// c += a b in three tf32 passes (hi hi + hi lo + lo hi: float32 accuracy),
+// the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
 // The heads-wide products of a chunk on the tensor cores: for source row m
 // of the tile T ([KC][tstride], float32 y) and head h < NH,
 //   out[(k0 + m) NH + h] = f (T[m] . M[h] + bias[h])    (k0 + m < n)
@@ -195,15 +240,10 @@ __device__ __forceinline__ void head_products_tc(const float* T,
 #pragma unroll 4
   for (int k = 0; k < H; k += 8) {
     uint32_t ah[4], al[4], bh[2], bl[2];
-    split_tf32(a_row[k], ah[0], al[0]);
-    split_tf32(a_row[8 * tstride(H) + k], ah[1], al[1]);
-    split_tf32(a_row[k + 4], ah[2], al[2]);
-    split_tf32(a_row[8 * tstride(H) + k + 4], ah[3], al[3]);
+    frag_a<tstride(H), false>(a_row + k, ah, al);
     split_tf32(hb ? b_row[k] : 0.f, bh[0], bl[0]);
     split_tf32(hb ? b_row[k + 4] : 0.f, bh[1], bl[1]);
-    mma_tf32(acc, al, bh[0], bh[1]);
-    mma_tf32(acc, ah, bl[0], bl[1]);
-    mma_tf32(acc, ah, bh[0], bh[1]);
+    mma3(acc, ah, al, bh, bl);
   }
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -238,6 +278,89 @@ __device__ __forceinline__ void head_expand(float (&dy)[RW][H / 32],
 #pragma unroll
       for (int s = 0; s < RW; ++s) dy[s][v] = fmaf(cs[s], w, dy[s][v]);
     }
+  }
+}
+
+// Warp map: LayerNorm and relu of the pre rows in the tile T (pair rows
+// warp + WARPS s), keeping xhat (xh) and 1 / std (rs); y replaces pre in T.
+// No barrier.
+template <int H>
+__device__ __forceinline__ void tile_ln(float* T,
+                                        const float* __restrict__ lns,
+                                        const float* __restrict__ lnb,
+                                        float (&xh)[RW][H / 32],
+                                        float (&rs)[RW]) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    float* row = T + (warp + WARPS * s) * tstride(H);
+    float x[NV], sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      x[v] = row[lane + 32 * v];
+      sum += x[v];
+    }
+    const float mean = rowmma::warp_sum(sum) / H;
+    float s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float d = x[v] - mean;
+      s2 += d * d;
+    }
+    rs[s] = rsqrtf(rowmma::warp_sum(s2) / H + 1e-5f);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      xh[s][v] = (x[v] - mean) * rs[s];
+      row[lane + 32 * v] = fmaxf(xh[s][v] * __ldg(lns + lane + 32 * v) +
+                                     __ldg(lnb + lane + 32 * v),
+                                 0.f);
+    }
+  }
+}
+
+// Warp map, one branch of pass B: d y = cf sum_h C[m][h] M[h] (with GATE
+// plus d s wvm, d s in DS), the relu and LayerNorm backward to d pre, which
+// replaces y in T (xh, rs from tile_ln); sl, sb: the block's sums of
+// d ln_scale and d ln_bias at the lanes' channels. No barrier.
+template <int H, bool GATE>
+__device__ __forceinline__ void branch_back(
+    float* T, const float* __restrict__ lns, const float* __restrict__ lnb,
+    const float* M, const float* C, float cf, int k0, int K, int NH,
+    const float (&xh)[RW][H / 32], const float (&rs)[RW],
+    float (&sl)[H / 32], float (&sb)[H / 32], const float* DS,
+    const float* wvm) {
+  constexpr int NV = H / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float dp[RW][NV];
+  head_expand<H>(dp, M, C, cf, k0, K, NH);
+#pragma unroll
+  for (int s = 0; s < RW; ++s) {
+    if (GATE) {
+      const int m = k0 + warp + WARPS * s;
+      const float ds = m < K ? DS[m] : 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        dp[s][v] = fmaf(ds, wvm[lane + 32 * v], dp[s][v]);
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float ls = __ldg(lns + lane + 32 * v);
+      const float du =
+          xh[s][v] * ls + __ldg(lnb + lane + 32 * v) > 0.f ? dp[s][v] : 0.f;
+      sl[v] = fmaf(du, xh[s][v], sl[v]);
+      sb[v] += du;
+      const float dx = du * ls;
+      dp[s][v] = dx;
+      s1 += dx;
+      s2 = fmaf(dx, xh[s][v], s2);
+    }
+    const float m1 = rowmma::warp_sum(s1) / H, m2 = rowmma::warp_sum(s2) / H;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      T[(warp + WARPS * s) * tstride(H) + lane + 32 * v] =
+          rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
   }
 }
 

@@ -20,15 +20,27 @@ other width that check_heads admits the per-row kernel
 launches also count in `bond_attention.row_launches`.
 
 On CUDA tensors `bond_attention` is differentiable: its autograd node saves
-only the inputs, and `bond_attention_backward` recomputes the rest in the
-backward kernel. Its launches with the row buffers in a device-memory
-scratch (wide H; the launcher decides and reports it) also count in
-`bond_attention_backward.scratch_launches`.
+only the inputs, and `bond_attention_backward` recomputes the rest in a
+backward kernel. The launcher chooses that kernel by width and reports it:
+for H in 32, 64, 128 with at most 16 heads and Nl up to 64 the
+head-factorized kernel (csrc/head_bwd.cuh: q and the output cotangent belong
+to the destination row, so the cotangents of k and v factorize by head and
+no per-pair [H, H] product is left on the second linears' side; one block
+per SM), which writes d pre of both branches to a device-memory buffer, and
+then a tensor-core product kernel that forms d h_bond = d pre_k We_k^T +
+d pre_v We_v^T and d We = h_bond^T d pre from it; otherwise the per-row
+kernel (csrc/row_attention_bwd.cuh; two blocks per SM), whose launches
+also count in `bond_attention_backward.row_launches`. Its launches with
+the row buffers in a device-memory scratch (wide H; the launcher decides
+and reports it) also count in `bond_attention_backward.scratch_launches`.
+`bond_attention_backward_factored` is the head-factorized algorithm in
+plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -38,7 +50,7 @@ from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, launch, on_cpu, ptr)
+    check_inputs, kernel_query, launch, on_cpu, ptr)
 
 
 def bond_attention_reference(h_bond, x, mask, q, k: Branch, v: Branch, *,
@@ -65,6 +77,108 @@ def bond_attention_backward_reference(g, h_bond, x, mask, q, k: Branch,
             n_heads=n_heads, pos_mode=pos_mode)
     d = autograd_grads(fn, g, [h_bond, x if pos_mode else None, q, *k, *v])
     return d[0], d[1], d[2], Branch(*d[3:10]), Branch(*d[10:])
+
+
+def bond_attention_backward_factored(g, h_bond, x, mask, q, k: Branch,
+                                     v: Branch, *, n_heads: int,
+                                     pos_mode: bool):
+    """The head-factorized backward that the backward kernels compute at H
+    in 32, 64, 128, in plain PyTorch (for tests; no path calls it). Returns
+    what bond_attention_backward_reference returns.
+
+    q[i] and the output cotangent g[i] belong to the destination row, so the
+    cotangent of k factorizes by head, d k[j, c] = scale dh[j, h(c)] q[c],
+    and in node mode that of v too, d v[j, c] = alpha[j, h(c)] g[c]. With
+    Qk[h] = Wo_k[:, h] q[h] and Gv[h] = Wo_v[:, h] g[h] ([heads, H] per row)
+    no per-pair [H, H] product is left on the second linears' side: the
+    logits are scale (y_k . Qk[h] + q_h . bo_k,h), d alpha is y_v . Gv[h] +
+    g_h . bo_v,h, d y_k = scale sum_h dh Qk[h] and d y_v = sum_h alpha
+    Gv[h]; d q and d Wo come from the per-row sums Yd[h] = sum_j dh y_k and
+    Ya[h] = sum_j alpha y_v. In pos mode Wo_v is already [H, heads]: v_h =
+    y_v . Wo_v[:, h] + bo_v,h. The first linears' three [H, H] products per
+    pair stay: pre = h_bond We (recomputed), d h_bond = d pre_k We_k^T +
+    d pre_v We_v^T and d We = sum over pairs of h_bond^T d pre."""
+    H = q.shape[-1]
+    hd = H // n_heads
+    scale = 1.0 / math.sqrt(hd)
+
+    def recompute(p: Branch):
+        pre = (h_bond @ p.w_feat + p.t_row[:, :, None, :]
+               + p.t_src[:, None, :, :])
+        mu = pre.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((pre - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+        xhat = (pre - mu) * rstd
+        return xhat, rstd, torch.relu(xhat * p.ln_scale + p.ln_bias)
+
+    def heads(t):                                   # [..., H] -> [..., NH, hd]
+        return t.reshape(t.shape[:-1] + (n_heads, hd))
+
+    xk, rk, yk = recompute(k)
+    xv, rv, yv = recompute(v)
+    wok = heads(k.wo)                               # [H(in), NH, hd]
+    Qk = torch.einsum('xhd,bihd->bihx', wok, heads(q))
+    logit = scale * (torch.einsum('bijx,bihx->bijh', yk, Qk)
+                     + heads(q * k.bo).sum(-1)[:, :, None, :])
+    if pos_mode:
+        rel = x[:, :, None, :] - x[:, None, :, :]            # [B, i, j, 3]
+        raw = yv @ v.wo + v.bo                               # v [B, i, j, NH]
+        coef = (rel * g[:, :, None, :]).sum(-1)[..., None] / n_heads
+    else:
+        Gv = torch.einsum('xhd,bihd->bihx', heads(v.wo), heads(g))
+        raw = (torch.einsum('bijx,bihx->bijh', yv, Gv)
+               + heads(g * v.bo).sum(-1)[:, :, None, :])
+        coef = 1.0
+    valid = (mask > 0.5)[..., None]
+    m = torch.where(valid, logit, -1e30).amax(2, keepdim=True).clamp_min(
+        -1e29)
+    e = torch.where(valid, torch.exp(logit - m), 0.0)
+    alpha = e / e.sum(2, keepdim=True).clamp_min(1e-16)
+    d_alpha = coef * raw
+    dh = alpha * (d_alpha - (alpha * d_alpha).sum(2, keepdim=True))
+    cv = alpha * coef                     # the v branch's head coefficients
+
+    def branch_bwd(dy, xhat, rstd, y, p: Branch):
+        du = torch.where(y > 0, dy, 0.0)
+        dx = du * p.ln_scale
+        d_pre = rstd * (dx - dx.mean(-1, keepdim=True)
+                        - xhat * (dx * xhat).mean(-1, keepdim=True))
+        return d_pre, (du * xhat).sum((0, 1, 2)), du.sum((0, 1, 2))
+
+    dyk = scale * torch.einsum('bijh,bihx->bijx', dh, Qk)
+    if pos_mode:
+        dyv = cv @ v.wo.t()
+    else:
+        dyv = torch.einsum('bijh,bihx->bijx', cv, Gv)
+    dpk, dlns_k, dlnb_k = branch_bwd(dyk, xk, rk, yk, k)
+    dpv, dlns_v, dlnb_v = branch_bwd(dyv, xv, rv, yv, v)
+    d_hb = dpk @ k.w_feat.t() + dpv @ v.w_feat.t()
+    d_x = None
+    if pos_mode:                          # d rel = sum_h alpha v / NH g
+        d_rel = ((alpha * raw).sum(-1) / n_heads)[..., None] * g[:, :, None]
+        d_x = d_rel.sum(2) - d_rel.sum(1)
+
+    # the per-row sums: d q, d Wo and d bo
+    Yd = torch.einsum('bijh,bijx->bihx', dh, yk)
+    sdh, scv = dh.sum(2), cv.sum(2)                          # [B, Nl, NH]
+    d_q = scale * (torch.einsum('bihx,xhd->bihd', Yd, wok)
+                   + heads(k.bo) * sdh[..., None]).reshape(q.shape)
+    dwo_k = scale * torch.einsum('bihx,bihd->xhd', Yd, heads(q)).reshape(H, H)
+    dbo_k = scale * (heads(q) * sdh[..., None]).sum((0, 1)).reshape(H)
+    if pos_mode:
+        dwo_v = torch.einsum('bijx,bijh->xh', yv, cv)
+        dbo_v = scv.sum((0, 1))
+    else:
+        Ya = torch.einsum('bijh,bijx->bihx', cv, yv)
+        dwo_v = torch.einsum('bihx,bihd->xhd', Ya, heads(g)).reshape(H, H)
+        dbo_v = (heads(g) * scv[..., None]).sum((0, 1)).reshape(H)
+
+    def grads(d_pre, dwo, dbo, dlns, dlnb):
+        return Branch(d_pre.sum(2), d_pre.sum(1),
+                      torch.einsum('bijx,bijc->xc', h_bond, d_pre),
+                      dwo, dbo, dlns, dlnb)
+
+    return (d_hb, d_x, d_q, grads(dpk, dwo_k, dbo_k, dlns_k, dlnb_k),
+            grads(dpv, dwo_v, dbo_v, dlns_v, dlnb_v))
 
 
 def _checks(h_bond, x, mask, q, k, v, n_heads, pos_mode):
@@ -151,31 +265,41 @@ def bond_attention_backward(g: torch.Tensor, h_bond, x, mask, q, k: Branch,
     named.append(('g', g, (B, Nl, 3 if pos_mode else H), torch.float32))
     check_inputs(q.device, named)
     dev = q.device
-    d_hb = torch.zeros((B, Nl, Nl, H), device=dev)
+    row = kernel_query('bond_attention', 'bond_attention_bwd_route',
+                       (Nl, H, n_heads), dev)
+    # the head route writes every element of d h_bond
+    d_hb = (torch.zeros if row else torch.empty)((B, Nl, Nl, H), device=dev)
     d_x = torch.zeros((B, Nl, 3), device=dev) if pos_mode else None
     d_q, d_trow_k, d_trow_v = (torch.empty((B, Nl, H), device=dev)
                                for _ in range(3))
     d_tsrc_k, d_tsrc_v = (torch.zeros((B, Nl, H), device=dev)
                           for _ in range(2))
-    blocks = backward_blocks(B * Nl, dev)
-    pg = ParamGrads(blocks, H, H, n_heads if pos_mode else H, dev)
-    woT_k, weT_k, weT_v = (w.t().contiguous()
+    blocks = backward_blocks(B * Nl, dev, per_sm=2 if row else 1)
+    # the head route stores every element of its slots
+    pg = ParamGrads(blocks, H, H, n_heads if pos_mode else H, dev,
+                    stored=not row)
+    # the per-row kernel alone reads the transposed weights and the scratch,
+    # the head route alone the d pre buffer of both branches
+    woT_k, weT_k, weT_v = ((w.t().contiguous() if row else None)
                            for w in (k.wo, k.w_feat, v.w_feat))
-    woT_v = None if pos_mode else v.wo.t().contiguous()
-    scratch = backward_scratch('bond_attention', [Nl, H, n_heads], blocks,
-                               dev)
+    woT_v = v.wo.t().contiguous() if row and not pos_mode else None
+    scratch = (backward_scratch('bond_attention', [Nl, H, n_heads], blocks,
+                                dev) if row else None)
+    d_pre = None if row else torch.empty((2, B, Nl, Nl, H), device=dev)
     route = ctypes.c_int(0)               # 1: row buffers in the scratch
-    fn = _build.load('bond_attention', 'bond_attention_bwd', 34, 6)
+    launched_row = ctypes.c_int(0)        # 1: the per-row kernel launched
+    fn = _build.load('bond_attention', 'bond_attention_bwd', 36, 6)
     args = ([ptr(h_bond), ptr(x if pos_mode else None), ptr(mask), ptr(q),
              ptr(g)] + branch_ptrs(k) + [ptr(woT_k), ptr(weT_k)]
             + branch_ptrs(v) + [ptr(woT_v), ptr(weT_v)]
             + [ptr(t) for t in (d_hb, d_x, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-                                d_tsrc_v, pg.slots, pg.out, scratch)]
-            + [ctypes.byref(route), B, Nl, H, n_heads, int(pos_mode),
-               blocks])
+                                d_tsrc_v, pg.slots, pg.out, scratch, d_pre)]
+            + [ctypes.byref(route), ctypes.byref(launched_row), B, Nl, H,
+               n_heads, int(pos_mode), blocks])
     launch(fn, args, dev, 'bond_attention_backward')
     bond_attention_backward.launches += 1
     bond_attention_backward.scratch_launches += route.value
+    bond_attention_backward.row_launches += launched_row.value
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
     return d_hb, d_x, d_q, dk, dv
 
@@ -183,3 +307,4 @@ def bond_attention_backward(g: torch.Tensor, h_bond, x, mask, q, k: Branch,
 bond_attention.launches = bond_attention.row_launches = 0
 bond_attention_backward.launches = 0
 bond_attention_backward.scratch_launches = 0
+bond_attention_backward.row_launches = 0

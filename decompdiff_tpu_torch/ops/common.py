@@ -181,18 +181,21 @@ def backward_scratch(kernel: str, sizes: list, blocks: int,
 
 
 class ParamGrads:
-    """The parameter-gradient buffers of a backward launch: zeroed per-block
-    slots [G, P] that the kernel fills, and the flat [P] sum over blocks
-    that its second pass writes. Both branches, each laid out as
+    """The parameter-gradient buffers of a backward launch: per-block slots
+    [G, P] that the kernel fills (zeroed, unless `stored`: the kernel stores
+    every element rather than adding to it), and the flat [P] sum over
+    blocks that its second pass writes. Both branches, each laid out as
     [w_feat (F, H) | wo (H, dout) | bo (dout) | ln_scale (H) | ln_bias (H)],
     then the `extra` shapes of a kernel's own parameters."""
 
     def __init__(self, blocks: int, feat_rows: int, H: int, dout_v: int,
-                 device: torch.device, extra: Sequence[tuple] = ()):
+                 device: torch.device, extra: Sequence[tuple] = (),
+                 stored: bool = False):
         self.shapes = [s for dout in (H, dout_v) for s in (
             (feat_rows, H), (H, dout), (dout,), (H,), (H,))] + list(extra)
         size = sum(math.prod(s) for s in self.shapes)
-        self.slots = torch.zeros((blocks, size), device=device)
+        self.slots = (torch.empty if stored else torch.zeros)(
+            (blocks, size), device=device)
         self.out = torch.empty(size, device=device)
 
     def views(self):

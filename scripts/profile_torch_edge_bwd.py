@@ -65,8 +65,8 @@ MARKS = [
      '  __syncthreads();\n  edge_tile_pre_branch<H>(f.k',
      '  __syncthreads(); PROF(3);\n  edge_tile_pre_branch<H>(f.k'),
     ('pass A: pre of both branches (first linear)',
-     '  __syncthreads();\n  edge_tile_ln<H>(Tk',
-     '  __syncthreads(); PROF(4);\n  edge_tile_ln<H>(Tk'),
+     '  __syncthreads();\n  hb::tile_ln<H>(Tk',
+     '  __syncthreads(); PROF(4);\n  hb::tile_ln<H>(Tk'),
     ('pass A: LayerNorm, relu (m-gate)',
      '      __syncthreads();\n      hb::head_products_tc<H>(Tk',
      '      __syncthreads(); PROF(5);\n      hb::head_products_tc<H>(Tk'),

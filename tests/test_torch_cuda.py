@@ -27,7 +27,13 @@ at Nl = 13, 20, 32, 40 and 48, with a complex without bonds, and two of
 its launches give bitwise-equal gradients. The edge backward at H = 32,
 64 and 128 is head-factorized in every mode (node, pos, gated, gather), at
 K = 20, 32 (one 32-source chunk) and 48 (two), and two of its launches give
-bitwise-equal parameter gradients; at H = 96 it stays per-row.
+bitwise-equal parameter gradients; at H = 96 it stays per-row. Its second
+chunk of sources (K = 48 and 64, up to its KMAX) is held with 4 and 6 edge
+types in node and pos mode and with the m-gate. The bond backward at H =
+32, 64 and 128 takes the head route (head-factorized, then a tensor-core
+product kernel for d h_bond and d We), at Nl = 13, 20, 32, 40, 48 and 64
+in both modes, and two of its launches give bitwise-equal parameter
+gradients; above 64 atoms, or with more than 16 heads, it stays per-row.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -577,6 +583,20 @@ def test_edge_head_backward_kernel(cuda, mode, H, heads, K):
                     edge_ops.edge_attention_backward, row=0, retry=True)
 
 
+# The head route's second chunk of sources up to its KMAX (64) with 4 and 6
+# edge types in both modes: the sums across chunks (d w_feat, Yd, Ya).
+@pytest.mark.parametrize('K', [48, 64])
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('mode', ['node', 'pos'])
+def test_edge_head_backward_two_chunks(cuda, mode, group, K):
+    rng = np.random.default_rng(35 + K + group)
+    args, kw = _edge_case(rng, 128, 16, mode, K=K, N=73, group=group)
+    g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
+              scale=1.0)
+    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
+                    edge_ops.edge_attention_backward, row=0, retry=True)
+
+
 @pytest.mark.parametrize('mode,H,heads', [
     ('node', 128, 16), ('pos', 128, 16), ('gated', 128, 16),
     ('node', 96, 12)], ids=['head-node', 'head-pos', 'head-gated',
@@ -621,9 +641,10 @@ def _edge_grad_pairs(first, second):
 
 def _gated_case(K, bm, seed):
     """Inputs of a gated (node mode, 4 edge types) edge launch at the
-    released width; rows N-5.. of complex 0 have no valid source."""
+    released width, with 37 nodes (more for K above 32); rows N-5.. of
+    complex 0 have no valid source."""
     rng = np.random.default_rng(seed)
-    B, N, Np, H = 2, 37, 25, 128
+    B, N, Np, H = 2, max(37, K + 9), 25, 128
     x, graph, e_w = _graph(rng, B, N, K, Np, False)
     k = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
     v = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
@@ -656,7 +677,8 @@ def test_edge_gated_kernel(cuda, K, bm):
 
 
 @pytest.mark.parametrize('bm', sorted(GATE_BIAS))
-@pytest.mark.parametrize('K', [20, 32], ids=['K20', 'K32'])
+@pytest.mark.parametrize('K', [20, 32, 48, 64],
+                         ids=['K20', 'K32', 'K48', 'K64'])
 def test_edge_gated_backward_kernel(cuda, K, bm):
     """Every gradient, d wm and d bm included, elementwise."""
     args, gate, rng = _gated_case(K, GATE_BIAS[bm], seed=13)
@@ -686,6 +708,76 @@ def test_bond_backward_kernel(cuda, pos_mode, Nl):
                     (hb, x, bm, q, k, v),
                     dict(n_heads=heads, pos_mode=pos_mode), cuda,
                     bond_ops.bond_attention_backward)
+
+
+# The bond backward's head route (H in 32, 64, 128) at Nl below, at and
+# above its 32-source chunk, up to its NLMAX (64); atom 4 of complex 0 has
+# no bond and the last complex none at all. Its pre sums run in another
+# order than autograd's, so a relu gate within rounding of 0 can flip:
+# compare_backward zeroes only the rows whose ambiguous gates explain the
+# elements outside.
+def _bond_head_case(rng, H, heads, pos_mode, Nl, B=3):
+    bm = (torch.as_tensor(rng.random((B, Nl, Nl)) < 0.5)
+          & ~torch.eye(Nl, dtype=torch.bool)).float()
+    bm[0, 4] = 0.0                              # atom 4 of complex 0: no bonds
+    bm[-1] = 0.0                                # the last complex: no bonds
+    k = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, H)
+    v = _rand_branch(rng, (B, Nl, H), (B, Nl, H), H, H, heads if pos_mode
+                     else H)
+    hb, q = _rand(rng, B, Nl, Nl, H, scale=1.0), _rand(rng, B, Nl, H,
+                                                        scale=1.0)
+    x = _rand(rng, B, Nl, 3, scale=2.0) if pos_mode else None
+    g = _rand(rng, B, Nl, 3 if pos_mode else H, scale=1.0)
+    return g, (hb, x, bm, q, k, v), dict(n_heads=heads, pos_mode=pos_mode)
+
+
+@pytest.mark.parametrize('Nl', [13, 20, 32, 40, 48, 64])
+@pytest.mark.parametrize('H,heads', [(32, 4), (64, 8), (128, 16)])
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_backward_head_kernel(cuda, pos_mode, H, heads, Nl):
+    g, args, kw = _bond_head_case(np.random.default_rng(8 + Nl), H, heads,
+                                  pos_mode, Nl)
+    _check_backward(bond_ops.bond_attention_backward, g, args, kw, cuda,
+                    bond_ops.bond_attention_backward, row=0, retry=True)
+
+
+# Outside the head route the bond backward runs the per-row kernel: more
+# atoms than its NLMAX, or more than 16 heads.
+@pytest.mark.parametrize('H,heads,Nl', [(64, 8, 70), (128, 32, 20)],
+                         ids=['Nl70', 'heads32'])
+def test_bond_backward_per_row_route(cuda, H, heads, Nl):
+    g, args, kw = _bond_head_case(np.random.default_rng(3), H, heads, False,
+                                  Nl, B=2)
+    _check_backward(bond_ops.bond_attention_backward, g, args, kw, cuda,
+                    bond_ops.bond_attention_backward, row=1)
+
+
+@pytest.mark.parametrize('pos_mode', [False, True], ids=['node', 'pos'])
+def test_bond_backward_deterministic(cuda, pos_mode):
+    """Two launches of the head route on the same inputs give bitwise-equal
+    gradients but d t_src and d x (every other sum is owned by one thread
+    or taken over the blocks in a fixed order; those two are atomics, so
+    they may differ within rounding)."""
+    g, args, kw = _bond_head_case(np.random.default_rng(9), 128, 16,
+                                  pos_mode, 32)
+    dev_args = [_dev(a, cuda) for a in args]
+    rows = bond_ops.bond_attention_backward.row_launches
+    first, second = (bond_ops.bond_attention_backward(g.to(cuda), *dev_args,
+                                                      **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert bond_ops.bond_attention_backward.row_launches == rows
+    pairs = [('h_bond', first[0], second[0]), ('q', first[2], second[2])]
+    if pos_mode:
+        pairs.append(('x', first[1], second[1]))
+    for i, tag in ((3, 'k'), (4, 'v')):
+        for f, a, b in zip(Branch._fields, first[i], second[i]):
+            pairs.append((f'{tag}.{f}', a, b))
+    for name, a, b in pairs:
+        if name in ('x', 'k.t_src', 'v.t_src'):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), name
 
 
 # The head-factorized triplet backward (H in 32, 64, 128) at Nl below, at
