@@ -660,7 +660,7 @@ __device__ __forceinline__ void bond_pre_tc(const float* X, const Branch& bk,
 #pragma unroll
     for (int mi = 0; mi < NM; ++mi)
       hb::frag_a<TS, false>(X + ((mt0 + mi) * 16 + g) * TS + k + t, ah[mi],
-                        al[mi]);
+                            al[mi]);
 #pragma unroll
     for (int bi = 0; bi < NB; ++bi)
 #pragma unroll
@@ -1022,7 +1022,7 @@ __device__ __forceinline__ void bond_dhb_tc(const uint32_t* D, const float* W,
 #pragma unroll
       for (int mi = 0; mi < NM; ++mi) {
         hb::frag_a_split<TS>(dh, dl, ((mt0 + mi) * 16 + g) * TS + k + t,
-                         ah[mi], al[mi]);
+                             ah[mi], al[mi]);
         hb::mma3(acc[mi], ah[mi], al[mi], bh, bl);
       }
     }
