@@ -527,7 +527,7 @@ def bond_backward_work(torch, args, kw):
     H, nh = args[3].shape[-1], kw['n_heads']
     square = (pairs * 2 * (3 * 2 * H + 6 * nh) * H
               + rows * 2 * (3 if kw['pos_mode'] else 5) * H * H)
-    return pairs * 2 * 2 * (6 + 8) * H + square, square
+    return pairs * 2 * (6 + 8) * H + square, square
 
 
 def backward_phase(torch, ops, captured, rows=False):

@@ -1269,15 +1269,10 @@ extern "C" int bond_attention_fwd(
   }
 }
 
-// Floats per block of the device-memory scratch that the backward needs at
-// these sizes (0: its row buffers fit in shared memory, or the head route
-// runs).
+// Floats per block of the device-memory scratch that the per-row backward
+// needs at these sizes (0: its row buffers fit in shared memory).
 extern "C" int bond_attention_bwd_scratch(int* per_block, int Nl, int H,
                                           int n_heads) {
-  bool head = false;
-  *per_block = 0;
-  cudaError_t err = bond_head_route(H, n_heads, Nl, &head);
-  if (err != cudaSuccess || head) return (int)err;
   return (int)rowbwd::scratch_floats(
       bwd_kernel(H, false), H, bond_bwd_floats(Nl, H, n_heads),
       per_block);

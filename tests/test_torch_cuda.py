@@ -567,30 +567,19 @@ def test_edge_backward_kernel(cuda, pos_mode, group, H, heads):
 
 
 # The head-factorized edge backward (H in 32, 64, 128) at K below, at and
-# above its 32-source chunk; rows N-5.. of complex 0 have no valid source.
-# Its pre sums run in another order than autograd's, so a relu gate within
-# rounding of 0 can flip: compare_backward zeroes only the rows whose
-# ambiguous gates explain the elements outside.
-@pytest.mark.parametrize('K', [20, 32, 48])
+# above its 32-source chunk, up to its KMAX (64), with 4 and 6 edge types:
+# the sums across chunks (d w_feat, Yd, Ya); rows N-5.. of complex 0 have
+# no valid source. Its pre sums run in another order than autograd's, so a
+# relu gate within rounding of 0 can flip: compare_backward zeroes only the
+# rows whose ambiguous gates explain the elements outside.
+@pytest.mark.parametrize('group', [True, False], ids=['6types', '4types'])
+@pytest.mark.parametrize('K', [20, 32, 48, 64])
 @pytest.mark.parametrize('H,heads', [(64, 8), (128, 16)])
 @pytest.mark.parametrize('mode', ['node', 'pos'])
-def test_edge_head_backward_kernel(cuda, mode, H, heads, K):
+def test_edge_head_backward_kernel(cuda, mode, H, heads, K, group):
     rng = np.random.default_rng(15 + K)
-    args, kw = _edge_case(rng, H, heads, mode, K=K, N=61)
-    g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
-              scale=1.0)
-    _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
-                    edge_ops.edge_attention_backward, row=0, retry=True)
-
-
-# The head route's second chunk of sources up to its KMAX (64) with 4 and 6
-# edge types in both modes: the sums across chunks (d w_feat, Yd, Ya).
-@pytest.mark.parametrize('K', [48, 64])
-@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
-@pytest.mark.parametrize('mode', ['node', 'pos'])
-def test_edge_head_backward_two_chunks(cuda, mode, group, K):
-    rng = np.random.default_rng(35 + K + group)
-    args, kw = _edge_case(rng, 128, 16, mode, K=K, N=73, group=group)
+    args, kw = _edge_case(rng, H, heads, mode, K=K, N=max(61, K + 9),
+                          group=group)
     g = _rand(rng, *(args[0].shape if mode == 'pos' else args[-3].shape),
               scale=1.0)
     _check_backward(edge_ops.edge_attention_backward, g, args, kw, cuda,
@@ -641,10 +630,10 @@ def _edge_grad_pairs(first, second):
 
 def _gated_case(K, bm, seed):
     """Inputs of a gated (node mode, 4 edge types) edge launch at the
-    released width, with 37 nodes (more for K above 32); rows N-5.. of
-    complex 0 have no valid source."""
+    released width, with 37 nodes (K + 9 for K above 32, so that every
+    row has K sources); rows N-5.. of complex 0 have no valid source."""
     rng = np.random.default_rng(seed)
-    B, N, Np, H = 2, max(37, K + 9), 25, 128
+    B, N, Np, H = 2, 37 if K <= 32 else K + 9, 25, 128
     x, graph, e_w = _graph(rng, B, N, K, Np, False)
     k = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
     v = _rand_branch(rng, (B, N, H), (B, N, H), 84, H, H)
