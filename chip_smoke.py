@@ -7,6 +7,14 @@
    limit (nvidia-smi).
 2. Build: compiles the three CUDA sources of csrc/ (each holds a forward and
    a backward kernel) with nvcc (timed set-up).
+2a. Entry point: the sampling driver (decompdiff_tpu_torch/sampling/
+   driver.py, the port of scripts/sample.py) as a user runs it, on a
+   synthetic store of two ~320-atom pockets, from a JAX-layout checkpoint
+   of the seeded released uni_o2_bond model, with the kernels, B=8, 8
+   molecules per pocket and STEPS strided guided steps: launches counted
+   (exactly calls x 12/12/6 forward, nothing else), result pickles checked,
+   seconds per molecule printed split into host set-up, device sampling
+   and reconstruction.
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), those of
    the m-gated edge mode in the first layer of a released-width uni_o2
@@ -72,6 +80,26 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 B, NUM_PROTEIN, NUM_LIGAND, NUM_FULL, NUM_GROUPS = 8, 320, 32, 2048, 6
 STEPS = 20          # sampling steps
+# the sampling entry point (decompdiff_tpu_torch/sampling/driver.py) on a
+# synthetic store of ENTRY_POCKETS pockets (protein atoms, ligand atoms,
+# arms), ENTRY_SAMPLES molecules each at batch B, STEPS strided steps (1000
+# in configs/sampling.yml)
+ENTRY_POCKETS = ((320, 28, 3), (312, 26, 3))
+ENTRY_SAMPLES = 8
+# configs/sampling.yml's sample section, built here so that the script
+# needs no PyYAML
+ENTRY_SAMPLE_CFG = {
+    'seed': 2021, 'prior_mode': 'ref_prior', 'num_samples': ENTRY_SAMPLES,
+    'num_steps': STEPS, 'skip_mode': 'strided', 'center_pos_mode': 'protein',
+    'sample_num_atoms': 'prior', 'arms_num_atoms_config': 'arm_num_config',
+    'scaffold_num_atoms_config': 'scaffold_num_config',
+    'energy_drift': [{'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
+                     {'type': 'clash', 'sigma': 2, 'gamma': 4}]}
+# the keys of a result pickle and of each of its rows (scripts/sample.py)
+RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
+ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
+            'smiles', 'complete', 'ligand_filename', 'src_protein_filename',
+            'protein_path'}
 TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 # (hidden width, heads) of uni_o2_bond runs on the per-row forward kernels
 # (widths outside the tensor-core kernels'), at B=2 and WIDTH_STEPS steps
@@ -206,14 +234,23 @@ def device_phase(torch):
           f'{REPO} is not a checkout holding decompdiff_tpu_torch')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print(gpu_name_and_limit(), flush=True)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'device {torch.cuda.get_device_name(0)}', flush=True)
+
+
+def nonzero(counts):
+    return {n: c for n, c in counts.items() if c}
+
+
+def gpu_name_and_limit():
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0 and smi.stdout.strip(),
           f'nvidia-smi failed: {smi.stderr.strip()}')
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
-          f'device {torch.cuda.get_device_name(0)}', flush=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def build_phase():
@@ -1004,7 +1041,102 @@ def width_option_phase(torch, models, batch, full_protein, per_call):
     return total
 
 
-def kernel_records(results, launches):
+def entry_phase(torch, per_call):
+    """The sampling entry point as a user runs it: a synthetic pocket store
+    (ENTRY_POCKETS), a JAX-layout .ckpt of the seeded released uni_o2_bond
+    model (config and params, no optimizer state), and the driver with
+    ENTRY_SAMPLE_CFG, --use_pallas, B=8, -i 0 1, every launch counter set
+    to 0 just before and read just after. Checks the launches (no per-row
+    or other launch) and the result pickles; prints seconds per molecule
+    split into host set-up, device sampling and reconstruction. Returns the
+    launches."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from decompdiff_tpu_torch.config import Config
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.sampling import driver
+    from decompdiff_tpu_torch.utils.params import state_dict_to_flax
+    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    work = REPO / 'build' / 'entry_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        store = work / 'synthetic.ddstore'
+        write_synthetic_store(str(store), [
+            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
+            for n_p, n_l, arms in ENTRY_POCKETS])
+        cfg = dict(DEFAULT_MODEL_CONFIG)
+        seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
+        ckpt = work / 'uni_o2_bond.ckpt'
+        with open(ckpt, 'wb') as f:
+            pickle.dump({'config': {'data': {'transform': {
+                             'ligand_atom_mode': 'basic'}}, 'model': cfg},
+                         'params': state_dict_to_flax(
+                             seeded.denoiser.state_dict()),
+                         'step': 0, 'iteration': 0}, f, protocol=4)
+        ids = [str(i) for i in range(len(ENTRY_POCKETS))]
+        args = driver.build_parser().parse_args(
+            ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
+             '--outdir', str(work / 'out'), '--batch_size', str(B),
+             '--use_pallas'])
+        config = Config({'data': {'path': str(store)},
+                         'sample': ENTRY_SAMPLE_CFG})
+        ops = model_ops()
+        set_launches(ops, 0)
+        t0 = time.perf_counter()
+        summaries = driver.run(args, config)
+        elapsed = time.perf_counter() - t0
+        launches = get_launches(ops)
+
+        calls = sum(len(s['shapes']) for s in summaries) * STEPS
+        expect = {n: per_call.get(n, 0) * calls for n in launches}
+        shapes = sorted({sh for s in summaries for sh in s['shapes']})
+        print(f'entry point path: {len(summaries)} pockets x '
+              f'{ENTRY_SAMPLES} molecules, batches {shapes} (B, Np, Nl), '
+              f'{STEPS} strided guided steps: {calls} denoiser calls, '
+              f'launches {nonzero(launches)} (expected {nonzero(expect)}, '
+              f'every other counter 0)', flush=True)
+        check(launches == expect,
+              'entry point launch counts differ from the expected')
+        n_mol = sum(s['n'] for s in summaries)
+        n_recon = sum(s['n_recon'] for s in summaries)
+        n_complete = sum(s['n_complete'] for s in summaries)
+        for s in summaries:
+            payload = driver.load_result(s['path'])
+            check(set(payload) == RESULT_KEYS, f'result keys {set(payload)}')
+            rows = payload['results']
+            check(len(rows) == ENTRY_SAMPLES, f'{len(rows)} result rows')
+            for r in rows:
+                check(ROW_KEYS <= set(r) and ('sdf' in r or 'recon_error' in r),
+                      f'result row keys {sorted(r)}')
+                n = len(r['pred_v'])
+                check(r['pred_pos'].shape == (n, 3)
+                      and r['pred_bond'].shape == (n, n)
+                      and bool(np.isfinite(r['pred_pos']).all()),
+                      'result predictions: shape or non-finite positions')
+        host, dev, recon = (sum(s[k] for s in summaries)
+                            for k in ('host_s', 'device_s', 'recon_s'))
+        print(f'entry point: reconstructed {n_recon}/{n_mol}, complete '
+              f'{n_complete}/{n_mol}', flush=True)
+        print(f'entry point seconds per molecule ({n_mol} molecules, '
+              f'{elapsed:.3f} s in all, checkpoint and store loading '
+              f'included): {elapsed / n_mol:.5f}; host set-up '
+              f'{host / n_mol:.5f}, device sampling {dev / n_mol:.5f}, '
+              f'reconstruction {recon / n_mol:.5f}; per pocket (host, '
+              f'device, recon s): '
+              + ', '.join(f'{s["host_s"]:.4f}/{s["device_s"]:.4f}/'
+                          f'{s["recon_s"]:.4f}' for s in summaries)
+              + f' on {gpu_name_and_limit()}', flush=True)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kernel_records(results, launches, entry_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -1014,7 +1146,8 @@ def kernel_records(results, launches):
     pallas_gather_bf16 for the gather record, the width paths for the
     per-row records), training for the backward ones. bound_fp32_ms: the
     bound with every operation at the FP32 CUDA-core peak, as PRs 1-3 gave
-    it."""
+    it. entry_launches: the kernel's launches through the sampling entry
+    point (entry_phase)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -1025,6 +1158,7 @@ def kernel_records(results, launches):
             'source': f'decompdiff_tpu_torch/csrc/{base}.cu',
             'replaces': KERNEL_SOURCES[name],
             'launches': launches[name],
+            'entry_launches': entry_launches.get(name, 0),
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -1118,6 +1252,16 @@ def main():
         from decompdiff_tpu_torch.data.batch import FullProtein
         from decompdiff_tpu_torch.utils.testing import (
             DEFAULT_MODEL_CONFIG, random_complex_batch, uni_o2_model_config)
+        # forward launches per denoiser call; the m-gate runs in x2h only
+        bond_cfg, o2_cfg = DEFAULT_MODEL_CONFIG, uni_o2_model_config()
+        layers = bond_cfg['num_layers'] * bond_cfg['num_blocks']
+        bond_calls = {'edge_attention': 2 * layers,
+                      'bond_attention': 2 * layers,
+                      'triplet_attention': layers}
+        o2_layers = o2_cfg['num_layers'] * o2_cfg['num_blocks']
+        o2_calls = {'edge_attention': o2_layers,
+                    'edge_attention_mgate': o2_layers}
+        entry_launches = entry_phase(torch, bond_calls)
         dev = torch.device('cuda')
         rng = np.random.default_rng(0)
         batch = random_complex_batch(
@@ -1133,7 +1277,6 @@ def main():
             num_groups=NUM_GROUPS, device=dev)
         width_full = FullProtein(full_protein.pos[:WIDTH_B],
                                  full_protein.mask[:WIDTH_B])
-        bond_cfg, o2_cfg = DEFAULT_MODEL_CONFIG, uni_o2_model_config()
         model, plain_model = make_models(torch, bond_cfg)
         o2_model, o2_plain = make_models(torch, o2_cfg)
         gather_cfg = dict(bond_cfg, pallas_gather_bf16=True)
@@ -1169,14 +1312,6 @@ def main():
         results.update(backward_phase(torch, ops, wide_modes))
         del wide_modes, wide_models
 
-        # forward launches per denoiser call; the m-gate runs in x2h only
-        layers = bond_cfg['num_layers'] * bond_cfg['num_blocks']
-        bond_calls = {'edge_attention': 2 * layers,
-                      'bond_attention': 2 * layers,
-                      'triplet_attention': layers}
-        o2_layers = o2_cfg['num_layers'] * o2_cfg['num_blocks']
-        o2_calls = {'edge_attention': o2_layers,
-                    'edge_attention_mgate': o2_layers}
         sample_launches = path_phase(torch, model, plain_model, batch,
                                      full_protein, bond_calls, 'uni_o2_bond')
         bf16_launches = bf16_path_phase(torch, model, bond_cfg, batch,
@@ -1243,7 +1378,8 @@ def main():
         if n.endswith('_wide'):
             trained = wide_train_launches
         launches[n] = (trained if '_backward' in n else sampled)[n]
-    print(json.dumps({'kernels': kernel_records(results, launches)}))
+    print(json.dumps({'kernels': kernel_records(results, launches,
+                                                entry_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

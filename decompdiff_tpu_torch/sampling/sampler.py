@@ -38,7 +38,7 @@ class SampleConfig:
     # e.g. ({'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
     #       {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0})
     energy_drift: Tuple[Any, ...] = ()
-    # host MMFF drift (ROADMAP item C1); not ported yet
+    # host MMFF drift (ROADMAP item C2); not ported yet
     mmff_callback: Optional[Callable] = None
     mmff_start_time: int = 0
     mmff_end_time: int = 0
@@ -126,7 +126,7 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
     """
     if cfg.mmff_callback is not None:
         raise NotImplementedError(
-            'the MMFF guidance callback is not ported yet (ROADMAP item C1)')
+            'the MMFF guidance callback is not ported yet (ROADMAP item C2)')
     if full_protein is None and any(d.get('type') == 'clash'
                                     for d in cfg.energy_drift):
         raise ValueError('clash guidance needs full_protein (the un-cropped '

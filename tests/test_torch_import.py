@@ -45,7 +45,7 @@ def test_every_submodule_imports_without_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
-    + ['chip_smoke.py']))
+    + ['chip_smoke.py', 'scripts/sample_torch.py']))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -57,6 +57,28 @@ def test_no_forbidden_import_statement(path):
             continue
         for name in names:
             assert name.split('.')[0] not in FORBIDDEN, (path, name)
+
+
+def test_imports_without_yaml_and_sampling_script_starts():
+    """With jax, flax, optax, the JAX package and PyYAML all unimportable,
+    every module of the port imports and the sampling script parses its
+    arguments (PyYAML is needed only to read a config file)."""
+    code = (
+        'import importlib, runpy, sys\n'
+        f'for name in {FORBIDDEN + ('yaml',)!r}:\n'
+        '    sys.modules[name] = None\n'
+        f'for name in {_modules()!r}:\n'
+        '    importlib.import_module(name)\n'
+        "sys.argv = ['sample_torch.py', '--help']\n"
+        'try:\n'
+        "    runpy.run_path('scripts/sample_torch.py', run_name='__main__')\n"
+        'except SystemExit as e:\n'
+        '    assert e.code == 0, e.code\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '--use_pallas' in proc.stdout and '--device' in proc.stdout
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
