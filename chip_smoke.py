@@ -15,6 +15,24 @@
    (exactly calls x 12/12/6 forward, nothing else), result pickles checked,
    seconds per molecule printed split into host set-up, device sampling
    and reconstruction.
+2b. Training entry point: the training driver (decompdiff_tpu_torch/
+   training/driver.py, the port of scripts/train.py) as a user runs it,
+   with configs/training.yml's settings (TRAIN_CONFIG: the released model,
+   the kernels, batch 4) on a synthetic store of TRAIN_POCKETS (ligands
+   padding to Nl=32 and to Nl=64), TRAIN_ITERS iterations with validation
+   every TRAIN_VAL_FREQ, then RESUME_ITERS more resumed from the last
+   checkpoint: launches counted per run (forwards per step and per
+   validation call, backwards per step, the per-row triplet backward in
+   exactly the Nl=64 steps, nothing else), losses finite, parameters
+   moved, every checkpoint in the JAX layout and read back by the
+   sampler's reader with the trained parameters, the resume at the next
+   iteration with the saved learning rate, scheduler and Adam step count;
+   seconds per step split into loader wait, step and validation, the first
+   step's set-up, checkpoint seconds and peak device memory printed. Then
+   every kernel at the trainer's shapes (B=4, Nl=24, 32 and 64; per-row
+   triplet backward at Nl=64): each forward against its plain version and
+   each backward against plain autograd, printed, the per-row triplet
+   backward timed as the record triplet_attention_backward_row.
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), those of
    the m-gated edge mode in the first layer of a released-width uni_o2
@@ -72,6 +90,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -100,6 +119,60 @@ RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
 ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
             'smiles', 'complete', 'ligand_filename', 'src_protein_filename',
             'protein_path'}
+# the training entry point (decompdiff_tpu_torch/training/driver.py) on a
+# synthetic store of TRAIN_POCKETS (protein atoms, ligand atoms, arms): the
+# first eleven train, the last validates (the JAX script's last 10%); the
+# 24-30 atom ligands pad to Nl=32, the 52-58 atom ones to Nl=64, where the
+# triplet backward takes its per-row kernel (the head route stops at 48)
+TRAIN_POCKETS = ((312, 28, 3), (305, 26, 3), (318, 55, 3), (300, 30, 3),
+                 (316, 24, 3), (309, 27, 3), (320, 58, 3), (303, 29, 3),
+                 (311, 25, 3), (307, 52, 3), (314, 28, 3), (320, 26, 3))
+TRAIN_ITERS, TRAIN_VAL_FREQ, RESUME_ITERS = 20, 10, 5
+# configs/training.yml, built here so that the script needs no PyYAML
+# (tests/test_torch_train_driver.py holds the two equal), its data.path
+# set per run and its data.split dropped (no split file: the last 10%)
+TRAIN_CONFIG = {
+    'data': {'name': 'pl', 'path': None, 'mode': 'full',
+             'prior_mode': 'ref_prior',
+             'transform': {'ligand_atom_mode': 'basic',
+                           'ligand_bond_mode': 'fc', 'max_num_arms': 10,
+                           'random_rot': False}},
+    'model': {'model_mean_type': 'C0', 'beta_schedule': 'sigmoid',
+              'beta_start': 1.0e-7, 'beta_end': 2.0e-3,
+              'v_beta_schedule': 'cosine', 'v_beta_s': 0.01,
+              'num_diffusion_timesteps': 1000, 'loss_pos_type': 'mse',
+              'sample_time_method': 'symmetric', 'bond_diffusion': True,
+              'bond_net_type': 'lin', 'num_bond_classes': 5,
+              'prior_types': False, 'h_node_in_bond_net': True,
+              'add_prior_node': False, 'time_emb_dim': 0,
+              'time_emb_mode': 'simple', 'center_pos_mode': 'protein',
+              'node_indicator': True, 'model_type': 'uni_o2_bond',
+              'num_blocks': 1, 'num_layers': 6, 'hidden_dim': 128,
+              'n_heads': 16, 'edge_feat_dim': 4, 'num_r_gaussian': 20,
+              'knn': 32, 'act_fn': 'relu', 'norm': True,
+              'cutoff_mode': 'knn', 'r_max': 10.0, 'x2h_out_fc': False,
+              'sync_twoup': False, 'use_global_ew': True,
+              'use_pallas': True},
+    'train': {'seed': 2021,
+              'loss_weights': {'pos': 1.0, 'v': 100.0, 'bond': 100.0},
+              'batch_size': 4, 'n_acc_batch': 1, 'max_iters': 500000,
+              'val_freq': 2000, 'pos_noise_std': 0.1,
+              'prior_noise_std': 0.5, 'max_grad_norm': 8.0,
+              'optimizer': {'type': 'adam', 'lr': 5.0e-4, 'weight_decay': 0,
+                            'beta1': 0.95, 'beta2': 0.999},
+              'scheduler': {'type': 'plateau', 'factor': 0.6,
+                            'patience': 10, 'min_lr': 1.0e-6}},
+}
+# the keys of a checkpoint (decompdiff_tpu/utils/checkpoint.py)
+CKPT_KEYS = {'config', 'params', 'opt_state', 'step', 'lt_history',
+             'lt_count', 'scheduler', 'iteration', 'extra'}
+# the kernels at the training entry point's shapes: B and groups of its
+# batches, and per bucket its store pads to, (Nl, real ligand atoms); the
+# triplet backward's head route takes Nl up to TRIPLET_HEAD_NL, and above it
+# the per-row kernel runs
+TRAIN_B, TRAIN_GROUPS = 4, 4
+TRAIN_SHAPES = ((24, 24), (32, 30), (64, 56))
+TRIPLET_HEAD_NL = 48
 TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 # (hidden width, heads) of uni_o2_bond runs on the per-row forward kernels
 # (widths outside the tensor-core kernels'), at B=2 and WIDTH_STEPS steps
@@ -191,6 +264,8 @@ KERNEL_SOURCES = {
     'edge_attention_backward': 'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
     'bond_attention_backward': 'decompdiff_tpu/ops/pallas/bond_kernel.py:307',
     'triplet_attention_backward':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
+    'triplet_attention_backward_row':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
@@ -1136,7 +1211,242 @@ def entry_phase(torch, per_call):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def kernel_records(results, launches, entry_launches):
+def expected_train_launches(summary, per_call, names):
+    """The launches a training run should make, from its summary: each
+    forward per_call times per step and per validation call, each backward
+    per_call times per step, the triplet backward's per-row kernel in the
+    steps whose ligands pad above the head route's TRIPLET_HEAD_NL atoms
+    (also counted in triplet_attention_backward), every other counter 0."""
+    steps = len(summary['batch_shapes'])
+    calls = steps + len(summary['eval_shapes'])
+    wide = sum(1 for shape in summary['batch_shapes']
+               if shape[2] > TRIPLET_HEAD_NL)
+    expect = dict.fromkeys(names, 0)
+    for n, c in per_call.items():
+        expect[n] = c * calls
+        expect[f'{n}_backward'] = c * steps
+    expect['triplet_attention_backward_row'] = (
+        per_call['triplet_attention'] * wide)
+    return expect
+
+
+class NumpyOnlyUnpickler(pickle.Unpickler):
+    """Resolves the classes of numpy, builtins and collections alone."""
+
+    def find_class(self, module, name):
+        check(module.split('.')[0] in ('numpy', 'builtins', 'collections'),
+              f'a checkpoint names {module}.{name}')
+        return super().find_class(module, name)
+
+
+def train_entry_phase(torch, per_call):
+    """The training entry point as a user runs it: TRAIN_CONFIG on a
+    synthetic store of TRAIN_POCKETS, driver.run for TRAIN_ITERS
+    iterations, then RESUME_ITERS more resumed from the last checkpoint,
+    every launch counter set to 0 just before each run and read just after.
+    Checks the launches (expected_train_launches), the losses, that the
+    parameters moved, every checkpoint (the JAX keys, numpy and builtins
+    only, and the sampler's reader rebuilding the file's parameters; for
+    the checkpoint of a run's last iteration, the parameters of the model
+    the run ends with) and the resume; prints the seconds and the peak
+    device memory. The run's model is caught where the driver builds its
+    train state, outside every timed span. Returns the launches of both
+    runs summed."""
+    import shutil
+
+    import numpy as np
+
+    from decompdiff_tpu_torch.config import Config
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.training import driver
+    from decompdiff_tpu_torch.utils.checkpoint import (
+        load_model_from_checkpoint, read_checkpoint)
+    from decompdiff_tpu_torch.utils.params import flax_to_state_dict
+    work = REPO / 'build' / 'train_entry_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # the model each run trains
+    models = []
+    create_train_state = driver.create_train_state
+
+    def recording(model, cfg):
+        models.append(model)
+        return create_train_state(model, cfg)
+    driver.create_train_state = recording
+    label = gpu_name_and_limit()
+    init = DecompDiffModel.create(TRAIN_CONFIG['model'], 8, device='cpu',
+                                  seed=TRAIN_CONFIG['train']['seed'])
+    n_checked = 0
+    try:
+        store = work / 'synthetic.ddstore'
+        write_synthetic_store(str(store), [
+            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
+            for n_p, n_l, arms in TRAIN_POCKETS])
+        config = Config(dict(TRAIN_CONFIG, data=dict(TRAIN_CONFIG['data'],
+                                                     path=str(store))))
+        ops = model_ops()
+        total, runs = {}, []
+        for tag, iters in (('first', TRAIN_ITERS),
+                           ('resumed', TRAIN_ITERS + RESUME_ITERS)):
+            argv = ['configs/training.yml', '--outdir', str(work / 'logs'),
+                    '--tag', tag, '--max_iters', str(iters), '--val_freq',
+                    str(TRAIN_VAL_FREQ), '--report_freq', '5']
+            if runs:
+                argv += ['--resume', runs[-1]['checkpoints'][-1]]
+            args = driver.build_parser().parse_args(argv)
+            set_launches(ops, 0)
+            t0 = time.perf_counter()
+            summary = driver.run(args, config)
+            elapsed = time.perf_counter() - t0
+            launches = get_launches(ops)
+            runs.append(summary)
+            expect = expected_train_launches(summary, per_call, launches)
+            shapes = {}
+            for shape in summary['batch_shapes']:
+                shapes[shape] = shapes.get(shape, 0) + 1
+            print(f'train entry point ({tag}): iterations '
+                  f'{summary["iterations"][0]}-{summary["iterations"][-1]}, '
+                  f'{elapsed:.3f} s in all; steps per (B, Np, Nl, A) '
+                  f'{shapes}, {len(summary["eval_shapes"])} validation '
+                  f'calls; launches {nonzero(launches)} (expected '
+                  f'{nonzero(expect)}, every other counter 0)', flush=True)
+            check(launches == expect, f'train entry point ({tag}) launch '
+                  'counts differ from the expected')
+            for n, c in launches.items():
+                total[n] = total.get(n, 0) + c
+            model = models.pop()
+            final = {k: v.detach().cpu()
+                     for k, v in model.denoiser.state_dict().items()}
+            del model
+            if tag == 'first':
+                check(any(not torch.equal(v, final[k]) for k, v in
+                          init.denoiser.state_dict().items()),
+                      'the parameters did not move')
+            for path in summary['checkpoints']:
+                with open(path, 'rb') as f:
+                    raw = NumpyOnlyUnpickler(f).load()
+                check(set(raw) == CKPT_KEYS, f'{path}: keys {sorted(raw)}')
+                rebuilt, _ = load_model_from_checkpoint(path, device='cuda')
+                want = flax_to_state_dict(raw['params'])
+                if raw['iteration'] == summary['iterations'][-1]:
+                    check(all(torch.equal(v, final[k])
+                              for k, v in want.items()),
+                          f'{path}: the file does not hold the trained '
+                          'parameters')
+                check(set(want) == set(rebuilt.denoiser.state_dict())
+                      and all(torch.equal(v.cpu(), want[k]) for k, v in
+                              rebuilt.denoiser.state_dict().items()),
+                      f'{path}: the sampler reader does not give the '
+                      'file\'s parameters')
+                n_checked += 1
+                del rebuilt
+            losses = summary['train_loss'] + [v['loss']
+                                              for v in summary['val']]
+            check(len(summary['iterations']) == iters - summary['start_iter']
+                  + 1 and bool(np.isfinite(losses).all()),
+                  f'train entry point ({tag}): a step was skipped or a loss '
+                  'is not finite')
+            sec = summary['seconds']
+            n = len(summary['iterations']) - 1
+            by_shape = {}   # the steps after the first, by padded shape
+            for shape, t in zip(summary['batch_shapes'][1:],
+                                summary['step_seconds'][1:]):
+                by_shape.setdefault(shape[2], []).append(t)
+            print(f'train entry point ({tag}) seconds per training step '
+                  f'(B=4, after the first): loader wait '
+                  f'{sec["loader_wait"] / n:.5f}, step '
+                  f'{sec["steps"] / n:.5f} ('
+                  + ', '.join(f'Nl={nl}: {sum(ts) / len(ts):.5f} over '
+                              f'{len(ts)}' for nl, ts in sorted(
+                                  by_shape.items()))
+                  + f'), validation {sec["validation"] / n:.5f} '
+                  f'({sec["validation"] / len(summary["val"]):.3f} s per '
+                  f'validation of '
+                  f'{len(summary["eval_shapes"]) // len(summary["val"])} '
+                  f'calls); first step '
+                  f'{sec["first_step"]:.3f} s (set-up); checkpoints '
+                  f'{sec["checkpoint"]:.3f} s for '
+                  f'{len(summary["checkpoints"])}; peak device memory '
+                  f'{summary["max_memory_allocated"] / 2**20:.1f} MiB; train '
+                  f'loss {summary["train_loss"][0]:.4f} -> '
+                  f'{summary["train_loss"][-1]:.4f}, validation '
+                  + ', '.join(f'{v["iteration"]}: loss {v["loss"]:.4f} '
+                              f'atom_auroc {v["atom_auroc"]:.4f} bond_auroc '
+                              f'{v["bond_auroc"]:.4f}'
+                              for v in summary['val'])
+                  + f' on {label}', flush=True)
+        first, resumed = runs
+        check(first['checkpoints'][-1].endswith(f'{TRAIN_ITERS}.ckpt'),
+              f'the first run did not save at iteration {TRAIN_ITERS}')
+        saved = read_checkpoint(first['checkpoints'][-1])
+        got = resumed['resumed']
+        check(resumed['start_iter'] == TRAIN_ITERS + 1
+              and resumed['iterations'][0] == TRAIN_ITERS + 1
+              and got['lr'] == saved['opt_state']['lr']
+              and got['scheduler'] == saved['scheduler']
+              and got['adam_steps'] == [float(TRAIN_ITERS)]
+              and got['step'] == saved['step'] == TRAIN_ITERS,
+              f'the resume restored {got}, not the checkpoint')
+        print(f'train entry point: {n_checked} checkpoints in the JAX '
+              f'layout read back with the trained parameters; resumed at '
+              f'iteration {resumed["start_iter"]} with lr {got["lr"]:.3e}, '
+              f'scheduler {got["scheduler"]}, Adam steps {got["adam_steps"]}',
+              flush=True)
+        return total
+    finally:
+        driver.create_train_state = create_train_state
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_shapes_phase(torch, ops, cfg):
+    """Every kernel at the shapes the training entry point launches it at
+    cfg's width: per bucket of TRAIN_SHAPES, the inputs of the first call
+    of each kernel mode in a plain denoiser call at B=TRAIN_B,
+    Np=NUM_PROTEIN, each forward held against its plain version and each
+    backward against plain autograd, the mode labelled with B and Nl. Above
+    Nl=TRIPLET_HEAD_NL the triplet backward takes its per-row kernel: that
+    check and time is the record triplet_attention_backward_row, returned;
+    the other checks are printed only (their records are the B=8, Nl=32
+    ones of kernel_phase and backward_phase)."""
+    import numpy as np
+
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.utils.testing import random_complex_batch
+    dev = torch.device('cuda')
+    plain = DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
+                                   device=dev, seed=0)
+    t = torch.zeros((TRAIN_B,), dtype=torch.long, device=dev)
+    row = {}
+    for nl, real in TRAIN_SHAPES:
+        batch = random_complex_batch(
+            np.random.default_rng(2), batch_size=TRAIN_B,
+            num_protein=NUM_PROTEIN, num_ligand=nl, real_ligand=real,
+            num_groups=TRAIN_GROUPS, device=dev)
+        state = (batch.ligand_pos, batch.ligand_v, batch.bond_type, t)
+        captured = {(name, f'{mode} B{TRAIN_B} Nl{nl}'): call
+                    for (name, mode), call in capture_inputs(
+                        torch, ops, plain, batch, state).items()}
+        check(len(captured) == 5, f'expected 5 kernel modes at Nl={nl}, saw '
+              f'{sorted(captured)}')
+        with torch.no_grad():
+            for (name, mode), (args, kw) in modes(captured):
+                check_forward(torch, {}, name, mode, args, kw, KERNEL_RTOL,
+                              KERNEL_ATOL)
+        if nl > TRIPLET_HEAD_NL:
+            call = captured.pop(('triplet_attention',
+                                 f'node B{TRAIN_B} Nl{nl}'))
+            row.update(backward_phase(torch, ops, {
+                ('triplet_attention_row', f'H{cfg["hidden_dim"]} Nl{nl}'):
+                    call}, rows=True))
+        backward_phase(torch, ops, captured)
+        del batch, captured
+    check(set(row) == {'triplet_attention_backward_row'},
+          f'no training bucket above Nl={TRIPLET_HEAD_NL}')
+    return row
+
+
+def kernel_records(results, launches, entry_launches, train_entry_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -1147,7 +1457,8 @@ def kernel_records(results, launches, entry_launches):
     per-row records), training for the backward ones. bound_fp32_ms: the
     bound with every operation at the FP32 CUDA-core peak, as PRs 1-3 gave
     it. entry_launches: the kernel's launches through the sampling entry
-    point (entry_phase)."""
+    point (entry_phase); train_entry_launches: through the training entry
+    point (train_entry_phase, both runs)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -1159,6 +1470,7 @@ def kernel_records(results, launches, entry_launches):
             'replaces': KERNEL_SOURCES[name],
             'launches': launches[name],
             'entry_launches': entry_launches.get(name, 0),
+            'train_entry_launches': train_entry_launches.get(name, 0),
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -1262,6 +1574,16 @@ def main():
         o2_calls = {'edge_attention': o2_layers,
                     'edge_attention_mgate': o2_layers}
         entry_launches = entry_phase(torch, bond_calls)
+        train_entry_launches = train_entry_phase(torch, bond_calls)
+        row64 = train_shapes_phase(torch, model_ops(), bond_cfg)
+        ms, plain_ms, t_ops, t_bytes, _ = row64[
+            'triplet_attention_backward_row']['modes'][0]
+        print(f'triplet backward per-row kernel at H='
+              f'{bond_cfg["hidden_dim"]}, Nl={TRAIN_SHAPES[-1][0]}, '
+              f'B={TRAIN_B} (the training entry point\'s '
+              f'Nl={TRAIN_SHAPES[-1][0]} steps): {ms:.4f} ms a launch, plain '
+              f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms; on '
+              f'{gpu_name_and_limit()}', flush=True)
         dev = torch.device('cuda')
         rng = np.random.default_rng(0)
         batch = random_complex_batch(
@@ -1301,6 +1623,7 @@ def main():
         with torch.no_grad():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
+        results.update(row64)
         # the per-row backward kernels at WIDTHS (printed only)
         backward_phase(torch, ops, width_modes, rows=True)
         del captured, o2_modes, gather_modes, width_modes, gather_model
@@ -1363,6 +1686,9 @@ def main():
     # path, the others on the uni_o2_bond paths
     launches = {}
     for n in results:
+        if n == 'triplet_attention_backward_row':   # the Nl=64 steps
+            launches[n] = train_entry_launches[n]
+            continue
         if n in ('triplet_attention_row_bf16', 'edge_attention_row_gather'):
             launches[n] = width_option_launches[n.replace('_row', '')]
             continue
@@ -1378,8 +1704,8 @@ def main():
         if n.endswith('_wide'):
             trained = wide_train_launches
         launches[n] = (trained if '_backward' in n else sampled)[n]
-    print(json.dumps({'kernels': kernel_records(results, launches,
-                                                entry_launches)}))
+    print(json.dumps({'kernels': kernel_records(
+        results, launches, entry_launches, train_entry_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -17,10 +17,14 @@ import numpy as np
 import torch
 
 
-def _to(obj, device):
+def _map(obj, fn):
     return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(device)
+        f.name: fn(getattr(obj, f.name))
         for f in dataclasses.fields(obj) if getattr(obj, f.name) is not None})
+
+
+def _to(obj, device, non_blocking=False):
+    return _map(obj, lambda t: t.to(device, non_blocking=non_blocking))
 
 
 @dataclasses.dataclass
@@ -52,8 +56,13 @@ class ComplexBatch:
     # (ref models/decompdiff.py:597,621-622,682-683)
     ligand_update_mask: Optional[torch.Tensor] = None  # [B, Nl] bool
 
-    def to(self, device) -> "ComplexBatch":
-        return _to(self, device)
+    def to(self, device, non_blocking: bool = False) -> "ComplexBatch":
+        return _to(self, device, non_blocking)
+
+    def pin_memory(self) -> "ComplexBatch":
+        """The batch in page-locked host memory, from which a copy with
+        non_blocking=True overlaps the device's work."""
+        return _map(self, lambda t: t.pin_memory())
 
     def replace(self, **changes) -> "ComplexBatch":
         return dataclasses.replace(self, **changes)

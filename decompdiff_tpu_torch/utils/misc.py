@@ -1,12 +1,15 @@
-"""Log and seed utilities (port of decompdiff_tpu/utils/misc.py; role
-parity: ref utils/misc.py)."""
+"""Log, seed and run-directory utilities (port of
+decompdiff_tpu/utils/misc.py; role parity: ref utils/misc.py)."""
 
 from __future__ import annotations
 
 import logging
 import os
 import random
+import shutil
+import subprocess
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,3 +42,46 @@ def seed_all(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def get_new_log_dir(root='./logs', prefix='', tag='') -> str:
+    fn = time.strftime('%Y_%m_%d__%H_%M_%S', time.localtime())
+    if prefix:
+        fn = prefix + '_' + fn
+    if tag:
+        fn = fn + '_' + tag
+    log_dir = os.path.join(root, fn)
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir
+
+
+def count_parameters(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def snapshot_source(log_dir: str) -> None:
+    """Copy the decompdiff_tpu_torch package source into the run directory
+    and record the git revision, so every run is reproducible from its own
+    log dir (ref scripts/train_diffusion_decomp.py:86-87). `__pycache__` and
+    `*.so` are left out, and the kernels' build directory (`build/` at the
+    repository root, ops/_build.py) lies outside the copy. Best-effort: a
+    read-only or full log target must not abort training."""
+    try:
+        import decompdiff_tpu_torch
+        pkg_dir = os.path.dirname(
+            os.path.abspath(decompdiff_tpu_torch.__file__))
+        dst = os.path.join(log_dir, 'source', 'decompdiff_tpu_torch')
+        shutil.copytree(
+            pkg_dir, dst,
+            ignore=shutil.ignore_patterns('__pycache__', '*.pyc', '*.so'),
+            dirs_exist_ok=True)
+        rev = subprocess.run(
+            ['git', '-C', pkg_dir, 'rev-parse', 'HEAD'],
+            capture_output=True, text=True, timeout=10)
+        if rev.returncode == 0:
+            with open(os.path.join(log_dir, 'source', 'GIT_REVISION'),
+                      'w') as f:
+                f.write(rev.stdout)
+    except Exception:
+        logging.getLogger('train_torch').warning(
+            'source snapshot failed (continuing)', exc_info=True)
