@@ -22,17 +22,18 @@
    padding to Nl=32 and to Nl=64), TRAIN_ITERS iterations with validation
    every TRAIN_VAL_FREQ, then RESUME_ITERS more resumed from the last
    checkpoint: launches counted per run (forwards per step and per
-   validation call, backwards per step, the per-row triplet backward in
-   exactly the Nl=64 steps, nothing else), losses finite, parameters
-   moved, every checkpoint in the JAX layout and read back by the
-   sampler's reader with the trained parameters, the resume at the next
-   iteration with the saved learning rate, scheduler and Adam step count;
-   seconds per step split into loader wait, step and validation, the first
-   step's set-up, checkpoint seconds and peak device memory printed. Then
-   every kernel at the trainer's shapes (B=4, Nl=24, 32 and 64; per-row
-   triplet backward at Nl=64): each forward against its plain version and
-   each backward against plain autograd, printed, the per-row triplet
-   backward timed as the record triplet_attention_backward_row.
+   validation call, backwards per step, the triplet backward on its head
+   route at every Nl, its Nl=64 launches counted apart, no per-row launch,
+   nothing else), losses finite, parameters moved, every checkpoint in the
+   JAX layout and read back by the sampler's reader with the trained
+   parameters, the resume at the next iteration with the saved learning
+   rate, scheduler and Adam step count; seconds per step split into loader
+   wait, step and validation, the first step's set-up, checkpoint seconds
+   and peak device memory printed. Then
+   every kernel at the trainer's shapes (B=4, Nl=24, 32 and 64): each
+   forward against its plain version and each backward against plain
+   autograd, printed, the triplet backward at Nl=64 (head route, d t_src
+   in device memory) timed as the record triplet_attention_backward_nl64.
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), those of
    the m-gated edge mode in the first layer of a released-width uni_o2
@@ -51,7 +52,8 @@
    timing each with CUDA events beside the previous time (PREVIOUS_MS) and
    its bounds (the triplet, edge and bond backward's from their
    head-factorized least work, the old all-FP32 count beside it); then the
-   per-row edge, bond and triplet backward at WIDTHS (printed only), and
+   per-row edge, bond and triplet backward at WIDTHS (printed only, but
+   the triplet's at H=96: the record triplet_attention_backward_row), and
    the backward kernels on the inputs of a denoiser call at WIDE (B=2).
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
@@ -168,11 +170,12 @@ CKPT_KEYS = {'config', 'params', 'opt_state', 'step', 'lt_history',
              'lt_count', 'scheduler', 'iteration', 'extra'}
 # the kernels at the training entry point's shapes: B and groups of its
 # batches, and per bucket its store pads to, (Nl, real ligand atoms); the
-# triplet backward's head route takes Nl up to TRIPLET_HEAD_NL, and above it
-# the per-row kernel runs
+# triplet backward's head route takes Nl up to TRIPLET_HEAD_NL (the top of
+# the ligand ladder, data/collate.py), and above it the per-row kernel runs
 TRAIN_B, TRAIN_GROUPS = 4, 4
 TRAIN_SHAPES = ((24, 24), (32, 30), (64, 56))
-TRIPLET_HEAD_NL = 48
+TRIPLET_HEAD_NL = 64
+TOP_RECORD = f'triplet_attention_backward_nl{TRIPLET_HEAD_NL}'
 TRAIN_STEPS = 3     # timed training steps, after one warm-up step
 # (hidden width, heads) of uni_o2_bond runs on the per-row forward kernels
 # (widths outside the tensor-core kernels'), at B=2 and WIDTH_STEPS steps
@@ -267,6 +270,8 @@ KERNEL_SOURCES = {
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
     'triplet_attention_backward_row':
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
+    'triplet_attention_backward_nl64':
+        'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
 }
@@ -274,8 +279,9 @@ KERNEL_SOURCES = {
 # CUDA-core kernel, before that kernel's redesign (the forwards onto the
 # tensor cores, the triplet, edge and bond backward head-factorized;
 # PERF.md kernel table, NVIDIA H100 80GB HBM3, 700 W; the edge and bond
-# backward's from the last runs of their per-row kernels at these shapes),
-# printed beside this run's.
+# backward's from the last runs of their per-row kernels at these shapes,
+# the triplet backward's at B=4, Nl=64 from the per-row kernel's three
+# runs there), printed beside this run's.
 PREVIOUS_MS = {
     ('edge_attention', 'node'): '0.4334-0.4361',
     ('edge_attention', 'pos'): '0.3852-0.3888',
@@ -291,6 +297,7 @@ PREVIOUS_MS = {
     ('bond_attention_backward', 'node'): '0.5065-0.5089',
     ('bond_attention_backward', 'pos'): '0.5330-0.5357',
     ('triplet_attention_backward', 'node'): '6.3579-6.9527',
+    ('triplet_attention_backward_nl64', 'node B4 Nl64'): '38.9353-39.3584',
 }
 
 
@@ -408,7 +415,7 @@ def plain_versions(ops):
             setattr(mod, name, wrappers[name])
 
 
-RECORD_SUFFIXES = ('_mgate', '_bf16', '_gather', '_row', '_wide')
+RECORD_SUFFIXES = ('_mgate', '_bf16', '_gather', '_row', '_wide', '_nl64')
 
 
 def op_name(rec):
@@ -650,8 +657,8 @@ def backward_phase(torch, ops, captured, rows=False):
     few rows whose ambiguous relu gates explain the elements outside the
     tolerance, where any are). The per-row (_row) modes are forward records,
     skipped unless `rows` (then <kernel>_backward_row: every backward
-    kernel is per-row outside H in 32, 64, 128); the _wide modes give the
-    <kernel>_backward_wide records."""
+    kernel is per-row outside H in 32, 64, 128); the _wide and _nl64 modes
+    give the <kernel>_backward_wide and <kernel>_backward_nl64 records."""
     from decompdiff_tpu_torch.utils.gradcheck import (
         GRAD_ATOL, GRAD_RTOL, compare_backward)
     results = {}
@@ -700,7 +707,9 @@ def backward_phase(torch, ops, captured, rows=False):
             flops, square = least(torch, args, kw)
             t_ops = ((flops - square) / PEAK_FLOPS
                      + 3 * square / TENSOR_PEAK) * 1e3
-        rec = (f'{op}_backward_wide' if name.endswith('_wide')
+        suffix = next((x for x in ('_wide', '_nl64') if name.endswith(x)),
+                      None)
+        rec = (f'{op}_backward{suffix}' if suffix
                else f'{op}_backward_row' if rows else f'{name}_backward')
         zeroed = (f'the cotangent zeroed on {v.zeroed} of {v.live} live '
                   f'rows ({v.ambiguous} hold a gate within {v.tau:.3e} of 0)'
@@ -870,7 +879,7 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
             torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # outside plain_ctx: it swaps the wrappers that hold the counters
-        set_launches(ops, 0)
+        zero_launches(ops)
         t0 = time.perf_counter()
         with plain_ctx(key):
             for _ in range(TRAIN_STEPS):
@@ -926,7 +935,7 @@ def sample_counted(torch, model, batch, full_protein, per_call, label,
     # warm-up (library initialization), not counted
     sample_diffusion(model, dataclasses.replace(cfg, num_steps=1), batch,
                      init_pos, init_v, init_b, full_protein, generator=g)
-    set_launches(ops, 0)
+    zero_launches(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sample_diffusion(model, cfg, batch, init_pos, init_v, init_b,
@@ -1161,7 +1170,7 @@ def entry_phase(torch, per_call):
         config = Config({'data': {'path': str(store)},
                          'sample': ENTRY_SAMPLE_CFG})
         ops = model_ops()
-        set_launches(ops, 0)
+        zero_launches(ops)
         t0 = time.perf_counter()
         summaries = driver.run(args, config)
         elapsed = time.perf_counter() - t0
@@ -1216,17 +1225,22 @@ def expected_train_launches(summary, per_call, names):
     forward per_call times per step and per validation call, each backward
     per_call times per step, the triplet backward's per-row kernel in the
     steps whose ligands pad above the head route's TRIPLET_HEAD_NL atoms
-    (also counted in triplet_attention_backward), every other counter 0."""
+    (also counted in triplet_attention_backward; the ligand ladder ends
+    there, so none), TOP_RECORD per_call times per step at TRIPLET_HEAD_NL
+    atoms, every other counter 0."""
     steps = len(summary['batch_shapes'])
     calls = steps + len(summary['eval_shapes'])
     wide = sum(1 for shape in summary['batch_shapes']
                if shape[2] > TRIPLET_HEAD_NL)
+    top = sum(1 for shape in summary['batch_shapes']
+              if shape[2] == TRIPLET_HEAD_NL)
     expect = dict.fromkeys(names, 0)
     for n, c in per_call.items():
         expect[n] = c * calls
         expect[f'{n}_backward'] = c * steps
     expect['triplet_attention_backward_row'] = (
         per_call['triplet_attention'] * wide)
+    expect[TOP_RECORD] = per_call['triplet_attention'] * top
     return expect
 
 
@@ -1251,7 +1265,7 @@ def train_entry_phase(torch, per_call):
     the run ends with) and the resume; prints the seconds and the peak
     device memory. The run's model is caught where the driver builds its
     train state, outside every timed span. Returns the launches of both
-    runs summed."""
+    runs summed (get_launches)."""
     import shutil
 
     import numpy as np
@@ -1295,7 +1309,7 @@ def train_entry_phase(torch, per_call):
             if runs:
                 argv += ['--resume', runs[-1]['checkpoints'][-1]]
             args = driver.build_parser().parse_args(argv)
-            set_launches(ops, 0)
+            zero_launches(ops)
             t0 = time.perf_counter()
             summary = driver.run(args, config)
             elapsed = time.perf_counter() - t0
@@ -1404,11 +1418,12 @@ def train_shapes_phase(torch, ops, cfg):
     cfg's width: per bucket of TRAIN_SHAPES, the inputs of the first call
     of each kernel mode in a plain denoiser call at B=TRAIN_B,
     Np=NUM_PROTEIN, each forward held against its plain version and each
-    backward against plain autograd, the mode labelled with B and Nl. Above
-    Nl=TRIPLET_HEAD_NL the triplet backward takes its per-row kernel: that
-    check and time is the record triplet_attention_backward_row, returned;
-    the other checks are printed only (their records are the B=8, Nl=32
-    ones of kernel_phase and backward_phase)."""
+    backward against plain autograd, the mode labelled with B and Nl. At
+    the largest bucket, Nl=TRIPLET_HEAD_NL, the triplet backward takes its
+    head route (its launches counted, none per-row): that check and time
+    is the record triplet_attention_backward_nl64, returned; the other
+    checks are printed only (their records are the B=8, Nl=32 ones of
+    kernel_phase and backward_phase)."""
     import numpy as np
 
     from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
@@ -1417,7 +1432,7 @@ def train_shapes_phase(torch, ops, cfg):
     plain = DecompDiffModel.create(dict(cfg, use_pallas=False), 8,
                                    device=dev, seed=0)
     t = torch.zeros((TRAIN_B,), dtype=torch.long, device=dev)
-    row = {}
+    top = {}
     for nl, real in TRAIN_SHAPES:
         batch = random_complex_batch(
             np.random.default_rng(2), batch_size=TRAIN_B,
@@ -1433,17 +1448,22 @@ def train_shapes_phase(torch, ops, cfg):
             for (name, mode), (args, kw) in modes(captured):
                 check_forward(torch, {}, name, mode, args, kw, KERNEL_RTOL,
                               KERNEL_ATOL)
-        if nl > TRIPLET_HEAD_NL:
-            call = captured.pop(('triplet_attention',
-                                 f'node B{TRAIN_B} Nl{nl}'))
-            row.update(backward_phase(torch, ops, {
-                ('triplet_attention_row', f'H{cfg["hidden_dim"]} Nl{nl}'):
-                    call}, rows=True))
+        if nl == TRIPLET_HEAD_NL:
+            mode = f'node B{TRAIN_B} Nl{nl}'
+            call = captured.pop(('triplet_attention', mode))
+            zero_launches(ops)
+            top.update(backward_phase(torch, ops, {
+                (f'triplet_attention_nl{nl}', mode): call}))
+            launches = get_launches(ops)
+            check(launches[TOP_RECORD] > 0
+                  and launches['triplet_attention_backward_row'] == 0,
+                  f'the Nl={nl} triplet backward did not take its head '
+                  f'route: {nonzero(launches)}')
         backward_phase(torch, ops, captured)
         del batch, captured
-    check(set(row) == {'triplet_attention_backward_row'},
-          f'no training bucket above Nl={TRIPLET_HEAD_NL}')
-    return row
+    check(set(top) == {TOP_RECORD},
+          f'no training bucket at Nl={TRIPLET_HEAD_NL}')
+    return top
 
 
 def kernel_records(results, launches, entry_launches, train_entry_launches):
@@ -1524,15 +1544,21 @@ def launch_counters(ops):
     return counters
 
 
-def set_launches(ops, value):
-    """Sets the launch count of every forward and backward kernel."""
+def zero_launches(ops):
+    """Sets the launch count of every forward and backward kernel to 0."""
     for fn, attr in launch_counters(ops).values():
-        setattr(fn, attr, value)
+        setattr(fn, attr, 0)
+    ops['triplet_attention'].triplet_attention_backward.nl_launches = {}
 
 
 def get_launches(ops):
-    return {n: getattr(fn, attr)
-            for n, (fn, attr) in launch_counters(ops).items()}
+    """The launch counts of launch_counters, and TOP_RECORD: the triplet
+    backward's launches at Nl=TRIPLET_HEAD_NL."""
+    counts = {n: getattr(fn, attr)
+              for n, (fn, attr) in launch_counters(ops).items()}
+    backward = ops['triplet_attention'].triplet_attention_backward
+    counts[TOP_RECORD] = backward.nl_launches.get(TRIPLET_HEAD_NL, 0)
+    return counts
 
 
 def make_models(torch, cfg, wrapped=False):
@@ -1575,14 +1601,13 @@ def main():
                     'edge_attention_mgate': o2_layers}
         entry_launches = entry_phase(torch, bond_calls)
         train_entry_launches = train_entry_phase(torch, bond_calls)
-        row64 = train_shapes_phase(torch, model_ops(), bond_cfg)
-        ms, plain_ms, t_ops, t_bytes, _ = row64[
-            'triplet_attention_backward_row']['modes'][0]
-        print(f'triplet backward per-row kernel at H='
-              f'{bond_cfg["hidden_dim"]}, Nl={TRAIN_SHAPES[-1][0]}, '
-              f'B={TRAIN_B} (the training entry point\'s '
-              f'Nl={TRAIN_SHAPES[-1][0]} steps): {ms:.4f} ms a launch, plain '
-              f'{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms; on '
+        nl64 = train_shapes_phase(torch, model_ops(), bond_cfg)
+        ms, plain_ms, t_ops, t_bytes, _ = nl64[TOP_RECORD]['modes'][0]
+        print(f'triplet backward head route at H={bond_cfg["hidden_dim"]}, '
+              f'Nl={TRIPLET_HEAD_NL}, B={TRAIN_B} (the training entry '
+              f'point\'s Nl={TRIPLET_HEAD_NL} steps; d t_src in device '
+              f'memory): {ms:.4f} ms a launch, plain {plain_ms:.4f} ms, '
+              f'bound {max(t_ops, t_bytes):.4f} ms; on '
               f'{gpu_name_and_limit()}', flush=True)
         dev = torch.device('cuda')
         rng = np.random.default_rng(0)
@@ -1623,9 +1648,15 @@ def main():
         with torch.no_grad():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
-        results.update(row64)
-        # the per-row backward kernels at WIDTHS (printed only)
-        backward_phase(torch, ops, width_modes, rows=True)
+        results.update(nl64)
+        # the per-row backward kernels at WIDTHS: the triplet's at the first
+        # width is the record triplet_attention_backward_row (no released
+        # path reaches it), the others are printed only
+        row_key = ('triplet_attention_row', f'H{WIDTHS[0][0]} node')
+        results.update(backward_phase(
+            torch, ops, {row_key: width_modes[row_key]}, rows=True))
+        backward_phase(torch, ops, {k: c for k, c in width_modes.items()
+                                    if k != row_key}, rows=True)
         del captured, o2_modes, gather_modes, width_modes, gather_model
         # the WIDE backward records after the others, so that their models
         # and inputs do not change the device memory those run in
@@ -1686,7 +1717,7 @@ def main():
     # path, the others on the uni_o2_bond paths
     launches = {}
     for n in results:
-        if n == 'triplet_attention_backward_row':   # the Nl=64 steps
+        if n == TOP_RECORD:
             launches[n] = train_entry_launches[n]
             continue
         if n in ('triplet_attention_row_bf16', 'edge_attention_row_gather'):

@@ -54,7 +54,7 @@
 // gradients are summed per block and then over the blocks' slots in a fixed
 // order, so two launches give bitwise-equal gradients.
 //
-// Backward design, H in 32, 64, 128 with at most 16 heads and Nl up to 48
+// Backward design, H in 32, 64, 128 with at most 16 heads and Nl up to 64
 // (head_bwd.cuh): the output cotangent factorizes by head, so the [H, H]
 // products move to the row (Qk, Gv, d q, d Wo: five per row) and the
 // per-triplet ones shrink to heads-wide products. A
@@ -66,6 +66,9 @@
 // and forms the head sums Yd, Ya, d y, the relu and LayerNorm backward to
 // d pre, d t_src, d t_row, d Wa and d angle. d Wo of both branches stays in
 // shared memory ([H][H + 1] each, 129 KB at H = 128) until the block ends.
+// The item's d t_src rows ([2][Nl][H]) accumulate in place in the outputs,
+// through L2: beside d Wo in shared memory they would fit at H = 128 only up
+// to 48 atoms, short of the ligand ladder's 64-atom bucket.
 // The logits and d alpha run on the tensor cores (three tf32 passes), the
 // other heads-wide products on the CUDA cores. What bounds it (clock64
 // phase counts at the released shapes, an H100, PERF.md): latency between
@@ -604,14 +607,15 @@ namespace hb = headbwd;
 
 // Offsets into the head-factorized backward's dynamic shared memory, fixed
 // at compile time (sized for NLMAX atoms and MAXNH heads) so that no
-// register holds them.
+// register holds them. NLMAX is the top of the ligand ladder
+// (data/collate.py).
 template <int H>
 struct HeadLayout {
-  static constexpr int NLMAX = 48;  // the largest ligand bucket
+  static constexpr int NLMAX = 64;
   static constexpr size_t F = sizeof(float);
   static constexpr size_t dwo = 0;                                // [2][H][MS]
-  static constexpr size_t ts = dwo + F * 2 * H * hb::mstride(H);  // [2][NLMAX][H]
-  static constexpr size_t tile = ts + F * 2 * NLMAX * H;  // [KC][tstride]
+  static constexpr size_t tile =                         // [KC][tstride]
+      dwo + F * 2 * H * hb::mstride(H);
   static constexpr size_t m = tile + F * hb::KC * hb::tstride(H);
   static constexpr size_t lg = m + F * 2 * hb::MAXNH * hb::mstride(H);
   static constexpr size_t da = lg + F * NLMAX * hb::MAXNH;        // [Nl][NH]
@@ -621,7 +625,7 @@ struct HeadLayout {
   static constexpr size_t qg = dco + F * hb::KC * AP;             // q | g
   static constexpr size_t hs = qg + F * 2 * H;                    // qb|gb|S
   static constexpr size_t bytes = hs + F * 4 * hb::MAXNH;
-  static_assert(ts % 16 == 0 && m % 16 == 0 && lg % 16 == 0, "aligned");
+  static_assert(tile % 16 == 0 && m % 16 == 0 && lg % 16 == 0, "aligned");
 };
 
 // The angular code of the chunk's sources k0 + r, r < KC, of row `row`
@@ -725,9 +729,11 @@ struct HeadBranchSums {
 // Pass B of one branch over a chunk (sources k0 .. k0 + KC - 1): y again,
 // the row's head sums Y += C^T y (channel map, over the tile T), d y = cf C M
 // (M: Qk or Gv, C: dh or alpha [Nl][NH]), the relu and LayerNorm backward
-// to d pre, added to the item's d t_src rows TS and, through dco and Wa,
-// to e[s] (d angle of the pair rows), then d Wa and d t_row (channel map,
-// over T). Contains block barriers and ends with one.
+// to d pre, added to the item's d t_src rows TS (device memory: a thread
+// owns the same elements in every row of the item, so each is summed by one
+// thread in row order) and, through dco and Wa, to e[s]
+// (d angle of the pair rows), then d Wa and d t_row (channel map, over T).
+// Contains block barriers and ends with one.
 template <int H>
 __device__ __forceinline__ void head_branch_back(
     const float (*ang)[AP], const float (*dco)[AP], const Branch& br,
@@ -771,14 +777,22 @@ __device__ __forceinline__ void head_branch_back(
       s2 = fmaf(dx, xh[s][v], s2);
     }
     const float m1 = rm::warp_sum(s1) / H, m2 = rm::warp_sum(s2) / H;
-    const int k = k0 + warp + hb::WARPS * s;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       dp[s][v] = rs[s] * (dp[s][v] - m1 - xh[s][v] * m2);
-      if (k < Nl) TS[(size_t)k * H + lane + 32 * v] += dp[s][v];
       T[(warp + hb::WARPS * s) * hb::tstride(H) + lane + 32 * v] = dp[s][v];
     }
   }
+  // the item's d t_src rows += d pre, read here and written after the
+  // angle's chain, which hides the reads' latency from device memory
+  float ts_old[hb::RW][NV];
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int k = k0 + warp + hb::WARPS * s;
+      ts_old[s][v] = k < Nl ? TS[(size_t)k * H + lane + 32 * v] : 0.f;
+    }
   // the angle's chain: e[s] += sum_t dco[r_s][t] (d pre . Wa[t])
 #pragma unroll
   for (int t = 0; t < A; ++t)
@@ -788,6 +802,13 @@ __device__ __forceinline__ void head_branch_back(
 #pragma unroll
       for (int s = 0; s < hb::RW; ++s)
         e[s] = fmaf(dco[warp + hb::WARPS * s][t] * w, dp[s][v], e[s]);
+    }
+#pragma unroll
+  for (int s = 0; s < hb::RW; ++s)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int k = k0 + warp + hb::WARPS * s;
+      if (k < Nl) TS[(size_t)k * H + lane + 32 * v] = ts_old[s][v] + dp[s][v];
     }
   __syncthreads();
   constexpr int NT = HeadBranchSums<H>::NT;
@@ -809,8 +830,9 @@ __device__ __forceinline__ void head_branch_back(
 }
 
 // Persistent: block g takes work items (b, j) = g, g + gridDim.x, ...; the
-// item's d t_src rows of both branches stay in shared memory, and the block's
-// d Wo of both branches too, transposed, until the block ends.
+// item's d t_src rows of both branches are summed in place in the outputs
+// d_tsrc_k, d_tsrc_v, zeroed at the item's start, and the block's d Wo of
+// both branches stays in shared memory, transposed, until the block ends.
 template <int H>
 __global__ void __launch_bounds__(hb::THREADS, 1)
     triplet_attention_bwd_head_kernel(TripletBwdArgs a) {
@@ -821,8 +843,6 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
   using lay = HeadLayout<H>;
   float* DWk = reinterpret_cast<float*>(dyn + lay::dwo);  // [H][MS] d Wo^T
   float* DWv = DWk + H * MS;
-  float* TSk = reinterpret_cast<float*>(dyn + lay::ts);   // [Nl][H] d t_src
-  float* TSv = TSk + lay::NLMAX * H;
   float* T = reinterpret_cast<float*>(dyn + lay::tile);   // [KC][H + 4]
   float* M = reinterpret_cast<float*>(dyn + lay::m);      // Qk | Gv, then Yd
   float* LG = reinterpret_cast<float*>(dyn + lay::lg);    // [Nl][NH]
@@ -847,7 +867,10 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
     const int b = item / Nl, j = item % Nl;
     const float* mrow_j = f.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
     const size_t src0 = ((size_t)b * Nl + j) * Nl * H;
-    __syncthreads();  // the last item's d t_src rows are written out
+    // the item's d t_src rows, [Nl][H] each; the first row's barrier
+    // orders these zeros before any sum
+    float* TSk = a.d_tsrc_k + src0;
+    float* TSv = a.d_tsrc_v + src0;
     for (int e = tid; e < Nl * H; e += hb::THREADS) TSk[e] = TSv[e] = 0.f;
 
     for (int i = 0; i < Nl; ++i) {
@@ -940,11 +963,6 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
         for (int p = 0; p < P; ++p) t += T[p * H + c];
         a.d_q[row * H + c] = scale * (t + __ldg(f.k.bo + c) * S[c / hd]);
       }
-    }
-    __syncthreads();
-    for (int e = tid; e < Nl * H; e += hb::THREADS) {
-      a.d_tsrc_k[src0 + e] = TSk[e];
-      a.d_tsrc_v[src0 + e] = TSv[e];
     }
   }
 
@@ -1120,8 +1138,9 @@ extern "C" int triplet_attention_bwd_route(int* row, int Nl, int H,
 
 // Backward: G blocks over the B*Nl (complex, j) items, then the fixed-order
 // slot sum into d_params ([k: w_feat, wo, bo, ln_scale, ln_bias | v: same]).
-// H in 32, 64, 128 with at most 16 heads and Nl up to 48: the
-// head-factorized kernel, one block per SM; any other
+// H in 32, 64, 128 with at most 16 heads and Nl up to 64: the
+// head-factorized kernel, one block per SM, d t_src summed in place in
+// d_tsrc_k and d_tsrc_v; any other
 // width: the per-row kernel, two blocks per SM, which alone reads k_woT and
 // v_woT (the transposed Wo) and the scratch: G times
 // triplet_attention_bwd_scratch's floats, or null when that is 0.

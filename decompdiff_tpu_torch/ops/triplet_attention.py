@@ -32,14 +32,15 @@ of either variant, also count in `triplet_attention.row_launches`.
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
 in a backward kernel, which the launcher also chooses by width and reports:
-for H in 32, 64, 128 with at most 16 heads and Nl up to 48 the
-head-factorized kernel (csrc/head_bwd.cuh: the cotangents of k and v
-factorize by head, so no per-triplet [H, H] product is left; one block per
-SM), otherwise the per-row kernel (csrc/row_attention_bwd.cuh; two blocks
-per SM), whose launches also count in
-`triplet_attention_backward.row_launches`, and, with the row buffers in a
-device-memory scratch (wide H or large Nl), in
-`triplet_attention_backward.scratch_launches`.
+for H in 32, 64, 128 with at most 16 heads and Nl up to 64 (the top of
+the ligand ladder) the head-factorized kernel (csrc/head_bwd.cuh: the
+cotangents of k and v factorize by head, so no per-triplet [H, H] product
+is left; one block per SM; its d t_src sums accumulate in the outputs),
+otherwise the per-row kernel (csrc/row_attention_bwd.cuh; two blocks per
+SM), whose launches also count in `triplet_attention_backward.row_launches`,
+and, with the row buffers in a device-memory scratch (wide H or large Nl),
+in `triplet_attention_backward.scratch_launches`. Every backward launch
+also counts in `triplet_attention_backward.nl_launches`, a dict by Nl.
 `triplet_attention_backward_factored` is the head-factorized algorithm in
 plain PyTorch, for the tests.
 """
@@ -299,6 +300,8 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
                n_heads, blocks])
     launch(fn, args, dev, 'triplet_attention_backward')
     triplet_attention_backward.launches += 1
+    by_nl = triplet_attention_backward.nl_launches
+    by_nl[Nl] = by_nl.get(Nl, 0) + 1
     triplet_attention_backward.scratch_launches += route.value
     triplet_attention_backward.row_launches += launched_row.value
     dk, dv = pg.branches(d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v)
@@ -310,3 +313,4 @@ triplet_attention.row_launches = 0
 triplet_attention_backward.launches = 0
 triplet_attention_backward.scratch_launches = 0
 triplet_attention_backward.row_launches = 0
+triplet_attention_backward.nl_launches = {}

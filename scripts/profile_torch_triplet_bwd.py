@@ -2,21 +2,26 @@
 """Where the head-factorized triplet-attention backward spends its cycles.
 
     python3 scripts/profile_torch_triplet_bwd.py     # on a machine with a GPU
+    python3 scripts/profile_torch_triplet_bwd.py --nl 64 --real 56
 
 Copies decompdiff_tpu_torch into build/profile_triplet_bwd (git-ignored),
 inserts clock64 counters into the copy of csrc/triplet_attention.cu at the
 phase boundaries of triplet_attention_bwd_head_kernel (thread 0 of each
 block adds the cycles since its last counter, most of them just after a
 block barrier, so a phase's count is the block's time in it), builds the
-copy, runs one launch at the released training shapes (B=8, Nl=32, H=128,
-16 heads, every ligand atom bonded to every other, seeded random inputs)
-and prints each phase's share of the cycles, summed over the blocks. The
+copy, runs one launch (H=128, 16 heads, the first --real atoms of each
+complex bonded to every other, seeded random inputs) and prints each
+phase's share of the cycles, summed over the blocks, and the instrumented
+launch's device ms (CUDA events, the mean of TIMED launches). The default
+shape is the released training shape (B=8, Nl=32); --nl 64 takes B=4, the
+training entry point's batch on the ligand ladder's top bucket. The
 repository's own sources are not changed. The counters cost a few percent
 of the kernel's time.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -25,6 +30,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 COPY = REPO / 'build' / 'profile_triplet_bwd'
+TIMED = 5
 
 COUNTERS = '''namespace hb = headbwd;
 __device__ unsigned long long g_prof[16];
@@ -70,21 +76,27 @@ MARKS = [
 PHASES = ['row start, row_has_source', 'q, g; Qk and Gv (Wo through L2)',
           'pass A: pre, logits, d alpha', 'softmax and its backward',
           'pass B: chunk set-up', 'pass B: pre again, y to the tile',
-          'pass B: Yd, Ya sums', 'pass B: d y, LayerNorm backward, d angle',
+          'pass B: Yd, Ya sums',
+          'pass B: d y, LayerNorm backward, d angle, d t_src adds',
           'pass B: d Wa, d t_row', 'pass B: end of the row',
           'end: d Wo update, Yd to shared memory',
           'end: d q (Wo_k through L2)']
+
+
+def replace_once(src: str, plain: str, new: str) -> str:
+    if src.count(plain) != 1:
+        raise SystemExit(f'profile: the kernel changed; not found once:\n'
+                         f'{plain}')
+    return src.replace(plain, new, 1)
 
 
 def instrument(src: str) -> str:
     """The kernel source with the counters of MARKS and, inside
     head_branch_back, one after each of its block barriers (phases 5-8,
     both branches summed)."""
-    src = src.replace('namespace hb = headbwd;', COUNTERS, 1)
+    src = replace_once(src, 'namespace hb = headbwd;', COUNTERS)
     for plain, counted in MARKS:
-        if plain not in src:
-            raise SystemExit(f'profile: the kernel changed; not found:\n{plain}')
-        src = src.replace(plain, counted, 1)
+        src = replace_once(src, plain, counted)
     start = src.index('__device__ __forceinline__ void head_branch_back(')
     end = src.index('// Persistent: block g takes work items', start)
     body = src[start:end].replace(
@@ -97,13 +109,19 @@ def instrument(src: str) -> str:
     body = ''.join(p + f'__syncthreads(); PROF({5 + n});'
                    for n, p in enumerate(parts[:-1])) + parts[-1]
     src = src[:start] + body + src[end:]
-    src = src.replace('TSk, sk, e);', 'TSk, sk, e, t_last);', 1)
-    src = src.replace('NH, T, TSv, sv, e);', 'NH, T, TSv, sv, e, t_last);', 1)
-    return src.replace('extern "C" int triplet_attention_bwd_route(', READER,
-                       1)
+    src = replace_once(src, 'TSk, sk, e);', 'TSk, sk, e, t_last);')
+    src = replace_once(src, 'NH, T, TSv, sv, e);',
+                       'NH, T, TSv, sv, e, t_last);')
+    return replace_once(src, 'extern "C" int triplet_attention_bwd_route(',
+                        READER)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--nl', type=int, default=32, help='padded ligand atoms')
+    ap.add_argument('--real', type=int, default=None,
+                    help='bonded atoms of each complex (default: all)')
+    opts = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -124,7 +142,9 @@ def main() -> int:
 
     dev = torch.device('cuda')
     rng = np.random.default_rng(0)
-    B, Nl, H, heads = 8, 32, 128, 16
+    Nl, H, heads = opts.nl, 128, 16
+    B = 8 if Nl <= 32 else 4
+    real = opts.real or Nl
 
     def rand(*shape, scale=0.3):
         return torch.as_tensor(rng.normal(size=shape) * scale,
@@ -134,17 +154,30 @@ def main() -> int:
         return Branch(rand(B, Nl, Nl, H, scale=1.0),
                       rand(B, Nl, Nl, H, scale=1.0), rand(13, H), rand(H, H),
                       rand(H), 1.0 + rand(H), rand(H))
-    mask = (1.0 - torch.eye(Nl, device=dev)).expand(B, Nl, Nl).contiguous()
+    atoms = torch.arange(Nl, device=dev) < real
+    mask = ((atoms[:, None] & atoms[None, :]).float()
+            - torch.eye(Nl, device=dev)).clamp_min(0.0)
+    mask = mask.expand(B, Nl, Nl).contiguous()
     k, v = branch(), branch()
     angle = torch.as_tensor(rng.random((B, Nl, Nl, Nl)) * np.pi,
                             dtype=torch.float32, device=dev)
     q, g = rand(B, Nl, Nl, H, scale=1.0), rand(B, Nl, Nl, H, scale=1.0)
     counts = (ctypes.c_ulonglong * 16)()
+
+    def run():
+        T.triplet_attention_backward(g, angle, mask, q, k, v, n_heads=heads)
     for _ in range(2):      # the first launch warms up; the second counts
         lib.prof_read(counts)
-        T.triplet_attention_backward(g, angle, mask, q, k, v, n_heads=heads)
+        run()
         torch.cuda.synchronize()
     lib.prof_read(counts)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(TIMED):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TIMED
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True)
@@ -152,8 +185,11 @@ def main() -> int:
     blocks = min(B * Nl, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     total = sum(counts[n] for n in range(len(PHASES)))
-    print(f'triplet backward, B={B} Nl={Nl} H={H} heads={heads}: '
-          f'{total / blocks / 1e6:.3f} Mcycles per block')
+    print(f'triplet backward, B={B} Nl={Nl} ({real} bonded atoms) H={H} '
+          f'heads={heads}: '
+          f'{total / blocks / 1e6:.3f} Mcycles per block; {ms:.4f} ms a '
+          f'launch with the counters (mean of {TIMED}, the wrapper '
+          'included)')
     for n, name in enumerate(PHASES):
         print(f'  {name:42s} {100 * counts[n] / total:6.2f}%  '
               f'({counts[n] / blocks / 1e6:.3f} Mcycles per block)')

@@ -22,9 +22,11 @@ bond forward at H = 512 and 1024 (blocks of more than 256 threads) on its
 per-row kernel and at H = 32, 64 and 128 on its tensor-core kernel. The
 backward kernels run at H = 512 and 1024 (1024-thread builds, row buffers
 in device memory) and the triplet backward also at H = 256 with Nl = 48
-(per-row); at H = 32, 64 and 128 the triplet backward is head-factorized,
-at Nl = 13, 20, 32, 40 and 48, with a complex without bonds, and two of
-its launches give bitwise-equal gradients. The edge backward at H = 32,
+(per-row) and at H = 96 with Nl = 64 (per-row, the ligand ladder's top); at
+H = 32, 64 and 128 the triplet backward is head-factorized, at Nl = 13,
+20, 32, 40 and 48 (d t_src summed in shared memory) and 56 and 64 (in
+device memory), with a complex without bonds, and two of its launches give
+bitwise-equal gradients at Nl = 32 and 64. The edge backward at H = 32,
 64 and 128 is head-factorized in every mode (node, pos, gated, gather), at
 K = 20, 32 (one 32-source chunk) and 48 (two), and two of its launches give
 bitwise-equal parameter gradients; at H = 96 it stays per-row. Its second
@@ -770,12 +772,13 @@ def test_bond_backward_deterministic(cuda, pos_mode):
 
 
 # The head-factorized triplet backward (H in 32, 64, 128) at Nl below, at
-# and above its 32-source chunk, up to the largest ligand bucket (48); atom
-# 4 of complex 0 has no bonds, and complex 2 none at all. Its pre sums run in
+# and above its 32-source chunk, up to the top of the ligand ladder (64,
+# data/collate.py), each launch also counted by Nl; atom 4 of complex 0 has
+# no bonds, and complex 2 none at all. Its pre sums run in
 # another order than autograd's, so a relu gate within rounding of 0 can flip
 # (at H = 128, Nl = 32: one row of 779): compare_backward zeroes only the
 # rows whose ambiguous gates explain the elements outside.
-@pytest.mark.parametrize('Nl', [13, 20, 32, 40, 48])
+@pytest.mark.parametrize('Nl', [13, 20, 32, 40, 48, 56, 64])
 @pytest.mark.parametrize('H,heads', [(32, 4), (64, 8), (128, 16)])
 def test_triplet_backward_kernel(cuda, H, heads, Nl):
     rng = np.random.default_rng(7)
@@ -790,17 +793,22 @@ def test_triplet_backward_kernel(cuda, H, heads, Nl):
                             dtype=torch.float32)
     q = _rand(rng, B, Nl, Nl, H, scale=1.0)
     g = _rand(rng, B, Nl, Nl, H, scale=1.0)
-    _check_backward(triplet_ops.triplet_attention_backward, g,
-                    (angle, bm, q, k, v), dict(n_heads=heads), cuda,
-                    triplet_ops.triplet_attention_backward, row=0, retry=True)
+    counter = triplet_ops.triplet_attention_backward
+    before = counter.launches, counter.nl_launches.get(Nl, 0)
+    _check_backward(counter, g, (angle, bm, q, k, v), dict(n_heads=heads),
+                    cuda, counter, row=0, retry=True)
+    assert (counter.nl_launches[Nl] - before[1]
+            == counter.launches - before[0])
 
 
-@pytest.mark.parametrize('H,heads', [(128, 16), (256, 16)],
-                         ids=['head', 'per-row'])
-def test_triplet_backward_deterministic(cuda, H, heads):
+@pytest.mark.parametrize('H,heads,Nl', [(128, 16, 32), (256, 16, 32),
+                                        (128, 16, 64)],
+                         ids=['head', 'per-row', 'head-Nl64'])
+def test_triplet_backward_deterministic(cuda, H, heads, Nl):
     """Two launches on the same inputs give bitwise-equal gradients (every
-    sum is owned by one thread or taken over the blocks in a fixed order)."""
-    args, kw = _triplet_case(np.random.default_rng(9), H, heads, 32)
+    sum is owned by one thread or taken over the blocks in a fixed order;
+    the d t_src sums in device memory too)."""
+    args, kw = _triplet_case(np.random.default_rng(9), H, heads, Nl)
     g = _rand(np.random.default_rng(10), *args[2].shape, scale=1.0)
     dev_args = [_dev(a, cuda) for a in args]
     first, second = (triplet_ops.triplet_attention_backward(
@@ -882,6 +890,18 @@ def test_triplet_wide_backward_kernel(cuda, H, heads, Nl):
     _check_backward(triplet_ops.triplet_attention_backward, g, args, kw,
                     cuda, triplet_ops.triplet_attention_backward,
                     scratch=True, row=1)
+
+
+def test_triplet_row_backward_ladder_top(cuda):
+    """The per-row triplet backward at the top of the ligand ladder (Nl =
+    64) at a width outside the head route (H = 96, 12 heads): its d t_src
+    sums and row buffers still fit shared memory (no scratch)."""
+    rng = np.random.default_rng(76)
+    args, kw = _triplet_case(rng, 96, 12, 64)
+    g = _rand(rng, *args[2].shape, scale=1.0)
+    _check_backward(triplet_ops.triplet_attention_backward, g, args, kw,
+                    cuda, triplet_ops.triplet_attention_backward,
+                    row=1, retry=True)
 
 
 @pytest.mark.parametrize('which', ['edge_node', 'edge_pos', 'bond_node',

@@ -392,7 +392,9 @@ def test_chip_smoke_trains_the_released_config():
 
 
 def test_chip_smoke_expected_train_launches():
-    """The per-row triplet backward only in the steps above Nl = 48."""
+    """The per-row triplet backward only in the steps above Nl = 64, the top
+    of the ligand ladder: none in the ladder's buckets; the Nl = 64 steps'
+    launches counted apart."""
     import chip_smoke
     per_call = {'edge_attention': 12, 'bond_attention': 12,
                 'triplet_attention': 6}
@@ -407,5 +409,11 @@ def test_chip_smoke_expected_train_launches():
         'edge_attention': 156, 'edge_attention_backward': 36,
         'bond_attention': 156, 'bond_attention_backward': 36,
         'triplet_attention': 78, 'triplet_attention_backward': 18,
-        'triplet_attention_backward_row': 6,
-        'edge_attention_backward_row': 0, 'triplet_attention_row': 0}
+        'triplet_attention_backward_row': 0,
+        'edge_attention_backward_row': 0, 'triplet_attention_row': 0,
+        'triplet_attention_backward_nl64': 6}
+    summary['batch_shapes'].append((4, 320, 80, 4))
+    expect = chip_smoke.expected_train_launches(summary, per_call, names)
+    assert (expect['triplet_attention_backward'],
+            expect['triplet_attention_backward_row'],
+            expect['triplet_attention_backward_nl64']) == (24, 6, 6)

@@ -13,8 +13,10 @@ references on the same seeded inputs:
   kernel-gradient tolerance of tests/test_pallas_triplet_grad.py.
 
 Cases: H = 32 with 4 heads and H = 128 with 16 heads, Nl = 8 and Nl = 40
-(two 32-source chunks in the kernel); atom 4 of complex 0 has no bonds and
-complex 1 none at all (its gradients are zero)."""
+(two 32-source chunks in the kernel), and H = 32 with 4 heads at Nl = 64,
+the top of the ligand ladder (two full chunks; the kernel's d t_src sums in
+device memory); atom 4 of complex 0 has no bonds and complex 1 none at all
+(its gradients are zero)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,8 @@ from decompdiff_tpu_torch.ops import triplet_attention as triplet_ops
 from decompdiff_tpu_torch.ops.common import Branch
 
 torch.set_num_threads(2)
-CASES = [(32, 4, 8), (32, 4, 40), (128, 16, 8), (128, 16, 40)]
+CASES = [(32, 4, 8), (32, 4, 40), (128, 16, 8), (128, 16, 40),
+         (32, 4, 64)]
 IDS = [f'H{h}-Nl{n}' for h, _, n in CASES]
 
 
