@@ -34,6 +34,19 @@
    forward against its plain version and each backward against plain
    autograd, printed, the triplet backward at Nl=64 (head route, d t_src
    in device memory) timed as the record triplet_attention_backward_nl64.
+2c. Reference weights and the drift: a reference-layout .pt of the released
+   uni_o2_bond model (the state dict of tests/reference_oracle.py, saved
+   with torch.save as {config, model, iteration}) converted by
+   scripts/convert_checkpoint_torch.py in a subprocess; one denoiser call
+   of the converted model with the kernels (B=1, REF_COMPLEX) against the
+   oracle's float64 forward at rtol = atol = 3e-4, its max error printed;
+   then the sampling driver from the converted .ckpt on the entry point's
+   store with the mmff_min drift (REF_DRIFT: without RDKit the first-party
+   force field, guidance/ffmin.py) besides armsca_prox and clash: launches
+   exactly calls x 12/12/6 forward, the drift's calls equal to the strided
+   steps inside its window times the batches, result pickles checked,
+   seconds per molecule printed with the drift's host seconds and the
+   batch rows it drifted; and the drift relaxes a stretched carbon chain.
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), those of
    the m-gated edge mode in the first layer of a released-width uni_o2
@@ -116,6 +129,15 @@ ENTRY_SAMPLE_CFG = {
     'scaffold_num_atoms_config': 'scaffold_num_config',
     'energy_drift': [{'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
                      {'type': 'clash', 'sigma': 2, 'gamma': 4}]}
+# phase 2c: a reference-layout .pt of the released model (its state dict
+# from tests/reference_oracle.py, seed REF_SEED), converted by
+# scripts/convert_checkpoint_torch.py; one denoiser call on a complex of
+# REF_COMPLEX (protein atoms, ligand atoms, arms), kernels on, against the
+# oracle's float64 forward at the JAX oracle tests' tolerance
+# (tests/test_oracle_parity.py); then the sampling driver from the converted
+# checkpoint on the ENTRY_POCKETS store with the mmff_min drift added
+REF_SEED, REF_COMPLEX, REF_RTOL, REF_ATOL = 0, (64, 16, 2), 3e-4, 3e-4
+REF_DRIFT = {'type': 'mmff_min', 'start_time': 1000, 'end_time': 500}
 # the keys of a result pickle and of each of its rows (scripts/sample.py)
 RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
 ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
@@ -1220,6 +1242,165 @@ def entry_phase(torch, per_call):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def reference_phase(torch, per_call):
+    """Reference weights and the drift (phase 2c): a reference-layout .pt
+    of the released uni_o2_bond model, converted as a user converts it
+    (scripts/convert_checkpoint_torch.py in a subprocess); one denoiser
+    call of the converted model with the kernels against the float64
+    oracle (tests/reference_oracle.py decomp_forward); then the sampling
+    driver from the converted .ckpt with ENTRY_SAMPLE_CFG plus REF_DRIFT,
+    --use_pallas, every launch counter set to 0 just before and read just
+    after. Checks the launches, the drift's calls (the strided steps inside
+    its window, per batch) and the result pickles; prints the seconds per
+    molecule with the drift's host seconds. Returns the driver run's
+    launches."""
+    import shutil
+
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / 'tests'))
+    import reference_oracle as oracle
+
+    from decompdiff_tpu_torch.config import Config
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+    from decompdiff_tpu_torch.guidance.ffmin import make_ff_callback
+    from decompdiff_tpu_torch.sampling import driver
+    from decompdiff_tpu_torch.utils.checkpoint import (
+        load_model_from_checkpoint)
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, padded_complex_batch, ragged_arrays,
+        ragged_complexes, save_reference_checkpoint)
+    work = REPO / 'build' / 'reference_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    label = gpu_name_and_limit()
+    try:
+        cfg = dict(DEFAULT_MODEL_CONFIG)
+        sd = oracle.make_reference_state_dict(
+            np.random.default_rng(REF_SEED), cfg, 8, 5, 29, 10)
+        ref, ckpt = work / 'reference.pt', work / 'converted.ckpt'
+        save_reference_checkpoint(str(ref), sd, {
+            'model': cfg, 'data': {'transform': {
+                'ligand_atom_mode': 'basic'}}}, iteration=0)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / 'scripts' /
+                                 'convert_checkpoint_torch.py'),
+             str(ref), '--out', str(ckpt)],
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f'convert_checkpoint_torch.py failed: {proc.stderr[-2000:]}')
+        print(f'reference weights: {proc.stdout.strip()} in '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+
+        model, _ = load_model_from_checkpoint(
+            str(ckpt), device='cuda', overrides={'use_pallas': True})
+        graphs = ragged_complexes(np.random.default_rng(REF_SEED),
+                                  sizes=(REF_COMPLEX,))
+        ragged = ragged_arrays(graphs)
+        n_p, n_l, _ = REF_COMPLEX
+        batch = padded_complex_batch(graphs, n_p, n_l, 4, device='cuda')
+        ops = model_ops()
+        zero_launches(ops)
+        with torch.no_grad():
+            preds = model.apply(batch, batch.ligand_pos, batch.ligand_v,
+                                batch.bond_type,
+                                torch.tensor([3], device='cuda'))
+        torch.cuda.synchronize()
+        launches = get_launches(ops)
+        check(launches == {n: per_call.get(n, 0) for n in launches},
+              f'oracle call launches {nonzero(launches)}')
+        want = oracle.decomp_forward(
+            sd, cfg, 8, 5, ragged['protein_pos'], ragged['protein_feat'],
+            ragged['batch_protein'], ragged['ligand_pos'],
+            ragged['ligand_v'], ragged['aux'], ragged['batch_ligand'],
+            ragged['bond_index'], ragged['bond_type'])
+        got = {k: preds[k][0].double().cpu().numpy()
+               for k in ('pred_ligand_pos', 'pred_ligand_v', 'pred_bond')}
+        got['pred_bond'] = np.stack([got['pred_bond'][i, j] for _, i, j
+                                     in ragged['bond_local']])
+        errs = {}
+        for k, w in want.items():
+            errs[k] = float(np.abs(got[k] - w).max())
+            check(np.isfinite(got[k]).all() and np.allclose(
+                got[k], w, rtol=REF_RTOL, atol=REF_ATOL),
+                f'converted model vs oracle: {k} max abs err {errs[k]:.3e}')
+        print(f'converted released model, kernels on, vs the float64 '
+              f'oracle (B=1, Np={n_p}, Nl={n_l}, launches '
+              f'{nonzero(launches)}): max abs err '
+              + ', '.join(f'{k} {e:.3e}' for k, e in errs.items())
+              + f' (rtol = atol = {REF_RTOL:g})', flush=True)
+        del model, preds
+
+        store = work / 'synthetic.ddstore'
+        write_synthetic_store(str(store), [
+            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
+            for n_p, n_l, arms in ENTRY_POCKETS])
+        ids = [str(i) for i in range(len(ENTRY_POCKETS))]
+        args = driver.build_parser().parse_args(
+            ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
+             '--outdir', str(work / 'out'), '--batch_size', str(B),
+             '--use_pallas'])
+        sample_cfg = dict(ENTRY_SAMPLE_CFG, energy_drift=(
+            [REF_DRIFT] + ENTRY_SAMPLE_CFG['energy_drift']))
+        config = Config({'data': {'path': str(store)},
+                         'sample': sample_cfg})
+        zero_launches(ops)
+        t0 = time.perf_counter()
+        summaries = driver.run(args, config)
+        elapsed = time.perf_counter() - t0
+        launches = get_launches(ops)
+
+        batches = sum(len(s['shapes']) for s in summaries)
+        calls = batches * STEPS
+        expect = {n: per_call.get(n, 0) * calls for n in launches}
+        T = DEFAULT_MODEL_CONFIG['num_diffusion_timesteps']
+        ts = np.linspace(T - 1, 0, STEPS).round()
+        in_window = int(((ts >= REF_DRIFT['end_time'])
+                         & (ts < REF_DRIFT['start_time'])).sum())
+        drift_calls = sum(s['drift_calls'] for s in summaries)
+        print(f'reference entry path: {len(summaries)} pockets, {calls} '
+              f'denoiser calls, launches {nonzero(launches)} (expected '
+              f'{nonzero(expect)}); mmff_min drift calls {drift_calls} '
+              f'(expected {in_window} in-window steps x {batches} '
+              f'batches)', flush=True)
+        check(launches == expect,
+              'reference entry launch counts differ from the expected')
+        check(drift_calls == in_window * batches,
+              'mmff_min drift calls differ from the in-window steps')
+        n_mol = sum(s['n'] for s in summaries)
+        for s in summaries:
+            rows = driver.load_result(s['path'])['results']
+            check(len(rows) == ENTRY_SAMPLES
+                  and all(np.isfinite(r['pred_pos']).all() for r in rows),
+                  'reference entry result rows')
+        host, dev, drift, recon = (sum(s[k] for s in summaries) for k in (
+            'host_s', 'device_s', 'drift_s', 'recon_s'))
+        relaxed = sum(s['drift_relaxed'] for s in summaries)
+        # the relaxation itself on this host: a random model's ligands are
+        # rarely one connected molecule, so the run may drift none
+        chain = np.zeros((1, 5, 3), np.float32)
+        chain[0, :, 0] = np.arange(5) * 1.9
+        chain[0, :, 1] = [0.0, 0.3, -0.2, 0.25, 0.0]
+        drifted = chain - make_ff_callback('basic')(
+            chain, np.ones((1, 5), np.int64), np.ones((1, 5), bool))
+        before, after = (np.linalg.norm(np.diff(c[0], axis=0), axis=1)
+                         for c in (chain, drifted))
+        check(np.abs(after - 1.52).max() < np.abs(before - 1.52).max(),
+              f'ffmin drift of a stretched chain: bonds {before} -> {after}')
+        print(f'reference entry seconds per molecule ({n_mol} molecules, '
+              f'{elapsed:.3f} s in all): {elapsed / n_mol:.5f}; host set-up '
+              f'{host / n_mol:.5f}, device sampling {dev / n_mol:.5f} (of '
+              f'which mmff_min drift on the host {drift / n_mol:.5f}), '
+              f'reconstruction {recon / n_mol:.5f}; drift_relaxed '
+              f'{relaxed} of {drift_calls * B} batch rows drifted (a '
+              f'stretched 5-carbon chain: C-C {before.mean():.3f} -> '
+              f'{after.mean():.3f} A); on {label}', flush=True)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def expected_train_launches(summary, per_call, names):
     """The launches a training run should make, from its summary: each
     forward per_call times per step and per validation call, each backward
@@ -1466,7 +1647,8 @@ def train_shapes_phase(torch, ops, cfg):
     return top
 
 
-def kernel_records(results, launches, entry_launches, train_entry_launches):
+def kernel_records(results, launches, entry_launches, train_entry_launches,
+                   ref_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -1478,7 +1660,9 @@ def kernel_records(results, launches, entry_launches, train_entry_launches):
     bound with every operation at the FP32 CUDA-core peak, as PRs 1-3 gave
     it. entry_launches: the kernel's launches through the sampling entry
     point (entry_phase); train_entry_launches: through the training entry
-    point (train_entry_phase, both runs)."""
+    point (train_entry_phase, both runs); reference_entry_launches: through
+    the sampling entry point from converted reference weights with the
+    mmff_min drift (reference_phase)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -1491,6 +1675,7 @@ def kernel_records(results, launches, entry_launches, train_entry_launches):
             'launches': launches[name],
             'entry_launches': entry_launches.get(name, 0),
             'train_entry_launches': train_entry_launches.get(name, 0),
+            'reference_entry_launches': ref_launches.get(name, 0),
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -1601,6 +1786,7 @@ def main():
                     'edge_attention_mgate': o2_layers}
         entry_launches = entry_phase(torch, bond_calls)
         train_entry_launches = train_entry_phase(torch, bond_calls)
+        ref_launches = reference_phase(torch, bond_calls)
         nl64 = train_shapes_phase(torch, model_ops(), bond_cfg)
         ms, plain_ms, t_ops, t_bytes, _ = nl64[TOP_RECORD]['modes'][0]
         print(f'triplet backward head route at H={bond_cfg["hidden_dim"]}, '
@@ -1736,7 +1922,8 @@ def main():
             trained = wide_train_launches
         launches[n] = (trained if '_backward' in n else sampled)[n]
     print(json.dumps({'kernels': kernel_records(
-        results, launches, entry_launches, train_entry_launches)}))
+        results, launches, entry_launches, train_entry_launches,
+        ref_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -21,8 +21,12 @@ Differences from the JAX script:
   * Batches run one after another, each split into host set-up, device
     sampling (ending in a device synchronize) and reconstruction, and
     timed so.
-  * The mmff_min drift is not ported (ROADMAP item C2): a config listing it
-    raises NotImplementedError.
+
+An `energy_drift` entry of type mmff_min runs the conformer drift on the
+host inside its [end_time, start_time) window, as the JAX script does: the
+RDKit MMFF94s drift (guidance/mmff.py) where RDKit is installed, else the
+first-party force-field relaxation (guidance/ffmin.py). Each pocket's
+summary counts its calls and host seconds.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import logging
 import os
 import pickle
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -136,6 +140,49 @@ class SamplingRun:
     sca_cfg: Optional[dict]
     natoms_sampler: Optional[NumAtomsSampler]
     logger: logging.Logger
+    drift: Optional['DriftMeter'] = None
+
+
+class DriftMeter:
+    """Wraps a host drift callback: counts its calls, the molecules (batch
+    rows) it gave a non-zero drift, and the host seconds spent inside it."""
+
+    def __init__(self, callback: Callable):
+        self.callback = callback
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls, self.relaxed, self.seconds = 0, 0, 0.0
+
+    def __call__(self, pos, v, mask):
+        t0 = time.perf_counter()
+        out = self.callback(pos, v, mask)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.relaxed += int(np.any(np.asarray(out) != 0, axis=(1, 2)).sum())
+        return out
+
+
+def _mmff_drift(energy_drift, atom_mode: str, logger: logging.Logger):
+    """(DriftMeter or None, SampleConfig keywords) for the mmff_min entry
+    of energy_drift, chosen as scripts/sample.py chooses it: RDKit's MMFF94s
+    drift, else the first-party force-field relaxation."""
+    for d in energy_drift:
+        if d['type'] != 'mmff_min':
+            continue
+        try:
+            from decompdiff_tpu_torch.guidance.mmff import make_mmff_callback
+            callback = make_mmff_callback(atom_mode)
+        except ImportError:
+            from decompdiff_tpu_torch.guidance.ffmin import make_ff_callback
+            callback = make_ff_callback(atom_mode)
+            logger.info('mmff_min: RDKit unavailable, using the first-party '
+                        'force-field relaxation (guidance/ffmin.py)')
+        meter = DriftMeter(callback)
+        return meter, dict(mmff_callback=meter,
+                           mmff_start_time=int(d.get('start_time', 0)),
+                           mmff_end_time=int(d.get('end_time', 0)))
+    return None, {}
 
 
 def main(argv=None) -> List[dict]:
@@ -153,10 +200,6 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
     logger = get_logger('sample_torch', args.outdir)
 
     energy_drift = tuple(dict(d) for d in scfg.get('energy_drift', []))
-    if any(d['type'] == 'mmff_min' for d in energy_drift):
-        raise NotImplementedError(
-            'the mmff_min drift is not ported yet (ROADMAP item C2); drop it '
-            'from sample.energy_drift')
 
     overrides = {}
     if args.use_pallas:
@@ -167,6 +210,7 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
         args.ckpt, device=resolve_device(args.device), overrides=overrides)
     train_config = Config(ckpt['config'])
     atom_mode = train_config.data.transform.get('ligand_atom_mode', 'basic')
+    drift, mmff_kwargs = _mmff_drift(energy_drift, atom_mode, logger)
 
     dataset = DecompDataset(DDStore(sample_cfg_file.data.path),
                             ligand_atom_mode=atom_mode)
@@ -200,7 +244,8 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
             'center_pos_mode', model.config.get('center_pos_mode',
                                                 'protein')),
         skip_mode=skip_mode,
-        energy_drift=energy_drift)
+        energy_drift=energy_drift,
+        **mmff_kwargs)
 
     if args.protein_path and len(args.data_id) > 1:
         logger.warning('--protein_path names ONE receptor but %d pocket ids '
@@ -212,7 +257,7 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
         prior_mode=prior_mode, num_atoms_mode=num_atoms_mode,
         num_samples=args.num_samples or scfg.get('num_samples', 10),
         seed=seed, arms_cfg=arms_cfg, sca_cfg=sca_cfg,
-        natoms_sampler=natoms_sampler, logger=logger)
+        natoms_sampler=natoms_sampler, logger=logger, drift=drift)
     return [run_pocket(sampling, data_id) for data_id in args.data_id]
 
 
@@ -246,10 +291,14 @@ def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
 
     Returns {'data_id', 'path', 'n', 'n_recon', 'n_complete', 'shapes'
     (the padded (B, Np, Nl) of each batch), 'host_s', 'device_s',
-    'recon_s'} (wall seconds summed over the batches)."""
+    'recon_s' (wall seconds summed over the batches), 'drift_calls',
+    'drift_relaxed', 'drift_s'} (the mmff_min drift's calls, batch rows it
+    gave a non-zero drift, and host seconds, already within device_s)."""
     args, model, logger = sampling.args, sampling.model, sampling.logger
     scfg = sampling.sample_cfg_file.sample
     seed_all(sampling.seed)
+    if sampling.drift is not None:
+        sampling.drift.reset()
     recon_with_bond = (model.bond_diffusion
                        if args.recon_with_bond == 'auto'
                        else args.recon_with_bond == 'true')
@@ -329,9 +378,12 @@ def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
                            'atom_mode': sampling.atom_mode,
                            'config': sampling.sample_cfg_file.to_dict()})
     logger.info(f'saved {out_path}')
+    drift = sampling.drift
     return dict(data_id=data_id, path=out_path, n=len(results),
                 n_recon=n_recon, n_complete=n_complete, shapes=shapes,
-                **times)
+                drift_calls=drift.calls if drift else 0,
+                drift_relaxed=drift.relaxed if drift else 0,
+                drift_s=drift.seconds if drift else 0.0, **times)
 
 
 def _result_entry(sampling: SamplingRun, raw, pos, v, bond, mask, decomp,

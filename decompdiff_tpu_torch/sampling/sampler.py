@@ -38,7 +38,11 @@ class SampleConfig:
     # e.g. ({'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
     #       {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0})
     energy_drift: Tuple[Any, ...] = ()
-    # host MMFF drift (ROADMAP item C2); not ported yet
+    # host drift f(pos_mean [B, Nl, 3] float32 (centered), v_next [B, Nl],
+    # ligand_mask [B, Nl]) -> [B, Nl, 3], numpy in and out (guidance/
+    # {mmff,ffmin,ring}.py), subtracted from the posterior mean at the steps
+    # with mmff_end_time <= t < mmff_start_time (ref models/decompdiff.py:
+    # 669-672)
     mmff_callback: Optional[Callable] = None
     mmff_start_time: int = 0
     mmff_end_time: int = 0
@@ -89,6 +93,18 @@ def _guidance_grad(model: DecompDiffModel, cfg: SampleConfig,
     return grad
 
 
+def _host_drift(callback, pos_mean, v_next, ligand_mask):
+    """callback on host numpy copies (the copies wait for the device), its
+    float32 drift back on pos_mean's device."""
+    drift = callback(pos_mean.cpu().numpy(), v_next.cpu().numpy(),
+                     ligand_mask.cpu().numpy())
+    drift = np.asarray(drift, np.float32)
+    if drift.shape != tuple(pos_mean.shape):
+        raise ValueError(f'mmff_callback returned shape {drift.shape}, '
+                         f'expected {tuple(pos_mean.shape)}')
+    return torch.as_tensor(drift, device=pos_mean.device)
+
+
 def _time_sequence(cfg: SampleConfig, T: int):
     """(t per step, s per step): s is the step each jump lands on."""
     if cfg.skip_mode == 'strided':
@@ -124,9 +140,6 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
     Returns a dict: final 'pos'/'v'/'bond' [+ 'traj', stacked over steps,
     newest last].
     """
-    if cfg.mmff_callback is not None:
-        raise NotImplementedError(
-            'the MMFF guidance callback is not ported yet (ROADMAP item C2)')
     if full_protein is None and any(d.get('type') == 'clash'
                                     for d in cfg.energy_drift):
         raise ValueError('clash guidance needs full_protein (the un-cropped '
@@ -203,6 +216,13 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
         if strided:
             grad = grad * float(t - s)
         pos_mean = pos_mean - grad
+
+        # the host drift, only inside its window (t of the step, in strided
+        # mode the jump's start): outside it no copy to the host is made
+        if (cfg.mmff_callback is not None
+                and cfg.mmff_end_time <= t < cfg.mmff_start_time):
+            pos_mean = pos_mean - _host_drift(cfg.mmff_callback, pos_mean,
+                                              v_next, batch.ligand_mask)
 
         # ancestral update with prior-std-scaled noise (ref :679-684)
         if strided:

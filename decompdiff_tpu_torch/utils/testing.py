@@ -136,3 +136,167 @@ def random_complex_batch(rng: np.random.Generator, batch_size=2,
         prior_mask=t(prior_mask),
         num_arms=t(num_arms, torch.int32),
     )
+
+
+# --- ragged complexes for the float64 reference oracle -----------------------
+# (tests/reference_oracle.py takes reference-style ragged arrays; the model
+# takes their padded batch. The draws are tests/test_oracle_parity.py's.)
+
+def ragged_complexes(rng: np.random.Generator,
+                     sizes=((14, 6, 2), (11, 5, 1))) -> list:
+    """One dict per complex of (protein atoms, ligand atoms, arms) in
+    `sizes`: protein and ligand positions, features, atom types (8
+    classes), decomposition, priors and a symmetric bond-type matrix (5
+    classes)."""
+    graphs = []
+    for (n_p, n_l, n_arms) in sizes:
+        g = {}
+        g['protein_pos'] = rng.normal(size=(n_p, 3)) * 4.0
+        g['protein_feat'] = (rng.random((n_p, PROTEIN_FEATURE_DIM + 2))
+                             < 0.2).astype(np.float64)
+        g['ligand_pos'] = rng.normal(size=(n_l, 3)) * 2.0
+        g['ligand_v'] = rng.integers(0, 8, size=(n_l,))
+        g['num_arms'] = n_arms
+        g['decomp_idx'] = rng.integers(0, n_arms + 1, size=(n_l,))
+        arm_ind = (g['decomp_idx'] < n_arms).astype(np.float64)
+        g['aux'] = np.stack([1 - arm_ind, arm_ind], -1)
+        g['prior_centers'] = rng.normal(size=(n_arms + 1, 3)) * 2.0
+        g['prior_stds'] = 0.6 + rng.random((n_arms + 1, 3))
+        bt = rng.integers(0, 5, size=(n_l, n_l))
+        bt = np.triu(bt, 1)
+        g['bond_mat'] = bt + bt.T
+        graphs.append(g)
+    return graphs
+
+
+def ragged_arrays(graphs) -> dict:
+    """The complexes concatenated as the reference batches them: per-atom
+    arrays with batch vectors, the all-pairs ligand bond edge list (src j,
+    dst i; 'bond_local' holds (graph, i, j) per edge) and per-atom priors."""
+    out = {key: np.concatenate([g[key] for g in graphs]) for key in (
+        'protein_pos', 'protein_feat', 'ligand_pos', 'ligand_v', 'aux')}
+    out['batch_protein'] = np.concatenate(
+        [np.full(len(g['protein_pos']), i) for i, g in enumerate(graphs)])
+    out['batch_ligand'] = np.concatenate(
+        [np.full(len(g['ligand_pos']), i) for i, g in enumerate(graphs)])
+    src, dst, btype, bbatch, local = [], [], [], [], []
+    off = 0
+    for gi, g in enumerate(graphs):
+        n = len(g['ligand_pos'])
+        for i in range(n):
+            for j in range(n):
+                if i == j:
+                    continue
+                src.append(off + j)
+                dst.append(off + i)
+                btype.append(g['bond_mat'][i, j])
+                bbatch.append(gi)
+                local.append((gi, i, j))
+        off += n
+    out['bond_index'] = np.array([src, dst], np.int64)
+    out['bond_type'] = np.array(btype, np.int64)
+    out['batch_bond'] = np.array(bbatch, np.int64)
+    out['bond_local'] = local
+    out['atom_centers'] = np.concatenate(
+        [g['prior_centers'][g['decomp_idx']] for g in graphs])
+    out['atom_stds'] = np.concatenate(
+        [g['prior_stds'][g['decomp_idx']] for g in graphs])
+    return out
+
+
+def padded_complex_batch(graphs, n_p_pad=16, n_l_pad=8, a_pad=4,
+                         device: DeviceLike = None) -> ComplexBatch:
+    """The padded batch of ragged_complexes (padded ligand slots far away,
+    so that they never enter a kNN graph; they are masked anyway)."""
+    B = len(graphs)
+    fp = graphs[0]['protein_feat'].shape[1]
+    pp = np.zeros((B, n_p_pad, 3), np.float32)
+    pf = np.zeros((B, n_p_pad, fp), np.float32)
+    pm = np.zeros((B, n_p_pad), bool)
+    lp = np.zeros((B, n_l_pad, 3), np.float32)
+    lv = np.zeros((B, n_l_pad), np.int32)
+    la = np.zeros((B, n_l_pad, 2), np.float32)
+    lm = np.zeros((B, n_l_pad), bool)
+    di = np.zeros((B, n_l_pad), np.int32)
+    bt = np.zeros((B, n_l_pad, n_l_pad), np.int32)
+    pc = np.zeros((B, a_pad, 3), np.float32)
+    ps = np.ones((B, a_pad, 3), np.float32)
+    pn = np.zeros((B, a_pad), np.int32)
+    pmask = np.zeros((B, a_pad), bool)
+    arms = np.zeros((B,), np.int32)
+    for b, g in enumerate(graphs):
+        n_p, n_l, n_a = (len(g['protein_pos']), len(g['ligand_pos']),
+                         g['num_arms'])
+        pp[b, :n_p] = g['protein_pos']
+        pf[b, :n_p] = g['protein_feat']
+        pm[b, :n_p] = True
+        lp[b, :n_l] = g['ligand_pos']
+        lp[b, n_l:] = 1e3
+        lv[b, :n_l] = g['ligand_v']
+        la[b, :n_l] = g['aux']
+        lm[b, :n_l] = True
+        di[b, :n_l] = g['decomp_idx']
+        bt[b, :n_l, :n_l] = g['bond_mat']
+        pc[b, :n_a + 1] = g['prior_centers']
+        ps[b, :n_a + 1] = g['prior_stds']
+        pmask[b, :n_a + 1] = True
+        arms[b] = n_a
+        for a in range(n_a + 1):
+            pn[b, a] = int((g['decomp_idx'] == a).sum())
+    bm = make_bond_mask(lm)
+    bt = np.where(bm, bt, 0)
+    device = resolve_device(device)
+    return ComplexBatch(*(torch.as_tensor(a).to(device) for a in (
+        pp, pf, pm, lp, lv, la, lm, di, bt, bm, pc, ps, pn, pmask, arms)))
+
+
+# --- reference-layout .pt checkpoints ---------------------------------------
+
+class _EasyDict(dict):
+    """easydict.EasyDict's behaviour (items mirrored as attributes), for
+    writing a reference-layout checkpoint where easydict is not
+    installed."""
+
+    def __init__(self, d=None):
+        super().__init__()
+        for k, v in (d or {}).items():
+            setattr(self, k, v)
+
+    def __setattr__(self, name, value):
+        if isinstance(value, dict) and not isinstance(value, _EasyDict):
+            value = _EasyDict(value)
+        elif isinstance(value, (list, tuple)):
+            value = type(value)(_EasyDict(x) if isinstance(x, dict) else x
+                                for x in value)
+        super().__setattr__(name, value)
+        super().__setitem__(name, value)
+
+
+_EasyDict.__module__, _EasyDict.__name__ = 'easydict', 'EasyDict'
+_EasyDict.__qualname__ = 'EasyDict'
+
+
+def save_reference_checkpoint(path: str, state_dict: dict, config: dict,
+                              iteration: int = 0) -> None:
+    """torch.save {'config': config as an easydict.EasyDict, 'model': the
+    state dict as float32 tensors, 'iteration'}: the layout of a reference
+    DecompDiff checkpoint (ref scripts/train_diffusion_decomp.py:293-300).
+    Without easydict the config is written as a class of the same module
+    and name, installed in sys.modules for the save only."""
+    import sys
+    import types
+    try:
+        from easydict import EasyDict
+        installed = False
+    except ImportError:
+        EasyDict, installed = _EasyDict, True
+        sys.modules['easydict'] = types.ModuleType('easydict')
+        sys.modules['easydict'].EasyDict = _EasyDict
+    try:
+        model = {k: torch.as_tensor(np.asarray(v, np.float32))
+                 for k, v in state_dict.items()}
+        torch.save({'config': EasyDict(config), 'model': model,
+                    'iteration': iteration}, path)
+    finally:
+        if installed:
+            del sys.modules['easydict']

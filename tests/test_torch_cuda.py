@@ -36,6 +36,10 @@ types in node and pos mode and with the m-gate. The bond backward at H =
 product kernel for d h_bond and d We), at Nl = 13, 20, 32, 40, 48 and 64
 in both modes, and two of its launches give bitwise-equal parameter
 gradients; above 64 atoms, or with more than 16 heads, it stays per-row.
+The released model converted from a reference-layout state dict holds the
+float64 reference oracle with the kernels (rtol = atol = 3e-4), and the
+sampler's host drift fires at the same steps with the same inputs on the
+card as on the CPU.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -1045,3 +1049,95 @@ def test_tiny_uni_o2_train_step_kernels_on_vs_off(cuda):
                             ew_net_type='m')
     _train_step_on_vs_off(cuda, cfg, edge_ops.edge_attention_backward,
                           count='gated_launches')
+
+
+def test_converted_released_model_matches_oracle(cuda):
+    """The released uni_o2_bond config from a reference-layout state dict
+    through the port's converter: one denoiser call with the kernels (B=1,
+    Np=64, Nl=16) against the float64 reference oracle at the JAX oracle
+    tests' rtol = atol = 3e-4 (tests/test_oracle_parity.py)."""
+    from decompdiff_tpu_torch.utils.convert_checkpoint import (
+        convert_reference_state_dict)
+    from decompdiff_tpu_torch.utils.params import load_flax_params
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, padded_complex_batch, ragged_arrays,
+        ragged_complexes)
+    import reference_oracle as oracle       # tests/, on pytest's path
+    cfg = dict(DEFAULT_MODEL_CONFIG)
+    sd = oracle.make_reference_state_dict(np.random.default_rng(3), cfg, 8,
+                                          5, 29, 10)
+    model = DecompDiffModel.create(dict(cfg, use_pallas=True), 8,
+                                   device=cuda)
+    load_flax_params(model.denoiser, convert_reference_state_dict(sd, cfg))
+    graphs = ragged_complexes(np.random.default_rng(4), sizes=((64, 16, 2),))
+    r = ragged_arrays(graphs)
+    batch = padded_complex_batch(graphs, 64, 16, 4, device=cuda)
+    before = triplet_ops.triplet_attention.launches
+    with torch.no_grad():
+        preds = model.apply(batch, batch.ligand_pos, batch.ligand_v,
+                            batch.bond_type, torch.tensor([3], device=cuda))
+    torch.cuda.synchronize()
+    assert triplet_ops.triplet_attention.launches - before == 6
+    want = oracle.decomp_forward(
+        sd, cfg, 8, 5, r['protein_pos'], r['protein_feat'],
+        r['batch_protein'], r['ligand_pos'], r['ligand_v'], r['aux'],
+        r['batch_ligand'], r['bond_index'], r['bond_type'])
+    got = {k: preds[k][0].double().cpu().numpy() for k in want}
+    got['pred_bond'] = np.stack([got['pred_bond'][i, j]
+                                 for _, i, j in r['bond_local']])
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=3e-4, atol=3e-4,
+                                   err_msg=k)
+
+
+def test_sampler_drift_on_card_matches_cpu(cuda):
+    """The sampler's host drift with the kernels on the card against the
+    same tiny model on the CPU, the noise injected: a recording callback
+    (a smooth drift of its input) fires at the same steps (strided over
+    T = 50: t = 37, 24 and 12 lie in [10, 40)) with the same inputs, and
+    the drift it returns is applied alike (TOL; types exactly)."""
+    from decompdiff_tpu_torch.data.batch import FullProtein
+    from decompdiff_tpu_torch.sampling.sampler import (
+        SampleConfig, sample_diffusion)
+    cfg = tiny_model_config(num_diffusion_timesteps=50, use_pallas=True)
+    steps, B, Nl = 5, 2, 10
+    rng = np.random.default_rng(5)
+    noise = dict(
+        pos_eps=rng.normal(size=(steps, B, Nl, 3)).astype(np.float32),
+        v_uniform=rng.random((steps, B, Nl, 8)).astype(np.float32),
+        b_uniform=rng.random((steps, B, Nl, Nl, 5)).astype(np.float32))
+    full = (rng.normal(size=(B, 30, 3)) * 4).astype(np.float32)
+    runs = {}
+    for dev in ('cpu', cuda):
+        calls = []
+
+        def record(pos, v, mask):
+            out = (0.05 * np.sin(pos) * mask[..., None]).astype(np.float32)
+            calls.append((pos, v, mask, out))
+            return out
+        model = DecompDiffModel.create(cfg, 8, device=dev, seed=0)
+        batch = random_complex_batch(np.random.default_rng(0), batch_size=B,
+                                     num_ligand=Nl, real_ligand=9,
+                                     device=dev)
+        scfg = SampleConfig(
+            num_steps=steps, skip_mode='strided', save_traj=False,
+            energy_drift=({'type': 'armsca_prox'},
+                          {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0}),
+            mmff_callback=record, mmff_start_time=40, mmff_end_time=10)
+        out = sample_diffusion(
+            model, scfg, batch, batch.ligand_pos, batch.ligand_v,
+            batch.bond_type, FullProtein(
+                torch.as_tensor(full, device=dev),
+                torch.ones((B, 30), dtype=torch.bool, device=dev)),
+            noise_override={k: torch.as_tensor(v, device=dev)
+                            for k, v in noise.items()})
+        runs[str(dev)] = calls, {k: t.cpu() for k, t in out.items()}
+    (cpu_calls, cpu_out), (gpu_calls, gpu_out) = runs['cpu'], runs['cuda']
+    assert len(cpu_calls) == len(gpu_calls) == 3
+    for (p, v, m, o), (gp, gv, gm, go) in zip(cpu_calls, gpu_calls):
+        np.testing.assert_allclose(gp, p, **TOL)
+        np.testing.assert_array_equal(gv, v)
+        np.testing.assert_array_equal(gm, m)
+        np.testing.assert_allclose(go, o, **TOL)
+    assert torch.equal(gpu_out['v'], cpu_out['v'])
+    torch.testing.assert_close(gpu_out['pos'], cpu_out['pos'], **TOL)

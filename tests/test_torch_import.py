@@ -46,7 +46,7 @@ def test_every_submodule_imports_without_jax():
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
     + ['chip_smoke.py', 'scripts/sample_torch.py',
-       'scripts/train_torch.py']))
+       'scripts/train_torch.py', 'scripts/convert_checkpoint_torch.py']))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

@@ -28,6 +28,7 @@ from decompdiff_tpu.data.mol import MolRecord as JaxMolRecord
 from decompdiff_tpu.evaluation.eval_bond_length import bond_distances_from_mol
 from decompdiff_tpu.evaluation.scoring import get_chem
 from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+from decompdiff_tpu_torch.guidance import ffmin
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
 from decompdiff_tpu_torch.sampling import driver
 from decompdiff_tpu_torch.utils.params import state_dict_to_flax
@@ -263,15 +264,36 @@ def test_port_reads_its_results_without_the_jax_package(port_outdir):
     assert mols and all(type(m) is MolRecord for m in mols)
 
 
-def test_mmff_drift_is_refused(setup, tmp_path):
+def test_mmff_drift_is_refused(setup, tmp_path, monkeypatch):
+    """A config with the mmff_min drift is not refused: without RDKit the
+    driver runs the first-party force-field drift (guidance/ffmin.py) in
+    [end_time, start_time) and writes the result pickles. Strided over
+    T = 20, the 3 steps start at t = 19, 10 and 0: two in [5, 20), for each
+    of the two batches of a pocket."""
     d, yml, ckpt = setup
     mmff = tmp_path / 'mmff.yml'
     mmff.write_text(Path(yml).read_text().replace(
         '    - type: armsca_prox', '    - type: mmff_min\n'
+        '      start_time: 20\n      end_time: 5\n'
         '    - type: armsca_prox'))
-    with pytest.raises(NotImplementedError, match='C2'):
-        driver.main([str(mmff), '--ckpt', ckpt, '--outdir',
-                     str(tmp_path), '--device', 'cpu'])
+    made = []
+    make = ffmin.make_ff_callback
+    monkeypatch.setattr(ffmin, 'make_ff_callback',
+                        lambda mode: made.append(mode) or make(mode))
+    summaries = driver.main([str(mmff), '--ckpt', ckpt, '-i', '0', '1',
+                             '--outdir', str(tmp_path), '--batch_size',
+                             str(BATCH), '--device', 'cpu',
+                             '--recon_with_bond', 'false'])
+    assert made == ['basic']
+    batches = -(-NUM_SAMPLES // BATCH)
+    for s in summaries:
+        assert s['drift_calls'] == 2 * batches
+        assert 0 <= s['drift_relaxed'] <= s['drift_calls'] * BATCH
+        assert 0.0 < s['drift_s'] < s['device_s']
+        payload = driver.load_result(s['path'])
+        assert len(payload['results']) == NUM_SAMPLES
+        for r in payload['results']:
+            assert np.isfinite(r['pred_pos']).all()
 
 
 def test_default_device_needs_a_gpu(setup, tmp_path, monkeypatch):

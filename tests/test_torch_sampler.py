@@ -182,6 +182,3 @@ def test_sampler_generator_path_and_refusals():
     assert 'traj' not in outs[0]
     with pytest.raises(ValueError, match='full_protein'):
         sample_diffusion(model, scfg, *args)
-    with pytest.raises(NotImplementedError, match='C2'):
-        sample_diffusion(model, SampleConfig(
-            num_steps=2, mmff_callback=lambda *a: None), *args, fp)
