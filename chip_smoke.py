@@ -14,7 +14,13 @@
    molecules per pocket and STEPS strided guided steps: launches counted
    (exactly calls x 12/12/6 forward, nothing else), result pickles checked,
    seconds per molecule printed split into host set-up, device sampling
-   and reconstruction.
+   and reconstruction. Then the evaluation driver (decompdiff_tpu_torch/
+   evaluation/driver.py, the port of scripts/evaluate.py) scores those
+   pickles with --docking_mode none, and then the store's own ligands
+   written as results: no kernel launched, scripts/evaluate.py's summary
+   keys, counts equal to the sampling summaries', first-party QED and SA
+   in [0, 1], JSDs finite, no module of JAX or the JAX package loaded;
+   seconds per molecule printed.
 2b. Training entry point: the training driver (decompdiff_tpu_torch/
    training/driver.py, the port of scripts/train.py) as a user runs it,
    with configs/training.yml's settings (TRAIN_CONFIG: the released model,
@@ -143,6 +149,14 @@ RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
 ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
             'smiles', 'complete', 'ligand_filename', 'src_protein_filename',
             'protein_path'}
+# the keys of eval_summary.pkl as scripts/evaluate.py writes them
+EVAL_SUMMARY_KEYS = {
+    'n_total', 'n_recon', 'n_complete', 'n_dock_success', 'bond_jsd',
+    'pair_jsd', 'atom_type_jsd', 'ring_sizes', 'ring_ratio', 'chem', 'vina',
+    'chem_backend', 'vina_metrics', 'high_affinity', 'success_rate',
+    'diversity'}
+# modules the port and this script must never load
+FORBIDDEN_MODULES = ('jax', 'flax', 'optax', 'decompdiff_tpu')
 # the training entry point (decompdiff_tpu_torch/training/driver.py) on a
 # synthetic store of TRAIN_POCKETS (protein atoms, ligand atoms, arms): the
 # first eleven train, the last validates (the JAX script's last 10%); the
@@ -1237,9 +1251,130 @@ def entry_phase(torch, per_call):
               + ', '.join(f'{s["host_s"]:.4f}/{s["device_s"]:.4f}/'
                           f'{s["recon_s"]:.4f}' for s in summaries)
               + f' on {gpu_name_and_limit()}', flush=True)
+        evaluation_phase(ops, work, store, summaries)
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def evaluate_counted(ops, outdir, label):
+    """The evaluation entry point (decompdiff_tpu_torch/evaluation/
+    driver.py, the port of scripts/evaluate.py) as a user runs it on
+    outdir's result pickles, --docking_mode none; checks that it launched
+    no kernel and wrote scripts/evaluate.py's keys, and that every chem
+    row is first-party with QED and SA in [0, 1]. Returns the summary and
+    the seconds it took."""
+    import pickle
+
+    from decompdiff_tpu_torch.evaluation import driver as evaluation
+    before = get_launches(ops)
+    t0 = time.perf_counter()
+    summary = evaluation.main([str(outdir), '--docking_mode', 'none'])
+    elapsed = time.perf_counter() - t0
+    after = get_launches(ops)
+    check(after == before, f'{label}: the evaluation launched kernels '
+          f'{nonzero({n: after[n] - before[n] for n in after})}')
+    with open(outdir / 'eval_summary.pkl', 'rb') as f:
+        check(pickle.load(f).keys() == summary.keys() == EVAL_SUMMARY_KEYS,
+              f'{label}: eval_summary.pkl keys {sorted(summary)}')
+    chem = summary['chem']
+    check(len(chem) == summary['n_complete'],
+          f'{label}: {len(chem)} chem rows for {summary["n_complete"]} '
+          'complete molecules')
+    if chem:
+        check(summary['chem_backend'] == 'first_party'
+              and all(c['chem_backend'] == 'first_party' for c in chem),
+              f'{label}: chem backend {summary["chem_backend"]}')
+        check(all(0.0 <= c['qed'] <= 1.0 and 0.0 <= c['sa'] <= 1.0
+                  for c in chem), f'{label}: a QED or SA outside [0, 1]')
+    return summary, elapsed
+
+
+def jsd_values(summary):
+    return ([v for k in ('bond_jsd', 'pair_jsd')
+             for v in summary[k].values()] + [summary['atom_type_jsd']])
+
+
+def evaluation_phase(ops, work, store, summaries):
+    """Scores the entry point's result pickles with the port's evaluation
+    driver (evaluate_counted): its counts equal the sampling summaries';
+    with a complete molecule every JSD that is not None is finite, with
+    none every one is NaN or None, as scripts/evaluate.py gives for an
+    empty set. A seeded random model's molecules rarely pass
+    reconstruction, so the driver then scores the store's own ligands
+    (the reference-ligand evaluation), written as the sampling driver
+    writes results: every one complete, a chem row each, every JSD finite.
+    Prints seconds per molecule of both; afterwards no module of JAX or of
+    the JAX package is loaded."""
+    import math
+
+    import numpy as np
+
+    from decompdiff_tpu_torch.constants import MAP_ATOM_BASIC
+    from decompdiff_tpu_torch.data.mol import MolRecord
+    from decompdiff_tpu_torch.data.store import DDStore
+    from decompdiff_tpu_torch.sampling import driver
+    summary, elapsed = evaluate_counted(ops, work / 'out', 'sampled')
+    counts = {k: sum(s[c] for s in summaries)
+              for k, c in (('n_total', 'n'), ('n_recon', 'n_recon'),
+                           ('n_complete', 'n_complete'))}
+    check({k: summary[k] for k in counts} == counts,
+          f'evaluation counts {[summary[k] for k in counts]} differ from '
+          f'the sampling summaries\' {list(counts.values())}')
+    jsds = [v for v in jsd_values(summary) if v is not None]
+    check(all(math.isfinite(v) for v in jsds) if summary['n_complete']
+          else all(math.isnan(v) for v in jsds),
+          f'sampled: JSDs {jsds} for {summary["n_complete"]} complete')
+    n = summary['n_total']
+    print(f'evaluation of the entry point\'s results (evaluation/driver.py, '
+          f'--docking_mode none): {n} molecules, reconstructed '
+          f'{summary["n_recon"]}, complete {summary["n_complete"]}, '
+          f'{len(summary["chem"])} chem rows; {elapsed:.3f} s, '
+          f'{elapsed / n:.5f} s per molecule; no kernel launched; on '
+          f'{gpu_name_and_limit()}', flush=True)
+
+    ref_out = work / 'reference_ligands'
+    ref_out.mkdir()
+    rows = []
+    for rec in DDStore(str(store)):
+        n_atoms = len(rec['ligand_element'])
+        mol = MolRecord(element=np.asarray(rec['ligand_element']),
+                        pos=np.asarray(rec['ligand_pos'], np.float32),
+                        bond_index=np.asarray(rec['ligand_bond_index']),
+                        bond_type=np.asarray(rec['ligand_bond_type']),
+                        aromatic=np.asarray(rec['ligand_atom_is_aromatic']))
+        rows.append({'mol': mol, 'complete': True,
+                     'pred_pos': mol.pos,
+                     'pred_v': np.asarray([MAP_ATOM_BASIC[int(z)]
+                                           for z in mol.element]),
+                     'pred_bond': np.zeros((n_atoms, n_atoms), np.int64),
+                     'ligand_filename': rec['src_ligand_filename']})
+    driver.save_result(str(ref_out / 'result_reference.pkl'),
+                       {'results': rows, 'atom_mode': 'basic'})
+    # twice: the first call loads the SA fragment table (fpscores.pkl.gz)
+    ref, first_s = evaluate_counted(ops, ref_out, 'reference ligands')
+    again, ref_s = evaluate_counted(ops, ref_out, 'reference ligands')
+    check(again == ref, 'reference ligands: a second evaluation differs')
+    check(ref['n_total'] == ref['n_complete'] == len(ref['chem'])
+          == len(rows), f'reference ligands: {ref["n_complete"]} complete, '
+          f'{len(ref["chem"])} chem rows of {len(rows)}')
+    jsds = jsd_values(ref)
+    check(all(v is None or math.isfinite(v) for v in jsds)
+          and any(v is not None for v in jsds),
+          f'reference ligands: JSDs {jsds}')
+    qed = [c['qed'] for c in ref['chem']]
+    sa = [c['sa'] for c in ref['chem']]
+    print(f'evaluation of the store\'s {len(rows)} reference ligands '
+          f'({sum(len(r["pred_v"]) for r in rows)} atoms): QED '
+          f'{np.mean(qed):.4f}, SA {np.mean(sa):.4f}, atom-type JSD '
+          f'{ref["atom_type_jsd"]:.4f}; {ref_s:.3f} s, '
+          f'{ref_s / len(rows):.5f} s per molecule (the first call, which '
+          f'loads the SA fragment table: {first_s:.3f} s); no kernel '
+          f'launched; on '
+          f'{gpu_name_and_limit()}', flush=True)
+    bad = sorted(m for m in sys.modules
+                 if m.split('.')[0] in FORBIDDEN_MODULES)
+    check(not bad, f'modules of JAX or the JAX package loaded: {bad}')
 
 
 def reference_phase(torch, per_call):

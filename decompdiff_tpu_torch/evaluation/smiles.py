@@ -1,20 +1,18 @@
 """First-party SMILES writer: MolRecord graph -> SMILES string (port of
-decompdiff_tpu/evaluation/smiles.py's `mol_to_smiles`, with its own copies
-of the valence helpers it takes from evaluation/descriptors.py). The result
-rows of the sampling driver carry it (ref
-scripts/sample_diffusion_decomp.py:432 Chem.MolToSmiles); the SMILES parser
-is not ported.
+decompdiff_tpu/evaluation/smiles.py's `mol_to_smiles`; the valence helpers
+come from evaluation/descriptors.py, as there). The result rows of the
+sampling driver carry it (ref scripts/sample_diffusion_decomp.py:432
+Chem.MolToSmiles); the SMILES parser is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-from decompdiff_tpu_torch.reconstruct.builder import _undirected_bonds
-
-Bond = Tuple[int, int]
+from decompdiff_tpu_torch.evaluation.descriptors import (
+    DEFAULT_VALENCES, _undirected, implicit_h_counts)
 
 # atoms written without brackets, and their aromatic (lowercase) symbols
 ORGANIC_SUBSET = ('Cl', 'Br', 'B', 'C', 'N', 'O', 'P', 'S', 'F', 'I')
@@ -30,47 +28,6 @@ SYMBOL_TO_Z = {
 
 class SmilesError(ValueError):
     pass
-
-
-# --------------------------------------------------------------------------
-# valence helpers (decompdiff_tpu/evaluation/descriptors.py)
-
-DEFAULT_VALENCES = {
-    1: (1,), 5: (3,), 6: (4,), 7: (3,), 8: (2,), 9: (1,),
-    14: (4,), 15: (3, 5), 16: (2, 4, 6), 17: (1,),
-    33: (3, 5), 34: (2, 4, 6), 35: (1,), 53: (1,),
-}
-
-
-def _undirected(record) -> Dict[Bond, int]:
-    return _undirected_bonds(record.bond_index, record.bond_type)
-
-
-def implicit_h_counts(element: np.ndarray, bonds: Dict[Bond, int],
-                      charges: Optional[np.ndarray] = None) -> np.ndarray:
-    """Implicit hydrogens per heavy atom: (smallest allowed valence >= the
-    rounded bond-order sum) - bond-order sum, aromatic bonds counting 1.5.
-    Charge shifts the valence target by +q for N/P and +q for O/S anions
-    (N+ -> 4, O- -> 1), the common sanitization rule."""
-    element = np.asarray(element)
-    n = len(element)
-    order_sum = np.zeros(n)
-    for (a, b), order in bonds.items():
-        o = 1.5 if order == 4 else float(order)
-        order_sum[a] += o
-        order_sum[b] += o
-    out = np.zeros(n, np.int64)
-    for i in range(n):
-        s = int(round(order_sum[i]))
-        allowed = DEFAULT_VALENCES.get(int(element[i]), (s,))
-        q = int(charges[i]) if charges is not None else 0
-        target = None
-        for v in allowed:
-            if v + q >= s:
-                target = v + q
-                break
-        out[i] = 0 if target is None else target - s
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,8 @@ utils/guidance_funcs.py:121-158), fused ring systems, RMSD. Every helper
 runs on MolRecords without RDKit via the first-party fallbacks (structural
 rotatable-bond rule, guidance/ffmin relaxation, cycle-basis rings, Kabsch
 RMSD); RDKit inputs use the reference recipes verbatim when RDKit is
-installed. The conformer generators (compute_3d_coors*, on the JAX
-package's utils/confgen.py) are not ported.
+installed. The conformer generators (compute_3d_coors*) embed MolRecords
+through utils/confgen.py.
 """
 
 from __future__ import annotations
@@ -140,6 +140,61 @@ def get_num_rotatable_bonds(mol) -> int:
     if hasattr(mol, 'bond_index') or not HAS_RDKIT:
         return len(_record_rotatable_bonds(mol)[1])
     return len(mol.GetSubstructMatches(RotatableBondSmarts))
+
+
+def compute_3d_coors(mol, random_seed: int = 0):
+    """Embed one conformer (ref utils/chem.py:32-40). MolRecords (and any
+    input when RDKit is absent) embed via the first-party distance-geometry
+    path (utils/confgen.py)."""
+    if hasattr(mol, 'bond_index') or not HAS_RDKIT:
+        from decompdiff_tpu_torch.utils.confgen import (
+            embed_conformer, record_bonds)
+        bonds = record_bonds(mol)
+        if not bonds:
+            return 0, 0
+        pos, _ = embed_conformer(mol.element, bonds,
+                                 np.random.default_rng(random_seed))
+        return pos, 1
+    mol = Chem.AddHs(mol)
+    if AllChem.EmbedMolecule(mol, randomSeed=random_seed) == -1:
+        return 0, 0
+    mol = Chem.RemoveHs(mol)
+    return mol.GetConformer(0).GetPositions(), 1
+
+
+def compute_3d_coors_multiple(mol, numConfs=20, maxIters=400, randomSeed=1):
+    """Multi-conformer embedding + MMFF ranking (ref utils/chem.py:43-60).
+
+    First-party path (MolRecords / no RDKit): returns
+    (positions_list, [(0, energy, conf_idx), ...] sorted by energy, 1) —
+    the positions list replaces the conformer-holding RDKit mol; the result
+    tuples keep the reference's (converged, energy, confId) layout."""
+    if hasattr(mol, 'bond_index') or not HAS_RDKIT:
+        from decompdiff_tpu_torch.utils.confgen import (
+            generate_conformers, record_bonds)
+        bonds = record_bonds(mol)
+        if not bonds:
+            return None, [], 0
+        confs = generate_conformers(mol.element, bonds, n_confs=numConfs,
+                                    seed=randomSeed, max_iter=maxIters)
+        return ([pos for pos, _ in confs],
+                [(0, e, i) for i, (_, e) in enumerate(confs)], 1)
+    mol = Chem.AddHs(mol, addCoords=True)
+    AllChem.EmbedMultipleConfs(mol, numConfs=numConfs, numThreads=0,
+                               randomSeed=randomSeed)
+    if mol.GetConformers() == ():
+        return None, [], 0
+    try:
+        result = AllChem.MMFFOptimizeMoleculeConfs(mol, maxIters=maxIters,
+                                                   numThreads=0)
+    except Exception:
+        return None, [], 0
+    mol = Chem.RemoveHs(mol)
+    result = [(r[0], r[1], i) for i, r in enumerate(result) if r[0] == 0]
+    if not result:
+        return None, [], 0
+    result.sort()
+    return mol, result, 1
 
 
 def get_rmsd(ref, pred, heavy_only=True) -> float:

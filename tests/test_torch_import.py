@@ -46,7 +46,8 @@ def test_every_submodule_imports_without_jax():
 @pytest.mark.parametrize('path', sorted(
     [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
     + ['chip_smoke.py', 'scripts/sample_torch.py',
-       'scripts/train_torch.py', 'scripts/convert_checkpoint_torch.py']))
+       'scripts/train_torch.py', 'scripts/convert_checkpoint_torch.py',
+       'scripts/evaluate_torch.py']))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -80,6 +81,64 @@ def test_imports_without_yaml_and_sampling_script_starts():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '--use_pallas' in proc.stdout and '--device' in proc.stdout
+
+
+def test_evaluation_script_runs_without_jax_and_yaml(tmp_path):
+    """With jax, flax, optax, the JAX package and PyYAML unimportable,
+    every module of the port imports, scripts/evaluate_torch.py --help
+    exits 0, and the script scores a result pickle written by the port's
+    sampling driver (its molecules named as the JAX package's class)."""
+    code = (
+        'import importlib, pickle, runpy, sys\n'
+        'import numpy as np\n'
+        f'for name in {FORBIDDEN + ('yaml',)!r}:\n'
+        '    sys.modules[name] = None\n'
+        f'for name in {_modules()!r}:\n'
+        '    importlib.import_module(name)\n'
+        'from decompdiff_tpu_torch.data.mol import MolRecord\n'
+        'from decompdiff_tpu_torch.sampling.driver import save_result\n'
+        'def script(*argv):\n'
+        "    sys.argv = ['evaluate_torch.py', *argv]\n"
+        '    try:\n'
+        "        runpy.run_path('scripts/evaluate_torch.py',"
+        " run_name='__main__')\n"
+        '    except SystemExit as e:\n'
+        '        assert e.code == 0, e.code\n'
+        "script('--help')\n"
+        # benzyl alcohol, a bent chain of ring and side chain
+        'ring = [(i, (i + 1) % 6, 4) for i in range(6)]\n'
+        'bonds = ring + [(0, 6, 1), (6, 7, 1)]\n'
+        'src = [a for a, b, _ in bonds] + [b for a, b, _ in bonds]\n'
+        'dst = [b for a, b, _ in bonds] + [a for a, b, _ in bonds]\n'
+        'typ = [t for _, _, t in bonds] * 2\n'
+        'ang = np.arange(6) * np.pi / 3\n'
+        'pos = np.zeros((8, 3), np.float32)\n'
+        'pos[:6, 0], pos[:6, 1] = 1.39 * np.cos(ang), 1.39 * np.sin(ang)\n'
+        'pos[6] = (2.9, 0.0, 0.0); pos[7] = (3.6, 1.2, 0.0)\n'
+        'mol = MolRecord(element=np.array([6] * 7 + [8]), pos=pos,\n'
+        '                bond_index=np.array([src, dst]),\n'
+        '                bond_type=np.array(typ),\n'
+        '                aromatic=np.array([True] * 6 + [False] * 2))\n'
+        "res = {'mol': mol, 'complete': True, 'pred_pos': pos,\n"
+        "       'pred_v': np.array([1] * 7 + [3]),\n"
+        "       'ligand_filename': 'p/lig.sdf'}\n"
+        f"out = {str(tmp_path)!r}\n"
+        "save_result(out + '/result_0.pkl',\n"
+        "            {'results': [res, dict(res)], 'atom_mode': 'basic'})\n"
+        "script(out)\n"
+        "s = pickle.load(open(out + '/eval_summary.pkl', 'rb'))\n"
+        "assert s['n_complete'] == 2 and len(s['chem']) == 2, s\n"
+        "assert s['chem_backend'] == 'first_party'\n"
+        "assert 0 < s['chem'][0]['qed'] < 1\n"
+        f'bad = sorted(m for m in sys.modules if m and m.split(".")[0] in {FORBIDDEN!r}'
+        ' and sys.modules[m] is not None)\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '--docking_mode' in proc.stdout
+    assert 'total 2, reconstructed 2' in proc.stdout
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):

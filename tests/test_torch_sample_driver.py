@@ -14,6 +14,7 @@ With the same injected noise in both samplers:
 import importlib.util
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -264,7 +265,107 @@ def test_port_reads_its_results_without_the_jax_package(port_outdir):
     assert mols and all(type(m) is MolRecord for m in mols)
 
 
-def test_mmff_drift_is_refused(setup, tmp_path, monkeypatch):
+def test_port_molecules_score_as_in_the_jax_package(port_outdir):
+    """The port's evaluation functions on the molecules the port sampled
+    (read as the port's MolRecord) give the JAX package's answers on the
+    same pickles read as its MolRecord: exactly (tests/
+    test_torch_evaluation.py)."""
+    from test_torch_evaluation import assert_same_scores  # pytest's path
+    n = 0
+    for name in ('result_0.pkl', 'result_1.pkl'):
+        want = _load(port_outdir / name)['results']
+        got = driver.load_result(port_outdir / name)['results']
+        for w, g in zip(want, got):
+            if w['mol'] is not None:
+                assert_same_scores(w['mol'], g['mol'])
+                n += 1
+    assert n > 0
+
+
+def _fake_chem(mol):
+    return {'qed': 0.5, 'sa': 0.7, 'logp': 1.0, 'lipinski': 5}
+
+
+@pytest.mark.parametrize('argv', [
+    [],
+    ['--docking_mode', 'vina_full'],
+    ['--docking_mode', 'vina_full', '--num_workers', '1'],
+    ['--docking_mode', 'vina_full', '-n', '10'],
+], ids=['none', 'vina_full', 'vina_full_w1', 'vina_full_n10'])
+def test_evaluate_torch_matches_the_jax_script(port_outdir, tmp_path,
+                                               monkeypatch, argv):
+    """scripts/evaluate_torch.py and the unedited scripts/evaluate.py, both
+    in this process on the port's result pickles, write equal
+    eval_summary.pkl. With docking: a fake Vina (tests/
+    test_torch_evaluation.py), the receptors found under --protein_root
+    from each result's ligand_filename, a reference-ligand pickle for High
+    Affinity and a fixed chem function for the Success Rate."""
+    from decompdiff_tpu.evaluation import docking as j_docking
+    from decompdiff_tpu.evaluation import scoring as j_scoring
+    from decompdiff_tpu_torch.evaluation import docking as p_docking
+    from decompdiff_tpu_torch.evaluation import scoring as p_scoring
+    from test_torch_evaluation import (  # tests/, on pytest's path
+        PROTEIN, assert_same, install_fake_vina, write_anchor_results)
+    # the port's results, whose molecules from a random model are mostly
+    # disconnected, and a pickle of complete anchor molecules written by
+    # the port's save_result, so that every phase scores molecules
+    outdir = tmp_path / 'out'
+    outdir.mkdir()
+    for name in ('result_0.pkl', 'result_1.pkl'):
+        shutil.copy(port_outdir / name, outdir / name)
+    write_anchor_results(outdir / 'result_anchors.pkl', [
+        'aniline', 'aspirin', 'chlorothiophene', 'paracetamol', 'pyridine',
+        'sulfonamide', 'tbu_cf3_benzene', 'toluene'])
+    argv = list(argv)
+    if argv:
+        install_fake_vina(monkeypatch, j_docking, p_docking)
+        for mod in (j_scoring, p_scoring):
+            monkeypatch.setattr(mod, 'can_score', lambda mol: True)
+            monkeypatch.setattr(mod, 'get_chem', _fake_chem)
+        root = tmp_path / 'proteins'
+        ligands = {r['ligand_filename'] for f in outdir.glob('result_*.pkl')
+                   for r in driver.load_result(f)['results']}
+        for lig in ligands:
+            pdb = (root / os.path.dirname(lig)
+                   / (os.path.basename(lig)[:10] + '.pdb'))
+            pdb.parent.mkdir(parents=True, exist_ok=True)
+            pdb.write_text(PROTEIN)
+        with open(tmp_path / 'ref_vina.pkl', 'wb') as f:
+            pickle.dump({lig: -8.0 for lig in sorted(ligands)[:1]}, f)
+        argv += ['--protein_root', str(root), '--tmp_dir', str(tmp_path),
+                 '--ref_vina_pkl', str(tmp_path / 'ref_vina.pkl')]
+
+    spec = importlib.util.spec_from_file_location(
+        'jax_evaluate_script', REPO / 'scripts' / 'evaluate.py')
+    jax_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_script)
+    spec = importlib.util.spec_from_file_location(
+        'port_evaluate_script', REPO / 'scripts' / 'evaluate_torch.py')
+    port_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port_script)
+
+    out = str(outdir)
+    want = jax_script.main([out, '--result_path',
+                            str(tmp_path / 'jax.pkl')] + argv)
+    got = port_script.main([out, '--result_path',
+                            str(tmp_path / 'port.pkl')] + argv)
+    assert_same(_load(tmp_path / 'jax.pkl'), _load(tmp_path / 'port.pkl'))
+    assert_same(want, got)
+    # -n 10 keeps the port's 6 results and the first 4 anchors
+    assert got['n_total'] == (10 if '-n' in argv else 2 * NUM_SAMPLES + 8)
+    assert got['n_complete'] >= (4 if '-n' in argv else 8)
+    if argv:
+        assert got['n_dock_success'] == got['n_complete']
+        assert got['vina_metrics']['vina_dock_mean'] == -8.5
+        assert got['success_rate'] == 1.0
+        assert got['high_affinity'] == 1.0
+    else:
+        assert got['chem_backend'] == 'first_party'
+        assert got['vina'] == [] and got['success_rate'] is None
+        assert got['diversity'] is not None
+
+
+def test_mmff_drift_runs_ffmin(setup, tmp_path, monkeypatch):
     """A config with the mmff_min drift is not refused: without RDKit the
     driver runs the first-party force-field drift (guidance/ffmin.py) in
     [end_time, start_time) and writes the result pickles. Strided over
