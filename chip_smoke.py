@@ -14,10 +14,11 @@
    molecules per pocket and STEPS strided guided steps: launches counted
    (exactly calls x 12/12/6 forward, nothing else), result pickles checked,
    seconds per molecule printed split into host set-up, device sampling
-   and reconstruction. Then the evaluation driver (decompdiff_tpu_torch/
-   evaluation/driver.py, the port of scripts/evaluate.py) scores those
-   pickles with --docking_mode none, and then the store's own ligands
-   written as results: no kernel launched, scripts/evaluate.py's summary
+   and reconstruction. Then scripts/evaluate_torch.py (the evaluation
+   driver, decompdiff_tpu_torch/evaluation/driver.py, the port of
+   scripts/evaluate.py), run in this process, scores those pickles with
+   --docking_mode none, and then the store's own ligands written as
+   results: no kernel launched, scripts/evaluate.py's summary
    keys, counts equal to the sampling summaries', first-party QED and SA
    in [0, 1], JSDs finite, no module of JAX or the JAX package loaded;
    seconds per molecule printed.
@@ -53,6 +54,27 @@
    steps inside its window times the batches, result pickles checked,
    seconds per molecule printed with the drift's host seconds and the
    batch rows it drifted; and the drift relaxes a stretched carbon chain.
+2d. Data preparation: RAW_PAIRS raw receptor PDB / ligand SDF pairs
+   (3,361-atom two-cavity lattice receptors, a two-armed ligand, each pair
+   under its own seeded rigid motion) and an index entry naming a missing
+   receptor, turned into a store by the port's scripts in subprocesses:
+   preprocess_subcomplex_torch.py (without RDKit and alphaspace2 on the
+   host, the first-party alpha-sphere finder and bond-cut fragments),
+   import_reference_data_torch.py --index, split_dataset_torch.py; the
+   status buckets (every pair ok, the missing receptor missing_file), the
+   arms, the records' keys and the split checked, seconds per pair and per
+   record printed. Then the sampling driver on the built store as in 2a
+   (launches exactly calls x 12/12/6 forward); on the first batch the
+   driver collated there (its own B, Np, Nl) each kernel mode's first-
+   layer inputs through the kernel and its plain version (rtol 1e-3, atol
+   1e-4) and one denoiser call kernels on vs off (rtol 1e-3, atol 1e-3);
+   and scripts/evaluate_torch.py on its result pickles and on the prepared
+   ligands;
+   for each ligand is_pains, the QED alert count over a SMARTS corpus
+   (DD_QED_ALERTS_SMARTS) and the arm occupancy and polar ratio of
+   evaluation/eval_arms.py against the find_pockets pockets of its
+   receptor: no kernel launched, the counts, occupancies and ratios
+   checked and printed.
 3. Kernels: records the inputs each of the five kernel modes gets in the first
    layer of a released-config denoiser call (B=8, Np=320, Nl=32), those of
    the m-gated edge mode in the first layer of a released-width uni_o2
@@ -144,6 +166,29 @@ ENTRY_SAMPLE_CFG = {
 # checkpoint on the ENTRY_POCKETS store with the mmff_min drift added
 REF_SEED, REF_COMPLEX, REF_RTOL, REF_ATOL = 0, (64, 16, 2), 3e-4, 3e-4
 REF_DRIFT = {'type': 'mmff_min', 'start_time': 1000, 'end_time': 500}
+# phase 2d, the data preparation (L0) from raw files: RAW_PAIRS receptor /
+# ligand pairs, each the two-cavity lattice at PREP_HALF (15^3 points less
+# the cavities: 3,361 atoms, a CrossDocked receptor's size) with the
+# two-armed ligand, moved by its own rigid motion from PREP_SEED, and one
+# index entry naming a missing receptor; preprocess_subcomplex_torch.py
+# with PREP_WORKERS workers; the sampling driver on the built store's first
+# PREP_SAMPLED pockets
+RAW_PAIRS, PREP_HALF, PREP_SEED, PREP_WORKERS, PREP_SAMPLED = 8, 7, 0, 4, 2
+# the keys of a record that build_store_from_index writes
+PREP_RECORD_KEYS = {
+    'protein_pos', 'protein_element', 'protein_atom_to_aa_type',
+    'protein_is_backbone', 'ligand_pos', 'ligand_element',
+    'ligand_bond_index', 'ligand_bond_type', 'ligand_atom_is_aromatic',
+    'ligand_hybridization', 'ligand_atom_mask', 'pocket_atom_masks',
+    'num_arms', 'num_scaffold', 'src_protein_filename',
+    'src_ligand_filename', 'arms_prior', 'scaffold_prior',
+    'pocket_prior_masks'}
+# a QED alert corpus for DD_QED_ALERTS_SMARTS (name, SMARTS), and the
+# alerts each prepared ligand (two cyclopropane arms joined by a
+# three-carbon linker) raises: the first two patterns, not the third
+PREP_ALERTS = (('cyclopropane', 'C1CC1'), ('propyl', '[CX4][CX4][CX4]'),
+               ('benzene', 'c1ccccc1'))
+PREP_ALERT_COUNT = 2
 # the keys of a result pickle and of each of its rows (scripts/sample.py)
 RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
 ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
@@ -1161,26 +1206,138 @@ def width_option_phase(torch, models, batch, full_protein, per_call):
     return total
 
 
-def entry_phase(torch, per_call):
-    """The sampling entry point as a user runs it: a synthetic pocket store
-    (ENTRY_POCKETS), a JAX-layout .ckpt of the seeded released uni_o2_bond
-    model (config and params, no optimizer state), and the driver with
-    ENTRY_SAMPLE_CFG, --use_pallas, B=8, -i 0 1, every launch counter set
-    to 0 just before and read just after. Checks the launches (no per-row
-    or other launch) and the result pickles; prints seconds per molecule
-    split into host set-up, device sampling and reconstruction. Returns the
-    launches."""
-    import pickle
-    import shutil
-
+def sample_store(per_call, work, store, n_pockets, label, catch=None):
+    """The sampling driver as a user runs it on store's first n_pockets
+    pockets: a JAX-layout .ckpt of the seeded released uni_o2_bond model
+    (config and params, no optimizer state), ENTRY_SAMPLE_CFG,
+    --use_pallas, B=8, every launch counter set to 0 just before and read
+    just after. Checks the launches (no per-row or other launch) and the
+    result pickles; prints seconds per molecule split into host set-up,
+    device sampling and reconstruction. `catch`, a dict, receives the
+    driver's model ('model') and the first batch it collates ('batch').
+    Returns the launches and the pockets' summaries."""
     import numpy as np
 
     from decompdiff_tpu_torch.config import Config
-    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
     from decompdiff_tpu_torch.sampling import driver
     from decompdiff_tpu_torch.utils.params import state_dict_to_flax
     from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    cfg = dict(DEFAULT_MODEL_CONFIG)
+    seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
+    ckpt = work / 'uni_o2_bond.ckpt'
+    with open(ckpt, 'wb') as f:
+        pickle.dump({'config': {'data': {'transform': {
+                         'ligand_atom_mode': 'basic'}}, 'model': cfg},
+                     'params': state_dict_to_flax(
+                         seeded.denoiser.state_dict()),
+                     'step': 0, 'iteration': 0}, f, protocol=4)
+    ids = [str(i) for i in range(n_pockets)]
+    args = driver.build_parser().parse_args(
+        ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
+         '--outdir', str(work / 'out'), '--batch_size', str(B),
+         '--use_pallas'])
+    config = Config({'data': {'path': str(store)},
+                     'sample': ENTRY_SAMPLE_CFG})
+    ops = model_ops()
+    collate, load = driver.collate, driver.load_model_from_checkpoint
+    if catch is not None:
+        def collating(*a, **k):
+            batch = collate(*a, **k)
+            catch.setdefault('batch', batch)
+            return batch
+
+        def loading(*a, **k):
+            catch['model'], ckpt = load(*a, **k)
+            return catch['model'], ckpt
+        driver.collate, driver.load_model_from_checkpoint = collating, loading
+    try:
+        zero_launches(ops)
+        t0 = time.perf_counter()
+        summaries = driver.run(args, config)
+        elapsed = time.perf_counter() - t0
+        launches = get_launches(ops)
+    finally:
+        driver.collate, driver.load_model_from_checkpoint = collate, load
+
+    calls = sum(len(s['shapes']) for s in summaries) * STEPS
+    expect = {n: per_call.get(n, 0) * calls for n in launches}
+    shapes = sorted({sh for s in summaries for sh in s['shapes']})
+    print(f'{label} path: {len(summaries)} pockets x '
+          f'{ENTRY_SAMPLES} molecules, batches {shapes} (B, Np, Nl), '
+          f'{STEPS} strided guided steps: {calls} denoiser calls, '
+          f'launches {nonzero(launches)} (expected {nonzero(expect)}, '
+          f'every other counter 0)', flush=True)
+    check(launches == expect,
+          f'{label} launch counts differ from the expected')
+    n_mol = sum(s['n'] for s in summaries)
+    n_recon = sum(s['n_recon'] for s in summaries)
+    n_complete = sum(s['n_complete'] for s in summaries)
+    for s in summaries:
+        payload = driver.load_result(s['path'])
+        check(set(payload) == RESULT_KEYS, f'result keys {set(payload)}')
+        rows = payload['results']
+        check(len(rows) == ENTRY_SAMPLES, f'{len(rows)} result rows')
+        for r in rows:
+            check(ROW_KEYS <= set(r) and ('sdf' in r or 'recon_error' in r),
+                  f'result row keys {sorted(r)}')
+            n = len(r['pred_v'])
+            check(r['pred_pos'].shape == (n, 3)
+                  and r['pred_bond'].shape == (n, n)
+                  and bool(np.isfinite(r['pred_pos']).all()),
+                  'result predictions: shape or non-finite positions')
+    host, dev, recon = (sum(s[k] for s in summaries)
+                        for k in ('host_s', 'device_s', 'recon_s'))
+    print(f'{label}: reconstructed {n_recon}/{n_mol}, complete '
+          f'{n_complete}/{n_mol}', flush=True)
+    print(f'{label} seconds per molecule ({n_mol} molecules, '
+          f'{elapsed:.3f} s in all, checkpoint and store loading '
+          f'included): {elapsed / n_mol:.5f}; host set-up '
+          f'{host / n_mol:.5f}, device sampling {dev / n_mol:.5f}, '
+          f'reconstruction {recon / n_mol:.5f}; per pocket (host, '
+          f'device, recon s): '
+          + ', '.join(f'{s["host_s"]:.4f}/{s["device_s"]:.4f}/'
+                      f'{s["recon_s"]:.4f}' for s in summaries)
+          + f' on {gpu_name_and_limit()}', flush=True)
+    return launches, summaries
+
+
+def batch_kernel_phase(torch, model, batch, label):
+    """The kernels at a main path's own batch: one denoiser call of
+    `model` (a kernel model) at the last timestep from the batch's initial
+    ligand, as the sampling driver passes it. Each kernel mode's first-layer
+    inputs, caught at the plain versions under plain_versions, go through
+    the kernel and its plain version (check_forward, KERNEL_RTOL /
+    KERNEL_ATOL); then the whole call kernels on vs off (denoiser_on_off,
+    PATH_RTOL / PATH_ATOL). These launches count in no path."""
+    ops = model_ops()
+    state = (batch.ligand_pos, batch.ligand_v, batch.bond_type)
+    t = torch.full((batch.batch_size,), model.num_timesteps - 1,
+                   dtype=torch.long, device=model.device)
+    shape = (f'B{batch.batch_size} Np{batch.num_protein_atoms} '
+             f'Nl{batch.num_ligand_atoms}')
+    captured = capture_inputs(torch, ops, model, batch, (*state, t),
+                              wrapped=True)
+    check(sorted(captured) == sorted(
+              [('edge_attention', 'node'), ('edge_attention', 'pos'),
+               ('bond_attention', 'node'), ('bond_attention', 'pos'),
+               ('triplet_attention', 'node')]),
+          f'{label}: kernel modes {sorted(captured)}')
+    with torch.no_grad():
+        for (name, mode), (args, kw) in modes(captured):
+            check_forward(torch, {}, name, f'{mode} {label} {shape}', args,
+                          kw, KERNEL_RTOL, KERNEL_ATOL)
+    denoiser_on_off(torch, model, model, batch, state, f'{label} {shape}',
+                    plain_ctx=lambda: plain_versions(ops))
+
+
+def entry_phase(torch, per_call):
+    """The sampling entry point as a user runs it (sample_store) on a
+    synthetic pocket store (ENTRY_POCKETS), -i 0 1, then its evaluation
+    (evaluation_phase). Returns the sampling run's launches."""
+    import shutil
+
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     work = REPO / 'build' / 'entry_phase'
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1189,94 +1346,40 @@ def entry_phase(torch, per_call):
         write_synthetic_store(str(store), [
             dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
             for n_p, n_l, arms in ENTRY_POCKETS])
-        cfg = dict(DEFAULT_MODEL_CONFIG)
-        seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
-        ckpt = work / 'uni_o2_bond.ckpt'
-        with open(ckpt, 'wb') as f:
-            pickle.dump({'config': {'data': {'transform': {
-                             'ligand_atom_mode': 'basic'}}, 'model': cfg},
-                         'params': state_dict_to_flax(
-                             seeded.denoiser.state_dict()),
-                         'step': 0, 'iteration': 0}, f, protocol=4)
-        ids = [str(i) for i in range(len(ENTRY_POCKETS))]
-        args = driver.build_parser().parse_args(
-            ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
-             '--outdir', str(work / 'out'), '--batch_size', str(B),
-             '--use_pallas'])
-        config = Config({'data': {'path': str(store)},
-                         'sample': ENTRY_SAMPLE_CFG})
-        ops = model_ops()
-        zero_launches(ops)
-        t0 = time.perf_counter()
-        summaries = driver.run(args, config)
-        elapsed = time.perf_counter() - t0
-        launches = get_launches(ops)
-
-        calls = sum(len(s['shapes']) for s in summaries) * STEPS
-        expect = {n: per_call.get(n, 0) * calls for n in launches}
-        shapes = sorted({sh for s in summaries for sh in s['shapes']})
-        print(f'entry point path: {len(summaries)} pockets x '
-              f'{ENTRY_SAMPLES} molecules, batches {shapes} (B, Np, Nl), '
-              f'{STEPS} strided guided steps: {calls} denoiser calls, '
-              f'launches {nonzero(launches)} (expected {nonzero(expect)}, '
-              f'every other counter 0)', flush=True)
-        check(launches == expect,
-              'entry point launch counts differ from the expected')
-        n_mol = sum(s['n'] for s in summaries)
-        n_recon = sum(s['n_recon'] for s in summaries)
-        n_complete = sum(s['n_complete'] for s in summaries)
-        for s in summaries:
-            payload = driver.load_result(s['path'])
-            check(set(payload) == RESULT_KEYS, f'result keys {set(payload)}')
-            rows = payload['results']
-            check(len(rows) == ENTRY_SAMPLES, f'{len(rows)} result rows')
-            for r in rows:
-                check(ROW_KEYS <= set(r) and ('sdf' in r or 'recon_error' in r),
-                      f'result row keys {sorted(r)}')
-                n = len(r['pred_v'])
-                check(r['pred_pos'].shape == (n, 3)
-                      and r['pred_bond'].shape == (n, n)
-                      and bool(np.isfinite(r['pred_pos']).all()),
-                      'result predictions: shape or non-finite positions')
-        host, dev, recon = (sum(s[k] for s in summaries)
-                            for k in ('host_s', 'device_s', 'recon_s'))
-        print(f'entry point: reconstructed {n_recon}/{n_mol}, complete '
-              f'{n_complete}/{n_mol}', flush=True)
-        print(f'entry point seconds per molecule ({n_mol} molecules, '
-              f'{elapsed:.3f} s in all, checkpoint and store loading '
-              f'included): {elapsed / n_mol:.5f}; host set-up '
-              f'{host / n_mol:.5f}, device sampling {dev / n_mol:.5f}, '
-              f'reconstruction {recon / n_mol:.5f}; per pocket (host, '
-              f'device, recon s): '
-              + ', '.join(f'{s["host_s"]:.4f}/{s["device_s"]:.4f}/'
-                          f'{s["recon_s"]:.4f}' for s in summaries)
-              + f' on {gpu_name_and_limit()}', flush=True)
-        evaluation_phase(ops, work, store, summaries)
+        launches, summaries = sample_store(
+            per_call, work, store, len(ENTRY_POCKETS), 'entry point')
+        evaluation_phase(model_ops(), work, store, summaries)
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 def evaluate_counted(ops, outdir, label):
-    """The evaluation entry point (decompdiff_tpu_torch/evaluation/
-    driver.py, the port of scripts/evaluate.py) as a user runs it on
-    outdir's result pickles, --docking_mode none; checks that it launched
-    no kernel and wrote scripts/evaluate.py's keys, and that every chem
-    row is first-party with QED and SA in [0, 1]. Returns the summary and
-    the seconds it took."""
-    import pickle
-
-    from decompdiff_tpu_torch.evaluation import driver as evaluation
+    """The evaluation entry point as a user runs it on outdir's result
+    pickles: scripts/evaluate_torch.py (decompdiff_tpu_torch/evaluation/
+    driver.py, the port of scripts/evaluate.py), --docking_mode none, run
+    in this process (runpy) so that its launches stay countable; checks
+    that it launched no kernel and wrote scripts/evaluate.py's keys, and
+    that every chem row is first-party with QED and SA in [0, 1]. Returns
+    its eval_summary.pkl and the seconds it took."""
+    import runpy
+    argv = sys.argv
+    sys.argv = ['evaluate_torch.py', str(outdir), '--docking_mode', 'none']
     before = get_launches(ops)
     t0 = time.perf_counter()
-    summary = evaluation.main([str(outdir), '--docking_mode', 'none'])
+    try:
+        runpy.run_path(str(REPO / 'scripts' / 'evaluate_torch.py'),
+                       run_name='__main__')
+    finally:
+        sys.argv = argv
     elapsed = time.perf_counter() - t0
     after = get_launches(ops)
     check(after == before, f'{label}: the evaluation launched kernels '
           f'{nonzero({n: after[n] - before[n] for n in after})}')
     with open(outdir / 'eval_summary.pkl', 'rb') as f:
-        check(pickle.load(f).keys() == summary.keys() == EVAL_SUMMARY_KEYS,
-              f'{label}: eval_summary.pkl keys {sorted(summary)}')
+        summary = pickle.load(f)
+    check(summary.keys() == EVAL_SUMMARY_KEYS,
+          f'{label}: eval_summary.pkl keys {sorted(summary)}')
     chem = summary['chem']
     check(len(chem) == summary['n_complete'],
           f'{label}: {len(chem)} chem rows for {summary["n_complete"]} '
@@ -1295,46 +1398,16 @@ def jsd_values(summary):
              for v in summary[k].values()] + [summary['atom_type_jsd']])
 
 
-def evaluation_phase(ops, work, store, summaries):
-    """Scores the entry point's result pickles with the port's evaluation
-    driver (evaluate_counted): its counts equal the sampling summaries';
-    with a complete molecule every JSD that is not None is finite, with
-    none every one is NaN or None, as scripts/evaluate.py gives for an
-    empty set. A seeded random model's molecules rarely pass
-    reconstruction, so the driver then scores the store's own ligands
-    (the reference-ligand evaluation), written as the sampling driver
-    writes results: every one complete, a chem row each, every JSD finite.
-    Prints seconds per molecule of both; afterwards no module of JAX or of
-    the JAX package is loaded."""
-    import math
-
+def write_store_ligands(store, path):
+    """Writes the store's own ligands as a result pickle, as the sampling
+    driver writes results (every one complete, basic atom types). Returns
+    the rows."""
     import numpy as np
 
     from decompdiff_tpu_torch.constants import MAP_ATOM_BASIC
     from decompdiff_tpu_torch.data.mol import MolRecord
     from decompdiff_tpu_torch.data.store import DDStore
     from decompdiff_tpu_torch.sampling import driver
-    summary, elapsed = evaluate_counted(ops, work / 'out', 'sampled')
-    counts = {k: sum(s[c] for s in summaries)
-              for k, c in (('n_total', 'n'), ('n_recon', 'n_recon'),
-                           ('n_complete', 'n_complete'))}
-    check({k: summary[k] for k in counts} == counts,
-          f'evaluation counts {[summary[k] for k in counts]} differ from '
-          f'the sampling summaries\' {list(counts.values())}')
-    jsds = [v for v in jsd_values(summary) if v is not None]
-    check(all(math.isfinite(v) for v in jsds) if summary['n_complete']
-          else all(math.isnan(v) for v in jsds),
-          f'sampled: JSDs {jsds} for {summary["n_complete"]} complete')
-    n = summary['n_total']
-    print(f'evaluation of the entry point\'s results (evaluation/driver.py, '
-          f'--docking_mode none): {n} molecules, reconstructed '
-          f'{summary["n_recon"]}, complete {summary["n_complete"]}, '
-          f'{len(summary["chem"])} chem rows; {elapsed:.3f} s, '
-          f'{elapsed / n:.5f} s per molecule; no kernel launched; on '
-          f'{gpu_name_and_limit()}', flush=True)
-
-    ref_out = work / 'reference_ligands'
-    ref_out.mkdir()
     rows = []
     for rec in DDStore(str(store)):
         n_atoms = len(rec['ligand_element'])
@@ -1349,8 +1422,46 @@ def evaluation_phase(ops, work, store, summaries):
                                            for z in mol.element]),
                      'pred_bond': np.zeros((n_atoms, n_atoms), np.int64),
                      'ligand_filename': rec['src_ligand_filename']})
-    driver.save_result(str(ref_out / 'result_reference.pkl'),
-                       {'results': rows, 'atom_mode': 'basic'})
+    driver.save_result(str(path), {'results': rows, 'atom_mode': 'basic'})
+    return rows
+
+
+def evaluation_phase(ops, work, store, summaries):
+    """Scores the entry point's result pickles with the port's evaluation
+    driver (evaluate_counted): its counts equal the sampling summaries';
+    with a complete molecule every JSD that is not None is finite, with
+    none every one is NaN or None, as scripts/evaluate.py gives for an
+    empty set. A seeded random model's molecules rarely pass
+    reconstruction, so the driver then scores the store's own ligands
+    (the reference-ligand evaluation), written as the sampling driver
+    writes results: every one complete, a chem row each, every JSD finite.
+    Prints seconds per molecule of both; afterwards no module of JAX or of
+    the JAX package is loaded."""
+    import math
+
+    import numpy as np
+    summary, elapsed = evaluate_counted(ops, work / 'out', 'sampled')
+    counts = {k: sum(s[c] for s in summaries)
+              for k, c in (('n_total', 'n'), ('n_recon', 'n_recon'),
+                           ('n_complete', 'n_complete'))}
+    check({k: summary[k] for k in counts} == counts,
+          f'evaluation counts {[summary[k] for k in counts]} differ from '
+          f'the sampling summaries\' {list(counts.values())}')
+    jsds = [v for v in jsd_values(summary) if v is not None]
+    check(all(math.isfinite(v) for v in jsds) if summary['n_complete']
+          else all(math.isnan(v) for v in jsds),
+          f'sampled: JSDs {jsds} for {summary["n_complete"]} complete')
+    n = summary['n_total']
+    print(f'evaluation of the entry point\'s results (scripts/'
+          f'evaluate_torch.py, --docking_mode none): {n} molecules, reconstructed '
+          f'{summary["n_recon"]}, complete {summary["n_complete"]}, '
+          f'{len(summary["chem"])} chem rows; {elapsed:.3f} s, '
+          f'{elapsed / n:.5f} s per molecule; no kernel launched; on '
+          f'{gpu_name_and_limit()}', flush=True)
+
+    ref_out = work / 'reference_ligands'
+    ref_out.mkdir()
+    rows = write_store_ligands(store, ref_out / 'result_reference.pkl')
     # twice: the first call loads the SA fragment table (fpscores.pkl.gz)
     ref, first_s = evaluate_counted(ops, ref_out, 'reference ligands')
     again, ref_s = evaluate_counted(ops, ref_out, 'reference ligands')
@@ -1531,6 +1642,218 @@ def reference_phase(torch, per_call):
               f'{relaxed} of {drift_calls * B} batch rows drifted (a '
               f'stretched 5-carbon chain: C-C {before.mean():.3f} -> '
               f'{after.mean():.3f} A); on {label}', flush=True)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_script(name, *argv):
+    """Runs scripts/<name> with argv in a subprocess, as a user runs it;
+    fails on a non-zero exit. Returns its standard output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(REPO / 'scripts' / name), *map(str, argv)],
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f'{name} failed: {proc.stdout[-1000:]} {proc.stderr[-2000:]}')
+    return proc.stdout, seconds
+
+
+def prep_phase(torch, per_call):
+    """Data preparation (phase 2d): RAW_PAIRS raw receptor PDB / ligand SDF
+    pairs and a missing receptor (utils/testing.py write_raw_pairs), turned
+    into a store by the port's scripts as a user runs them:
+    preprocess_subcomplex_torch.py (the L0 decomposition; without RDKit and
+    alphaspace2 the first-party alpha-sphere finder and bond-cut
+    fragments), import_reference_data_torch.py --index and
+    split_dataset_torch.py. Checks the status buckets, the arms, the
+    records and the split; then samples the store's first PREP_SAMPLED
+    pockets (sample_store), holds the kernels against their plain versions
+    on the first batch the driver collated (batch_kernel_phase: its first-
+    layer inputs, then one denoiser call kernels on vs off), and scores the
+    result pickles and the prepared
+    ligands with scripts/evaluate_torch.py; for each prepared ligand
+    is_pains, the QED alert count over PREP_ALERTS and eval_arms'
+    occupancy and polar ratio against the find_pockets pockets of its
+    receptor, with no launch in all the scoring. Prints seconds per pair,
+    per record and per molecule. Returns the sampling run's launches."""
+    import os
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+
+    from decompdiff_tpu_torch.data.mol import parse_sdf_file
+    from decompdiff_tpu_torch.data.protein import PDBProtein
+    from decompdiff_tpu_torch.data.store import DDStore
+    from decompdiff_tpu_torch.evaluation import (
+        alerts, descriptors, eval_arms, scoring)
+    from decompdiff_tpu_torch.preprocess.alphaspace import find_pockets
+    from decompdiff_tpu_torch.utils.testing import write_raw_pairs
+    t_phase = time.perf_counter()
+    work = REPO / 'build' / 'prep_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    label = gpu_name_and_limit()
+    try:
+        raw, dest = work / 'raw', work / 'dest'
+        index = write_raw_pairs(str(raw), RAW_PAIRS, half=PREP_HALF,
+                                seed=PREP_SEED)
+        n_receptor = len(PDBProtein(str(raw / index[0]['protein'])).element)
+        index.append({'protein': 'missing/missing_rec.pdb',
+                      'ligand': index[0]['ligand']})
+        with open(work / 'index.pkl', 'wb') as f:
+            pickle.dump(index, f)
+
+        out, pre_s = run_script(
+            'preprocess_subcomplex_torch.py', work / 'index.pkl',
+            '--raw_root', raw, '--dest', dest, '--num_workers',
+            PREP_WORKERS, '--timeout', 300)
+        fallbacks = [line[3:] for line in out.splitlines()
+                     if line.startswith(' - ')]
+        with open(dest / 'index.pkl', 'rb') as f:
+            results = pickle.load(f)
+        with open(dest / 'fail_index.pkl', 'rb') as f:
+            fails = pickle.load(f)
+        buckets = Counter(['ok'] * len(results)
+                          + [e['status'] for e in fails])
+        check(buckets == {'ok': RAW_PAIRS, 'missing_file': 1}
+              and fails[0]['item']['protein'] == 'missing/missing_rec.pdb',
+              f'preprocess status buckets {dict(buckets)}')
+        for r in results:
+            meta = r['data']
+            arms = [set(a) for a in meta['all_submol_atom_idx'][:-1]]
+            check(meta['num_arms'] == 2 and len(arms) == 2
+                  and {0, 1, 2} <= arms[0] | arms[1]
+                  and {6, 7, 8} <= arms[0] | arms[1]
+                  and sorted(sum(meta['all_submol_atom_idx'], []))
+                  == list(range(9)),
+                  f'{r["src_ligand_filename"]}: arms '
+                  f'{meta["all_submol_atom_idx"]}')
+        print(f'data preparation (preprocess_subcomplex_torch.py): '
+              f'{RAW_PAIRS} pairs of {n_receptor}-atom receptors and one '
+              f'missing receptor, {PREP_WORKERS} workers; fallbacks '
+              f'{fallbacks or "none"}; status {dict(buckets)}; '
+              f'{pre_s:.3f} s, {pre_s / RAW_PAIRS:.4f} s per pair (the '
+              f'script\'s start included) on {label}', flush=True)
+
+        store = work / 'prepared.ddstore'
+        out, store_s = run_script('import_reference_data_torch.py',
+                                  '--index', dest, '--out', store)
+        out, split_s = run_script('split_dataset_torch.py', store)
+        with open(work / 'prepared_split.pkl', 'rb') as f:
+            split = pickle.load(f)
+        records = DDStore(str(store))
+        check(len(records) == RAW_PAIRS
+              and sorted(split['train'] + split['test'])
+              == sorted(records.keys) and split['test'],
+              f'{len(records)} records, split {split}')
+        pockets = []
+        for rec in records:
+            n_p = len(rec['protein_pos'])
+            pockets.append(n_p)
+            raw_mol = parse_sdf_file(str(raw / rec['src_ligand_filename']))
+            check(np.array_equal(rec['ligand_pos'], raw_mol.pos),
+                  f'{rec["src_ligand_filename"]}: the record\'s ligand is '
+                  'not its raw file\'s')
+            check(set(rec) == PREP_RECORD_KEYS and rec['num_arms'] == 2
+                  and rec['pocket_atom_masks'].shape == (2, n_p)
+                  and n_p < n_receptor
+                  and sorted(set(rec['ligand_atom_mask'].tolist()))
+                  == [-1, 0, 1],
+                  f'{rec["src_ligand_filename"]}: record keys '
+                  f'{sorted(rec)}, arms {rec["num_arms"]}, '
+                  f'{n_p} pocket atoms')
+        print(f'store build (import_reference_data_torch.py --index): '
+              f'{len(records)} records, pockets of {min(pockets)}-'
+              f'{max(pockets)} atoms, 2 arms each; {store_s:.3f} s, '
+              f'{store_s / len(records):.4f} s per record; split '
+              f'(split_dataset_torch.py) train {len(split["train"])} test '
+              f'{len(split["test"])} in {split_s:.3f} s; the scripts\' '
+              f'starts included; on {label}', flush=True)
+
+        caught = {}
+        launches, summaries = sample_store(per_call, work, store,
+                                           PREP_SAMPLED, 'prepared store',
+                                           caught)
+        batch_kernel_phase(torch, caught['model'], caught['batch'],
+                           'prepared store')
+        del caught
+
+        ops = model_ops()
+        before = get_launches(ops)
+        t0 = time.perf_counter()
+        sampled, sampled_s = evaluate_counted(ops, work / 'out',
+                                              'prepared store')
+        check(sampled['n_total'] == sum(s['n'] for s in summaries),
+              f'prepared store: {sampled["n_total"]} molecules scored')
+        ligand_out = work / 'prepared_ligands'
+        ligand_out.mkdir()
+        rows = write_store_ligands(store, ligand_out / 'result_ligands.pkl')
+        ligands, ligands_s = evaluate_counted(ops, ligand_out,
+                                              'prepared ligands')
+        check(ligands['n_complete'] == len(rows),
+              f'prepared ligands: {ligands["n_complete"]} complete of '
+              f'{len(rows)}')
+
+        corpus = work / 'alerts.smarts'
+        corpus.write_text(''.join(f'{s} {n}\n' for n, s in PREP_ALERTS))
+        pains, counts, occupancy, polar = [], [], [], []
+        previous = os.environ.get('DD_QED_ALERTS_SMARTS')
+        os.environ['DD_QED_ALERTS_SMARTS'] = str(corpus)
+        try:
+            for rec, row in zip(records, rows):
+                mol = row['mol']
+                pains.append(scoring.is_pains(mol))
+                counts.append(descriptors.qed_properties(mol)['ALERTS'])
+                receptor = PDBProtein(str(raw / rec['src_protein_filename']))
+                elements = np.asarray(receptor.element)
+                found = find_pockets(
+                    np.asarray(receptor.pos, np.float64).reshape(-1, 3),
+                    receptor_element=elements,
+                    binder_pos=np.asarray(mol.pos, np.float64))
+                check(len(found) >= 2, f'{len(found)} contact pockets')
+                for p in found:
+                    occupancy.append(eval_arms.compute_occupancy(p, mol.pos))
+                    polar.append(eval_arms.compute_polar_ratio(
+                        elements, p, mol.element))
+        finally:
+            if previous is None:
+                del os.environ['DD_QED_ALERTS_SMARTS']
+            else:
+                os.environ['DD_QED_ALERTS_SMARTS'] = previous
+        score_s = time.perf_counter() - t0
+        after = get_launches(ops)
+        check(after == before, 'the scoring launched kernels '
+              f'{nonzero({n: after[n] - before[n] for n in after})}')
+        check(counts == [PREP_ALERT_COUNT] * len(rows),
+              f'QED alert counts {counts}')
+        check(not any(pains), f'is_pains {pains}')
+        check(all(0.0 <= o <= 1.0 for o in occupancy) and max(occupancy) > 0
+              and all(0.0 <= a <= 1.0 and b == 0.0 for a, b in polar),
+              f'arm occupancy {occupancy}, polar ratios {polar}')
+        print(f'scoring (scripts/evaluate_torch.py, --docking_mode none): '
+              f'the prepared store\'s {sampled["n_total"]} sampled '
+              f'molecules (reconstructed {sampled["n_recon"]}, complete '
+              f'{sampled["n_complete"]}) {sampled_s:.3f} s; its {len(rows)} '
+              f'ligands QED {np.mean([c["qed"] for c in ligands["chem"]]):.4f}'
+              f', SA {np.mean([c["sa"] for c in ligands["chem"]]):.4f} in '
+              f'{ligands_s:.3f} s; is_pains ({alerts.pains_backend()}) '
+              f'{sum(pains)} of {len(rows)}; QED alerts over '
+              f'{len(PREP_ALERTS)} SMARTS {counts}; arm occupancy over '
+              f'{len(occupancy)} contact pockets mean '
+              f'{np.mean(occupancy):.4f} (min {min(occupancy):.4f}), '
+              f'pocket polar ratio mean {np.mean([a for a, _ in polar]):.4f}'
+              f'; all the scoring {score_s:.3f} s, '
+              f'{score_s / len(rows):.4f} s per ligand; no kernel launched;'
+              f' on {label}', flush=True)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in FORBIDDEN_MODULES)
+        check(not bad, f'modules of JAX or the JAX package loaded: {bad}')
+        print(f'data preparation phase: {time.perf_counter() - t_phase:.3f}'
+              ' s in all (raw files, the three scripts, sampling, scoring) '
+              f'on {label}', flush=True)
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1783,7 +2106,7 @@ def train_shapes_phase(torch, ops, cfg):
 
 
 def kernel_records(results, launches, entry_launches, train_entry_launches,
-                   ref_launches):
+                   ref_launches, prep_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -1797,7 +2120,9 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
     point (entry_phase); train_entry_launches: through the training entry
     point (train_entry_phase, both runs); reference_entry_launches: through
     the sampling entry point from converted reference weights with the
-    mmff_min drift (reference_phase)."""
+    mmff_min drift (reference_phase); prep_entry_launches: through the
+    sampling entry point on the store the data-preparation scripts built
+    from raw files (prep_phase)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -1811,6 +2136,7 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
             'entry_launches': entry_launches.get(name, 0),
             'train_entry_launches': train_entry_launches.get(name, 0),
             'reference_entry_launches': ref_launches.get(name, 0),
+            'prep_entry_launches': prep_launches.get(name, 0),
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -1922,6 +2248,7 @@ def main():
         entry_launches = entry_phase(torch, bond_calls)
         train_entry_launches = train_entry_phase(torch, bond_calls)
         ref_launches = reference_phase(torch, bond_calls)
+        prep_launches = prep_phase(torch, bond_calls)
         nl64 = train_shapes_phase(torch, model_ops(), bond_cfg)
         ms, plain_ms, t_ops, t_bytes, _ = nl64[TOP_RECORD]['modes'][0]
         print(f'triplet backward head route at H={bond_cfg["hidden_dim"]}, '
@@ -2058,7 +2385,7 @@ def main():
         launches[n] = (trained if '_backward' in n else sampled)[n]
     print(json.dumps({'kernels': kernel_records(
         results, launches, entry_launches, train_entry_launches,
-        ref_launches)}))
+        ref_launches, prep_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

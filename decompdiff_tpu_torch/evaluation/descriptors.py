@@ -23,9 +23,8 @@ in PARITY.md): implicit H / MW / HBD / HBA / TPSA follow published exact
 tables; logP is the FULL published Wildman-Crippen 68-type model
 (evaluation/crippen.py, anchor-tested); QED uses Bickerton's published
 fitted ADS desirability curves and weights_mean exactly, with the ALERTS
-term defaulting to 0 (the Brenk SMARTS catalog is RDKit-internal; the
-JAX package counts a corpus supplied via DD_QED_ALERTS_SMARTS, which the
-port refuses until evaluation/alerts.py is ported); SA includes the
+term defaulting to 0 (the Brenk SMARTS catalog is RDKit-internal; supply
+it via DD_QED_ALERTS_SMARTS for an exact count); SA includes the
 fragment-frequency term — the committed fpscores.pkl.gz corpus is queried
 with the RDKit-exact first-party Morgan fingerprint (evaluation/morgan.py;
 stereocenters via converged-WL rank distinctness, heteroatom centers
@@ -552,20 +551,18 @@ def qed_properties(record) -> Dict[str, float]:
 
 def _qed_alert_count(record) -> int:
     """Structural-alert count for QED. RDKit's Brenk catalog is binary-only
-    (see qed_score docstring); without a SMARTS corpus in
-    DD_QED_ALERTS_SMARTS the count is 0, as in the JAX package (alert-free
-    molecules score exactly either way). Counting a supplied corpus needs
-    the SMARTS engine of evaluation/alerts.py, which the port does not
-    have yet (ROADMAP queue 1, E1a-2): the port refuses rather than give
-    another answer."""
+    (see qed_score docstring); when the user supplies the SMARTS corpus via
+    DD_QED_ALERTS_SMARTS (same file formats as the PAINS hook,
+    evaluation/alerts.py), count matches exactly with the first-party
+    engine; otherwise 0 (alert-free molecules score exactly either way)."""
     import os
     path = os.environ.get('DD_QED_ALERTS_SMARTS')
     if not path or not os.path.isfile(path):
         return 0
-    raise NotImplementedError(
-        'DD_QED_ALERTS_SMARTS needs evaluation/alerts.py (the SMARTS alert '
-        'engine), which is not ported yet (ROADMAP queue 1, E1a-2); unset '
-        'it to score with ALERTS = 0')
+    from decompdiff_tpu_torch.evaluation.alerts import (
+        load_catalog, match_alerts)
+    return len(match_alerts(record, catalog=load_catalog(path),
+                            first_only=False))
 
 
 def qed_score(record) -> float:
@@ -578,9 +575,9 @@ def qed_score(record) -> float:
     and is not reproducible in-image, the same corpus class as the SA
     fpscores table. d_ALERTS(0) is the curve's maximum, so alert-free
     molecules score exactly; molecules carrying alerts score higher here
-    than RDKit would say (PARITY.md SS2). The JAX package closes the gap
-    from a corpus in DD_QED_ALERTS_SMARTS; the port raises there
-    (_qed_alert_count)."""
+    than RDKit would say (PARITY.md SS2). Supplying the corpus via
+    DD_QED_ALERTS_SMARTS closes the gap exactly (first-party SMARTS
+    engine, _qed_alert_count)."""
     props = qed_properties(record)
     t = sum(w * math.log(ads(props[k], QED_ADS_PARAMS[k]))
             for w, k in zip(QED_WEIGHTS_MEAN, _QED_PROPS))

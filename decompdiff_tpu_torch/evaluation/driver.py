@@ -21,9 +21,6 @@ Differences from the JAX script:
   * The logger is named evaluate_torch.
   * An outdir without result pickles raises FileNotFoundError (an
     assertion there).
-  * DD_QED_ALERTS_SMARTS naming a file raises NotImplementedError from
-    the first MolRecord scored (the alert engine, evaluation/alerts.py, is
-    not ported), where the JAX script counts the alerts.
 """
 
 from __future__ import annotations
@@ -141,11 +138,6 @@ def main(argv=None) -> dict:
         if scoring.can_score(mol):
             try:
                 chem = scoring.get_chem(mol)
-            except NotImplementedError:
-                # a hook into a module the port lacks (DD_QED_ALERTS_SMARTS
-                # needs evaluation/alerts.py): refuse the run rather than
-                # drop every molecule and score another answer
-                raise
             except Exception as e:
                 logger.info(f'chem scoring failed (sample skipped): {e}')
                 continue

@@ -109,16 +109,14 @@ def compute_sa_score(mol) -> float:
 
 
 def is_pains(mol) -> bool:
-    """PAINS_A substructure filter (ref scoring_func.py:15-25). RDKit mols
-    use the reference recipe. MolRecords need the first-party SMARTS
-    engine and alert catalog (the JAX package's evaluation/smarts.py and
-    alerts.py), which the port does not have yet (ROADMAP queue 1,
-    E1a-2): it raises rather than give another answer."""
+    """PAINS_A substructure filter (ref scoring_func.py:15-25). MolRecords
+    match through the first-party SMARTS engine (`evaluation/smarts.py`):
+    a user-supplied corpus via DD_PAINS_SMARTS when present, else the
+    self-authored motif-class subset in `evaluation/alerts.py` (provenance:
+    `alerts.pains_backend()`). RDKit mols use the reference recipe."""
     if hasattr(mol, 'bond_index'):
-        raise NotImplementedError(
-            'is_pains on a MolRecord needs evaluation/alerts.py (the SMARTS '
-            'alert engine), which is not ported yet (ROADMAP queue 1, '
-            'E1a-2)')
+        from decompdiff_tpu_torch.evaluation.alerts import is_pains_record
+        return is_pains_record(mol)
     _require_rdkit()
     from copy import deepcopy
     from rdkit.Chem.FilterCatalog import FilterCatalog, FilterCatalogParams

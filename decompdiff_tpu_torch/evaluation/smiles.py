@@ -1,20 +1,46 @@
-"""First-party SMILES writer: MolRecord graph -> SMILES string (port of
-decompdiff_tpu/evaluation/smiles.py's `mol_to_smiles`; the valence helpers
-come from evaluation/descriptors.py, as there). The result rows of the
-sampling driver carry it (ref scripts/sample_diffusion_decomp.py:432
-Chem.MolToSmiles); the SMILES parser is not ported.
+"""First-party SMILES parser and writer: SMILES string <-> MolRecord graph
+(port of decompdiff_tpu/evaluation/smiles.py; the valence helpers come from
+evaluation/descriptors.py, as there).
+
+The reference round-trips molecules through RDKit SMILES in several places
+(e.g. ref utils/evaluation/scoring_func.py via Chem.MolFromSmiles in
+docking prep, utils/transforms.py fragment queries); this module gives the
+RDKit-free stack the same capability for GRAPHS (no coordinates — `pos` is
+zero-filled; use utils/confgen for 3D embedding). The result rows of the
+sampling driver carry the writer's output (ref
+scripts/sample_diffusion_decomp.py:432 Chem.MolToSmiles).
+
+Supported SMILES (Daylight core, the subset drug-like molecules use):
+  - organic subset atoms  B C N O P S F Cl Br I  and aromatic  b c n o s p
+  - bracket atoms ``[isotope? symbol chirality? Hcount? charge? :map?]``
+    (isotope/chirality/atom-map parsed and discarded for the graph)
+  - bonds ``- = # : / \\`` (directional bonds collapse to single), default
+    bond single (aromatic between two aromatic atoms)
+  - branches ``( )``, ring closures ``1``-``9`` and ``%nn``, disconnected
+    fragments via ``.``
+
+Explicit bracket H-counts are recorded in ``record.props['explicit_h']``
+(dict atom-index -> count) so descriptor/SMARTS code can honor them where
+the implicit-valence model would differ (e.g. pyrrole ``[nH]``).
+
+Divergence from RDKit, kept as in the JAX package: the default bond
+between two aromatic atoms is stored as order 4 even when the atoms lie in
+different rings (biphenyl written ``c1ccccc1c1ccccc1``), where RDKit's
+sanitization demotes such a non-ring bond to single; write the ``-``
+explicitly for RDKit's graph.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from decompdiff_tpu_torch.data.mol import MolRecord
 from decompdiff_tpu_torch.evaluation.descriptors import (
     DEFAULT_VALENCES, _undirected, implicit_h_counts)
 
-# atoms written without brackets, and their aromatic (lowercase) symbols
+# two-letter symbols first so the tokenizer is greedy
 ORGANIC_SUBSET = ('Cl', 'Br', 'B', 'C', 'N', 'O', 'P', 'S', 'F', 'I')
 AROMATIC_ORGANIC = ('b', 'c', 'n', 'o', 's', 'p')
 
@@ -25,9 +51,217 @@ SYMBOL_TO_Z = {
     'Ni': 28, 'Cu': 29, 'Zn': 30, 'As': 33, 'Se': 34, 'Br': 35, 'I': 53,
 }
 
+BOND_CHARS = {'-': 1, '=': 2, '#': 3, ':': 4, '/': 1, '\\': 1}
+
 
 class SmilesError(ValueError):
     pass
+
+
+def _parse_bracket(s: str, i: int):
+    """Parse the body of a bracket atom starting after '['. Returns
+    (z, aromatic, h_count, charge, next_index)."""
+    j = s.find(']', i)
+    if j < 0:
+        raise SmilesError(f'unterminated bracket atom in {s!r}')
+    body = s[i:j]
+    k = 0
+    # isotope
+    while k < len(body) and body[k].isdigit():
+        k += 1
+    # symbol (may be aromatic lowercase or '*')
+    if k >= len(body):
+        raise SmilesError(f'empty bracket atom in {s!r}')
+    if body[k] == '*':
+        sym, k = '*', k + 1
+    elif body[k].islower():
+        sym, k = body[k], k + 1
+    else:
+        sym = body[k]
+        k += 1
+        if k < len(body) and body[k].islower() and sym + body[k] in SYMBOL_TO_Z:
+            sym += body[k]
+            k += 1
+    aromatic = sym.islower()
+    lookup = sym.capitalize() if aromatic else sym
+    if sym == '*':
+        z = 0
+    else:
+        z = SYMBOL_TO_Z.get(lookup)
+        if z is None:
+            raise SmilesError(f'unknown element {sym!r} in {s!r}')
+    # chirality (discarded)
+    while k < len(body) and body[k] == '@':
+        k += 1
+    if k < len(body) and body[k:k + 2] in ('TH', 'AL', 'SP', 'TB', 'OH'):
+        k += 2
+        while k < len(body) and body[k].isdigit():
+            k += 1
+    # explicit H count
+    h_count: Optional[int] = None
+    if k < len(body) and body[k] == 'H':
+        k += 1
+        d = ''
+        while k < len(body) and body[k].isdigit():
+            d += body[k]
+            k += 1
+        h_count = int(d) if d else 1
+    # charge
+    charge = 0
+    if k < len(body) and body[k] in '+-':
+        sign = 1 if body[k] == '+' else -1
+        run = 0
+        while k < len(body) and body[k] in '+-':
+            run += 1
+            k += 1
+        d = ''
+        while k < len(body) and body[k].isdigit():
+            d += body[k]
+            k += 1
+        charge = sign * (int(d) if d else run)
+    # atom map (discarded)
+    if k < len(body) and body[k] == ':':
+        k += 1
+        while k < len(body) and body[k].isdigit():
+            k += 1
+    if k != len(body):
+        raise SmilesError(f'trailing {body[k:]!r} in bracket atom of {s!r}')
+    return z, aromatic, h_count, charge, j + 1
+
+
+def mol_from_smiles(smiles: str, name: str = '') -> MolRecord:
+    """Parse a SMILES string into a MolRecord (graph only, zero coords)."""
+    s = smiles.strip()
+    element: List[int] = []
+    aromatic: List[bool] = []
+    charges: List[int] = []
+    explicit_h: Dict[int, int] = {}
+    bonds: Dict[Tuple[int, int], int] = {}
+    stack: List[int] = []
+    ring: Dict[int, Tuple[int, Optional[int]]] = {}
+    prev = -1
+    pending: Optional[int] = None
+    i = 0
+
+    def add_atom(z, arom, h, q):
+        idx = len(element)
+        element.append(z)
+        aromatic.append(arom)
+        charges.append(q)
+        if h is not None:
+            explicit_h[idx] = h
+        return idx
+
+    def add_bond(a, b, order):
+        if a == b or (min(a, b), max(a, b)) in bonds:
+            raise SmilesError(f'duplicate/self bond {a}-{b} in {smiles!r}')
+        bonds[(min(a, b), max(a, b))] = order
+
+    def connect(idx):
+        nonlocal prev, pending
+        if prev >= 0:
+            order = pending
+            if order is None:
+                order = 4 if (aromatic[prev] and aromatic[idx]) else 1
+            add_bond(prev, idx, order)
+        prev = idx
+        pending = None
+
+    while i < len(s):
+        c = s[i]
+        if c == '[':
+            z, arom, h, q, i = _parse_bracket(s, i + 1)
+            connect(add_atom(z, arom, h, q))
+        elif c.isupper():
+            sym = None
+            for cand in ORGANIC_SUBSET:
+                if s.startswith(cand, i):
+                    sym = cand
+                    break
+            if sym is None:
+                raise SmilesError(f'unknown organic-subset atom at {i} '
+                                  f'in {smiles!r}')
+            i += len(sym)
+            connect(add_atom(SYMBOL_TO_Z[sym], False, None, 0))
+        elif c in AROMATIC_ORGANIC:
+            i += 1
+            connect(add_atom(SYMBOL_TO_Z[c.upper()], True, None, 0))
+        elif c in BOND_CHARS:
+            pending = BOND_CHARS[c]
+            i += 1
+        elif c == '(':
+            if prev < 0:
+                raise SmilesError(f'branch before any atom in {smiles!r}')
+            stack.append(prev)
+            i += 1
+        elif c == ')':
+            if not stack:
+                raise SmilesError(f'unbalanced ) in {smiles!r}')
+            prev = stack.pop()
+            i += 1
+        elif c == '.':
+            # disconnected fragment: next atom starts with no bond to prev
+            prev, pending = -1, None
+            i += 1
+        elif c.isdigit() or c == '%':
+            if c == '%':
+                d = s[i + 1:i + 3]
+                if len(d) < 2 or not d.isdigit():
+                    raise SmilesError(f'% needs two digits at {i} '
+                                      f'in {smiles!r}')
+                num, i = int(d), i + 3
+            else:
+                num, i = int(c), i + 1
+            if prev < 0:
+                raise SmilesError(f'ring closure before atom in {smiles!r}')
+            if num in ring:
+                other, order0 = ring.pop(num)
+                if (pending is not None and order0 is not None
+                        and pending != order0):
+                    raise SmilesError(
+                        f'conflicting ring-closure bond orders '
+                        f'{order0} vs {pending} for %{num} in {smiles!r}')
+                order = pending if pending is not None else order0
+                if order is None:
+                    order = 4 if (aromatic[prev] and aromatic[other]) else 1
+                add_bond(prev, other, order)
+            else:
+                ring[num] = (prev, pending)
+            pending = None
+        elif c in ' \t':
+            break  # SMILES title field
+        else:
+            raise SmilesError(f'unexpected {c!r} at {i} in {smiles!r}')
+
+    if stack:
+        raise SmilesError(f'unbalanced ( in {smiles!r}')
+    if ring:
+        raise SmilesError(f'unclosed ring closures {sorted(ring)} '
+                          f'in {smiles!r}')
+    if not element:
+        raise SmilesError('empty SMILES')
+
+    n = len(element)
+    if bonds:
+        und = np.array(sorted(bonds), np.int64).T
+        orders = np.array([bonds[tuple(b)] for b in und.T], np.int64)
+        bond_index = np.concatenate([und, und[::-1]], axis=1)
+        bond_type = np.concatenate([orders, orders])
+    else:
+        bond_index = np.zeros((2, 0), np.int64)
+        bond_type = np.zeros((0,), np.int64)
+    rec = MolRecord(
+        element=np.array(element, np.int64),
+        pos=np.zeros((n, 3), np.float32),
+        bond_index=bond_index,
+        bond_type=bond_type,
+        aromatic=np.array(aromatic, bool),
+        name=name or smiles,
+        charges=np.array(charges, np.int64),
+    )
+    if explicit_h:
+        rec.props['explicit_h'] = explicit_h
+    return rec
 
 
 # --------------------------------------------------------------------------

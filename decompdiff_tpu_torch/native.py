@@ -3,7 +3,8 @@ versions of decompdiff_tpu/native/__init__.py's entry points).
 
 The JAX package runs these through a small C library when it can build one;
 every function here returns what that library returns, with numpy doing the
-work. The C source's copy waits for ROADMAP item E1.
+work. The C source's copy is queued in ROADMAP.md (ddnative.cpp, with the
+utilities of item E1c).
 """
 
 from __future__ import annotations

@@ -300,3 +300,111 @@ def save_reference_checkpoint(path: str, state_dict: dict, config: dict,
     finally:
         if installed:
             del sys.modules['easydict']
+
+
+# --- raw receptor / ligand files for the data-preparation scripts -----------
+# (the port's copy of the two-cavity lattice of the JAX package's alpha-sphere
+# tests: a cubic lattice of pseudo-atoms with two spherical cavities, and a
+# ligand with a 3-ring arm in each cavity joined by a 3-atom linker)
+
+DUMBBELL_LIGAND_SDF = """dumbbell
+  synthetic: ring arms in both cavities + 3-atom linker
+
+  9 10  0  0  0  0  0  0  0  0999 V2000
+   -6.0000    0.0000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+   -6.0000    1.4000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+   -7.2000    0.7000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+   -3.0000    0.0000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+    0.0000    0.0000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+    3.0000    0.0000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+    6.0000    0.0000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+    6.0000    1.4000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+    7.2000    0.7000    0.0000 C   0  0  0  0  0  0  0  0  0  0  0  0
+  1  2  1  0
+  2  3  1  0
+  3  1  1  0
+  1  4  1  0
+  4  5  1  0
+  5  6  1  0
+  6  7  1  0
+  7  8  1  0
+  8  9  1  0
+  9  7  1  0
+M  END
+$$$$
+"""
+
+
+def dumbbell_lattice(spacing=3.0, half=5, cavity_r=4.0) -> np.ndarray:
+    """[(2 half + 1)^3 less the cavities, 3] lattice points outside two
+    spheres of radius cavity_r centred at x = +-6 A."""
+    import itertools
+    pts = []
+    for i, j, k in itertools.product(range(-half, half + 1), repeat=3):
+        p = np.array([i, j, k], float) * spacing
+        if min(np.linalg.norm(p - [6, 0, 0]),
+               np.linalg.norm(p + [6, 0, 0])) >= cavity_r:
+            pts.append(p)
+    return np.stack(pts)
+
+
+def lattice_pdb_block(pos, elements) -> str:
+    """A PDB block of one-atom GLY residues (atom name CA for carbon, O
+    otherwise) at pos."""
+    lines = ['HEADER    SYNTH CAVITY']
+    for n, (p, elem) in enumerate(zip(pos, elements), start=1):
+        name = 'CA' if elem == 'C' else 'O'
+        lines.append(
+            f'ATOM  {n:5d}  {name:<3s} GLY A{n:4d}    '
+            f'{p[0]:8.3f}{p[1]:8.3f}{p[2]:8.3f}  1.00  0.00'
+            f'          {elem:>2s}')
+    lines.append('END')
+    return '\n'.join(lines) + '\n'
+
+
+def rigid_motion(rng: np.random.Generator):
+    """A random rotation [3, 3] (det +1) and a translation [3] of up to
+    20 A per axis."""
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q, rng.uniform(-20.0, 20.0, size=3)
+
+
+# the share of a raw receptor's lattice atoms drawn as oxygen
+RAW_POLAR_FRAC = 0.25
+
+
+def write_raw_pairs(root, n_pairs: int, half: int = 5,
+                    seed: int = 0) -> list:
+    """Writes n_pairs raw receptor PDB / ligand SDF pairs under root, as
+    pair<i>/pair<i>_rec.pdb and pair<i>/pair<i>_lig.sdf (the preprocessing
+    names each pair's outputs after its ligand's file name, so the names
+    are unique, as CrossDocked's are): the dumbbell lattice at
+    `half` (about RAW_POLAR_FRAC of its atoms oxygen) and DUMBBELL_LIGAND_SDF,
+    each pair moved by its own seeded rigid motion. Returns the index
+    entries [{'protein', 'ligand'}] relative to root, as
+    scripts/preprocess_subcomplex_torch.py reads them."""
+    import os
+
+    from decompdiff_tpu_torch.data.mol import (
+        mol_to_sdf_block, parse_mol_block)
+    rng = np.random.default_rng(seed)
+    lattice = dumbbell_lattice(half=half)
+    index = []
+    for i in range(n_pairs):
+        rot, shift = rigid_motion(rng)
+        elements = np.where(rng.random(len(lattice)) < RAW_POLAR_FRAC, 'O', 'C')
+        mol = parse_mol_block(DUMBBELL_LIGAND_SDF)
+        mol.pos = (mol.pos @ rot.T + shift).astype(np.float32)
+        name = f'pair{i}'
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        entry = {'protein': f'{name}/{name}_rec.pdb',
+                 'ligand': f'{name}/{name}_lig.sdf'}
+        with open(os.path.join(root, entry['protein']), 'w') as f:
+            f.write(lattice_pdb_block(lattice @ rot.T + shift, elements))
+        with open(os.path.join(root, entry['ligand']), 'w') as f:
+            f.write(mol_to_sdf_block(mol, name='dumbbell'))
+        index.append(entry)
+    return index

@@ -507,22 +507,27 @@ def test_fpscores_read_from_the_port_asset():
     assert p_morgan.load_fpscores() == j_morgan.load_fpscores()
 
 
-def test_deferred_hooks_raise(mols, tmp_path, monkeypatch):
-    """is_pains on a MolRecord and a QED alert corpus need the SMARTS
-    engine (evaluation/alerts.py), which is not ported: both refuse."""
-    _, pm = mols['aniline']
-    with pytest.raises(NotImplementedError, match='alerts.py'):
-        p_scoring.is_pains(pm)
+@pytest.mark.parametrize('name', ['aniline', 'paracetamol', 'pyrrole',
+                                  'acetate', 'bromoiodo'])
+def test_deferred_hooks_raise(mols, tmp_path, monkeypatch, name):
+    """The two hooks into the SMARTS engine (evaluation/alerts.py), once
+    deferred: is_pains on a MolRecord and the QED alert count over a
+    DD_QED_ALERTS_SMARTS corpus equal the JAX package's, and so does
+    get_chem with the corpus set."""
+    jm, pm = mols[name]
+    assert p_scoring.is_pains(pm) is j_scoring.is_pains(jm)
     corpus = tmp_path / 'alerts.smarts'
-    corpus.write_text('[N;H2]c\n')
+    corpus.write_text('[N;H2]c aniline\n[OX2H]c phenol\nc[Br,I] halide\n'
+                      '[#6][CX3](=O)[O-] carboxylate\n')
     monkeypatch.setenv('DD_QED_ALERTS_SMARTS', str(corpus))
-    with pytest.raises(NotImplementedError, match='alerts.py'):
-        p_desc._qed_alert_count(pm)
-    with pytest.raises(NotImplementedError):
-        p_scoring.get_chem(pm)
+    count = p_desc._qed_alert_count(pm)
+    assert count == j_desc._qed_alert_count(jm)
+    assert count == {'aniline': 1, 'paracetamol': 1, 'pyrrole': 0,
+                     'acetate': 1, 'bromoiodo': 1}[name]
+    assert_same(p_scoring.get_chem(pm), j_scoring.get_chem(jm), name)
     # a path that names no file is ignored, as in the JAX package
     monkeypatch.setenv('DD_QED_ALERTS_SMARTS', str(tmp_path / 'missing'))
-    assert p_desc._qed_alert_count(pm) == j_desc._qed_alert_count(pm) == 0
+    assert p_desc._qed_alert_count(pm) == j_desc._qed_alert_count(jm) == 0
 
 
 @pytest.mark.parametrize('name', ['aniline', 'paracetamol', 'pyrrole'])
@@ -541,21 +546,32 @@ def test_smiles_writer_uses_the_descriptor_helpers():
 
 
 def test_driver_refuses_a_qed_alert_corpus(tmp_path, monkeypatch):
-    """With DD_QED_ALERTS_SMARTS naming a file the JAX script counts the
-    alerts; the port's driver raises the hook's NotImplementedError and
-    writes no summary, rather than skip every molecule."""
+    """The port's driver no longer refuses a corpus: with
+    DD_QED_ALERTS_SMARTS naming a file it counts the alerts into QED as
+    scripts/evaluate.py does (equal summaries, the aniline's QED lowered
+    by its alert) and writes its summary."""
+    import importlib.util
+
     from decompdiff_tpu_torch.evaluation import driver
     write_anchor_results(tmp_path / 'result_0.pkl', ['aniline', 'toluene'])
+    plain = driver.main([str(tmp_path), '--result_path',
+                         str(tmp_path / 'plain.pkl')])
     corpus = tmp_path / 'alerts.smarts'
     corpus.write_text('[N;H2]c\n')
     monkeypatch.setenv('DD_QED_ALERTS_SMARTS', str(corpus))
-    with pytest.raises(NotImplementedError, match='alerts.py'):
-        driver.main([str(tmp_path)])
-    assert not (tmp_path / 'eval_summary.pkl').exists()
-    monkeypatch.delenv('DD_QED_ALERTS_SMARTS')
-    summary = driver.main([str(tmp_path)])
-    assert summary['n_complete'] == 2
+    spec = importlib.util.spec_from_file_location(
+        'jax_evaluate_script', REPO / 'scripts' / 'evaluate.py')
+    jax_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_script)
+    want = jax_script.main([str(tmp_path), '--result_path',
+                            str(tmp_path / 'jax.pkl')])
+    got = driver.main([str(tmp_path)])
+    assert_same(want, got)
+    assert got['n_complete'] == 2
     assert (tmp_path / 'eval_summary.pkl').exists()
+    qed = [c['qed'] for c in got['chem']]
+    assert qed[0] < plain['chem'][0]['qed']
+    assert qed[1] == plain['chem'][1]['qed']
 
 
 def test_driver_refuses_an_outdir_without_results(tmp_path):

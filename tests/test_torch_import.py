@@ -21,6 +21,10 @@ from decompdiff_tpu_torch.utils.testing import (
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / 'decompdiff_tpu_torch'
 FORBIDDEN = ('jax', 'flax', 'optax', 'decompdiff_tpu')
+# the data-preparation scripts, each scripts/<name>_torch.py beside the
+# JAX package's scripts/<name>.py
+DATA_SCRIPTS = ('preprocess_subcomplex', 'import_reference_data',
+                'split_dataset', 'clean_crossdocked', 'make_synthetic_data')
 
 
 def _modules():
@@ -47,7 +51,8 @@ def test_every_submodule_imports_without_jax():
     [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
     + ['chip_smoke.py', 'scripts/sample_torch.py',
        'scripts/train_torch.py', 'scripts/convert_checkpoint_torch.py',
-       'scripts/evaluate_torch.py']))
+       'scripts/evaluate_torch.py'] + [f'scripts/{s}_torch.py'
+                                       for s in DATA_SCRIPTS]))
 def test_no_forbidden_import_statement(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -139,6 +144,52 @@ def test_evaluation_script_runs_without_jax_and_yaml(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '--docking_mode' in proc.stdout
     assert 'total 2, reconstructed 2' in proc.stdout
+
+
+def test_data_scripts_run_without_jax(tmp_path):
+    """With jax, flax, optax, the JAX package and PyYAML unimportable,
+    each data script's --help exits 0, and raw pairs become a split store
+    through preprocess_subcomplex_torch.py (its worker forked with the
+    same modules blocked), import_reference_data_torch.py and
+    split_dataset_torch.py. The modules are blocked by an import hook,
+    not by None in sys.modules: scipy asks `'jax' in sys.modules`."""
+    code = (
+        'import pickle, runpy, sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        f'        if name.split(".")[0] in {FORBIDDEN + ('yaml',)!r}:\n'
+        '            raise ImportError(name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'def script(name, *argv):\n'
+        '    sys.argv = [name, *argv]\n'
+        '    try:\n'
+        '        runpy.run_path("scripts/" + name, run_name="__main__")\n'
+        '    except SystemExit as e:\n'
+        '        assert e.code == 0, (name, e.code)\n'
+        f'for name in {DATA_SCRIPTS!r}:\n'
+        '    script(name + "_torch.py", "--help")\n'
+        'from decompdiff_tpu_torch.utils.testing import write_raw_pairs\n'
+        f'root = {str(tmp_path)!r}\n'
+        'index = write_raw_pairs(root + "/raw", 1, half=4)\n'
+        'pickle.dump(index, open(root + "/index.pkl", "wb"))\n'
+        'script("preprocess_subcomplex_torch.py", root + "/index.pkl",\n'
+        '       "--raw_root", root + "/raw", "--dest", root + "/dest",\n'
+        '       "--num_workers", "1")\n'
+        'script("import_reference_data_torch.py", "--index",\n'
+        '       root + "/dest", "--out", root + "/s.ddstore")\n'
+        'script("split_dataset_torch.py", root + "/s.ddstore")\n'
+        f'bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for option in ('--raw_root', '--lmdb', '--unique_pocket_test',
+                   '--rmsd_thr', '--random-types'):
+        assert option in proc.stdout
+    assert "done: {'ok': 1}" in proc.stdout
+    assert 'wrote 1 records' in proc.stdout
+    assert 'wrote split: train=0 test=1' in proc.stdout
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
