@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a repository checkout
 
-1. Device: requires CUDA, turns TF32 off, prints the card's name and power
-   limit (nvidia-smi).
+1. Device: requires CUDA, turns TF32 and cuBLAS's bf16 reduced-precision
+   reductions off, prints the card's name and power limit (nvidia-smi).
 2. Build: compiles the three CUDA sources of csrc/ (each holds a forward and
    a backward kernel) with nvcc (timed set-up).
 2a. Entry point: the sampling driver (decompdiff_tpu_torch/sampling/
@@ -123,6 +123,18 @@
    a plain step that rounds as the kernels do, FLIP_COUNT). Then the
    backward kernels held and timed on the inputs of denoiser calls at
    WIDER (B=2), printed only.
+5a. compute_dtype: bfloat16 (compute_bf16_phase), the released uni_o2_bond
+   config with the key: the three forward kernels against their plain
+   versions on the float32 inputs the bf16 denoiser hands them; one
+   denoiser call kernels on vs off (BF16_PATH_FRAC / BF16_PATH_CAP),
+   beside the same call with cuBLAS's bf16 reduced-precision reductions
+   allowed, the bf16 plain path and the float32 kernels (printed); the
+   same for uni_o2 (ew_net_type m); the sampling entry point from a .ckpt
+   whose config sets the key (launches exactly calls x 12/12/6, nothing
+   per row) and from the float32 .ckpt; TRAIN_STEPS training steps of each
+   dtype (launches per step, losses finite, parameters moved); s/molecule,
+   device ms per sampling step, training s/step and peak device memory of
+   both dtypes printed.
 6. Prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check exits non-zero. Needs torch and numpy only.
@@ -299,6 +311,16 @@ BF16_RTOL, BF16_ATOL, BF16_FRAC, BF16_CAP = 1e-3, 1e-3, 1e-3, 1e-2
 # one denoiser call, kernels on vs off: six layers of the above, on
 # coordinates of a few Angstrom and logits of order one
 PATH_RTOL, PATH_ATOL = 1e-3, 1e-3
+# compute_dtype bfloat16, one denoiser call kernels on vs off (the kernel
+# model under plain_versions: the same casts): h and h_bond are bf16 between
+# the kernels, so a value that the two paths' float32 summation orders
+# place on either side of a bf16 rounding boundary moves by one bf16 unit
+# (a flip), and everything downstream with it; after a few layers the two
+# calls differ by bf16 rounding noise throughout, as the bf16 call differs
+# from the float32 one. So kernels on vs off must lie within BF16_NOISE
+# times the option's own effect (on vs the float32 kernels), and none
+# beyond BF16_PATH_CAP.
+BF16_NOISE, BF16_PATH_CAP = 2.0, 0.1
 # one training step, kernels on vs off: the loss within float32 noise of six
 # layers; the parameter gradients elementwise at the tolerance the JAX
 # package holds its kernel path to against its dense path
@@ -397,6 +419,8 @@ def device_phase(torch):
           f'{REPO} is not a checkout holding decompdiff_tpu_torch')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # what the entry points set (decompdiff_tpu_torch/device.py)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(gpu_name_and_limit(), flush=True)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'device {torch.cuda.get_device_name(0)}', flush=True)
@@ -1139,6 +1163,223 @@ def denoiser_on_off(torch, model, plain_model, batch, state, label,
         check(ok, f'{label} denoiser {key} differs with kernels on')
 
 
+def rel_l2(torch, a, b):
+    """|a - b| / |b| (L2 over every element)."""
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def bf16_on_off(torch, model, model32, batch, state, label):
+    """One denoiser call of a compute_dtype bfloat16 kernel model at the
+    last timestep, kernels on vs the same model under plain_versions (the
+    same casts, every kernel replaced by its plain version), against the
+    bf16 noise of this call: model32 is the float32 kernel model of the
+    same weights, and kernels on vs off must lie within BF16_NOISE times
+    the option's own effect, both as the relative L2 distance over each
+    prediction (on vs off against on vs float32) and as its largest
+    element, and none beyond BF16_PATH_CAP. Returns (kernels on, off)."""
+    t = torch.full((batch.batch_size,), model.num_timesteps - 1,
+                   dtype=torch.long, device=model.device)
+    with torch.no_grad():
+        on = model.apply(batch, *state, t)
+        with plain_versions(model_ops()):
+            off = model.apply(batch, *state, t)
+        f32 = model32.apply(batch, *state, t)
+    for key in on:
+        err = float((on[key] - off[key]).abs().max())
+        effect = float((on[key] - f32[key]).abs().max())
+        rel, rel_effect = (rel_l2(torch, on[key], off[key]),
+                           rel_l2(torch, on[key], f32[key]))
+        outside = int(((on[key] - off[key]).abs()
+                       > PATH_ATOL + PATH_RTOL * off[key].abs()).sum())
+        ok = (bool(torch.isfinite(on[key]).all())
+              and on[key].dtype == torch.float32
+              and rel <= BF16_NOISE * rel_effect
+              and err <= BF16_NOISE * effect and err <= BF16_PATH_CAP)
+        print(f'{label} denoiser kernels on vs off: {key} max_abs_err '
+              f'{err:.3e}, relative L2 {rel:.3e}; the option\'s effect '
+              f'(on vs the float32 kernels) max_abs {effect:.3e}, relative '
+              f'L2 {rel_effect:.3e}; allowed {BF16_NOISE} x the effect, '
+              f'none beyond {BF16_PATH_CAP}; {outside} of '
+              f'{on[key].numel()} elements outside the float32 paths\' '
+              f'rtol {PATH_RTOL} / atol {PATH_ATOL} '
+              f'{"ok" if ok else "MISMATCH"}', flush=True)
+        check(ok, f'{label} denoiser {key} differs with kernels on')
+    return on, off
+
+
+def bf16_train_run(torch, batch, cfg, per_step, label):
+    """TRAIN_STEPS training steps of cfg's kernel model (seed 0) after one
+    warm-up step, every launch counter set to 0 just before and read just
+    after: launches exactly per_step (forward and backward) a step, every
+    loss finite, every parameter moved. Prints s/step and peak device
+    memory. Returns (launches, s/step, peak MiB)."""
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
+    dev = torch.device('cuda')
+    ops = model_ops()
+    model = make_models(torch, cfg)[0]
+    state = create_train_state(model, DEFAULT_TRAIN_CONFIG)
+    step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    before = {n: p.detach().clone()
+              for n, p in model.denoiser.named_parameters()}
+    step(state, batch, g)                           # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ops)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(state, batch, g)['loss'])
+    torch.cuda.synchronize()
+    elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches = get_launches(ops)
+    expect = {n: per_step.get(n.replace('_backward', ''), 0) * TRAIN_STEPS
+              for n in launches}
+    losses = [float(v) for v in losses]
+    still = [n for n, p in model.denoiser.named_parameters()
+             if torch.equal(p, before[n])]
+    print(f'{label} train path: {TRAIN_STEPS} steps at B={batch.batch_size} '
+          f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
+          f'device memory {peak:.1f} MiB; losses {losses}; parameters '
+          f'unmoved {len(still)} of {len(before)}; launches '
+          f'{nonzero(launches)} (expected {nonzero(expect)})', flush=True)
+    check(launches == expect, f'{label} training launches differ from the '
+          'expected')
+    check(all(v == v and abs(v) < float('inf') for v in losses),
+          f'{label}: non-finite losses')
+    check(not still, f'{label}: parameters that did not move: {still[:5]}')
+    del model, state
+    return launches, elapsed, peak
+
+
+def compute_bf16_phase(torch, batch, per_call):
+    """compute_dtype: bfloat16 on the released uni_o2_bond config. The three
+    forward kernels against their plain versions on the (float32) inputs
+    that the bf16 denoiser hands them in its first layer; one denoiser call
+    kernels on vs off (bf16_on_off), with cuBLAS's bf16 reduced-precision
+    reductions off (the entry points' setting) and then allowed, and its
+    distance from the bf16 plain path and from the float32 kernels printed;
+    the same call on vs off for uni_o2 (ew_net_type m); the sampling entry
+    point from a .ckpt whose config sets the key, on a synthetic store of
+    ENTRY_POCKETS (launches exactly calls x per_call, nothing per row), and
+    from the float32 .ckpt of the same weights; then bf16_train_run of both
+    dtypes. Each dtype's sampling and training run twice, in turns with
+    the other's. Prints s/molecule, device ms per sampling step, training
+    s/step and peak device memory for float32 and bf16. Returns
+    (sampling launches, training launches) of the bf16 runs."""
+    import shutil
+
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, uni_o2_model_config)
+    ops = model_ops()
+    bf16 = {'compute_dtype': 'bfloat16'}
+    cfg16 = dict(DEFAULT_MODEL_CONFIG, **bf16)
+    model16, plain16 = make_models(torch, cfg16)
+    model32 = make_models(torch, DEFAULT_MODEL_CONFIG)[0]
+    t = torch.zeros((B,), dtype=torch.long, device=model16.device)
+    state = (batch.ligand_pos, batch.ligand_v, batch.bond_type)
+    captured = capture_inputs(torch, ops, model16, batch, (*state, t),
+                              wrapped=True)
+    check(sorted(captured) == sorted(
+              [('edge_attention', 'node'), ('edge_attention', 'pos'),
+               ('bond_attention', 'node'), ('bond_attention', 'pos'),
+               ('triplet_attention', 'node')]),
+          f'bf16 kernel modes {sorted(captured)}')
+    with torch.no_grad():
+        for (name, mode), (args, kw) in modes(captured):
+            check(all(a.dtype == torch.float32 for a in
+                      call_inputs(torch, args, kw) if a.is_floating_point()),
+                  f'{name}[{mode}]: a kernel input is not float32')
+            check_forward(torch, {}, name, f'{mode} compute_dtype bf16',
+                          args, kw, KERNEL_RTOL, KERNEL_ATOL)
+    del captured
+    label = 'uni_o2_bond[compute_dtype bf16]'
+    on, off = bf16_on_off(torch, model16, model32, batch, state, label)
+    tl = torch.full((B,), model16.num_timesteps - 1, dtype=torch.long,
+                    device=model16.device)
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        with torch.no_grad():
+            reduced = model16.apply(batch, *state, tl)
+            with plain_versions(ops):
+                reduced_off = model16.apply(batch, *state, tl)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
+    with torch.no_grad():
+        dense = plain16.apply(batch, *state, tl)
+    for key in on:
+        print(f'{label} denoiser {key}: with cuBLAS bf16 reduced-precision '
+              f'reductions allowed, against the same call without them '
+              f'max_abs_diff {float((reduced[key] - on[key]).abs().max()):.3e}'
+              f', kernels on vs off max_abs_err '
+              f'{float((reduced[key] - reduced_off[key]).abs().max()):.3e} '
+              f'(relative L2 {rel_l2(torch, reduced[key], reduced_off[key]):.3e}'
+              f'); the bf16 plain path against the kernel path max_abs_diff '
+              f'{float((dense[key] - on[key]).abs().max()):.3e}', flush=True)
+    del model16, plain16, model32, on, off, reduced, reduced_off, dense
+    o2, o2_32 = (make_models(torch, dict(uni_o2_model_config(),
+                                         compute_dtype=dt))[0]
+                 for dt in ('bfloat16', 'float32'))
+    bf16_on_off(torch, o2, o2_32, batch, state,
+                'uni_o2[m, compute_dtype bf16]')
+    del o2, o2_32
+
+    work = REPO / 'build' / 'bf16_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # each dtype twice, in turns, so that neither gains from going second
+    order = ('float32', 'bfloat16', 'bfloat16', 'float32')
+    runs = {dtype: [] for dtype in order}
+    try:
+        store = work / 'synthetic.ddstore'
+        write_synthetic_store(str(store), [
+            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
+            for n_p, n_l, arms in ENTRY_POCKETS])
+        for i, dtype in enumerate(order):
+            sub = work / f'{i}_{dtype}'
+            sub.mkdir()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches, summaries = sample_store(
+                per_call, sub, store, len(ENTRY_POCKETS),
+                f'entry point[compute_dtype {dtype}]',
+                model_cfg=dict(DEFAULT_MODEL_CONFIG, compute_dtype=dtype))
+            calls = sum(len(s['shapes']) for s in summaries) * STEPS
+            n_mol = sum(s['n'] for s in summaries)
+            runs[dtype].append(dict(
+                launches=launches,
+                mol_s=sum(s[k] for s in summaries for k in (
+                    'host_s', 'device_s', 'recon_s')) / n_mol,
+                step_ms=sum(s['device_s'] for s in summaries) / calls * 1e3,
+                sample_mib=torch.cuda.max_memory_allocated() / 2**20))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    trained = {dtype: [] for dtype in order}
+    for dtype in order:
+        trained[dtype].append(bf16_train_run(
+            torch, batch, dict(DEFAULT_MODEL_CONFIG, compute_dtype=dtype),
+            per_call, f'uni_o2_bond[compute_dtype {dtype}]'))
+    for dtype in runs:
+        def col(key, fmt, rs=runs[dtype]):
+            return ' / '.join(format(r[key], fmt) for r in rs)
+        print(f'compute_dtype {dtype} (runs {order} in turns; this '
+              f'dtype\'s two): {col("mol_s", ".5f")} s/molecule through '
+              f'the sampling entry point (host set-up, device sampling and '
+              f'reconstruction), {col("step_ms", ".3f")} ms device sampling '
+              f'per step (B={B}), peak device memory '
+              f'{col("sample_mib", ".1f")} MiB sampling; training '
+              + ' / '.join(f'{t[1]:.4f}' for t in trained[dtype])
+              + ' s/step, peak '
+              + ' / '.join(f'{t[2]:.1f}' for t in trained[dtype])
+              + f' MiB; on {gpu_name_and_limit()}', flush=True)
+    return runs['bfloat16'][-1]['launches'], trained['bfloat16'][-1][0]
+
+
 def width_phase(torch, bond_cfg, batch, widths, suffix):
     """uni_o2_bond at each of `widths` (kernel and plain models, seed 0):
     the inputs of the first layer's edge, bond and triplet calls, as the
@@ -1206,10 +1447,12 @@ def width_option_phase(torch, models, batch, full_protein, per_call):
     return total
 
 
-def sample_store(per_call, work, store, n_pockets, label, catch=None):
+def sample_store(per_call, work, store, n_pockets, label, catch=None,
+                 model_cfg=None):
     """The sampling driver as a user runs it on store's first n_pockets
     pockets: a JAX-layout .ckpt of the seeded released uni_o2_bond model
-    (config and params, no optimizer state), ENTRY_SAMPLE_CFG,
+    (config and params, no optimizer state; `model_cfg`, when given, is the
+    checkpoint's model config), ENTRY_SAMPLE_CFG,
     --use_pallas, B=8, every launch counter set to 0 just before and read
     just after. Checks the launches (no per-row or other launch) and the
     result pickles; prints seconds per molecule split into host set-up,
@@ -1223,7 +1466,7 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None):
     from decompdiff_tpu_torch.sampling import driver
     from decompdiff_tpu_torch.utils.params import state_dict_to_flax
     from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
-    cfg = dict(DEFAULT_MODEL_CONFIG)
+    cfg = dict(model_cfg or DEFAULT_MODEL_CONFIG)
     seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
     ckpt = work / 'uni_o2_bond.ckpt'
     with open(ckpt, 'wb') as f:
@@ -2106,7 +2349,8 @@ def train_shapes_phase(torch, ops, cfg):
 
 
 def kernel_records(results, launches, entry_launches, train_entry_launches,
-                   ref_launches, prep_launches):
+                   ref_launches, prep_launches, bf16_entry_launches,
+                   bf16_train_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -2122,7 +2366,10 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
     the sampling entry point from converted reference weights with the
     mmff_min drift (reference_phase); prep_entry_launches: through the
     sampling entry point on the store the data-preparation scripts built
-    from raw files (prep_phase)."""
+    from raw files (prep_phase); bf16_entry_launches and
+    bf16_train_launches: through the sampling entry point from a .ckpt
+    whose config sets compute_dtype bfloat16, and through TRAIN_STEPS
+    training steps of that config (compute_bf16_phase)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -2137,6 +2384,8 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
             'train_entry_launches': train_entry_launches.get(name, 0),
             'reference_entry_launches': ref_launches.get(name, 0),
             'prep_entry_launches': prep_launches.get(name, 0),
+            'bf16_entry_launches': bf16_entry_launches.get(name, 0),
+            'bf16_train_launches': bf16_train_launches.get(name, 0),
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -2341,6 +2590,8 @@ def main():
             'uni_o2_bond[gather_bf16]', wrapped=True)
         o2_train_launches = train_phase(torch, batch, o2_cfg, o2_calls,
                                         'uni_o2[m]')
+        bf16_entry_launches, bf16_train_launches = compute_bf16_phase(
+            torch, batch, bond_calls)
         # at WIDE every forward runs its per-row kernel and every backward
         # launch keeps its row buffers in device memory
         wide_train_launches = train_phase(
@@ -2385,7 +2636,8 @@ def main():
         launches[n] = (trained if '_backward' in n else sampled)[n]
     print(json.dumps({'kernels': kernel_records(
         results, launches, entry_launches, train_entry_launches,
-        ref_launches, prep_launches)}))
+        ref_launches, prep_launches, bf16_entry_launches,
+        bf16_train_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

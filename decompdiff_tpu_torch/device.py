@@ -22,3 +22,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "the CPU explicitly")
         return torch.device('cuda')
     return torch.device(device)
+
+
+def set_matmul_precision() -> None:
+    """What the entry points set before they build a model: cuBLAS
+    accumulates bf16 products in float32 in every reduction, as the TPU's
+    MXU accumulates them (and the JAX package's products under
+    compute_dtype: bfloat16). PyTorch allows bf16 partial sums by default
+    (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

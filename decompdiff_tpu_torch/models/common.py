@@ -6,9 +6,18 @@ outer_product edge features (:116-123).
 
 `Dense` and `LayerNorm` keep the flax parameter names and layouts
 (`kernel` is [in, out]) so a state_dict key is the flax path joined with '.'.
+Their `dtype` is flax's compute dtype (config key `compute_dtype`): the
+parameters stay float32 and are cast where flax casts them
+(flax/linen/linear.py Dense, linen/normalization.py _normalize,
+linen/dtypes.py promote_dtype). Without one, an input and the parameters
+are promoted to a common dtype, as flax promotes them: a bf16 input with
+float32 parameters computes in float32 (torch.matmul does not promote, so
+the cast is explicit).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,6 +62,16 @@ def angular_encoding(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[..., None], torch.sin(xf), torch.cos(xf)], dim=-1)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid. Below float32 it is computed as JAX lowers
+    lax.logistic, 1 / (1 + exp(-x)) with every step rounded to x's dtype
+    (each torch op on a bf16 tensor rounds its result); torch.sigmoid
+    rounds once, which moves a third of bf16 results by one unit."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x) - float(np.log(2.0))
 
@@ -91,10 +110,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 class Dense(nn.Module):
-    """flax.linen.Dense: y = x @ kernel + bias, kernel [in, out]."""
+    """flax.linen.Dense: y = x @ kernel + bias, kernel [in, out]. With a
+    `dtype`, x, kernel and bias are cast to it, and the product and the
+    bias sum are each rounded to it (two roundings, as flax's dot_general
+    then `y += bias`)."""
 
-    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True):
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_dim, out_dim))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(out_dim))
@@ -102,20 +126,26 @@ class Dense(nn.Module):
             self.register_parameter('bias', None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
-    """flax.linen.LayerNorm(epsilon=1e-5): params `scale` and `bias`."""
+    """flax.linen.LayerNorm(epsilon=1e-5): params `scale` and `bias`. The
+    statistics and the affine map run in float32 whatever the input's
+    dtype; the result is cast once, to `dtype` or else to the input's
+    dtype promoted with the parameters'."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.scale, self.bias)
+        dt = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)
+        return layer_norm(x.float(), self.scale, self.bias).to(dt)
 
 
 class MLP(nn.Module):
@@ -123,20 +153,22 @@ class MLP(nn.Module):
 
     num_layer counts Linear layers; norm/activation follow every layer except
     the last (unless act_last). Submodules are named like flax's automatic
-    names (Dense_0, LayerNorm_0, Dense_1, ...).
+    names (Dense_0, LayerNorm_0, Dense_1, ...); `dtype` is their compute
+    dtype.
     """
 
     def __init__(self, in_dim: int, out_dim: int, hidden_dim: int,
                  num_layer: int = 2, norm: bool = True,
-                 act_last: bool = False):
+                 act_last: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_layer, self.norm, self.act_last = num_layer, norm, act_last
         dim = in_dim
         for i in range(num_layer):
             nxt = out_dim if i == num_layer - 1 else hidden_dim
-            setattr(self, f'Dense_{i}', Dense(dim, nxt))
+            setattr(self, f'Dense_{i}', Dense(dim, nxt, dtype=dtype))
             if (i < num_layer - 1 or act_last) and norm:
-                setattr(self, f'LayerNorm_{i}', LayerNorm(nxt))
+                setattr(self, f'LayerNorm_{i}', LayerNorm(nxt, dtype=dtype))
             dim = nxt
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

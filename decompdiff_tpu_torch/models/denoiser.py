@@ -24,6 +24,15 @@ sources from the bf16 node table of the JAX kernel path; the plain path
 ignores both, as the JAX dense path does. The JAX package's TPU tiling keys
 (`pallas_triplet_i_block`, `pallas_edge_tile`) change no value there and
 are accepted and unused here.
+
+`compute_dtype: bfloat16` is the JAX denoiser's bf16 compute path
+(denoiser.py:157-168): the parameters stay float32; the composed context
+h is cast to bf16, the bond one-hot and `ligand_bond_emb` are formed in
+bf16, and uni_o2_bond computes in bf16 (uni_o2 takes only the bf16 h; see
+the two nets' docstrings); the heads take float32 outputs, so every
+prediction is float32. `remat: true` is refused on uni_o2_bond: the JAX
+package cannot run it there (see __init__), so nothing defines what the
+port should compute; uni_o2 ignores the key, as JAX does.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ from decompdiff_tpu_torch.models.common import (
     Dense, linspace_rbf, shifted_softplus)
 from decompdiff_tpu_torch.models.uni_transformer import UniTransformerO2
 from decompdiff_tpu_torch.models.uni_transformer_bond import UniTransformerBond
+
+
+COMPUTE_DTYPES = {None: None, 'float32': None, 'bfloat16': torch.bfloat16}
 
 
 def sinusoidal_time_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -64,9 +76,17 @@ class DecompDenoiser(nn.Module):
         self.model_type = cfg.get('model_type', 'uni_o2_bond')
         if self.model_type not in ('uni_o2_bond', 'uni_o2'):
             raise ValueError(self.model_type)
-        if cfg.get('compute_dtype') not in (None, 'float32'):
+        if cfg.get('compute_dtype') not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg['compute_dtype']!r}, "
+                             "expected 'float32' or 'bfloat16'")
+        self.compute_dtype = COMPUTE_DTYPES[cfg.get('compute_dtype')]
+        if cfg.get('remat', False) and self.model_type == 'uni_o2_bond':
             raise NotImplementedError(
-                f"compute_dtype {cfg['compute_dtype']!r}: the port runs float32")
+                'remat: true on uni_o2_bond fails in the JAX package itself '
+                '(dense path: IndexError "Slice entries must be static '
+                'integers"; kernel path: UnexpectedTracerError, a tracer '
+                'passed as a nondiff_argnums argument of a custom_vjp), so '
+                'it has no reference to port; uni_o2 ignores the key')
         H = cfg['hidden_dim']
         self.node_indicator = cfg.get('node_indicator', True)
         self.add_prior_node = cfg.get('add_prior_node', False)
@@ -98,12 +118,14 @@ class DecompDenoiser(nn.Module):
                    cutoff_mode=cfg.get('cutoff_mode', 'knn'),
                    r_max=cfg.get('r_max', 10.0))
         if self.model_type == 'uni_o2_bond':
-            self.ligand_bond_emb = Dense(num_bond_classes, H)
+            self.ligand_bond_emb = Dense(num_bond_classes, H,
+                                         dtype=self.compute_dtype)
             self.refine_net = UniTransformerBond(
                 include_h_node=cfg.get('h_node_in_bond_net', False),
                 n_etypes=6 if self.add_prior_node else 4,
                 triplet_bf16=cfg.get('pallas_bf16', False),
-                gather_bf16=cfg.get('pallas_gather_bf16', False), **net)
+                gather_bf16=cfg.get('pallas_gather_bf16', False),
+                dtype=self.compute_dtype, **net)
         else:
             self.refine_net = UniTransformerO2(
                 ew_net_type=cfg.get('ew_net_type', 'global'),
@@ -202,9 +224,11 @@ class DecompDenoiser(nn.Module):
             mask_ligand = torch.cat([false_p, batch.ligand_mask], dim=1)
             movable = torch.cat([false_p, batch.update_mask()], dim=1)
 
+        if self.compute_dtype is not None:
+            h_all = h_all.to(self.compute_dtype)
         if self.model_type == 'uni_o2_bond':
-            bond_onehot = F.one_hot(bond_type.long(),
-                                    self.num_bond_classes).float()
+            bond_onehot = F.one_hot(bond_type.long(), self.num_bond_classes
+                                    ).to(self.compute_dtype or torch.float32)
             outputs = self.refine_net(
                 h_all, pos_all.contiguous(), self.ligand_bond_emb(bond_onehot),
                 mask_all, mask_ligand, movable, batch.bond_mask,
@@ -213,14 +237,14 @@ class DecompDenoiser(nn.Module):
             outputs = self.refine_net(h_all, pos_all.contiguous(), mask_all,
                                       mask_ligand, movable, num_protein=Np)
 
-        final_h_lig = outputs['h'][:, Np:Np + Nl]
-        final_pos_lig = outputs['x'][:, Np:Np + Nl]
+        final_h_lig = outputs['h'][:, Np:Np + Nl].float()
+        final_pos_lig = outputs['x'][:, Np:Np + Nl].float()
         pred_v = self.v_inf_1(shifted_softplus(self.v_inf_0(final_h_lig)))
         preds = {'pred_ligand_pos': final_pos_lig, 'pred_ligand_v': pred_v}
 
         if self.bond_diffusion:
             if self.bond_net_type == 'lin':
-                bond_in = outputs['h_bond']
+                bond_in = outputs['h_bond'].float()
             else:
                 # pair features over the dense bond graph (ref :325-333)
                 diff = (final_pos_lig[:, :, None, :]

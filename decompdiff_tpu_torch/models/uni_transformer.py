@@ -19,6 +19,16 @@ its plain PyTorch version. Only 4 edge types exist here (the JAX package
 passes no group ids to this net), and unlike the JAX kernel path the context
 is not padded to a multiple of 64.
 
+Under the config key `compute_dtype` the JAX package passes this net no
+dtype (models/denoiser.py:195-215): only h enters in bf16. Its MLPs then
+promote h with their float32 parameters and compute in float32, while a
+raw parameter product runs at h's dtype (uni_transformer.py:64-71,116-117,
+162,210-211), and the two paths cast as JAX's do: the plain path's
+attention output stays float32, so h is float32 after the first x2h
+residual; the kernel path casts each kernel's output back to h's dtype
+(uni_transformer.py:159,247), so without x2h_out_fc (the released
+setting) h stays bf16 through every layer there.
+
 Parameter names and layouts are the flax ones, so a state_dict key is the
 flax parameter path joined with '.'.
 """
@@ -32,8 +42,9 @@ from torch import nn
 
 from decompdiff_tpu_torch.models.common import MLP, fixed_rbf, safe_norm
 from decompdiff_tpu_torch.models.uni_transformer_bond import (
-    EdgeGraph, _branch, _param, _register_branch)
+    EdgeGraph, _branch, _param, _register_branch, plain_dtype)
 from decompdiff_tpu_torch.ops import edge_attention as edge_ops
+from decompdiff_tpu_torch.ops.common import feat_product
 from decompdiff_tpu_torch.ops.knn import hybrid_neighbors, knn_neighbors
 
 EW_NET_TYPES = ('r', 'm', 'global', 'none')
@@ -42,17 +53,40 @@ N_ETYPES = 4
 
 
 def _ew_r(module: nn.Module, prefix: str, x: torch.Tensor,
-          graph: EdgeGraph) -> torch.Tensor:
+          graph: EdgeGraph, compute_dtype=None) -> torch.Tensor:
     """ew_net_type 'r': sigmoid(outer(edge_type, RBF(dist)) @ w + b) per
     edge, [B, N, K], from the coordinates x; the RBF is projected by each
     type's block of w and the edge's own type selected, so the [.., 80]
-    outer product is never formed."""
+    outer product is never formed. compute_dtype: the JAX dense path's
+    rounding of that product (its edge features at h's dtype)."""
     w = getattr(module, f'{prefix}_ew_kernel')             # [4 * 20, 1]
     b = getattr(module, f'{prefix}_ew_bias')
     rel = x[:, :, None, :] - edge_ops.gather_nodes(x, graph.idx)
-    proj = fixed_rbf(safe_norm(rel, dim=-1)) @ w.reshape(N_ETYPES, R).t()
+    proj = feat_product(fixed_rbf(safe_norm(rel, dim=-1)),
+                        w.reshape(N_ETYPES, R).t(), compute_dtype)
     etype = edge_ops.edge_types(graph.lig, None, graph.idx)
     return torch.sigmoid((proj * etype).sum(-1) + b)
+
+
+def _dtype_kw(module: nn.Module, h: torch.Tensor) -> dict:
+    """The plain versions' compute_dtype for h on the plain path; nothing
+    on the kernel path, whose kernels take float32."""
+    return {} if module.use_kernels else plain_dtype(h)
+
+
+def _call(module, prefixes, h, x, graph: EdgeGraph, e_w, q, kw: dict,
+          **mode):
+    """One edge attention of an x2h or h2x module: the plain version with
+    its compute_dtype `kw`, or the kernel, whose float32 output is cast
+    back to h's dtype (JAX uni_transformer.py:159,247) and whose sources'
+    h @ Wj is formed in float32 (the JAX kernel's, from _pack_hx_o2)."""
+    f32 = module.use_kernels
+    fn = (edge_ops.edge_attention if f32
+          else edge_ops.edge_attention_reference)
+    out = fn(x, graph.lig, None, graph.idx, graph.mask, e_w, q.float(),
+             *(_branch(module, p, h, f32_src=f32) for p in prefixes),
+             n_heads=module.n_heads, **mode, **kw)
+    return out.to(h.dtype) if f32 else out
 
 
 class X2HAttention(nn.Module):
@@ -77,19 +111,16 @@ class X2HAttention(nn.Module):
         self.node_output = MLP(2 * H, H, H) if out_fc else None
 
     def forward(self, h, x, graph: EdgeGraph, e_w: Optional[torch.Tensor]):
-        gate = None
+        gate, kw = None, _dtype_kw(self, h)
         if self.ew_net_type == 'r':
-            e_w = _ew_r(self, 'hk', x, graph)
+            e_w = _ew_r(self, 'hk', x, graph, **kw)
         elif self.ew_net_type == 'm':
             gate = (self.ew_kernel.reshape(-1), self.ew_bias)
             e_w = torch.ones_like(graph.mask)
         elif e_w is None:
             e_w = torch.ones_like(graph.mask)
-        fn = (edge_ops.edge_attention if self.use_kernels
-              else edge_ops.edge_attention_reference)
-        out = fn(x, graph.lig, None, graph.idx, graph.mask, e_w, self.hq(h),
-                 _branch(self, 'hk', h), _branch(self, 'hv', h),
-                 n_heads=self.n_heads, pos_mode=False, gate=gate)
+        out = _call(self, ('hk', 'hv'), h, x, graph, e_w, self.hq(h), kw,
+                    pos_mode=False, gate=gate)
         if self.node_output is not None:
             out = self.node_output(torch.cat([out, h], dim=-1))
         return out + h
@@ -114,15 +145,13 @@ class H2XAttention(nn.Module):
             _param(self, 'xk_ew_bias', 1)
 
     def forward(self, h, x, graph: EdgeGraph, e_w: Optional[torch.Tensor]):
+        kw = _dtype_kw(self, h)
         if self.ew_net_type == 'r':
-            e_w = _ew_r(self, 'xk', x, graph)
+            e_w = _ew_r(self, 'xk', x, graph, **kw)
         elif self.ew_net_type != 'global' or e_w is None:
             e_w = torch.ones_like(graph.mask)
-        fn = (edge_ops.edge_attention if self.use_kernels
-              else edge_ops.edge_attention_reference)
-        return fn(x, graph.lig, None, graph.idx, graph.mask, e_w, self.xq(h),
-                  _branch(self, 'xk', h), _branch(self, 'xv', h),
-                  n_heads=self.n_heads, pos_mode=True)
+        return _call(self, ('xk', 'xv'), h, x, graph, e_w, self.xq(h), kw,
+                     pos_mode=True)
 
 
 class AttentionLayerO2(nn.Module):

@@ -19,6 +19,22 @@ second linears, and `gather_bf16` (config key `pallas_gather_bf16`) gives
 the edge attentions their sources from the JAX kernels' bf16 node table
 (`gather_table`). The plain path ignores both, as the JAX dense path does.
 
+`dtype` is the config key `compute_dtype` (None for float32, or
+torch.bfloat16), which the JAX modules take as flax's `dtype`: h and
+h_bond are carried in it, every MLP and Dense computes in it, and a raw
+parameter product runs at h's dtype (JAX `h @ w.astype(h.dtype)`);
+coordinates, edge weights after the sigmoid, the softmax and the
+attention's second linears stay float32. The two paths cast where JAX's
+two paths cast, and so differ from each other by about the option's own
+effect: the kernel path hands every kernel float32 inputs and casts the
+output back (decompdiff_tpu/models/uni_transformer_bond.py:232-248,
+307-313,423-445), and the
+products that a JAX kernel forms inside from its float32 inputs (the edge
+sources' h @ Wj, both of the bond's h @ Wi and h @ Wj) are formed in
+float32 here too; the plain path rounds where the JAX dense path rounds,
+the per-pair feature product included (the plain versions'
+`compute_dtype`). Under float32 every cast is the identity.
+
 Parameter names and layouts are the flax ones, so a state_dict key is the
 flax parameter path joined with '.'.
 """
@@ -31,7 +47,7 @@ import torch
 from torch import nn
 
 from decompdiff_tpu_torch.models.common import (
-    ANGULAR_DIM, MLP, Dense, fixed_rbf, safe_norm)
+    ANGULAR_DIM, MLP, Dense, fixed_rbf, safe_norm, sigmoid)
 from decompdiff_tpu_torch.ops import bond_attention as bond_ops
 from decompdiff_tpu_torch.ops import edge_attention as edge_ops
 from decompdiff_tpu_torch.ops import triplet_attention as triplet_ops
@@ -66,13 +82,29 @@ def _register_branch(module, prefix, feat_dim, hidden, out_dim):
     _param(module, f'{prefix}_j_kernel', hidden, hidden)
 
 
-def _branch(module, prefix, h, h_src=None) -> Branch:
+def plain_dtype(h: torch.Tensor) -> dict:
+    """The plain versions' keyword for features h: their compute_dtype
+    when h is not float32, else nothing (the float32 call is unchanged)."""
+    return {} if h.dtype == torch.float32 else dict(compute_dtype=h.dtype)
+
+
+def _project(h: torch.Tensor, w: torch.Tensor, f32: bool) -> torch.Tensor:
+    """h @ w as float32: at h's dtype (JAX `h @ w.astype(h.dtype)`), or
+    with `f32` in float32 from h's values, as a JAX kernel forms it from
+    its float32 inputs."""
+    return h.float() @ w if f32 else (h @ w.to(h.dtype)).float()
+
+
+def _branch(module, prefix, h, h_src=None, f32_row=False,
+            f32_src=False) -> Branch:
     """The Branch of a registered k/v branch, with the per-node projections
     of h [B, n, H] (the first linear's bias folded into t_row); t_src
-    projects h_src when given, else h."""
+    projects h_src when given, else h. f32_row / f32_src: form that
+    projection in float32 (_project)."""
     p = lambda s: getattr(module, f'{prefix}_{s}')  # noqa: E731
-    return Branch(t_row=h @ p('i_kernel') + p('e_bias'),
-                  t_src=(h if h_src is None else h_src) @ p('j_kernel'),
+    src = h if h_src is None else h_src
+    return Branch(t_row=_project(h, p('i_kernel'), f32_row) + p('e_bias'),
+                  t_src=_project(src, p('j_kernel'), f32_src),
                   w_feat=p('e_kernel'), wo=p('out_kernel'), bo=p('out_bias'),
                   ln_scale=p('ln_scale'), ln_bias=p('ln_bias'))
 
@@ -95,16 +127,21 @@ def gather_table(h, x):
 def _edge_call(module, prefixes, h, x, graph: EdgeGraph, e_w, q,
                pos_mode: bool):
     """One edge attention of a module with `use_kernels` and `gather_bf16`
-    flags, whose two branches are registered under `prefixes`."""
+    flags, whose two branches are registered under `prefixes`. The output
+    is float32; the sources' h @ Wj is formed in float32 on the kernel
+    path (the JAX kernel's, from its float32 node table _pack_hx)."""
     h_src, kw = None, {}
     if not module.use_kernels:
         fn = edge_ops.edge_attention_reference
+        kw = plain_dtype(h)
     else:
         fn = edge_ops.edge_attention
         if module.gather_bf16:
             h_src, kw['x_src'] = gather_table(h, x)
-    return fn(x, graph.lig, graph.group, graph.idx, graph.mask, e_w, q,
-              *(_branch(module, p, h, h_src) for p in prefixes),
+    return fn(x, graph.lig, graph.group, graph.idx, graph.mask, e_w,
+              q.float(), *(_branch(module, p, h, h_src,
+                                   f32_src=module.use_kernels)
+                           for p in prefixes),
               n_heads=module.n_heads, pos_mode=pos_mode, **kw)
 
 
@@ -113,19 +150,19 @@ class NodeEdgeAttention(nn.Module):
     (ref NodeUpdateLayer, uni_transformer_edge.py:16-74)."""
 
     def __init__(self, hidden_dim, n_heads, n_etypes=4, out_fc=True,
-                 use_kernels=False, gather_bf16=False):
+                 use_kernels=False, gather_bf16=False, dtype=None):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
         self.gather_bf16 = gather_bf16
         for prefix in ('hk', 'hv'):
             _register_branch(self, prefix, n_etypes * 21, H, H)
-        self.hq = MLP(H, H, H)
-        self.node_output = MLP(2 * H, H, H) if out_fc else None
+        self.hq = MLP(H, H, H, dtype=dtype)
+        self.node_output = MLP(2 * H, H, H, dtype=dtype) if out_fc else None
 
     def forward(self, h, x, graph: EdgeGraph, e_w):
         out = _edge_call(self, ('hk', 'hv'), h, x, graph, e_w, self.hq(h),
-                         pos_mode=False)
+                         pos_mode=False).to(h.dtype)
         if self.node_output is not None:
             out = self.node_output(torch.cat([out, h], dim=-1))
         return out
@@ -136,18 +173,34 @@ class PosEdgeAttention(nn.Module):
     (ref PosUpdateLayer, uni_transformer_edge.py:170-210)."""
 
     def __init__(self, hidden_dim, n_heads, n_etypes=4, use_kernels=False,
-                 gather_bf16=False):
+                 gather_bf16=False, dtype=None):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
         self.gather_bf16 = gather_bf16
         _register_branch(self, 'xk', n_etypes * 21, H, H)
         _register_branch(self, 'xv', n_etypes * 21, H, n_heads)
-        self.xq = MLP(H, H, H)
+        self.xq = MLP(H, H, H, dtype=dtype)
 
     def forward(self, h, x, graph: EdgeGraph, e_w):
         return _edge_call(self, ('xk', 'xv'), h, x, graph, e_w, self.xq(h),
                           pos_mode=True)
+
+
+def _bond_call(module, prefixes, h_lig, x_lig, h_bond, bond_mask, q,
+               pos_mode: bool):
+    """One bond attention of a module with a `use_kernels` flag, whose two
+    branches are registered under `prefixes`. The output is float32; on
+    the kernel path both per-node projections are formed in float32 (the
+    JAX kernel's, from its float32 h_lig)."""
+    f32 = module.use_kernels
+    kw = {} if f32 else plain_dtype(h_lig)
+    fn = (bond_ops.bond_attention if f32
+          else bond_ops.bond_attention_reference)
+    return fn(h_bond.float(), x_lig, bond_mask, q.float(),
+              *(_branch(module, p, h_lig, f32_row=f32, f32_src=f32)
+                for p in prefixes),
+              n_heads=module.n_heads, pos_mode=pos_mode, **kw)
 
 
 class NodeBondAttention(nn.Module):
@@ -157,23 +210,20 @@ class NodeBondAttention(nn.Module):
     context BEFORE node_output, as the reference runs this layer on the
     whole context, and the result is [B, N, H]."""
 
-    def __init__(self, hidden_dim, n_heads, out_fc=True, use_kernels=False):
+    def __init__(self, hidden_dim, n_heads, out_fc=True, use_kernels=False,
+                 dtype=None):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
         for prefix in ('hk', 'hv'):
             _register_branch(self, prefix, H, H, H)
-        self.hq = MLP(H, H, H)
-        self.node_output = MLP(2 * H, H, H) if out_fc else None
+        self.hq = MLP(H, H, H, dtype=dtype)
+        self.node_output = MLP(2 * H, H, H, dtype=dtype) if out_fc else None
 
     def forward(self, h_lig, h_bond, bond_mask, h_full=None,
                 num_protein: int = 0):
-        fn = (bond_ops.bond_attention if self.use_kernels
-              else bond_ops.bond_attention_reference)
-        out = fn(h_bond, None, bond_mask, self.hq(h_lig),
-                 _branch(self, 'hk', h_lig),
-                 _branch(self, 'hv', h_lig),
-                 n_heads=self.n_heads, pos_mode=False)
+        out = _bond_call(self, ('hk', 'hv'), h_lig, None, h_bond, bond_mask,
+                         self.hq(h_lig), pos_mode=False).to(h_lig.dtype)
         if h_full is not None:
             Nl = h_lig.shape[1]
             out = torch.cat([torch.zeros_like(h_full[:, :num_protein]), out,
@@ -190,21 +240,17 @@ class PosBondAttention(nn.Module):
     (ref uni_transformer_edge.py:253-257,280-285). Takes the ligand
     coordinates; rel[i, j] = x_i - x_j is formed by the kernel."""
 
-    def __init__(self, hidden_dim, n_heads, use_kernels=False):
+    def __init__(self, hidden_dim, n_heads, use_kernels=False, dtype=None):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
         _register_branch(self, 'xk', H, H, H)
         _register_branch(self, 'xv', H, H, n_heads)
-        self.xq = MLP(H, H, H)
+        self.xq = MLP(H, H, H, dtype=dtype)
 
     def forward(self, h_lig, x_lig, h_bond, bond_mask):
-        fn = (bond_ops.bond_attention if self.use_kernels
-              else bond_ops.bond_attention_reference)
-        return fn(h_bond, x_lig, bond_mask, self.xq(h_lig),
-                  _branch(self, 'xk', h_lig),
-                  _branch(self, 'xv', h_lig),
-                  n_heads=self.n_heads, pos_mode=True)
+        return _bond_call(self, ('xk', 'xv'), h_lig, x_lig, h_bond,
+                          bond_mask, self.xq(h_lig), pos_mode=True)
 
 
 def triplet_angles(x_lig: torch.Tensor) -> torch.Tensor:
@@ -227,7 +273,7 @@ class BondTripletAttention(nn.Module):
     the JAX module, only the kernel path reads it."""
 
     def __init__(self, hidden_dim, n_heads, include_h_node=True,
-                 use_kernels=False, bf16=False):
+                 use_kernels=False, bf16=False, dtype=None):
         super().__init__()
         H = hidden_dim
         self.n_heads, self.use_kernels = n_heads, use_kernels
@@ -241,23 +287,26 @@ class BondTripletAttention(nn.Module):
             _param(self, f'{prefix}_ln_bias', H)
             _param(self, f'{prefix}_out_kernel', H, H)
             _param(self, f'{prefix}_out_bias', H)
-            setattr(self, f'{prefix}_kj', Dense(kj_in, H, use_bias=False))
-            setattr(self, f'{prefix}_ij', Dense(20, H, use_bias=False))
+            setattr(self, f'{prefix}_kj', Dense(kj_in, H, use_bias=False,
+                                                dtype=dtype))
+            setattr(self, f'{prefix}_ij', Dense(20, H, use_bias=False,
+                                                dtype=dtype))
             if include_h_node:
-                setattr(self, f'{prefix}_j', Dense(H, H, use_bias=False))
-        self.hq = MLP(2 * H if include_h_node else H, H, H)
+                setattr(self, f'{prefix}_j', Dense(H, H, use_bias=False,
+                                                   dtype=dtype))
+        self.hq = MLP(2 * H if include_h_node else H, H, H, dtype=dtype)
 
     def _branch(self, prefix, h_lig, h_bond, r_feat) -> Branch:
         B, Nl, H = h_lig.shape
-        parts_kj = [h_bond, r_feat]
+        parts_kj = [h_bond, r_feat.to(h_bond.dtype)]
         if self.include_h_node:
             parts_kj.append(h_lig[:, None, :, :].expand(B, Nl, Nl, H))  # h[k]
         t_kj = getattr(self, f'{prefix}_kj')(torch.cat(parts_kj, dim=-1))
         if self.include_h_node:
             t_kj = t_kj + getattr(self, f'{prefix}_j')(h_lig)[:, :, None, :]
         p = lambda s: getattr(self, f'{prefix}_{s}')  # noqa: E731
-        return Branch(t_row=getattr(self, f'{prefix}_ij')(r_feat),
-                      t_src=t_kj + p('a_bias'), w_feat=p('a_kernel'),
+        return Branch(t_row=getattr(self, f'{prefix}_ij')(r_feat).float(),
+                      t_src=t_kj.float() + p('a_bias'), w_feat=p('a_kernel'),
                       wo=p('out_kernel'), bo=p('out_bias'),
                       ln_scale=p('ln_scale'), ln_bias=p('ln_bias'))
 
@@ -267,14 +316,16 @@ class BondTripletAttention(nn.Module):
         r_feat = fixed_rbf(d)                                   # [B, Nl, Nl, 20]
         q_in = (torch.cat([h_bond, h_lig[:, :, None, :].expand(B, Nl, Nl, H)],
                           dim=-1) if self.include_h_node else h_bond)
-        args = (triplet_angles(x_lig), bond_mask, self.hq(q_in),
+        args = (triplet_angles(x_lig), bond_mask, self.hq(q_in).float(),
                 self._branch('hk', h_lig, h_bond, r_feat),
                 self._branch('hv', h_lig, h_bond, r_feat))
         if self.use_kernels:
-            return triplet_ops.triplet_attention(*args, n_heads=self.n_heads,
-                                                 bf16=self.bf16)
-        return triplet_ops.triplet_attention_reference(*args,
-                                                       n_heads=self.n_heads)
+            out = triplet_ops.triplet_attention(*args, n_heads=self.n_heads,
+                                                bf16=self.bf16)
+        else:
+            out = triplet_ops.triplet_attention_reference(
+                *args, n_heads=self.n_heads, **plain_dtype(h_lig))
+        return out.to(h_lig.dtype)
 
 
 class AttentionLayerBond(nn.Module):
@@ -283,23 +334,24 @@ class AttentionLayerBond(nn.Module):
 
     def __init__(self, hidden_dim, n_heads, x2h_out_fc, include_h_node,
                  n_etypes=4, use_kernels=False, triplet_bf16=False,
-                 gather_bf16=False):
+                 gather_bf16=False, dtype=None):
         super().__init__()
         H = hidden_dim
         self.node_layer_with_edge = NodeEdgeAttention(
             H, n_heads, n_etypes, out_fc=x2h_out_fc, use_kernels=use_kernels,
-            gather_bf16=gather_bf16)
+            gather_bf16=gather_bf16, dtype=dtype)
         self.node_layer_with_bond = NodeBondAttention(
-            H, n_heads, out_fc=x2h_out_fc, use_kernels=use_kernels)
+            H, n_heads, out_fc=x2h_out_fc, use_kernels=use_kernels,
+            dtype=dtype)
         self.bond_layer = BondTripletAttention(
             H, n_heads, include_h_node=include_h_node,
-            use_kernels=use_kernels, bf16=triplet_bf16)
-        self.lin_node = Dense(H, H)
+            use_kernels=use_kernels, bf16=triplet_bf16, dtype=dtype)
+        self.lin_node = Dense(H, H, dtype=dtype)
         self.pos_layer_with_edge = PosEdgeAttention(
             H, n_heads, n_etypes, use_kernels=use_kernels,
-            gather_bf16=gather_bf16)
+            gather_bf16=gather_bf16, dtype=dtype)
         self.pos_layer_with_bond = PosBondAttention(
-            H, n_heads, use_kernels=use_kernels)
+            H, n_heads, use_kernels=use_kernels, dtype=dtype)
 
     def forward(self, h, x, graph: EdgeGraph, h_bond, bond_mask, movable,
                 num_protein: int, e_w):
@@ -329,7 +381,7 @@ class UniTransformerBond(nn.Module):
     def __init__(self, num_blocks, num_layers, hidden_dim, n_heads, k,
                  x2h_out_fc=True, include_h_node=False, use_kernels=False,
                  cutoff_mode='knn', r_max=10.0, n_etypes=4,
-                 triplet_bf16=False, gather_bf16=False):
+                 triplet_bf16=False, gather_bf16=False, dtype=None):
         super().__init__()
         if cutoff_mode not in ('knn', 'radius', 'hybrid'):
             raise NotImplementedError(f'cutoff_mode {cutoff_mode!r}')
@@ -338,11 +390,11 @@ class UniTransformerBond(nn.Module):
         self.num_blocks, self.k = num_blocks, k
         self.cutoff_mode, self.r_max = cutoff_mode, r_max
         self.n_etypes = n_etypes
-        self.edge_pred = MLP(20, 1, hidden_dim)
+        self.edge_pred = MLP(20, 1, hidden_dim, dtype=dtype)
         for i in range(num_layers):
             setattr(self, f'layer_{i}', AttentionLayerBond(
                 hidden_dim, n_heads, x2h_out_fc, include_h_node, n_etypes,
-                use_kernels, triplet_bf16, gather_bf16))
+                use_kernels, triplet_bf16, gather_bf16, dtype))
         self.num_layers = num_layers
 
     def forward(self, h, x, h_bond, mask_all, mask_ligand, movable,
@@ -373,10 +425,12 @@ class UniTransformerBond(nn.Module):
             graph = EdgeGraph(nbr_idx.int().contiguous(), nbr_mask.float(),
                               lig, group)
             # the global edge weight is always on (ref encoders/__init__.py
-            # never forwards use_global_ew); distances come from top-k
+            # never forwards use_global_ew); distances come from top-k; the
+            # sigmoid runs at the compute dtype, the attentions read it in
+            # float32 (both JAX paths promote it there)
             dist = torch.sqrt(torch.clamp(nbr_d2, 1e-12, 1e12))
-            e_w = torch.sigmoid(
-                self.edge_pred(fixed_rbf(dist)))[..., 0].contiguous()
+            e_w = sigmoid(
+                self.edge_pred(fixed_rbf(dist)))[..., 0].float().contiguous()
             for i in range(self.num_layers):
                 h, h_bond, x = getattr(self, f'layer_{i}')(
                     h, x, graph, h_bond, bond_maskf, movable, num_protein,

@@ -50,16 +50,19 @@ from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, kernel_query, launch, on_cpu, ptr)
+    check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
 
 
 def bond_attention_reference(h_bond, x, mask, q, k: Branch, v: Branch, *,
-                             n_heads: int, pos_mode: bool) -> torch.Tensor:
+                             n_heads: int, pos_mode: bool,
+                             compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
-    path (models/uni_transformer_bond.py NodeBondAttention/PosBondAttention)."""
+    path (models/uni_transformer_bond.py NodeBondAttention/PosBondAttention).
+    compute_dtype: the JAX dense path's rounding of h_bond @ We under the
+    config key (ops/common.py feat_product); the kernel has none."""
     def branch(p: Branch):
-        pre = (h_bond @ p.w_feat + p.t_row[:, :, None, :]
-               + p.t_src[:, None, :, :])
+        pre = (feat_product(h_bond, p.w_feat, compute_dtype)
+               + p.t_row[:, :, None, :] + p.t_src[:, None, :, :])
         return branch_mlp(pre, p)
 
     rel = x[:, :, None, :] - x[:, None, :, :] if pos_mode else None

@@ -37,6 +37,20 @@ class Branch(NamedTuple):
     ln_bias: torch.Tensor   # [H]
 
 
+def feat_product(feat: torch.Tensor, w: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """feat @ w, the per-pair feature projection of a plain version. With a
+    compute dtype (only the model's plain path passes one, under the config
+    key `compute_dtype`) both factors and the product are rounded to it, as
+    the JAX dense path forms `feat.astype(dtype) @ w.astype(dtype)`
+    (models/uni_transformer_bond.py:80-86,104-107,140-141,447-453), and the
+    product returns as float32, where the rest of the branch runs. Without
+    one it is the kernels' float32 contract."""
+    if compute_dtype is None:
+        return feat @ w
+    return (feat.to(compute_dtype) @ w.to(compute_dtype)).float()
+
+
 def branch_mlp(pre: torch.Tensor, p: Branch) -> torch.Tensor:
     """LayerNorm -> relu -> second linear of one branch (plain version)."""
     y = torch.relu(layer_norm(pre, p.ln_scale, p.ln_bias))

@@ -75,7 +75,7 @@ from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, kernel_query, launch, on_cpu, ptr)
+    check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -113,12 +113,15 @@ def _node_mode_gate(gate: Optional[Gate], pos_mode: bool) -> None:
 def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
                              k: Branch, v: Branch, *, n_heads: int,
                              pos_mode: bool, gate: Optional[Gate] = None,
-                             x_src: Optional[torch.Tensor] = None
+                             x_src: Optional[torch.Tensor] = None,
+                             compute_dtype: Optional[torch.dtype] = None
                              ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
     path (models/uni_transformer_bond.py NodeEdgeAttention/PosEdgeAttention,
     models/uni_transformer.py X2HAttention for the gate); with x_src, the
-    order of the JAX kernel's gather_bf16 path (edge_kernel.py:172-175)."""
+    order of the JAX kernel's gather_bf16 path (edge_kernel.py:172-175).
+    compute_dtype: the JAX dense path's rounding of edge_feat @ We under
+    the config key (ops/common.py feat_product); the kernel has none."""
     _node_mode_gate(gate, pos_mode)
     xs = x if x_src is None else x_src
     rel = x[:, :, None, :] - gather_nodes(xs, idx)           # x_dst - x_src
@@ -128,8 +131,8 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
                            edge_type], dim=-1)
 
     def branch(p: Branch):
-        pre = (edge_feat @ p.w_feat + p.t_row[:, :, None, :]
-               + gather_nodes(p.t_src, idx))
+        pre = (feat_product(edge_feat, p.w_feat, compute_dtype)
+               + p.t_row[:, :, None, :] + gather_nodes(p.t_src, idx))
         return branch_mlp(pre, p)
 
     kk = branch(k)

@@ -59,7 +59,7 @@ from decompdiff_tpu_torch.ops import _build
 from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
-    check_inputs, kernel_query, launch, on_cpu, ptr)
+    check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -72,17 +72,20 @@ def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def triplet_attention_reference(angle, mask, q, k: Branch, v: Branch, *,
-                                n_heads: int,
-                                bf16: bool = False) -> torch.Tensor:
+                                n_heads: int, bf16: bool = False,
+                                compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
     path (models/uni_transformer_bond.py BondTripletAttention). bf16: the
     second linears multiply y and Wo rounded to bf16 in float32, where
-    bf16 x bf16 products are exact (triplet_kernel.py:121-126)."""
+    bf16 x bf16 products are exact (triplet_kernel.py:121-126).
+    compute_dtype: the JAX dense path's rounding of the angular code @ Wa
+    under the config key (ops/common.py feat_product); the kernel has
+    none."""
     a_feat = angular_encoding(angle)                          # [B,i,j,k,13]
 
     def branch(p: Branch):
-        pre = (a_feat @ p.w_feat + p.t_src[:, None, :, :, :]
-               + p.t_row[:, :, :, None, :])
+        pre = (feat_product(a_feat, p.w_feat, compute_dtype)
+               + p.t_src[:, None, :, :, :] + p.t_row[:, :, :, None, :])
         if not bf16:
             return branch_mlp(pre, p)
         y = torch.relu(layer_norm(pre, p.ln_scale, p.ln_bias))

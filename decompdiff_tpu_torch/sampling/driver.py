@@ -51,7 +51,7 @@ from decompdiff_tpu_torch.data.dataset import DecompDataset
 from decompdiff_tpu_torch.data.mol import MolRecord, mol_to_sdf_block
 from decompdiff_tpu_torch.data.protein import PDBProtein
 from decompdiff_tpu_torch.data.store import DDStore
-from decompdiff_tpu_torch.device import resolve_device
+from decompdiff_tpu_torch.device import resolve_device, set_matmul_precision
 from decompdiff_tpu_torch.evaluation.smiles import mol_to_smiles
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
 from decompdiff_tpu_torch.priors.atom_num import (
@@ -201,6 +201,7 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
 
     energy_drift = tuple(dict(d) for d in scfg.get('energy_drift', []))
 
+    set_matmul_precision()
     overrides = {}
     if args.use_pallas:
         overrides['use_pallas'] = True

@@ -53,7 +53,7 @@ from decompdiff_tpu_torch.config import Config, load_config
 from decompdiff_tpu_torch.constants import atom_class_count
 from decompdiff_tpu_torch.data.dataset import DecompDataset
 from decompdiff_tpu_torch.data.store import DDStore
-from decompdiff_tpu_torch.device import resolve_device
+from decompdiff_tpu_torch.device import resolve_device, set_matmul_precision
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
 from decompdiff_tpu_torch.training.loader import BucketedLoader
 from decompdiff_tpu_torch.training.metrics import get_auroc, get_bond_auroc
@@ -182,6 +182,7 @@ def run(args: argparse.Namespace, config: Config) -> dict:
     snapshots and waits for their writes) and 'max_memory_allocated'
     (bytes, on CUDA)."""
     device = resolve_device(args.device)
+    set_matmul_precision()
     seed = int(config.train.seed)
     seed_all(seed)
     log_dir = get_new_log_dir(args.outdir, prefix='train', tag=args.tag)
