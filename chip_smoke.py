@@ -41,6 +41,28 @@
    forward against its plain version and each backward against plain
    autograd, printed, the triplet backward at Nl=64 (head route, d t_src
    in device memory) timed as the record triplet_attention_backward_nl64.
+2e. Data parallel (run after 2b, dp_phase): first two ranks' rows of a
+   guided sampling step's stages (protein centroid, guidance gradients,
+   one denoiser call) against the whole batch at the released config,
+   B=8, Np=320, Nl=16 and 32, within rtol = atol = 1e-5 (where rows part
+   in their last bit, 20 sampling steps of the halves against the whole
+   batch printed); one training step's gradients twice on the same inputs,
+   kernels and plain versions (printed: what makes runs differ). Then the
+   training driver for DP_ITERS iterations of TRAIN_CONFIG on the
+   TRAIN_POCKETS store in this process, twice (the noise floor), then
+   scripts/train_torch.py under torchrun on one rank (NCCL), twice, and
+   on two ranks sharing the card (gloo, 2 of the 4 complexes each):
+   per-iteration losses and grad norms (rtol 5e-3) and the last
+   checkpoint's parameters (rtol 5e-3 / atol 2e-3) against the in-process
+   run, every checkpoint read back, each rank's launches those of the
+   in-process run with nothing per row; then scripts/sample_torch.py under
+   torchrun on the entry phase's pockets at both world sizes: each rank
+   40 calls x 12/12/6 on its B/W rows, the two runs' result pickles equal
+   (positions rtol 1e-4 / atol 1e-5, types and bonds exactly). Prints
+   s/step, each rank's step seconds and its collectives' share of the
+   step, and s/molecule; a torchrun that fails or outlasts DP_TIMEOUT is
+   killed with its ranks and fails the phase. The JSON line carries each
+   rank's launches at two ranks (dp_train_launches, dp_sample_launches).
 2c. Reference weights and the drift: a reference-layout .pt of the released
    uni_o2_bond model (the state dict of tests/reference_oracle.py, saved
    with torch.save as {config, model, iteration}) converted by
@@ -258,6 +280,22 @@ TRAIN_CONFIG = {
               'scheduler': {'type': 'plateau', 'factor': 0.6,
                             'patience': 10, 'min_lr': 1.0e-6}},
 }
+# phase 2e, data parallel: the training entry point for DP_ITERS iterations
+# (validation at the last) in this process and under torchrun on
+# DP_WORLDS ranks (one rank: NCCL; two on the one card: gloo), on the
+# TRAIN_POCKETS store with TRAIN_CONFIG; the sampling entry point under
+# torchrun on the ENTRY_POCKETS store at each world size; each torchrun
+# under DP_TIMEOUT seconds. Trajectories are held at the JAX package's dp
+# tolerances (tests/test_multichip_deep.py), samples at its sampler's
+# (tests/test_sampler.py)
+DP_ITERS, DP_WORLDS, DP_TIMEOUT = 10, (1, 2), 300
+DP_RTOL, DP_PARAM_TOL = 5e-3, dict(rtol=5e-3, atol=2e-3)
+DP_POS_TOL = dict(rtol=1e-4, atol=1e-5)
+# a rank's rows of each stage of a guided sampling step against the whole
+# batch's, at the released config, B=8, Np=320 and each of DP_ROW_NLS
+DP_ROW_TOL, DP_ROW_NLS = dict(rtol=1e-5, atol=1e-5), (16, 32)
+# the torchrun training runs: (W, name); W=1 twice reads the noise floor
+DP_TRAIN_RUNS = ((1, 'w1'), (1, 'w1_again'), (2, 'w2'))
 # the keys of a checkpoint (decompdiff_tpu/utils/checkpoint.py)
 CKPT_KEYS = {'config', 'params', 'opt_state', 'step', 'lt_history',
              'lt_count', 'scheduler', 'iteration', 'extra'}
@@ -973,7 +1011,7 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
     del steps, g_on, g_off, g_w
 
     expect = {n: per_step.get(n.replace('_backward', ''), 0) * TRAIN_STEPS
-              for n in get_launches(ops)}
+              for n in get_launches()}
     launches = {}
     for key, m in models.items():
         state = create_train_state(m, tcfg)
@@ -984,7 +1022,7 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
             torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # outside plain_ctx: it swaps the wrappers that hold the counters
-        zero_launches(ops)
+        zero_launches()
         t0 = time.perf_counter()
         with plain_ctx(key):
             for _ in range(TRAIN_STEPS):
@@ -992,7 +1030,7 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
             torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated() / 2**20
-        counts = get_launches(ops)
+        counts = get_launches()
         print(f'{label} train path {key}: {TRAIN_STEPS} steps at '
               f'B={batch.batch_size} '
               f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
@@ -1040,14 +1078,14 @@ def sample_counted(torch, model, batch, full_protein, per_call, label,
     # warm-up (library initialization), not counted
     sample_diffusion(model, dataclasses.replace(cfg, num_steps=1), batch,
                      init_pos, init_v, init_b, full_protein, generator=g)
-    zero_launches(ops)
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = sample_diffusion(model, cfg, batch, init_pos, init_v, init_b,
                            full_protein, generator=g)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = get_launches(ops)
+    launches = get_launches()
 
     expect = {n: per_call.get(n, 0) * steps for n in launches}
     nb = batch.batch_size
@@ -1227,7 +1265,7 @@ def bf16_train_run(torch, batch, cfg, per_step, label):
     step(state, batch, g)                           # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(ops)
+    zero_launches()
     losses = []
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -1235,7 +1273,7 @@ def bf16_train_run(torch, batch, cfg, per_step, label):
     torch.cuda.synchronize()
     elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated() / 2**20
-    launches = get_launches(ops)
+    launches = get_launches()
     expect = {n: per_step.get(n.replace('_backward', ''), 0) * TRAIN_STEPS
               for n in launches}
     losses = [float(v) for v in losses]
@@ -1272,7 +1310,6 @@ def compute_bf16_phase(torch, batch, per_call):
     (sampling launches, training launches) of the bf16 runs."""
     import shutil
 
-    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     from decompdiff_tpu_torch.utils.testing import (
         DEFAULT_MODEL_CONFIG, uni_o2_model_config)
     ops = model_ops()
@@ -1337,9 +1374,7 @@ def compute_bf16_phase(torch, batch, per_call):
     runs = {dtype: [] for dtype in order}
     try:
         store = work / 'synthetic.ddstore'
-        write_synthetic_store(str(store), [
-            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
-            for n_p, n_l, arms in ENTRY_POCKETS])
+        write_pockets(store, ENTRY_POCKETS)
         for i, dtype in enumerate(order):
             sub = work / f'{i}_{dtype}'
             sub.mkdir()
@@ -1447,6 +1482,29 @@ def width_option_phase(torch, models, batch, full_protein, per_call):
     return total
 
 
+def write_pockets(path, pockets):
+    """A synthetic store (data/synthetic.py) of pockets given as (protein
+    atoms, ligand atoms, arms)."""
+    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
+    write_synthetic_store(str(path), [
+        dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
+        for n_p, n_l, arms in pockets])
+
+
+def write_seeded_ckpt(path, cfg):
+    """A JAX-layout .ckpt of the model of `cfg` with seed 0's parameters
+    (config and params, no optimizer state), as the sampler reads one."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.utils.params import state_dict_to_flax
+    seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
+    with open(path, 'wb') as f:
+        pickle.dump({'config': {'data': {'transform': {
+                         'ligand_atom_mode': 'basic'}}, 'model': cfg},
+                     'params': state_dict_to_flax(
+                         seeded.denoiser.state_dict()),
+                     'step': 0, 'iteration': 0}, f, protocol=4)
+
+
 def sample_store(per_call, work, store, n_pockets, label, catch=None,
                  model_cfg=None):
     """The sampling driver as a user runs it on store's first n_pockets
@@ -1462,19 +1520,11 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None,
     import numpy as np
 
     from decompdiff_tpu_torch.config import Config
-    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
     from decompdiff_tpu_torch.sampling import driver
-    from decompdiff_tpu_torch.utils.params import state_dict_to_flax
     from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
     cfg = dict(model_cfg or DEFAULT_MODEL_CONFIG)
-    seeded = DecompDiffModel.create(cfg, 8, device='cpu', seed=0)
     ckpt = work / 'uni_o2_bond.ckpt'
-    with open(ckpt, 'wb') as f:
-        pickle.dump({'config': {'data': {'transform': {
-                         'ligand_atom_mode': 'basic'}}, 'model': cfg},
-                     'params': state_dict_to_flax(
-                         seeded.denoiser.state_dict()),
-                     'step': 0, 'iteration': 0}, f, protocol=4)
+    write_seeded_ckpt(ckpt, cfg)
     ids = [str(i) for i in range(n_pockets)]
     args = driver.build_parser().parse_args(
         ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
@@ -1495,11 +1545,11 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None,
             return catch['model'], ckpt
         driver.collate, driver.load_model_from_checkpoint = collating, loading
     try:
-        zero_launches(ops)
+        zero_launches()
         t0 = time.perf_counter()
         summaries = driver.run(args, config)
         elapsed = time.perf_counter() - t0
-        launches = get_launches(ops)
+        launches = get_launches()
     finally:
         driver.collate, driver.load_model_from_checkpoint = collate, load
 
@@ -1580,15 +1630,12 @@ def entry_phase(torch, per_call):
     (evaluation_phase). Returns the sampling run's launches."""
     import shutil
 
-    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     work = REPO / 'build' / 'entry_phase'
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
         store = work / 'synthetic.ddstore'
-        write_synthetic_store(str(store), [
-            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
-            for n_p, n_l, arms in ENTRY_POCKETS])
+        write_pockets(store, ENTRY_POCKETS)
         launches, summaries = sample_store(
             per_call, work, store, len(ENTRY_POCKETS), 'entry point')
         evaluation_phase(model_ops(), work, store, summaries)
@@ -1608,7 +1655,7 @@ def evaluate_counted(ops, outdir, label):
     import runpy
     argv = sys.argv
     sys.argv = ['evaluate_torch.py', str(outdir), '--docking_mode', 'none']
-    before = get_launches(ops)
+    before = get_launches()
     t0 = time.perf_counter()
     try:
         runpy.run_path(str(REPO / 'scripts' / 'evaluate_torch.py'),
@@ -1616,7 +1663,7 @@ def evaluate_counted(ops, outdir, label):
     finally:
         sys.argv = argv
     elapsed = time.perf_counter() - t0
-    after = get_launches(ops)
+    after = get_launches()
     check(after == before, f'{label}: the evaluation launched kernels '
           f'{nonzero({n: after[n] - before[n] for n in after})}')
     with open(outdir / 'eval_summary.pkl', 'rb') as f:
@@ -1751,7 +1798,6 @@ def reference_phase(torch, per_call):
     import reference_oracle as oracle
 
     from decompdiff_tpu_torch.config import Config
-    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     from decompdiff_tpu_torch.guidance.ffmin import make_ff_callback
     from decompdiff_tpu_torch.sampling import driver
     from decompdiff_tpu_torch.utils.checkpoint import (
@@ -1790,13 +1836,13 @@ def reference_phase(torch, per_call):
         n_p, n_l, _ = REF_COMPLEX
         batch = padded_complex_batch(graphs, n_p, n_l, 4, device='cuda')
         ops = model_ops()
-        zero_launches(ops)
+        zero_launches()
         with torch.no_grad():
             preds = model.apply(batch, batch.ligand_pos, batch.ligand_v,
                                 batch.bond_type,
                                 torch.tensor([3], device='cuda'))
         torch.cuda.synchronize()
-        launches = get_launches(ops)
+        launches = get_launches()
         check(launches == {n: per_call.get(n, 0) for n in launches},
               f'oracle call launches {nonzero(launches)}')
         want = oracle.decomp_forward(
@@ -1822,9 +1868,7 @@ def reference_phase(torch, per_call):
         del model, preds
 
         store = work / 'synthetic.ddstore'
-        write_synthetic_store(str(store), [
-            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
-            for n_p, n_l, arms in ENTRY_POCKETS])
+        write_pockets(store, ENTRY_POCKETS)
         ids = [str(i) for i in range(len(ENTRY_POCKETS))]
         args = driver.build_parser().parse_args(
             ['configs/sampling.yml', '--ckpt', str(ckpt), '-i', *ids,
@@ -1834,11 +1878,11 @@ def reference_phase(torch, per_call):
             [REF_DRIFT] + ENTRY_SAMPLE_CFG['energy_drift']))
         config = Config({'data': {'path': str(store)},
                          'sample': sample_cfg})
-        zero_launches(ops)
+        zero_launches()
         t0 = time.perf_counter()
         summaries = driver.run(args, config)
         elapsed = time.perf_counter() - t0
-        launches = get_launches(ops)
+        launches = get_launches()
 
         batches = sum(len(s['shapes']) for s in summaries)
         calls = batches * STEPS
@@ -2025,7 +2069,7 @@ def prep_phase(torch, per_call):
         del caught
 
         ops = model_ops()
-        before = get_launches(ops)
+        before = get_launches()
         t0 = time.perf_counter()
         sampled, sampled_s = evaluate_counted(ops, work / 'out',
                                               'prepared store')
@@ -2067,7 +2111,7 @@ def prep_phase(torch, per_call):
             else:
                 os.environ['DD_QED_ALERTS_SMARTS'] = previous
         score_s = time.perf_counter() - t0
-        after = get_launches(ops)
+        after = get_launches()
         check(after == before, 'the scoring launched kernels '
               f'{nonzero({n: after[n] - before[n] for n in after})}')
         check(counts == [PREP_ALERT_COUNT] * len(rows),
@@ -2153,7 +2197,6 @@ def train_entry_phase(torch, per_call):
     import numpy as np
 
     from decompdiff_tpu_torch.config import Config
-    from decompdiff_tpu_torch.data.synthetic import write_synthetic_store
     from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
     from decompdiff_tpu_torch.training import driver
     from decompdiff_tpu_torch.utils.checkpoint import (
@@ -2176,9 +2219,7 @@ def train_entry_phase(torch, per_call):
     n_checked = 0
     try:
         store = work / 'synthetic.ddstore'
-        write_synthetic_store(str(store), [
-            dict(n_protein=n_p, n_ligand=n_l, num_arms=arms)
-            for n_p, n_l, arms in TRAIN_POCKETS])
+        write_pockets(store, TRAIN_POCKETS)
         config = Config(dict(TRAIN_CONFIG, data=dict(TRAIN_CONFIG['data'],
                                                      path=str(store))))
         ops = model_ops()
@@ -2191,11 +2232,11 @@ def train_entry_phase(torch, per_call):
             if runs:
                 argv += ['--resume', runs[-1]['checkpoints'][-1]]
             args = driver.build_parser().parse_args(argv)
-            zero_launches(ops)
+            zero_launches()
             t0 = time.perf_counter()
             summary = driver.run(args, config)
             elapsed = time.perf_counter() - t0
-            launches = get_launches(ops)
+            launches = get_launches()
             runs.append(summary)
             expect = expected_train_launches(summary, per_call, launches)
             shapes = {}
@@ -2295,6 +2336,390 @@ def train_entry_phase(torch, per_call):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def torchrun(world, script, argv, log):
+    """scripts/<script> under torchrun --standalone on `world` ranks, as a
+    user runs it, in its own process group: on a failure or after
+    DP_TIMEOUT seconds every process of it is killed and the phase fails.
+    Output goes to `log`. Returns the wall seconds."""
+    import os
+    import signal
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', str(world), str(REPO / 'scripts' / script),
+           *map(str, argv)]
+    t0 = time.perf_counter()
+    with open(log, 'w') as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                cwd=REPO, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:    # the ranks too, whatever torchrun left
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    tail = Path(log).read_text()[-3000:]
+    check(rc == 0, f'torchrun {script} on {world} ranks '
+          + ('timed out' if rc is None else f'exited {rc}') + f':\n{tail}')
+    return seconds
+
+
+def after_first(values):
+    """The mean of the values after the first (which holds the set-up)."""
+    return sum(values[1:]) / max(1, len(values) - 1)
+
+
+def close(np, got, want, msg, rtol, atol=0.0):
+    """Fails unless got is within rtol / atol of want elementwise; returns
+    the largest absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape, f'{msg}: shape {got.shape}, not '
+          f'{want.shape}')
+    diff = np.abs(got - want)
+    bad = int((diff > atol + rtol * np.abs(want)).sum())
+    check(bad == 0, f'{msg}: {bad} elements outside rtol {rtol} / atol '
+          f'{atol} (largest difference {diff.max():.3e})')
+    return float(diff.max()) if diff.size else 0.0
+
+
+def dp_train(torch, np, ops, work, per_call, label):
+    """Phase 2e's training half (see dp_phase); returns each rank's
+    launches at each world size."""
+    from decompdiff_tpu_torch.config import Config
+    from decompdiff_tpu_torch.parallel.mesh import choose_backend
+    from decompdiff_tpu_torch.training import driver
+    from decompdiff_tpu_torch.utils.checkpoint import (
+        load_model_from_checkpoint)
+    from decompdiff_tpu_torch.utils.params import flax_to_state_dict
+    store = work / 'train.ddstore'
+    write_pockets(store, TRAIN_POCKETS)
+    config = dict(TRAIN_CONFIG, data=dict(TRAIN_CONFIG['data'],
+                                          path=str(store)))
+    cfg_path = work / 'training.json'     # JSON: no PyYAML needed
+    cfg_path.write_text(json.dumps(config))
+    common = ['--outdir', work / 'logs', '--max_iters', DP_ITERS,
+              '--val_freq', DP_ITERS, '--report_freq', DP_ITERS]
+
+    def params_of(path):
+        with open(path, 'rb') as f:
+            raw = NumpyOnlyUnpickler(f).load()
+        check(set(raw) == CKPT_KEYS, f'{path}: keys {sorted(raw)}')
+        rebuilt, _ = load_model_from_checkpoint(path, device='cuda')
+        del rebuilt
+        return {k: v.numpy()
+                for k, v in flax_to_state_dict(raw['params']).items()}
+
+    def in_process(tag):
+        args = driver.build_parser().parse_args(
+            [str(a) for a in (cfg_path, *common, '--tag', tag)])
+        return driver.run(args, Config(config))
+
+    # the reference: the driver in this process, a world of one
+    zero_launches()
+    t0 = time.perf_counter()
+    want = in_process('inproc')
+    seconds = time.perf_counter() - t0
+    want_launches = get_launches()
+    check(want_launches == expected_train_launches(want, per_call,
+                                                   want_launches),
+          'dp train in-process: launches differ from the expected')
+    want_params = params_of(want['checkpoints'][-1])
+    print(f'dp train in-process: {DP_ITERS} iterations, {seconds:.3f} s '
+          f'in all; s/step after the first '
+          f'{after_first(want["step_seconds"]):.5f}; launches '
+          f'{nonzero(want_launches)} on {label}', flush=True)
+    # the noise floor: the same run again in this process (and W=1 twice
+    # below)
+    again = in_process('inproc_again')
+    moved = params_diff(np, params_of(again['checkpoints'][-1]), want_params)
+    print(f'dp train in-process, run again: losses and grad norms per '
+          f'iteration {rel_diff(np, again, want):.2e} relative from the '
+          f'first run at most, final parameters {moved:.2e} at most; on '
+          f'{label}', flush=True)
+    by_world, first_w1 = {}, None
+    for world, run in DP_TRAIN_RUNS:
+        # one rank: NCCL; more ranks than GPUs: gloo
+        tag = f'dp train {run}'
+        backend = choose_backend(torch.device('cuda'), world,
+                                 torch.cuda.device_count())[0]
+        path = work / f'train_{run}.json'
+        seconds = torchrun(world, 'train_torch.py', [
+            cfg_path, *common, '--tag', run, '--summary', path],
+            work / f'train_{run}.log')
+        got = json.loads(path.read_text())
+        check((got['world_size'], got['backend'], got['sharded'],
+               got['iterations']) == (world, backend, True,
+                                      list(range(1, DP_ITERS + 1))),
+              f'{tag}: world {got["world_size"]}, backend {got["backend"]}'
+              f', sharded {got["sharded"]}, iterations {got["iterations"]}')
+        for k in ('train_loss', 'grad_norm'):
+            close(np, got[k], want[k], f'{tag}: {k}', DP_RTOL)
+        check([Path(p).name for p in got['checkpoints']]
+              == [Path(p).name for p in want['checkpoints']],
+              f'{tag}: checkpoints {got["checkpoints"]}')
+        params = [params_of(p) for p in got['checkpoints']][-1]
+        check(sorted(params) == sorted(want_params),
+              f'{tag}: parameter names')
+        worst = max(close(np, params[k], v, f'{tag}: {k}', **DP_PARAM_TOL)
+                    for k, v in want_params.items())
+        by_world[world] = []
+        for r in got['ranks']:
+            launches = get_launches(r['launches'])
+            check(launches == want_launches and r['rows'] == TRAIN_CONFIG[
+                      'train']['batch_size'] // world,
+                  f'{tag} rank {r["rank"]}: {r["rows"]} rows, launches '
+                  f'{nonzero(launches)}, not the in-process run\'s '
+                  f'{nonzero(want_launches)}')
+            by_world[world].append(launches)
+            step = after_first(r['step_seconds'])
+            comm = after_first(r['comm_seconds'])
+            kinds = ', '.join(f'{rec["calls"] / DP_ITERS:g} {kind}'
+                              for kind, rec in sorted(r['comm'].items()))
+            mib = sum(rec['bytes'] for rec in r['comm'].values())
+            print(f'{tag} rank {r["rank"]} ({backend}, {r["rows"]} '
+                  f'complexes a step): s/step after the first {step:.5f}, '
+                  f'collectives {comm:.5f} s a step '
+                  f'({100 * comm / step:.2f}% of the step; {kinds} and '
+                  f'{mib / DP_ITERS / 2**20:.2f} MiB a step); '
+                  f'launches {nonzero(launches)} on {label}', flush=True)
+        print(f'{tag}: {seconds:.3f} s under torchrun in all; losses and '
+              f'grad norms per iteration within rtol {DP_RTOL} of the '
+              f'in-process run (largest relative difference '
+              f'{rel_diff(np, got, want):.2e}), final parameters within '
+              f'{DP_PARAM_TOL} (largest difference {worst:.2e}); '
+              f'{len(got["checkpoints"])} checkpoint(s) read back; on '
+              f'{label}', flush=True)
+        if world == 1 and first_w1 is not None:
+            print(f'{tag}: losses and grad norms per iteration '
+                  f'{rel_diff(np, got, first_w1[0]):.2e} relative from the '
+                  f'first W=1 run at most, final parameters '
+                  f'{params_diff(np, params, first_w1[1]):.2e} at most; on '
+                  f'{label}', flush=True)
+        elif world == 1:
+            first_w1 = got, params
+    return by_world
+
+
+def rel_diff(np, got, want):
+    """The largest relative difference of two training summaries' losses
+    and grad norms, over the iterations."""
+    return max(float(np.max(np.abs(np.subtract(got[k], want[k]))
+                            / np.abs(want[k])))
+               for k in ('train_loss', 'grad_norm'))
+
+
+def params_diff(np, got, want):
+    """The largest absolute difference of two parameter dicts."""
+    return max(float(np.max(np.abs(got[k] - v))) for k, v in want.items())
+
+
+def step_repeat(torch, ops, label):
+    """The cause of the noise floor: one training step's gradients twice
+    from the same weights, batch and draws, with the kernels and with their
+    plain versions (plain_versions), at the released config and the
+    training entry point's B=TRAIN_B, Np=NUM_PROTEIN, Nl=32; prints the
+    largest difference of each pair (0: that path is deterministic)."""
+    import numpy as np
+
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, random_complex_batch)
+    dev = torch.device('cuda')
+    model = DecompDiffModel.create(dict(DEFAULT_MODEL_CONFIG,
+                                        use_pallas=True), 8, device=dev,
+                                   seed=0)
+    batch = random_complex_batch(
+        np.random.default_rng(2), batch_size=TRAIN_B, num_protein=NUM_PROTEIN,
+        num_ligand=32, num_groups=TRAIN_GROUPS, device=dev)
+    grad_step = make_train_fns(model, DEFAULT_TRAIN_CONFIG)[1]
+    for key, ctx in (('kernels', contextlib.nullcontext),
+                     ('plain versions', lambda: plain_versions(ops))):
+        runs = []
+        for _ in range(2):
+            with ctx():
+                runs.append(grad_step(
+                    create_train_state(model, DEFAULT_TRAIN_CONFIG), batch,
+                    torch.Generator(device=dev).manual_seed(3))[:2])
+        (g0, m0), (g1, m1) = runs
+        grad = max(float((g0[k] - g1[k]).abs().max()) for k in g0)
+        scale = max(float(g.abs().max()) for g in g0.values())
+        loss = abs(float(m0['loss'] - m1['loss']))
+        print(f'training step twice on the same inputs ({key}, B={TRAIN_B} '
+              f'Nl=32): gradients {grad:.3e} apart at most (largest '
+              f'|gradient| {scale:.3e}), loss {loss:.3e} apart; on {label}',
+              flush=True)
+
+
+def dp_sample(np, ops, work, per_call, label):
+    """Phase 2e's sampling half (see dp_phase); returns each rank's
+    launches at each world size."""
+    from decompdiff_tpu_torch.sampling import driver
+    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    store = work / 'sample.ddstore'
+    write_pockets(store, ENTRY_POCKETS)
+    ckpt = work / 'uni_o2_bond.ckpt'
+    write_seeded_ckpt(ckpt, dict(DEFAULT_MODEL_CONFIG))
+    cfg_path = work / 'sampling.json'
+    cfg_path.write_text(json.dumps({'data': {'path': str(store)},
+                                    'sample': ENTRY_SAMPLE_CFG}))
+    ids = [str(i) for i in range(len(ENTRY_POCKETS))]
+    n_mol = ENTRY_SAMPLES * len(ids)
+    first, by_world = None, {}
+    for world in DP_WORLDS:
+        tag, path = f'dp sample W={world}', work / f'sample_w{world}.json'
+        seconds = torchrun(world, 'sample_torch.py', [
+            cfg_path, '--ckpt', ckpt, '-i', *ids, '--outdir',
+            work / f'out_w{world}', '--batch_size', B, '--use_pallas',
+            '--summary', path], work / f'sample_w{world}.log')
+        got = json.loads(path.read_text())
+        calls = sum(len(p['shapes']) for p in got['pockets']) * STEPS
+        expect = {n: per_call.get(n, 0) * calls for n in get_launches()}
+        by_world[world] = []
+        for r in got['ranks']:
+            launches = get_launches(r['launches'])
+            check(launches == expect and all(
+                      rows == [B // world] for rows in r['rows']),
+                  f'{tag} rank {r["rank"]}: rows {r["rows"]}, launches '
+                  f'{nonzero(launches)}, expected {nonzero(expect)}')
+            by_world[world].append(launches)
+            print(f'{tag} rank {r["rank"]}: {B // world} molecules a batch,'
+                  f' device sampling {sum(r["device_s"]) / n_mol:.5f} s a '
+                  f'molecule; launches {nonzero(launches)} on {label}',
+                  flush=True)
+        rows = [row for p in got['pockets']
+                for row in driver.load_result(p['path'])['results']]
+        check(len(rows) == n_mol, f'{tag}: {len(rows)} result rows')
+        print(f'{tag}: {seconds / n_mol:.5f} s a molecule under torchrun '
+              f'({seconds:.3f} s in all, start-up included) on {label}',
+              flush=True)
+        if first is None:
+            first = rows
+            continue
+        worst = 0.0
+        for a, b in zip(first, rows):
+            worst = max(worst, close(np, b['pred_pos'], a['pred_pos'],
+                                     f'{tag}: positions', **DP_POS_TOL))
+            check(np.array_equal(a['pred_v'], b['pred_v'])
+                  and np.array_equal(a['pred_bond'], b['pred_bond']),
+                  f'{tag}: types or bonds differ from W={DP_WORLDS[0]}')
+        print(f'{tag}: result pickles against W={DP_WORLDS[0]}: positions '
+              f'within {DP_POS_TOL} (largest difference {worst:.2e}), '
+              f'types and bonds equal; on {label}', flush=True)
+    return by_world
+
+
+def dp_rows(torch, label):
+    """Each stage of a guided sampling step on the two halves of a batch,
+    as two data-parallel ranks compute them, against the whole batch
+    (utils/testing.py dp_row_pairs: the protein centroid, each guidance
+    gradient, each prediction of one denoiser call), with the kernels at
+    the released config, B=8, Np=NUM_PROTEIN, a NUM_FULL-atom full protein
+    and each Nl of DP_ROW_NLS: each within DP_ROW_TOL. Where a stage's rows
+    part at all, also STEPS strided guided sampling steps of the halves
+    against the whole batch, printed only: the discrete type and bond
+    draws can turn a last-bit difference into other samples."""
+    import numpy as np
+
+    from decompdiff_tpu_torch.data.batch import FullProtein
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from decompdiff_tpu_torch.sampling.sampler import (
+        SampleConfig, sample_diffusion)
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, DP_ROW_DRIFTS, dp_row_pairs,
+        random_complex_batch)
+    dev = torch.device('cuda')
+    model = DecompDiffModel.create(dict(DEFAULT_MODEL_CONFIG,
+                                        use_pallas=True), 8, device=dev,
+                                   seed=0)
+    t = torch.full((B,), 999, dtype=torch.long, device=dev)
+    for nl in DP_ROW_NLS:
+        rng = np.random.default_rng(0)
+        batch = random_complex_batch(rng, batch_size=B,
+                                     num_protein=NUM_PROTEIN, num_ligand=nl,
+                                     num_groups=NUM_GROUPS, device=dev)
+        fp = FullProtein(
+            pos=torch.as_tensor(rng.normal(size=(B, NUM_FULL, 3)) * 8,
+                                dtype=torch.float32, device=dev),
+            mask=torch.ones((B, NUM_FULL), dtype=torch.bool, device=dev))
+        diffs = {}
+        for stage, (whole, halves) in dp_row_pairs(model, batch, fp,
+                                                    t).items():
+            diffs[stage] = float((halves - whole).abs().max())
+            bad = int((~torch.isclose(halves, whole, **DP_ROW_TOL)).sum())
+            check(bad == 0, f'dp rows Nl={nl} {stage}: {bad} elements '
+                  f'outside {DP_ROW_TOL} (largest difference '
+                  f'{diffs[stage]:.3e})')
+        print(f'dp rows Nl={nl}: two ranks\' rows against the whole batch '
+              f'(B={B}, Np={NUM_PROTEIN}), largest differences within '
+              f'{DP_ROW_TOL}: ' + ', '.join(f'{k} {v:.3e}'
+                                           for k, v in diffs.items())
+              + f'; on {label}', flush=True)
+        if not any(diffs.values()):
+            continue
+        cfg = SampleConfig(num_steps=STEPS, save_traj=False,
+                           skip_mode='strided', energy_drift=DP_ROW_DRIFTS)
+
+        def sample(mesh=None):
+            b, f = shard_batch(batch, mesh), shard_batch(fp, mesh)
+            return sample_diffusion(
+                model, cfg, b, b.ligand_pos, b.ligand_v, b.bond_type, f,
+                generator=torch.Generator(device=dev).manual_seed(5),
+                **({} if mesh is None else {'mesh': mesh}))
+        whole = sample()
+        halves = [sample(Mesh(r, 2, r, dev, None)) for r in range(2)]
+        got = {k: torch.cat([h[k] for h in halves]) for k in whole
+               if k in ('pos', 'v', 'bond')}
+        print(f'dp rows Nl={nl}: {STEPS} strided guided sampling steps of '
+              f'the halves against the whole batch (not checked): positions '
+              f'{float((got["pos"] - whole["pos"]).abs().max()):.3e} apart '
+              f'at most, {int((got["v"] != whole["v"]).sum())} types and '
+              f'{int((got["bond"] != whole["bond"]).sum())} bonds differ; on '
+              f'{label}', flush=True)
+
+
+def dp_phase(torch, per_call):
+    """Data parallel through both entry points (phase 2e), in
+    build/dp_phase. First dp_rows, and step_repeat (what makes two runs
+    of the same training differ). Training: the training driver for
+    DP_ITERS iterations in this process, twice (the second run's distance
+    from the first is the noise floor the dp tolerances sit above), then
+    scripts/train_torch.py under torchrun for each of DP_TRAIN_RUNS (W=1
+    twice, then W=2): per iteration the losses and grad norms, then the
+    last checkpoint's parameters against the first in-process run's; the
+    second W=1 run's distance from the first printed; every checkpoint
+    read back; each rank's launches the in-process run's (every step's
+    kernels once per layer and mode, on its B/W rows), none per row.
+    Sampling: scripts/sample_torch.py under torchrun at each world size on
+    the entry phase's pockets: each rank's launches calls x 12/12/6 on its
+    B/W rows, the result pickles against the first world size's. Prints
+    s/step, s/molecule, each rank's step seconds and its collectives'
+    share of the step. Returns each rank's launches at the last world
+    size, {'train': [...], 'sample': [...]}."""
+    import shutil
+
+    import numpy as np
+    work = REPO / 'build' / 'dp_phase'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    label = gpu_name_and_limit()
+    ops = model_ops()
+    try:
+        dp_rows(torch, label)
+        step_repeat(torch, ops, label)
+        train = dp_train(torch, np, ops, work, per_call, label)
+        sample = dp_sample(np, ops, work, per_call, label)
+        return {'train': train[DP_WORLDS[-1]],
+                'sample': sample[DP_WORLDS[-1]]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def train_shapes_phase(torch, ops, cfg):
     """Every kernel at the shapes the training entry point launches it at
     cfg's width: per bucket of TRAIN_SHAPES, the inputs of the first call
@@ -2333,10 +2758,10 @@ def train_shapes_phase(torch, ops, cfg):
         if nl == TRIPLET_HEAD_NL:
             mode = f'node B{TRAIN_B} Nl{nl}'
             call = captured.pop(('triplet_attention', mode))
-            zero_launches(ops)
+            zero_launches()
             top.update(backward_phase(torch, ops, {
                 (f'triplet_attention_nl{nl}', mode): call}))
-            launches = get_launches(ops)
+            launches = get_launches()
             check(launches[TOP_RECORD] > 0
                   and launches['triplet_attention_backward_row'] == 0,
                   f'the Nl={nl} triplet backward did not take its head '
@@ -2350,7 +2775,7 @@ def train_shapes_phase(torch, ops, cfg):
 
 def kernel_records(results, launches, entry_launches, train_entry_launches,
                    ref_launches, prep_launches, bf16_entry_launches,
-                   bf16_train_launches):
+                   bf16_train_launches, dp_launches):
     """One record per kernel for the kernels JSON line. Per launch: edge and
     bond run their node and pos modes equally often on both paths (once each
     per layer), so a kernel's ms, plain_ms and bound_ms are the means over
@@ -2369,7 +2794,10 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
     from raw files (prep_phase); bf16_entry_launches and
     bf16_train_launches: through the sampling entry point from a .ckpt
     whose config sets compute_dtype bfloat16, and through TRAIN_STEPS
-    training steps of that config (compute_bf16_phase)."""
+    training steps of that config (compute_bf16_phase);
+    dp_train_launches and dp_sample_launches: each rank's, in rank order,
+    through the training and the sampling script under torchrun on
+    DP_WORLDS[-1] ranks (dp_phase)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -2386,6 +2814,10 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
             'prep_entry_launches': prep_launches.get(name, 0),
             'bf16_entry_launches': bf16_entry_launches.get(name, 0),
             'bf16_train_launches': bf16_train_launches.get(name, 0),
+            'dp_train_launches': [r.get(name, 0)
+                                  for r in dp_launches['train']],
+            'dp_sample_launches': [r.get(name, 0)
+                                   for r in dp_launches['sample']],
             'max_abs_err': r['err'],
             'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': max(t_ops, t_bytes),
@@ -2411,49 +2843,21 @@ def ops_module(rec):
     return model_ops()[op_name(rec).replace('_backward', '')]
 
 
-def launch_counters(ops):
-    """{record name: (wrapper, counter attribute)} of every forward and
-    backward kernel; the m-gated and gather edge launches and the triplet's
-    bf16 launches have counters of their own; the per-row forward launches
-    (any mode) count in their per-row counters as well, the per-row
-    backward launches (every width but 32, 64, 128, or outside a head
-    route's heads and sources) in <kernel>_backward_row, and the backward
-    launches with the row buffers in device memory in
-    <kernel>_backward_wide (scratch_launches)."""
-    counters = {}
-    for name, mod in ops.items():
-        for n in (name, f'{name}_backward'):
-            counters[n] = (getattr(mod, n), 'launches')
-            if name == 'edge_attention':
-                for rec, attr in (('mgate', 'gated_launches'),
-                                  ('gather', 'gather_launches')):
-                    counters[n.replace(name, f'{name}_{rec}')] = (
-                        getattr(mod, n), attr)
-        if name == 'triplet_attention':
-            counters[f'{name}_bf16'] = (getattr(mod, name), 'bf16_launches')
-        counters[f'{name}_row'] = (getattr(mod, name), 'row_launches')
-        counters[f'{name}_backward_wide'] = (getattr(mod, f'{name}_backward'),
-                                             'scratch_launches')
-        counters[f'{name}_backward_row'] = (
-            getattr(mod, f'{name}_backward'), 'row_launches')
-    return counters
-
-
-def zero_launches(ops):
+def zero_launches():
     """Sets the launch count of every forward and backward kernel to 0."""
-    for fn, attr in launch_counters(ops).values():
-        setattr(fn, attr, 0)
-    ops['triplet_attention'].triplet_attention_backward.nl_launches = {}
+    from decompdiff_tpu_torch.ops import zero_launch_counts
+    zero_launch_counts()
 
 
-def get_launches(ops):
-    """The launch counts of launch_counters, and TOP_RECORD: the triplet
-    backward's launches at Nl=TRIPLET_HEAD_NL."""
-    counts = {n: getattr(fn, attr)
-              for n, (fn, attr) in launch_counters(ops).items()}
-    backward = ops['triplet_attention'].triplet_attention_backward
-    counts[TOP_RECORD] = backward.nl_launches.get(TRIPLET_HEAD_NL, 0)
-    return counts
+def get_launches(counts=None):
+    """Each kernel record's launch count, 0 where none: the counts of
+    decompdiff_tpu_torch/ops launch_counts() (its launch_counters' names),
+    or `counts`, a rank's launches from a driver's summary (ops
+    launches_since); TOP_RECORD is the triplet backward's launches at
+    Nl=TRIPLET_HEAD_NL."""
+    from decompdiff_tpu_torch.ops import launch_counters, launch_counts
+    counts = launch_counts() if counts is None else counts
+    return {n: counts.get(n, 0) for n in [*launch_counters(), TOP_RECORD]}
 
 
 def make_models(torch, cfg, wrapped=False):
@@ -2496,6 +2900,7 @@ def main():
                     'edge_attention_mgate': o2_layers}
         entry_launches = entry_phase(torch, bond_calls)
         train_entry_launches = train_entry_phase(torch, bond_calls)
+        dp_launches = dp_phase(torch, bond_calls)
         ref_launches = reference_phase(torch, bond_calls)
         prep_launches = prep_phase(torch, bond_calls)
         nl64 = train_shapes_phase(torch, model_ops(), bond_cfg)
@@ -2637,7 +3042,7 @@ def main():
     print(json.dumps({'kernels': kernel_records(
         results, launches, entry_launches, train_entry_launches,
         ref_launches, prep_launches, bf16_entry_launches,
-        bf16_train_launches)}))
+        bf16_train_launches, dp_launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

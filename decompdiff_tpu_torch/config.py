@@ -12,6 +12,7 @@ round-trippable to plain dicts (ref scripts/sample_diffusion_decomp.py:499-545).
 from __future__ import annotations
 
 import copy
+import json
 
 
 class Config(dict):
@@ -62,9 +63,16 @@ class Config(dict):
 
 
 def load_config(path: str) -> Config:
-    import yaml
+    """A YAML config, or a JSON one (as the training driver writes a run's
+    config.yml), which needs no PyYAML: JSON is read as JSON, since PyYAML
+    reads a JSON number such as 1e-07 as a string."""
     with open(path) as f:
-        return Config(yaml.safe_load(f))
+        text = f.read()
+    try:
+        return Config(json.loads(text))
+    except json.JSONDecodeError:
+        import yaml
+        return Config(yaml.safe_load(text))
 
 
 def save_config(config: Config, path: str) -> None:

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from decompdiff_tpu_torch.diffusion.schedules import cosine_alpha_schedule
+from decompdiff_tpu_torch.parallel.mesh import draw_rows
 
 
 def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -33,11 +34,13 @@ def gumbel_argmax(uniform: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 
 def log_sample_categorical(logits: torch.Tensor,
-                           generator: torch.Generator = None) -> torch.Tensor:
+                           generator: torch.Generator = None,
+                           mesh=None) -> torch.Tensor:
     """Gumbel-max sample over the last axis, with a uniform draw from
-    `generator` (ref models/transitions.py:78-84)."""
-    uniform = torch.rand(logits.shape, generator=generator,
-                         device=logits.device)
+    `generator` (ref models/transitions.py:78-84); with a data-parallel
+    `mesh` the draw is the global batch's, this rank's rows kept."""
+    uniform = draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=logits.device), logits.shape, mesh)
     return gumbel_argmax(uniform, logits)
 
 
@@ -120,10 +123,11 @@ class CategoricalDiffusion:
         return log_add_exp(log_v0 + log_cum,
                            log_1_min_cum + self.prior_logprobs)
 
-    def q_v_sample(self, log_v0, t, generator=None):
+    def q_v_sample(self, log_v0, t, generator=None, mesh=None):
         """Sample v_t ~ q(v_t | v_0); returns (index, log-one-hot)
         (ref models/transitions.py:146-150)."""
-        idx = log_sample_categorical(self.q_v_pred(log_v0, t), generator)
+        idx = log_sample_categorical(self.q_v_pred(log_v0, t), generator,
+                                     mesh)
         return idx, index_to_log_onehot(idx, self.num_classes)
 
     def q_v_posterior(self, log_v0, log_vt, t):

@@ -32,10 +32,12 @@ def _group_ids(num_groups, device):
 
 
 def armsca_prox_energy(ligand_pos, decomp_idx, num_arms, ligand_mask,
-                       num_groups, min_d=1.2, max_d=1.9):
+                       num_groups, min_d=1.2, max_d=1.9, batch_size=None):
     """Keep each arm's closest approach to the scaffold inside
-    [min_d, max_d]; graphs lacking arms or scaffold atoms contribute 0."""
-    B = ligand_mask.shape[0]
+    [min_d, max_d]; graphs lacking arms or scaffold atoms contribute 0.
+    The sum over graphs is divided by `batch_size`, by default the rows
+    given (a data-parallel rank passes the global batch's)."""
+    B = ligand_mask.shape[0] if batch_size is None else batch_size
     decomp_idx = decomp_idx.long()
     num_arms = num_arms.long()
     is_arm = (decomp_idx < num_arms[:, None]) & ligand_mask

@@ -8,7 +8,11 @@ models/decompdiff.py:75-550):
   * sigma^2-normalized positional MSE + categorical KL losses (ref :487-550)
 
 All loss terms are masked per-graph means over padded tensors. Randomness
-comes from an explicit torch.Generator on the model's device.
+comes from an explicit torch.Generator on the model's device. Given a
+data-parallel mesh (parallel/mesh.py) and this rank's rows of a batch,
+every draw is made at the global batch's size and this rank's rows kept,
+so that W ranks draw what one process draws for the whole batch (the
+symmetric sampler pairs t with T - 1 - t across the global batch).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from decompdiff_tpu_torch.diffusion.categorical import (
     log_categorical)
 from decompdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from decompdiff_tpu_torch.models.denoiser import DecompDenoiser
+from decompdiff_tpu_torch.parallel.mesh import Mesh, draw_rows, take_rows
 from decompdiff_tpu_torch.utils.params import init_params_
 
 
@@ -36,52 +41,80 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim) -> torch.Tensor:
     return (x * m).sum(dim) / torch.clamp(m.sum(dim), min=1.0)
 
 
+def rowwise_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x summed over `dim` by pairwise halving (elementwise adds, after
+    zero padding to a power of two), so that each sum depends on its own
+    row alone: a data-parallel rank's rows sum as they do in the whole
+    batch. The order of a CUDA reduction can change with the number of
+    rows it reduces, which moves a sampling trajectory."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    size = 1 << max(0, (n - 1).bit_length())
+    if size != n:
+        x = F.pad(x, [0, 0] * (x.ndim - dim - 1) + [0, size - n])
+    while x.shape[dim] > 1:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
 def center_by_protein(batch: ComplexBatch, ligand_pos, mode: str = 'protein'):
     """Translate each complex to its protein centroid; returns (centered
     protein pos, centered ligand pos, offset [B, 3])
-    (ref models/decompdiff.py:20-32, mode 'protein' or 'none')."""
+    (ref models/decompdiff.py:20-32, mode 'protein' or 'none'). The
+    centroid's sum is rowwise_sum's, the same in any batch."""
     if mode == 'none':
         return batch.protein_pos, ligand_pos, torch.zeros(
             (batch.batch_size, 3), dtype=batch.protein_pos.dtype,
             device=batch.device)
     if mode != 'protein':
         raise NotImplementedError(f'center_pos_mode={mode!r}')
-    offset = masked_mean(batch.protein_pos, batch.protein_mask[..., None],
-                         dim=1)
+    m = batch.protein_mask[..., None].to(batch.protein_pos.dtype)
+    offset = rowwise_sum(batch.protein_pos * m, 1) / torch.clamp(
+        m.sum(1), min=1.0)
     return (batch.protein_pos - offset[:, None, :],
             ligand_pos - offset[:, None, :], offset)
 
 
 def sample_time_symmetric(num_graphs: int, num_timesteps: int,
                           generator: Optional[torch.Generator] = None,
-                          device: DeviceLike = None):
+                          device: DeviceLike = None,
+                          mesh: Optional[Mesh] = None):
     """Antithetic t: a draw and its mirror T - 1 - t
-    (ref models/decompdiff.py:387-393). Returns (t [B] long, p(t) [B])."""
+    (ref models/decompdiff.py:387-393). Returns (t [B] long, p(t) [B]);
+    with a mesh, num_graphs is this rank's and the pairs are the global
+    batch's."""
     device = resolve_device(device)
-    half = torch.randint(0, num_timesteps, (num_graphs // 2 + 1,),
-                         generator=generator, device=device)
-    t = torch.cat([half, num_timesteps - half - 1])[:num_graphs]
+
+    def draw(shape):
+        n = shape[0]
+        half = torch.randint(0, num_timesteps, (n // 2 + 1,),
+                             generator=generator, device=device)
+        return torch.cat([half, num_timesteps - half - 1])[:n]
+    t = draw_rows(draw, (num_graphs,), mesh)
     return t, torch.full((num_graphs,), 1.0 / num_timesteps, device=device)
 
 
 def sample_time(num_graphs: int, num_timesteps: int, method: str = 'symmetric',
                 lt_history=None, lt_count=None,
                 generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, mesh: Optional[Mesh] = None):
     """Timestep sampling (ref models/decompdiff.py:374-396). 'importance'
     draws t with probability proportional to sqrt(E[L_t^2]) once every
-    timestep has more than 10 recorded losses, and is symmetric before."""
+    timestep has more than 10 recorded losses, and is symmetric before.
+    With a mesh, num_graphs is this rank's (see sample_time_symmetric)."""
     if (method == 'symmetric' or lt_history is None or lt_count is None
             or not bool((lt_count > 10).all())):
         return sample_time_symmetric(num_graphs, num_timesteps, generator,
-                                     device)
+                                     device, mesh)
     if method != 'importance':
         raise ValueError(method)
     lt_sqrt = torch.sqrt(lt_history + 1e-10) + 1e-4
     lt_sqrt[0] = lt_sqrt[1]
     pt_all = lt_sqrt / lt_sqrt.sum()
-    t = torch.multinomial(pt_all, num_graphs, replacement=True,
-                          generator=generator)
+    t = draw_rows(lambda shape: torch.multinomial(
+        pt_all, shape[0], replacement=True, generator=generator),
+        (num_graphs,), mesh)
     return t, pt_all[t]
 
 
@@ -150,7 +183,8 @@ class DecompDiffModel:
     def get_diffusion_loss(self, batch: ComplexBatch,
                            generator: Optional[torch.Generator] = None,
                            time_step: Optional[torch.Tensor] = None,
-                           noise_override: Optional[dict] = None) -> dict:
+                           noise_override: Optional[dict] = None,
+                           mesh: Optional[Mesh] = None) -> dict:
         """Training losses (ref models/decompdiff.py:419-550).
 
         Draws, in order and from `generator` (on the model's device): t
@@ -159,6 +193,10 @@ class DecompDiffModel:
         'pos_noise' [B, Nl, 3], 'v_perturbed' [B, Nl] and, with bond
         diffusion, 'b_perturbed' [B, Nl, Nl] (tests).
 
+        With a data-parallel `mesh`, `batch` and `time_step` are this
+        rank's rows; every draw, and `noise_override`, is the global
+        batch's, of which this rank keeps its rows (parallel/mesh.py).
+
         Returns a dict: 'losses' {pos, v[, bond]}, 'time_step',
         'per_graph_pos_loss' [B], the predictions and the softmaxed type
         reconstructions.
@@ -166,16 +204,19 @@ class DecompDiffModel:
         B = batch.batch_size
         if time_step is None:
             time_step, _ = sample_time_symmetric(B, self.num_timesteps,
-                                                 generator, self.device)
+                                                 generator, self.device,
+                                                 mesh)
         time_step = time_step.long()
-        over = noise_override or {}
+        over = {k: take_rows(v, mesh)
+                for k, v in (noise_override or {}).items()}
 
         # perturb pos / v / bond (ref :437-457)
         centers, stds = batch.atom_prior_centers(), batch.atom_prior_stds()
         pos_noise = over.get('pos_noise')
         if pos_noise is None:
-            pos_noise = torch.randn(batch.ligand_pos.shape,
-                                    generator=generator, device=self.device)
+            pos_noise = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=self.device),
+                batch.ligand_pos.shape, mesh)
         ligand_pos_perturbed = self.pos_diff.q_sample(
             batch.ligand_pos, time_step, pos_noise, centers, stds)
 
@@ -186,7 +227,7 @@ class DecompDiffModel:
                                          self.atom_diff.num_classes)
         else:
             v_perturbed, log_vt = self.atom_diff.q_v_sample(
-                log_v0, time_step, generator)
+                log_v0, time_step, generator, mesh)
         # keep padded atoms harmless
         v_perturbed = torch.where(batch.ligand_mask, v_perturbed, 0)
 
@@ -198,7 +239,7 @@ class DecompDiffModel:
                 log_bt = index_to_log_onehot(b_perturbed, nb)
             else:
                 b_perturbed, log_bt = self.bond_diff.q_v_sample(
-                    log_b0, time_step, generator)
+                    log_b0, time_step, generator, mesh)
             b_perturbed = torch.where(batch.bond_mask, b_perturbed, 0)
         else:
             b_perturbed = batch.bond_type

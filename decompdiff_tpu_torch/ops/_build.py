@@ -92,3 +92,17 @@ def load(name: str, symbol: str, n_ptrs: int, n_ints: int,
                    + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn
+
+
+def build_once(mesh) -> None:
+    """Build the kernels once for the ranks of a data-parallel mesh
+    (parallel/mesh.py) on one host: local rank 0 compiles every kernel that
+    has no current library while the others wait at a barrier; then each
+    rank loads the libraries at its first launch. A world of one builds at
+    its first launch, as ever."""
+    if not mesh.distributed or mesh.device.type != 'cuda':
+        return
+    from decompdiff_tpu_torch.parallel.mesh import barrier
+    if mesh.local_rank == 0:
+        build()
+    barrier(mesh)

@@ -3,6 +3,7 @@
 
     python scripts/sample_torch.py configs/sampling.yml --ckpt CKPT \\
         -i DATA_ID [DATA_ID ...] --outdir OUT [--device cpu]
+    torchrun --standalone --nproc_per_node W scripts/sample_torch.py ...
 
 The model config is re-read from a JAX `.ckpt`; per batch, the generation
 records (atom counts, N(mu_k, sigma_k) init positions) and initial types are
@@ -16,8 +17,23 @@ Differences from the JAX script:
   * Device draws come from a torch.Generator seeded seed + bi where JAX
     uses PRNGKey(seed + bi), so samples differ from the JAX script's for
     the same seed (records and initial types do not).
-  * One device: batches are not sharded (DDP sampling waits for ROADMAP
-    item B2).
+  * Data parallel over processes, not devices: under torchrun each rank
+    is a process with one GPU (parallel/mesh.py; NCCL, or gloo when ranks
+    share a GPU or run on the CPU), and the collectives are explicit.
+    Every rank builds the same records from the same host generator and
+    collates them; when the batch divides by the world size W (as
+    scripts/sample.py shards), each rank samples its rows (shard_batch)
+    with the global batch's draws (sampling/sampler.py), and the final
+    positions, types and bonds (and trajectories) are all-gathered in rank
+    order. Otherwise every rank samples the whole batch. Rank 0
+    reconstructs and writes the result pickles. Each denoiser call and
+    guidance gradient of a rank's rows is the whole batch's to float
+    rounding; the pickles equal a world of one's where every operation
+    rounds a row alike at B and B/W rows (on the H100, the released config
+    at Nl = 32). Elsewhere a library GEMM can round a row's last bit
+    differently for fewer rows, and the discrete draws of guided sampling
+    can grow that into other, equally valid samples. Local rank 0 builds
+    the kernels while the others wait.
   * Batches run one after another, each split into host set-up, device
     sampling (ending in a device synchronize) and reconstruction, and
     timed so.
@@ -34,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import json
 import logging
 import os
 import pickle
@@ -51,9 +68,14 @@ from decompdiff_tpu_torch.data.dataset import DecompDataset
 from decompdiff_tpu_torch.data.mol import MolRecord, mol_to_sdf_block
 from decompdiff_tpu_torch.data.protein import PDBProtein
 from decompdiff_tpu_torch.data.store import DDStore
-from decompdiff_tpu_torch.device import resolve_device, set_matmul_precision
+from decompdiff_tpu_torch.device import set_matmul_precision
 from decompdiff_tpu_torch.evaluation.smiles import mol_to_smiles
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+from decompdiff_tpu_torch.ops import launch_counts, launches_since
+from decompdiff_tpu_torch.ops._build import build_once
+from decompdiff_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_rows, comm_since, destroy_mesh, gather_objects,
+    make_mesh, shard_batch)
 from decompdiff_tpu_torch.priors.atom_num import (
     NumAtomsSampler, load_num_config)
 from decompdiff_tpu_torch.priors.beta import substitute_with_beta_prior
@@ -119,7 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
                              'recorded into results for docking')
     parser.add_argument('--device', default=None,
                         help='torch device (default: CUDA; without a GPU '
-                             'pass cpu explicitly)')
+                             'pass cpu explicitly); under torchrun each rank '
+                             'takes GPU LOCAL_RANK')
+    parser.add_argument('--summary', default=None,
+                        help='write the pockets\' summaries as JSON to this '
+                             'path (rank 0; every rank\'s kernel launches, '
+                             'rows and seconds under "ranks")')
     return parser
 
 
@@ -141,6 +168,7 @@ class SamplingRun:
     natoms_sampler: Optional[NumAtomsSampler]
     logger: logging.Logger
     drift: Optional['DriftMeter'] = None
+    mesh: Optional[Mesh] = None
 
 
 class DriftMeter:
@@ -190,14 +218,46 @@ def main(argv=None) -> List[dict]:
     return run(args, load_config(args.config))
 
 
-def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
-    """Sample every pocket of args.data_id; returns one summary per pocket
-    (see run_pocket)."""
+def run(args: argparse.Namespace, sample_cfg_file: Config,
+        mesh: Optional[Mesh] = None) -> List[dict]:
+    """Sample every pocket of args.data_id on `mesh` (parallel/mesh.py; by
+    default the world torchrun's environment describes, a world of one
+    without it, started here and ended on return); returns one summary per
+    pocket (see run_pocket)."""
+    own_mesh = mesh is None
+    if own_mesh:
+        mesh = make_mesh(device=args.device)
+    try:
+        counts0, comm0 = launch_counts(), comm_since(mesh, {})
+        summaries = _run(args, sample_cfg_file, mesh)
+        ranks = gather_objects({
+            'rank': mesh.rank, 'launches': launches_since(counts0),
+            'rows': [s['rows'] for s in summaries],
+            'device_s': [s['device_s'] for s in summaries],
+            'comm': comm_since(mesh, comm0)}, mesh)
+        if args.summary and mesh.rank == 0:
+            with open(args.summary, 'w') as f:
+                json.dump({'pockets': summaries,
+                           'world_size': mesh.world_size,
+                           'backend': mesh.backend, 'ranks': ranks}, f,
+                          indent=1)
+        return summaries
+    finally:
+        if own_mesh:
+            destroy_mesh(mesh)
+
+
+def _run(args: argparse.Namespace, sample_cfg_file: Config,
+         mesh: Mesh) -> List[dict]:
     scfg = sample_cfg_file.sample
     seed = scfg.get('seed', 2021)
     seed_all(seed)
-    os.makedirs(args.outdir, exist_ok=True)
-    logger = get_logger('sample_torch', args.outdir)
+    if mesh.rank == 0:
+        os.makedirs(args.outdir, exist_ok=True)
+        logger = get_logger('sample_torch', args.outdir)
+    else:
+        logger = get_logger(f'sample_torch.rank{mesh.rank}')
+        logger.setLevel(logging.WARNING)
 
     energy_drift = tuple(dict(d) for d in scfg.get('energy_drift', []))
 
@@ -208,7 +268,15 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
     if args.no_pallas:
         overrides['use_pallas'] = False
     model, ckpt = load_model_from_checkpoint(
-        args.ckpt, device=resolve_device(args.device), overrides=overrides)
+        args.ckpt, device=mesh.device, overrides=overrides)
+    if model.config.get('use_pallas', False):
+        build_once(mesh)
+    W = mesh.world_size
+    if mesh.distributed and args.batch_size % W == 0:
+        logger.info(f'data-parallel over {W} ranks ({mesh.describe()})')
+    elif W > 1:
+        logger.info(f'{W} ranks but batch_size {args.batch_size} not '
+                    'divisible — running unsharded')
     train_config = Config(ckpt['config'])
     atom_mode = train_config.data.transform.get('ligand_atom_mode', 'basic')
     drift, mmff_kwargs = _mmff_drift(energy_drift, atom_mode, logger)
@@ -258,7 +326,8 @@ def run(args: argparse.Namespace, sample_cfg_file: Config) -> List[dict]:
         prior_mode=prior_mode, num_atoms_mode=num_atoms_mode,
         num_samples=args.num_samples or scfg.get('num_samples', 10),
         seed=seed, arms_cfg=arms_cfg, sca_cfg=sca_cfg,
-        natoms_sampler=natoms_sampler, logger=logger, drift=drift)
+        natoms_sampler=natoms_sampler, logger=logger, drift=drift,
+        mesh=mesh)
     return [run_pocket(sampling, data_id) for data_id in args.data_id]
 
 
@@ -288,14 +357,20 @@ def _full_protein(sampling: SamplingRun, raw: dict) -> Optional[FullProtein]:
 def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
     """Sample num_samples molecules for one pocket and write its result
     pickle. Re-seeds first, so a pocket's results do not depend on the
-    pockets sampled before it in the process.
+    pockets sampled before it in the process. With a data-parallel mesh,
+    each rank samples its rows of every batch that divides over the ranks,
+    and rank 0 reconstructs and writes.
 
     Returns {'data_id', 'path', 'n', 'n_recon', 'n_complete', 'shapes'
-    (the padded (B, Np, Nl) of each batch), 'host_s', 'device_s',
-    'recon_s' (wall seconds summed over the batches), 'drift_calls',
-    'drift_relaxed', 'drift_s'} (the mmff_min drift's calls, batch rows it
-    gave a non-zero drift, and host seconds, already within device_s)."""
+    (the padded (B, Np, Nl) of each batch), 'rows' (the batch rows this
+    rank sampled, per batch), 'host_s', 'device_s', 'recon_s' (wall
+    seconds summed over the batches), 'drift_calls', 'drift_relaxed',
+    'drift_s'} (the mmff_min drift's calls, batch rows it gave a non-zero
+    drift, and host seconds, already within device_s); on a rank other
+    than 0, n_recon and n_complete are 0 and nothing is written."""
     args, model, logger = sampling.args, sampling.model, sampling.logger
+    mesh = sampling.mesh
+    lead = mesh is None or mesh.rank == 0
     scfg = sampling.sample_cfg_file.sample
     seed_all(sampling.seed)
     if sampling.drift is not None:
@@ -318,7 +393,13 @@ def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
         model.bond_diff.prior_logprobs.cpu().numpy().astype(np.float64))
     B, num_samples = args.batch_size, sampling.num_samples
     n_batches = int(np.ceil(num_samples / B))
-    results, shapes = [], []
+    # shard as scripts/sample.py does, when the batch divides
+    sharded = (mesh is not None and mesh.distributed
+               and B % mesh.world_size == 0)
+    mesh_kw = {'mesh': mesh} if sharded else {}
+    if sharded and full_protein is not None:
+        full_protein = shard_batch(full_protein, mesh)
+    results, shapes, rows = [], [], []
     times = {'host_s': 0.0, 'device_s': 0.0, 'recon_s': 0.0}
     t_start = time.perf_counter()
     for bi in range(n_batches):
@@ -340,18 +421,30 @@ def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
             records = records + [dict(records[-1])] * (B - len(records))
         batch = collate(records, device=model.device)
         shapes.append((B, batch.num_protein_atoms, batch.num_ligand_atoms))
+        mine = shard_batch(batch, mesh) if sharded else batch
+        rows.append(mine.batch_size)
 
         t1 = time.perf_counter()
         generator = torch.Generator(device=model.device).manual_seed(
             sampling.seed + bi)
         out = sample_diffusion(
-            model, sampling.sample_config, batch, batch.ligand_pos,
-            batch.ligand_v, batch.bond_type, full_protein,
-            generator=generator)
+            model, sampling.sample_config, mine, mine.ligand_pos,
+            mine.ligand_v, mine.bond_type, full_protein,
+            generator=generator, **mesh_kw)
+        if sharded:
+            traj = out.pop('traj', None)
+            out = {k: all_gather_rows(t, mesh) for k, t in out.items()}
+            if traj is not None:    # stacked steps [S, B, ...]
+                out['traj'] = {k: all_gather_rows(t, mesh, dim=1)
+                               for k, t in traj.items()}
         if model.device.type == 'cuda':
             torch.cuda.synchronize(model.device)
 
         t2 = time.perf_counter()
+        if not lead:
+            times['host_s'] += t1 - t0
+            times['device_s'] += t2 - t1
+            continue
         pos, v, bond = (out[k].cpu().numpy() for k in ('pos', 'v', 'bond'))
         mask = batch.ligand_mask.cpu().numpy()
         decomp = batch.ligand_decomp_idx.cpu().numpy()
@@ -375,13 +468,15 @@ def run_pocket(sampling: SamplingRun, data_id: int) -> dict:
                 f'complete {n_complete}/{len(results)}')
     suffix = args.suffix or ''
     out_path = os.path.join(args.outdir, f'result_{data_id}{suffix}.pkl')
-    save_result(out_path, {'data_id': data_id, 'results': results,
-                           'atom_mode': sampling.atom_mode,
-                           'config': sampling.sample_cfg_file.to_dict()})
-    logger.info(f'saved {out_path}')
+    if lead:
+        save_result(out_path, {'data_id': data_id, 'results': results,
+                               'atom_mode': sampling.atom_mode,
+                               'config': sampling.sample_cfg_file.to_dict()})
+        logger.info(f'saved {out_path}')
     drift = sampling.drift
-    return dict(data_id=data_id, path=out_path, n=len(results),
+    return dict(data_id=data_id, path=out_path, n=num_samples,
                 n_recon=n_recon, n_complete=n_complete, shapes=shapes,
+                rows=rows,
                 drift_calls=drift.calls if drift else 0,
                 drift_relaxed=drift.relaxed if drift else 0,
                 drift_s=drift.seconds if drift else 0.0, **times)

@@ -6,7 +6,10 @@ categorical posteriors are sampled by Gumbel argmax, the guidance gradient is
 torch.autograd.grad of the summed energies at x_t, and the ancestral update
 adds prior-std-scaled noise. Randomness comes from an explicit
 torch.Generator, or from `noise_override` (the same injected draws the JAX
-sampler takes, for parity tests).
+sampler takes, for parity tests). Given a data-parallel mesh and this
+rank's rows of the batch (parallel/mesh.py), each draw is made at the
+global batch's shape and this rank's rows kept; `noise_override` stays
+global.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from decompdiff_tpu_torch.guidance.funcs import (
     armsca_prox_energy, center_prox_energy, clash_energy)
 from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, center_by_protein)
+from decompdiff_tpu_torch.parallel.mesh import Mesh, draw_rows, take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +54,12 @@ class SampleConfig:
 
 def _guidance_grad(model: DecompDiffModel, cfg: SampleConfig,
                    batch: ComplexBatch, xt, t, offset,
-                   full_protein: Optional[FullProtein]):
+                   full_protein: Optional[FullProtein],
+                   mesh: Optional[Mesh] = None):
     """Total energy gradient at x_t (centered coordinates); the gradient of
     `scale: true` terms is multiplied by pos_score_coef[t]
-    (ref models/decompdiff.py:638-677)."""
+    (ref models/decompdiff.py:638-677). armsca_prox divides by the global
+    batch size under a mesh, as it does in a world of one."""
     drifts = [dict(d) for d in cfg.energy_drift]
     if not drifts:
         return torch.zeros_like(xt)
@@ -69,7 +75,9 @@ def _guidance_grad(model: DecompDiffModel, cfg: SampleConfig,
                 term = armsca_prox_energy(
                     x, batch.ligand_decomp_idx, batch.num_arms,
                     batch.ligand_mask, batch.num_groups,
-                    min_d=d.get('min_d', 1.2), max_d=d.get('max_d', 1.9))
+                    min_d=d.get('min_d', 1.2), max_d=d.get('max_d', 1.9),
+                    batch_size=batch.batch_size * (
+                        1 if mesh is None else mesh.world_size))
             elif d['type'] == 'clash':
                 term = clash_energy(
                     full_protein.pos, full_protein.mask,
@@ -124,7 +132,8 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
                      batch: ComplexBatch, init_pos, init_v, init_bond,
                      full_protein: Optional[FullProtein] = None,
                      noise_override: Optional[dict] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     mesh: Optional[Mesh] = None):
     """Run the reverse diffusion on the model's device.
 
     Args:
@@ -136,6 +145,9 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
             [S, B, Nl, 3], 'v_uniform' [S, B, Nl, K] and, with bond
             diffusion, 'b_uniform' [S, B, Nl, Nl, Kb]
         generator: torch.Generator on the model's device for the draws
+        mesh: data-parallel world; batch, the initial state and
+            full_protein are this rank's rows, noise_override the global
+            batch's
 
     Returns a dict: final 'pos'/'v'/'bond' [+ 'traj', stacked over steps,
     newest last].
@@ -160,10 +172,11 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
 
     def draw(key, step, shape, normal=False):
         if noise_override is not None:
-            return torch.as_tensor(noise_override[key][step], device=device)
-        if normal:
-            return torch.randn(shape, generator=generator, device=device)
-        return torch.rand(shape, generator=generator, device=device)
+            return take_rows(torch.as_tensor(noise_override[key][step],
+                                             device=device), mesh)
+        fn = torch.randn if normal else torch.rand
+        return draw_rows(lambda s: fn(s, generator=generator, device=device),
+                         shape, mesh)
 
     for step, (t, s) in enumerate(zip(ts.tolist(), ss.tolist())):
         tb = torch.full((B,), t, dtype=torch.long, device=device)
@@ -212,7 +225,8 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
             pos_mean = model.pos_diff.q_posterior_mean_skip(pos0, xt, tb, sb)
         else:
             pos_mean = model.pos_diff.q_posterior_mean(pos0, xt, tb)
-        grad = _guidance_grad(model, cfg, batch, xt, tb, offset, full_protein)
+        grad = _guidance_grad(model, cfg, batch, xt, tb, offset, full_protein,
+                              mesh)
         if strided:
             grad = grad * float(t - s)
         pos_mean = pos_mean - grad

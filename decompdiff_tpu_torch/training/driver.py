@@ -3,6 +3,7 @@ scripts/train_diffusion_decomp.py).
 
     python scripts/train_torch.py configs/training.yml [--outdir logs] \\
         [--resume CKPT] [--max_iters N] [--val_freq N] [--device cpu]
+    torchrun --standalone --nproc_per_node W scripts/train_torch.py ...
 
 The JAX script's protocol: the transform stack from the config, the split
 from `data.split` (else the last 10% of the store for validation), an
@@ -21,8 +22,25 @@ Differences from the JAX script:
     carries a JAX key the port cannot continue, so from one the port seeds
     from (seed, start iteration), as the JAX script does for a file that
     holds no key.
-  * One device: with more than one GPU visible it trains on one
-    (data-parallel training waits for its ROADMAP item).
+  * Data parallel over processes, not devices: under torchrun each rank
+    is a process with one GPU (parallel/mesh.py; NCCL, or gloo when ranks
+    share a GPU or run on the CPU), and the collectives are explicit. When
+    batch_size divides by the world size W, every rank runs the same
+    loader (same seed, so the host work is repeated on every rank, as
+    under JAX's single controller), takes its rows of each global batch
+    (shard_batch) and draws the global batch's numbers from one generator
+    state that every rank holds; the gradients are all-reduced
+    (train_step.py). Otherwise every rank runs the whole batch unsharded
+    and without collectives, with the JAX script's log line. Parameters,
+    Adam moments and Lt buffers are broadcast from rank 0 after creating
+    or resuming them; validation runs unsharded on every rank, and rank
+    0's validation loss drives every rank's scheduler. Only rank 0 writes
+    the run directory (config, source snapshot, metrics, log file,
+    checkpoints in the unchanged layout, `--summary`); the other ranks
+    wait at a barrier after each checkpoint. A rank that runs out of
+    memory ends the run: the others could not skip the same step. Local
+    rank 0 builds the kernels while the others wait (ops/_build.py
+    build_once).
   * Each step ends in a device synchronize, so that the summary splits the
     time into loader wait and step.
   * A step updates the parameters and the Adam moments in place, so a
@@ -53,8 +71,13 @@ from decompdiff_tpu_torch.config import Config, load_config
 from decompdiff_tpu_torch.constants import atom_class_count
 from decompdiff_tpu_torch.data.dataset import DecompDataset
 from decompdiff_tpu_torch.data.store import DDStore
-from decompdiff_tpu_torch.device import resolve_device, set_matmul_precision
+from decompdiff_tpu_torch.device import set_matmul_precision
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+from decompdiff_tpu_torch.ops import launch_counts, launches_since
+from decompdiff_tpu_torch.ops._build import build_once
+from decompdiff_tpu_torch.parallel.mesh import (
+    Mesh, barrier, broadcast_, broadcast_object, comm_seconds, comm_since,
+    destroy_mesh, gather_objects, make_mesh, shard_batch)
 from decompdiff_tpu_torch.training.loader import BucketedLoader
 from decompdiff_tpu_torch.training.metrics import get_auroc, get_bond_auroc
 from decompdiff_tpu_torch.training.train_step import (
@@ -97,7 +120,13 @@ def build_parser() -> argparse.ArgumentParser:
                              'a resume) into <run>/profile/trace.json')
     parser.add_argument('--device', default=None,
                         help='torch device (default: CUDA; without a GPU '
-                             'pass cpu explicitly)')
+                             'pass cpu explicitly); under torchrun each rank '
+                             'takes GPU LOCAL_RANK')
+    parser.add_argument('--summary', default=None,
+                        help='write the run summary as JSON to this path '
+                             '(rank 0; every rank\'s step seconds, kernel '
+                             'launches and collective seconds under '
+                             '"ranks")')
     return parser
 
 
@@ -163,8 +192,11 @@ class _AsyncSaver:
         self._thread.start()
 
 
-def run(args: argparse.Namespace, config: Config) -> dict:
-    """Train as scripts/train.py does; returns a summary:
+def run(args: argparse.Namespace, config: Config,
+        mesh: Optional[Mesh] = None) -> dict:
+    """Train as scripts/train.py does, on `mesh` (parallel/mesh.py; by
+    default the world torchrun's environment describes, a world of one
+    without it, started here and ended on return); returns a summary:
 
     'log_dir', 'start_iter', 'resumed' (None, or what the resume restored:
     the checkpoint's path and iteration, the step count, the learning rate,
@@ -179,29 +211,59 @@ def run(args: argparse.Namespace, config: Config) -> dict:
     scheduler), 'scheduler' (its final state), 'checkpoints' (paths),
     'oom_skips', 'seconds' (first step, with the device's lazy set-up;
     then the other steps' loader wait and step; validation; checkpoint
-    snapshots and waits for their writes) and 'max_memory_allocated'
-    (bytes, on CUDA)."""
-    device = resolve_device(args.device)
-    set_matmul_precision()
-    seed = int(config.train.seed)
-    seed_all(seed)
-    log_dir = get_new_log_dir(args.outdir, prefix='train', tag=args.tag)
-    logger = get_logger(LOGGER, log_dir)
+    snapshots and waits for their writes), 'max_memory_allocated'
+    (bytes, on CUDA), 'grad_norm' and 'comm_seconds' (per iteration: the
+    seconds of the step's collectives, within its step seconds),
+    'world_size', 'backend', 'sharded' and 'ranks' (per rank: the batch
+    rows its steps take, its step and collective seconds per iteration,
+    kernel launches, and its collectives' calls, seconds and bytes by
+    kind)."""
+    own_mesh = mesh is None
+    if own_mesh:
+        mesh = make_mesh(device=args.device)
     try:
-        return _run(args, config, device, seed, log_dir, logger)
+        set_matmul_precision()
+        seed = int(config.train.seed)
+        seed_all(seed)
+        log_dir = broadcast_object(
+            get_new_log_dir(args.outdir, prefix='train', tag=args.tag)
+            if mesh.rank == 0 else None, mesh)
+        logger = _rank_logger(LOGGER, log_dir, mesh)
+        try:
+            summary = _run(args, config, mesh, seed, log_dir, logger)
+        finally:
+            for handler in list(logger.handlers):
+                logger.removeHandler(handler)
+                handler.close()
+        if args.summary and mesh.rank == 0:
+            with open(args.summary, 'w') as f:
+                json.dump(summary, f, indent=1)
+        return summary
     finally:
-        for handler in list(logger.handlers):
-            logger.removeHandler(handler)
-            handler.close()
+        if own_mesh:
+            destroy_mesh(mesh)
 
 
-def _run(args, config: Config, device: torch.device, seed: int,
+def _rank_logger(name: str, log_dir: str, mesh: Mesh) -> logging.Logger:
+    """Rank 0 logs as a world of one does; another rank prints its
+    warnings only, under a name of its own."""
+    if mesh.rank == 0:
+        return get_logger(name, log_dir)
+    logger = get_logger(f'{name}.rank{mesh.rank}')
+    logger.setLevel(logging.WARNING)
+    return logger
+
+
+def _run(args, config: Config, mesh: Mesh, seed: int,
          log_dir: str, logger: logging.Logger) -> dict:
+    device, lead = mesh.device, mesh.rank == 0
     ckpt_dir = os.path.join(log_dir, 'checkpoints')
-    os.makedirs(ckpt_dir, exist_ok=True)
-    _save_config(config, os.path.join(log_dir, 'config.yml'))
-    snapshot_source(log_dir)     # ref train_diffusion_decomp.py:86-87
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _save_config(config, os.path.join(log_dir, 'config.yml'))
+        snapshot_source(log_dir)     # ref train_diffusion_decomp.py:86-87
     cuda = device.type == 'cuda'
+    counts0, comm0 = launch_counts(), comm_since(mesh, {})
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -237,6 +299,8 @@ def _run(args, config: Config, device: torch.device, seed: int,
     num_classes = atom_class_count(transform.get('ligand_atom_mode', 'basic'))
     model = DecompDiffModel.create(config.model.to_dict(), num_classes,
                                    device=device, seed=seed)
+    if model.config.get('use_pallas', False):
+        build_once(mesh)
     # the JAX script draws one batch to initialize its parameters; the
     # port draws it too and sets it aside, so that iteration i trains on
     # the same batch in both
@@ -279,15 +343,31 @@ def _run(args, config: Config, device: torch.device, seed: int,
         logger.info(f'resumed from {args.resume} at iteration {start_iter}'
                     + (f' (best val {best_loss:.6f} @ {best_iter})'
                        if best_loss is not None else ''))
-    if cuda and torch.cuda.device_count() > 1:
-        logger.info(f'{torch.cuda.device_count()} GPUs visible: training on '
-                    f'{device} alone; data-parallel training waits for its '
-                    'ROADMAP item')
+    # the replicated state: rank 0's, on every rank
+    adam_state = [state.optimizer.adam.state[p]
+                  for p in state.optimizer.params.values()
+                  if p in state.optimizer.adam.state]
+    broadcast_(list(model.denoiser.parameters())
+               + [v for s in adam_state for _, v in sorted(s.items())
+                  if torch.is_tensor(v)]
+               + [state.lt_history, state.lt_count], mesh)
 
-    train_step, grad_step, apply_grads = make_train_fns(model, train_cfg)
+    # dp over the ranks when the batch divides by their number
+    # (scripts/train.py:147-155)
+    W = mesh.world_size
+    sharded = mesh.distributed and batch_size % W == 0
+    if sharded:
+        logger.info(f'data-parallel over {W} ranks ({mesh.describe()})')
+    elif W > 1:
+        logger.info(f'{W} ranks but batch_size {batch_size} not divisible '
+                    '— running unsharded')
+    # a world of one builds the step functions as before the mesh existed
+    mesh_kw = {'mesh': mesh} if sharded else {}
+    train_step, grad_step, apply_grads = make_train_fns(model, train_cfg,
+                                                        **mesh_kw)
     n_acc = int(config.train.get('n_acc_batch', 1))
     eval_step = make_eval_step(model, config.train)
-    metrics_logger = MetricsLogger(log_dir)
+    metrics_logger = MetricsLogger(log_dir) if lead else _NoMetrics()
     max_iters = args.max_iters or config.train.max_iters
     val_freq = args.val_freq or config.train.val_freq
     val_steps = np.linspace(0, model.num_timesteps - 1,
@@ -295,14 +375,14 @@ def _run(args, config: Config, device: torch.device, seed: int,
 
     summary = {'log_dir': log_dir, 'start_iter': start_iter,
                'resumed': resumed,
-               'iterations': [], 'train_loss': [], 'lr': [],
-               'step_seconds': [],
+               'iterations': [], 'train_loss': [], 'grad_norm': [], 'lr': [],
+               'step_seconds': [], 'comm_seconds': [],
                'batch_shapes': [], 'eval_shapes': [], 'val': [],
                'checkpoints': [], 'oom_skips': 0}
     seconds = dict.fromkeys(('first_step', 'loader_wait', 'steps',
                              'validation', 'checkpoint'), 0.0)
-    losses = torch.full((max(0, max_iters - start_iter + 1),), float('nan'),
-                        device=device)
+    losses = torch.full((2, max(0, max_iters - start_iter + 1)),
+                        float('nan'), device=device)
     val_batches: list = []
     cache_val = len(split['test']) <= VAL_CACHE_MAX_RECORDS
 
@@ -351,7 +431,9 @@ def _run(args, config: Config, device: torch.device, seed: int,
                     drain_one()
         while window:
             drain_one()
-        losses_v = tape.averages()
+        # every rank validates the whole split; rank 0's loss moves every
+        # rank's scheduler
+        losses_v = broadcast_object(tape.averages(), mesh)
         atom_auroc = get_auroc(np.concatenate(true_v), np.concatenate(pred_v))
         bond_auroc = (get_bond_auroc(np.concatenate(true_b),
                                      np.concatenate(pred_b))
@@ -378,7 +460,7 @@ def _run(args, config: Config, device: torch.device, seed: int,
         batch = next(train_iter)
         waited += time.perf_counter() - t0
         summary['batch_shapes'].append(batch_shape(batch))
-        return batch
+        return shard_batch(batch, mesh) if sharded else batch
 
     # the trace window starts from this run's start, so that a resumed run
     # (start_iter > 10) traces too
@@ -387,9 +469,10 @@ def _run(args, config: Config, device: torch.device, seed: int,
     prof = None
     try:
         for it in range(start_iter, max_iters + 1):
-            if args.profile_steps and it == profile_start:
+            if args.profile_steps and it == profile_start and lead:
                 prof = start_trace()
             t_start, waited = time.perf_counter(), 0.0
+            comm_start = comm_seconds(mesh)
             n_shapes = len(summary['batch_shapes'])
             try:
                 if n_acc <= 1:
@@ -408,10 +491,12 @@ def _run(args, config: Config, device: torch.device, seed: int,
                         pg_parts.append(pg)
                     metrics['grad_norm'] = apply_grads(
                         state, grads_sum, torch.cat(t_parts),
-                        torch.cat(pg_parts))
+                        torch.cat(pg_parts), metrics)
                     del grads_sum, g, t_parts, pg_parts
                 sync()
             except torch.cuda.OutOfMemoryError:
+                if mesh.distributed:
+                    raise
                 # ref train_diffusion_decomp.py:202-210: drop the step and
                 # go on with the next batch
                 logger.warning('| WARNING: ran out of memory, skipping batch')
@@ -425,12 +510,14 @@ def _run(args, config: Config, device: torch.device, seed: int,
                 continue
             elapsed = time.perf_counter() - t_start
             summary['step_seconds'].append(elapsed - waited)
+            summary['comm_seconds'].append(comm_seconds(mesh) - comm_start)
             if not summary['iterations']:
                 seconds['first_step'] = elapsed
             else:
                 seconds['loader_wait'] += waited
                 seconds['steps'] += elapsed - waited
-            losses[it - start_iter] = metrics['loss']
+            losses[0, it - start_iter] = metrics['loss']
+            losses[1, it - start_iter] = metrics['grad_norm']
             summary['iterations'].append(it)
             summary['lr'].append(state.optimizer.lr)
             if prof is not None and it == profile_start + args.profile_steps:
@@ -465,15 +552,17 @@ def _run(args, config: Config, device: torch.device, seed: int,
                              'torch_generator': {
                                  'device': device.type,
                                  'state': generator.get_state().numpy()}}
-                    saver.save(path, checkpoint_payload(
-                        config.to_dict(), model, state,
-                        scheduler.state_dict(), it, extra))
+                    if lead:
+                        saver.save(path, checkpoint_payload(
+                            config.to_dict(), model, state,
+                            scheduler.state_dict(), it, extra))
                     summary['checkpoints'].append(path)
                     logger.info(f'[val] best val loss {val_loss:.6f}, '
                                 f'saving {path} (async)')
                 else:
                     logger.info(f'[val] not improved; best {best_loss:.6f} '
                                 f'at iter {best_iter}')
+                barrier(mesh)
                 seconds['checkpoint'] += time.perf_counter() - t1
     except KeyboardInterrupt:
         logger.info('Terminating...')
@@ -499,13 +588,34 @@ def _run(args, config: Config, device: torch.device, seed: int,
                     'async checkpoint save also failed during shutdown')
         else:
             saver.join()
+            # every written checkpoint is on disk before any rank returns
+            barrier(mesh)
         seconds['checkpoint'] += time.perf_counter() - t0
 
     done = torch.tensor([i - start_iter for i in summary['iterations']],
                         dtype=torch.long)
-    summary['train_loss'] = losses.cpu()[done].tolist()
+    summary['train_loss'], summary['grad_norm'] = (
+        losses.cpu()[:, done].tolist())
     summary['scheduler'] = scheduler.state_dict()
     summary['seconds'] = seconds
     summary['max_memory_allocated'] = (
         torch.cuda.max_memory_allocated(device) if cuda else None)
+    summary.update(world_size=mesh.world_size, backend=mesh.backend,
+                   sharded=sharded, ranks=gather_objects({
+                       'rank': mesh.rank,
+                       'rows': batch_size // W if sharded else batch_size,
+                       'step_seconds': summary['step_seconds'],
+                       'comm_seconds': summary['comm_seconds'],
+                       'launches': launches_since(counts0),
+                       'comm': comm_since(mesh, comm0)}, mesh))
     return summary
+
+
+class _NoMetrics:
+    """The metrics log of a rank other than 0: nothing is written."""
+
+    def log(self, step, tag, values):
+        pass
+
+    def close(self):
+        pass

@@ -13,7 +13,22 @@ utils/train.py:34-56:
 
 The state is mutable: a step updates the model's parameters in place. All
 randomness comes from the torch.Generator a caller passes, on the model's
-device. Gradients are dicts {parameter name: tensor} in the order of
+device.
+
+Data parallel (make_train_fns' `mesh`, parallel/mesh.py): a step takes
+this rank's rows of the global batch and draws as one process draws for
+the whole batch. Gradients come from torch.autograd.grad, so the
+gradient all-reduce is explicit: the mean over ranks of each rank's
+gradient, which is the gradient of the global loss because every loss
+term is a mean over graphs of per-graph means and the shards are equal.
+train_step reduces before the clip, apply_grads once per optimizer step
+after the n_acc_batch micro-gradients are summed; the losses to log ride
+in the same bucket, so they are the global means. t and the per-graph
+losses reach lt_update all-gathered in global row order (one gather a
+grad_step), so the Lt buffers are the same on every rank and equal a
+world of one's.
+
+Gradients are dicts {parameter name: tensor} in the order of
 `denoiser.named_parameters()`; utils.params.state_dict_to_flax turns one
 into the JAX package's layout.
 """
@@ -28,6 +43,8 @@ import torch
 from decompdiff_tpu_torch.data.batch import ComplexBatch
 from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, sample_time)
+from decompdiff_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_rows, all_reduce_mean, draw_rows)
 
 Grads = Dict[str, torch.Tensor]
 DEFAULT_LOSS_WEIGHTS = {'pos': 1.0, 'v': 100.0, 'bond': 100.0}
@@ -155,16 +172,36 @@ def lt_update(state: TrainState, t_used: torch.Tensor,
     state.lt_count = state.lt_count + cnts
 
 
-def make_train_fns(model: DecompDiffModel, train_cfg):
+def _gather_rows(t_used: torch.Tensor, per_graph: torch.Tensor,
+                 mesh: Optional[Mesh]) -> tuple:
+    """Every rank's t and per-graph losses in global row order, in one
+    gather (t < 2**24 is exact in float32)."""
+    if mesh is None or not mesh.distributed:
+        return t_used, per_graph
+    rows = all_gather_rows(
+        torch.stack([t_used.to(per_graph.dtype), per_graph], -1), mesh)
+    return rows[:, 0].to(t_used.dtype), rows[:, 1]
+
+
+def make_train_fns(model: DecompDiffModel, train_cfg,
+                   mesh: Optional[Mesh] = None):
     """Build (train_step, grad_step, apply_grads).
 
     `train_step(state, batch, generator)` is one fused step and returns the
     metrics (losses, 'loss', 'grad_norm'). `grad_step(state, batch,
     generator)` returns (grads, metrics, t_used, per_graph) without updating;
-    `apply_grads(state, grads_sum, t_used, per_graph)` divides a sum over
-    n_acc_batch micro-batches by n_acc_batch, clips, updates and returns the
-    grad norm (ref scripts/train_diffusion_decomp.py:159-196: per-micro loss
-    / n_acc, one clip and optimizer step on the accumulated gradients).
+    `apply_grads(state, grads_sum, t_used, per_graph, metrics=None)`
+    divides a sum over n_acc_batch micro-batches by n_acc_batch, clips,
+    updates and returns the grad norm (ref
+    scripts/train_diffusion_decomp.py:159-196: per-micro loss / n_acc, one
+    clip and optimizer step on the accumulated gradients).
+
+    With a `mesh` each batch is this rank's rows (parallel/mesh.py
+    shard_batch): grad_step's grads and metrics are this rank's and its
+    t_used / per_graph the global rows; train_step all-reduces the
+    gradients and returns the global metrics, and apply_grads all-reduces
+    the gradients and, given the metrics to report (the last micro-batch's
+    grad_step metrics), replaces them in place by their global means.
     """
     loss_weights = dict(train_cfg.get('loss_weights', DEFAULT_LOSS_WEIGHTS))
     pos_noise_std = float(train_cfg.get('pos_noise_std', 0.1))
@@ -174,29 +211,47 @@ def make_train_fns(model: DecompDiffModel, train_cfg):
     names = [n for n, _ in model.denoiser.named_parameters()]
     params = [p for _, p in model.denoiser.named_parameters()]
 
+    # a world of one calls the loss as before the mesh existed
+    loss_kw = {} if mesh is None else {'mesh': mesh}
+
     def grad_step(state: TrainState, batch: ComplexBatch,
                   generator: Optional[torch.Generator] = None):
         dev = model.device
+
+        def randn(shape):
+            return torch.randn(shape, generator=generator, device=dev)
         # input jitter (ref scripts/train_diffusion_decomp.py:160-164)
         batch = batch.replace(
-            protein_pos=batch.protein_pos + pos_noise_std * torch.randn(
-                batch.protein_pos.shape, generator=generator, device=dev),
-            prior_centers=batch.prior_centers + prior_noise_std * torch.randn(
-                batch.prior_centers.shape, generator=generator, device=dev))
+            protein_pos=batch.protein_pos + pos_noise_std * draw_rows(
+                randn, batch.protein_pos.shape, mesh),
+            prior_centers=batch.prior_centers + prior_noise_std * draw_rows(
+                randn, batch.prior_centers.shape, mesh))
         time_step = None
         if method == 'importance':
             time_step, _ = sample_time(
                 batch.batch_size, model.num_timesteps, method,
-                state.lt_history, state.lt_count, generator, dev)
-        out = model.get_diffusion_loss(batch, generator, time_step=time_step)
+                state.lt_history, state.lt_count, generator, dev, mesh)
+        out = model.get_diffusion_loss(batch, generator, time_step=time_step,
+                                       **loss_kw)
         loss = weighted_loss(out['losses'], loss_weights)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for n, p, g in zip(names, params, torch.autograd.grad(
                      loss, params, allow_unused=True))}
         metrics = {f'loss_{k}': v.detach() for k, v in out['losses'].items()}
         metrics['loss'] = loss.detach()
-        return (grads, metrics, out['time_step'],
-                out['per_graph_pos_loss'].detach())
+        t_used, per_graph = _gather_rows(
+            out['time_step'], out['per_graph_pos_loss'].detach(), mesh)
+        return grads, metrics, t_used, per_graph
+
+    def reduce(grads, metrics):
+        """The means over ranks of a rank's gradients and metrics, in one
+        all-reduce."""
+        if mesh is None:
+            return grads, metrics
+        both = all_reduce_mean(
+            {**grads, **{f'metric:{k}': v for k, v in metrics.items()}}, mesh)
+        return ({k: both[k] for k in grads},
+                {k: both[f'metric:{k}'] for k in metrics})
 
     def _update(state, grads, t_used, per_graph):
         state.optimizer.step(grads)
@@ -206,13 +261,18 @@ def make_train_fns(model: DecompDiffModel, train_cfg):
     def train_step(state: TrainState, batch: ComplexBatch,
                    generator: Optional[torch.Generator] = None) -> dict:
         grads, metrics, t_used, per_graph = grad_step(state, batch, generator)
+        grads, metrics = reduce(grads, metrics)
         metrics['grad_norm'] = global_norm(grads)
         _update(state, grads, t_used, per_graph)
         return metrics
 
     def apply_grads(state: TrainState, grads_sum: Grads,
                     t_used: torch.Tensor,
-                    per_graph: torch.Tensor) -> torch.Tensor:
+                    per_graph: torch.Tensor,
+                    metrics: Optional[dict] = None) -> torch.Tensor:
+        grads_sum, reduced = reduce(grads_sum, metrics or {})
+        if metrics is not None:
+            metrics.update(reduced)
         grads = {k: g / n_acc for k, g in grads_sum.items()}
         grad_norm = global_norm(grads)
         _update(state, grads, t_used, per_graph)

@@ -408,3 +408,124 @@ def write_raw_pairs(root, n_pairs: int, half: int = 5,
             f.write(mol_to_sdf_block(mol, name='dumbbell'))
         index.append(entry)
     return index
+
+
+# --- data-parallel ranks in spawned processes --------------------------------
+
+def _rank_main(rank, world_size, init_file, target, args, device, threads,
+               out):
+    import os
+    import pickle
+    import traceback
+
+    from decompdiff_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world_size))
+    torch.set_num_threads(threads)
+    try:
+        mesh = make_mesh(device=device, init_method=f'file://{init_file}')
+        try:
+            result = target(mesh, *args)
+        finally:
+            destroy_mesh(mesh)
+    except BaseException:
+        with open(f'{out}.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+    with open(out, 'wb') as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(target, world_size: int, init_file: str, args=(), *,
+              device='cpu', timeout: float = 120.0, threads: int = 1) -> list:
+    """target(mesh, *args) on `world_size` ranks, each a spawned process
+    with `threads` torch threads, joined through a file:// store at
+    init_file (a path that does not exist yet: concurrent runs never race
+    for a port); returns each rank's result in rank order. `target` and
+    its results must pickle. Raises when a rank fails; when one fails or
+    the timeout expires, every rank still running is killed first."""
+    import multiprocessing
+    import os
+    import pickle
+    import time
+    ctx = multiprocessing.get_context('spawn')
+    outs = [f'{init_file}.rank{r}.pkl' for r in range(world_size)]
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world_size, init_file, target, tuple(args), device, threads,
+        outs[r])) for r in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.exitcode is None for p in procs):
+            failed = any(p.exitcode not in (None, 0) for p in procs)
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.kill()
+            p.join()
+    errors = [open(f'{o}.err').read() for o in outs
+              if os.path.exists(f'{o}.err')]
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        what = 'failed' if errors or time.monotonic() <= deadline else (
+            f'timed out after {timeout} s')
+        raise RuntimeError(f'ranks {what}: exit codes {codes}\n'
+                           + '\n'.join(errors))
+    results = []
+    for o in outs:
+        with open(o, 'rb') as f:
+            results.append(pickle.load(f))
+    return results
+
+
+DP_ROW_DRIFTS = ({'type': 'armsca_prox', 'min_d': 1.2, 'max_d': 1.9},
+                 {'type': 'clash', 'sigma': 2.0, 'gamma': 4.0})
+
+
+def dp_row_pairs(model, batch, full_protein, t, world: int = 2) -> dict:
+    """What `world` data-parallel ranks compute for a batch, stage by stage
+    of a guided sampling step, beside what one process computes:
+    {stage: (the whole batch's, the ranks' rows joined in rank order)} for
+    the protein centroid (center_by_protein), the guidance gradient of each
+    of DP_ROW_DRIFTS (sampler._guidance_grad) and each prediction of one
+    denoiser call at t. Each rank takes its rows of the batch and of the
+    full protein (parallel/mesh.py shard_batch) and the whole batch's
+    centroid offset, as under a mesh; no process group is needed."""
+    from decompdiff_tpu_torch.models.diffusion_model import (
+        center_by_protein)
+    from decompdiff_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from decompdiff_tpu_torch.sampling import sampler
+    B = batch.batch_size
+    meshes = [Mesh(r, world, r, model.device, None) for r in range(world)]
+
+    def joined(fn):
+        """torch.cat over the ranks of fn(mesh, its rows of a [B, ...]
+        tensor's, its batch, its full protein)."""
+        return torch.cat([fn(m, lambda x, m=m: x[m.rows(B)],
+                             shard_batch(batch, m),
+                             shard_batch(full_protein, m)) for m in meshes])
+
+    pairs = {'protein centroid': (
+        center_by_protein(batch, batch.ligand_pos)[2],
+        joined(lambda m, rows, b, f: center_by_protein(b, b.ligand_pos)[2]))}
+    pc, xt, off = center_by_protein(batch, batch.ligand_pos)
+    for drift in DP_ROW_DRIFTS:
+        cfg = sampler.SampleConfig(energy_drift=(drift,))
+        pairs[f'{drift["type"]} gradient'] = (
+            sampler._guidance_grad(model, cfg, batch.replace(
+                protein_pos=pc), xt, t, off, full_protein),
+            joined(lambda m, rows, b, f: sampler._guidance_grad(
+                model, cfg, b.replace(protein_pos=rows(pc)), rows(xt),
+                rows(t), rows(off), f, m)))
+    with torch.no_grad():
+        whole = model.apply(batch, batch.ligand_pos, batch.ligand_v,
+                            batch.bond_type, t)
+        for k in sorted(whole):
+            pairs[f'denoiser {k}'] = (whole[k], joined(
+                lambda m, rows, b, f: model.apply(
+                    b, b.ligand_pos, b.ligand_v, b.bond_type, rows(t))[k]))
+    return pairs

@@ -39,7 +39,9 @@ gradients; above 64 atoms, or with more than 16 heads, it stays per-row.
 The released model converted from a reference-layout state dict holds the
 float64 reference oracle with the kernels (rtol = atol = 3e-4), and the
 sampler's host drift fires at the same steps with the same inputs on the
-card as on the CPU.
+card as on the CPU. A training step on two data-parallel ranks (spawned
+processes; gloo when they share the card) with the kernels on matches the
+same step in one process, each rank's kernels taking half the batch.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -1025,6 +1027,141 @@ def _train_step_on_vs_off(cuda, cfg, counter, count='launches', per_layer=1,
         scale = max(1.0, float(b.abs().max()))
         torch.testing.assert_close(g_on[name], b, rtol=2e-3,
                                    atol=1e-4 * scale, msg=name)
+
+
+def _dp_grad_step(mesh, batch_size=4):
+    """One importance-free grad step of the tiny kernel model on `mesh`'s
+    rows of a seeded batch (mesh None: the whole batch), its gradients and
+    metrics all-reduced: (grads, metrics, rows, triplet backward
+    launches)."""
+    from decompdiff_tpu_torch.ops._build import build_once
+    from decompdiff_tpu_torch.parallel.mesh import (
+        all_reduce_mean, shard_batch)
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
+    device = torch.device('cuda') if mesh is None else mesh.device
+    if mesh is not None:
+        build_once(mesh)
+    model = DecompDiffModel.create(dict(tiny_model_config(
+        num_diffusion_timesteps=20), use_pallas=True), 8, device=device,
+        seed=3)
+    batch = shard_batch(random_complex_batch(
+        np.random.default_rng(0), batch_size=batch_size, num_ligand=11,
+        real_ligand=9, device=device), mesh)
+    grad_step = make_train_fns(model, DEFAULT_TRAIN_CONFIG,
+                               **({} if mesh is None else {'mesh': mesh}))[1]
+    before = triplet_ops.triplet_attention_backward.launches
+    grads, metrics, _, _ = grad_step(
+        create_train_state(model, DEFAULT_TRAIN_CONFIG), batch,
+        torch.Generator(device=device).manual_seed(1))
+    grads = all_reduce_mean(grads, mesh)
+    metrics = all_reduce_mean(metrics, mesh)
+    torch.cuda.synchronize()
+    return ({k: v.cpu() for k, v in grads.items()},
+            {k: v.cpu() for k, v in metrics.items()}, batch.batch_size,
+            triplet_ops.triplet_attention_backward.launches - before)
+
+
+def test_two_rank_train_step_on_one_card(cuda, tmp_path):
+    """A grad step on two data-parallel ranks started as processes (gloo
+    when they share the card, NCCL on two cards), kernels on, each rank's
+    kernels on 2 of the 4 complexes and its draws the whole batch's, against
+    the same step in one process: losses, and every all-reduced gradient
+    at the tolerance of the kernels-on-vs-off step."""
+    from decompdiff_tpu_torch.training.train_step import global_norm
+    from decompdiff_tpu_torch.utils.testing import run_ranks
+    want, want_metrics, rows, launched = _dp_grad_step(None)
+    assert (rows, launched) == (4, 2)
+    ranks = run_ranks(_dp_grad_step, 2, str(tmp_path / 'rendezvous'),
+                      device='cuda', timeout=600.0)
+    for grads, metrics, rows, launched in ranks:
+        assert (rows, launched) == (2, 2)
+        for key, value in want_metrics.items():
+            torch.testing.assert_close(metrics[key], value, rtol=1e-4,
+                                       atol=1e-6)
+        torch.testing.assert_close(global_norm(grads), global_norm(want),
+                                   rtol=2e-3, atol=0.0)
+        for name, b in want.items():
+            scale = max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(grads[name], b, rtol=2e-3,
+                                       atol=1e-4 * scale, msg=name)
+
+
+def _entry_batch(cuda, nl):
+    """The sampling entry point's batch shape (B = 8, Np = 320, a
+    2048-atom full protein) at Nl = nl, seeded."""
+    from decompdiff_tpu_torch.data.batch import FullProtein
+    rng = np.random.default_rng(0)
+    batch = random_complex_batch(rng, batch_size=8, num_protein=320,
+                                 num_ligand=nl, num_groups=6, device=cuda)
+    fp = FullProtein(pos=torch.as_tensor(rng.normal(size=(8, 2048, 3)) * 8,
+                                         dtype=torch.float32, device=cuda),
+                     mask=torch.ones((8, 2048), dtype=torch.bool,
+                                     device=cuda))
+    return batch, fp
+
+
+@pytest.mark.parametrize('nl', [16, 32])
+@pytest.mark.parametrize('model_name', ['released', 'tiny'])
+def test_dp_rows_match_the_whole_batch(cuda, model_name, nl):
+    """Each stage of a guided sampling step on the two halves of a batch,
+    as two data-parallel ranks compute them (their rows, the whole batch's
+    centroid offset), against the whole batch, at the sampling entry
+    point's shapes: the protein centroid, the armsca_prox and clash
+    guidance gradients, and each prediction of one denoiser call with the
+    kernels and with their plain versions, all within rtol = atol = 1e-5.
+    Bitwise equality does not hold at every shape: at Nl = 16 a library
+    GEMM rounds a row's last bit differently by batch size."""
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, dp_row_pairs)
+    cfg = (dict(DEFAULT_MODEL_CONFIG) if model_name == 'released' else
+           tiny_model_config(num_diffusion_timesteps=1000))
+    batch, fp = _entry_batch(cuda, nl)
+    t = torch.full((8,), 999, dtype=torch.long, device=cuda)
+    for on in (True, False):
+        model = DecompDiffModel.create(dict(cfg, use_pallas=on), 8,
+                                       device=cuda, seed=0)
+        before = triplet_ops.triplet_attention.launches
+        pairs = dp_row_pairs(model, batch, fp, t)
+        assert (triplet_ops.triplet_attention.launches > before) == on
+        for stage, (whole, halves) in pairs.items():
+            torch.testing.assert_close(halves, whole, rtol=1e-5, atol=1e-5,
+                                       msg=f'kernels {on}: {stage}')
+
+
+def test_dp_sampling_bitwise_at_released_nl32(cuda):
+    """Guided strided sampling (20 steps) of a batch's two halves, each as
+    a data-parallel rank samples it (the global batch's draws, its rows),
+    equals sampling the whole batch bitwise, at the released config and
+    the sampling entry point's shapes with Nl = 32 (those of chip_smoke.py
+    phase 2e). There every operation on the path computes a row the same
+    whatever the batch size (the protein centroid through
+    models/diffusion_model.py rowwise_sum). At other shapes a row can part
+    in its last bit (test_dp_rows_match_the_whole_batch), and the discrete
+    type and bond draws of 20 guided steps can turn that into samples that
+    part."""
+    from decompdiff_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from decompdiff_tpu_torch.sampling.sampler import (
+        SampleConfig, sample_diffusion)
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, DP_ROW_DRIFTS)
+    model = DecompDiffModel.create(dict(DEFAULT_MODEL_CONFIG,
+                                        use_pallas=True), 8, device=cuda,
+                                   seed=0)
+    batch, fp = _entry_batch(cuda, 32)
+    cfg = SampleConfig(num_steps=20, save_traj=False, skip_mode='strided',
+                       energy_drift=DP_ROW_DRIFTS)
+
+    def run(mesh=None):
+        b, f = shard_batch(batch, mesh), shard_batch(fp, mesh)
+        kw = {} if mesh is None else {'mesh': mesh}
+        return sample_diffusion(
+            model, cfg, b, b.ligand_pos, b.ligand_v, b.bond_type, f,
+            generator=torch.Generator(device=cuda).manual_seed(5), **kw)
+    whole = run()
+    halves = [run(Mesh(r, 2, r, cuda, None)) for r in range(2)]
+    for k in ('pos', 'v', 'bond'):
+        assert torch.equal(torch.cat([h[k] for h in halves]), whole[k]), k
 
 
 def test_tiny_train_step_kernels_on_vs_off(cuda):

@@ -15,6 +15,7 @@ import torch
 
 import decompdiff_tpu_torch
 from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+from decompdiff_tpu_torch.parallel.mesh import make_mesh
 from decompdiff_tpu_torch.utils.testing import (
     DEFAULT_MODEL_CONFIG, random_complex_batch)
 
@@ -45,15 +46,21 @@ def test_every_submodule_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(_modules()) >= 20
+    # the data-parallel package (the counterpart of decompdiff_tpu/parallel)
+    assert {'decompdiff_tpu_torch.parallel',
+            'decompdiff_tpu_torch.parallel.mesh'} <= set(_modules())
 
 
 @pytest.mark.parametrize('path', sorted(
-    [str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')]
-    + ['chip_smoke.py', 'scripts/sample_torch.py',
+    {str(p.relative_to(REPO)) for p in PACKAGE.rglob('*.py')}
+    | {'decompdiff_tpu_torch/parallel/__init__.py',
+       'decompdiff_tpu_torch/parallel/mesh.py'}
+    | {'chip_smoke.py', 'scripts/sample_torch.py',
        'scripts/train_torch.py', 'scripts/convert_checkpoint_torch.py',
-       'scripts/evaluate_torch.py'] + [f'scripts/{s}_torch.py'
-                                       for s in DATA_SCRIPTS]))
+       'scripts/evaluate_torch.py'} | {f'scripts/{s}_torch.py'
+                                       for s in DATA_SCRIPTS}))
 def test_no_forbidden_import_statement(path):
+    assert (REPO / path).exists(), path
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -198,6 +205,10 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         DecompDiffModel.create(DEFAULT_MODEL_CONFIG, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         random_complex_batch(np.random.default_rng(0))
+    for key in ('RANK', 'WORLD_SIZE'):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
 
 
 def test_create_on_this_host_without_device_raises():
