@@ -6,15 +6,24 @@
 1. Device: requires CUDA, turns TF32 and cuBLAS's bf16 reduced-precision
    reductions off, prints the card's name and power limit (nvidia-smi).
 2. Build: compiles the three CUDA sources of csrc/ (each holds a forward and
-   a backward kernel) with nvcc (timed set-up).
+   a backward kernel) with nvcc and the host library csrc/ddnative.cpp
+   (native.py's padding, PDB parsing and bond candidates) with g++, all
+   started together (timed set-up).
 2a. Entry point: the sampling driver (decompdiff_tpu_torch/sampling/
    driver.py, the port of scripts/sample.py) as a user runs it, on a
    synthetic store of two ~320-atom pockets, from a JAX-layout checkpoint
    of the seeded released uni_o2_bond model, with the kernels, B=8, 8
    molecules per pocket and STEPS strided guided steps: launches counted
-   (exactly calls x 12/12/6 forward, nothing else), result pickles checked,
+   (exactly calls x 12/12/6 forward, nothing else), the native library's
+   calls counted (native.calls, above 0), result pickles checked,
    seconds per molecule printed split into host set-up, device sampling
-   and reconstruction. Then scripts/evaluate_torch.py (the evaluation
+   and reconstruction. The padding routines of each batch the driver
+   collated (B=8, Np=320, Nl=32) and the bond candidates of each sampled
+   molecule through the C library and its plain versions: bitwise equal,
+   host ms of each routine printed, C and plain. The sampled molecules
+   through utils/visualize.py: one 3Dmol HTML view and one draw_mol_grid
+   SVG, both holding every molecule. Then scripts/evaluate_torch.py (the
+   evaluation
    driver, decompdiff_tpu_torch/evaluation/driver.py, the port of
    scripts/evaluate.py), run in this process, scores those pickles with
    --docking_mode none, and then the store's own ligands written as
@@ -85,8 +94,11 @@
    import_reference_data_torch.py --index, split_dataset_torch.py; the
    status buckets (every pair ok, the missing receptor missing_file), the
    arms, the records' keys and the split checked, seconds per pair and per
-   record printed. Then the sampling driver on the built store as in 2a
-   (launches exactly calls x 12/12/6 forward); on the first batch the
+   record printed; each raw receptor through the C PDB parser and its
+   plain version (every field equal, host ms of each). Then the sampling
+   driver on the built store as in 2a (launches exactly calls x 12/12/6
+   forward, native calls above 0, the padding routines of its batches, B=8,
+   Np=384, Nl=16, C against plain as in 2a); on the first batch the
    driver collated there (its own B, Np, Nl) each kernel mode's first-
    layer inputs through the kernel and its plain version (rtol 1e-3, atol
    1e-4) and one denoiser call kernels on vs off (rtol 1e-3, atol 1e-3);
@@ -223,6 +235,9 @@ PREP_RECORD_KEYS = {
 PREP_ALERTS = (('cyclopropane', 'C1CC1'), ('propyl', '[CX4][CX4][CX4]'),
                ('benzene', 'c1ccccc1'))
 PREP_ALERT_COUNT = 2
+# the native host library (csrc/ddnative.cpp) against its plain versions:
+# each routine timed over NATIVE_REPS calls (host seconds per call)
+NATIVE_REPS = 20
 # the keys of a result pickle and of each of its rows (scripts/sample.py)
 RESULT_KEYS = {'data_id', 'results', 'atom_mode', 'config'}
 ROW_KEYS = {'pred_pos', 'pred_v', 'pred_bond', 'decomp_mask', 'mol',
@@ -482,8 +497,11 @@ def build_phase():
     from decompdiff_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f'build: {len(_build.KERNELS)} sources (forward and backward '
-          f'kernels) in {time.perf_counter() - t0:.1f} s (set-up)', flush=True)
+    print(f'build: {len(_build.SOURCES)} sources, '
+          f'{", ".join(_build.KERNELS)} (forward and backward kernels, nvcc) '
+          f'and {", ".join(_build.HOST_LIBRARIES)} (the host library, g++: '
+          f'{_build.library_path("ddnative").name}) in '
+          f'{time.perf_counter() - t0:.1f} s (set-up)', flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ('entry function', 'registers',
@@ -1532,12 +1550,14 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None,
          '--use_pallas'])
     config = Config({'data': {'path': str(store)},
                      'sample': ENTRY_SAMPLE_CFG})
+    from decompdiff_tpu_torch import native
     ops = model_ops()
     collate, load = driver.collate, driver.load_model_from_checkpoint
     if catch is not None:
         def collating(*a, **k):
             batch = collate(*a, **k)
             catch.setdefault('batch', batch)
+            catch.setdefault('collate', []).append((a, k))
             return batch
 
         def loading(*a, **k):
@@ -1546,10 +1566,14 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None,
         driver.collate, driver.load_model_from_checkpoint = collating, loading
     try:
         zero_launches()
+        for counts in (native.calls, native.plain_calls):
+            counts.update(dict.fromkeys(counts, 0))
         t0 = time.perf_counter()
         summaries = driver.run(args, config)
         elapsed = time.perf_counter() - t0
         launches = get_launches()
+        native_calls = dict(native.calls)
+        plain_calls = dict(native.plain_calls)
     finally:
         driver.collate, driver.load_model_from_checkpoint = collate, load
 
@@ -1563,6 +1587,11 @@ def sample_store(per_call, work, store, n_pockets, label, catch=None,
           f'every other counter 0)', flush=True)
     check(launches == expect,
           f'{label} launch counts differ from the expected')
+    print(f'{label}: native host library calls (csrc/ddnative.cpp) '
+          f'{nonzero(native_calls)}, the JAX package\'s plain routes '
+          f'{plain_calls}', flush=True)
+    check(sum(native_calls.values()) > 0,
+          f'{label}: the path called no routine of the native library')
     n_mol = sum(s['n'] for s in summaries)
     n_recon = sum(s['n_recon'] for s in summaries)
     n_complete = sum(s['n_complete'] for s in summaries)
@@ -1636,12 +1665,188 @@ def entry_phase(torch, per_call):
     try:
         store = work / 'synthetic.ddstore'
         write_pockets(store, ENTRY_POCKETS)
+        caught = {}
         launches, summaries = sample_store(
-            per_call, work, store, len(ENTRY_POCKETS), 'entry point')
+            per_call, work, store, len(ENTRY_POCKETS), 'entry point', caught)
+        native_collate_phase(caught['collate'], 'entry point')
+        del caught
+        rows = sampled_rows(summaries)
+        native_bonds_phase(rows, 'entry point')
+        visualize_phase(rows, work, 'entry point')
         evaluation_phase(model_ops(), work, store, summaries)
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+class RecordingModule:
+    """Stands in for a module: calls its functions and records each call's
+    name and arguments."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.module, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+        return call
+
+
+def same_result(got, want):
+    """Equal values, dtypes and structure (arrays, lists, dicts, None)."""
+    import numpy as np
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(same_result(got[k], want[k]) for k in want))
+    if isinstance(want, (tuple, list)) and want and isinstance(
+            want[0], np.ndarray):
+        return (isinstance(got, type(want)) and len(got) == len(want)
+                and all(same_result(g, w) for g, w in zip(got, want)))
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and np.array_equal(got, want))
+    return type(got) is type(want) and got == want
+
+
+def host_seconds(fn, *args):
+    """Host seconds per call of fn(*args), over NATIVE_REPS calls after
+    one warm-up; returns (seconds, the warm-up's result)."""
+    out = fn(*args)
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_REPS):
+        fn(*args)
+    return (time.perf_counter() - t0) / NATIVE_REPS, out
+
+
+def native_compare(calls, label, count, what):
+    """Each (routine, args) of `calls` through the C library (native.py)
+    and its plain version (native.plain) on the card's host: results
+    bitwise equal; prints the host ms of each routine, C and plain, summed
+    over the calls and divided by `count` (of `what`: batch, receptor)."""
+    from decompdiff_tpu_torch import native
+    per_routine = {}
+    for name, args in calls:
+        c_s, got = host_seconds(getattr(native, name), *args)
+        plain_s, want = host_seconds(getattr(native.plain, name), *args)
+        check(same_result(got, want),
+              f'{label}: native.{name} differs from its plain version')
+        c, plain, n = per_routine.get(name, (0.0, 0.0, 0))
+        per_routine[name] = (c + c_s, plain + plain_s, n + 1)
+    c_all = sum(c for c, _, _ in per_routine.values()) / count
+    plain_all = sum(p for _, p, _ in per_routine.values()) / count
+    print(f'{label} native host library: {len(calls)} calls, {count} x '
+          f'{what}, every result bitwise its plain version\'s; host ms per '
+          f'{what}, C / plain: '
+          + ', '.join(f'{name} ({n}) {c / count * 1e3:.4f} / '
+                      f'{p / count * 1e3:.4f}'
+                      for name, (c, p, n) in per_routine.items())
+          + f'; all {c_all * 1e3:.4f} / {plain_all * 1e3:.4f} '
+          f'({plain_all / max(c_all, 1e-12):.2f}x) on {gpu_name_and_limit()}',
+          flush=True)
+    return c_all, plain_all
+
+
+def native_collate_phase(collate_calls, label):
+    """The padding routines of every batch the sampling driver collated
+    (the entry phase: B=8, Np=320, Nl=32; the prepared store: B=8, Np=384,
+    Nl=16), replayed through the C library and its plain versions
+    (native_compare)."""
+    from decompdiff_tpu_torch import native
+    from decompdiff_tpu_torch.data import collate
+    calls, shapes = [], []
+    for args, kwargs in collate_calls:
+        recorder = RecordingModule(native)
+        collate.native = recorder
+        try:
+            batch = collate.collate(*args, **dict(kwargs, device='cpu'))
+        finally:
+            collate.native = native
+        calls += recorder.calls
+        shapes.append((batch.batch_size, batch.num_protein_atoms,
+                       batch.num_ligand_atoms))
+    check(calls, f'{label}: no padding routine was called')
+    print(f'{label} collated batches (B, Np, Nl): {shapes}', flush=True)
+    native_compare(calls, f'{label} collate', len(shapes), 'batch')
+
+
+def sampled_rows(summaries):
+    """The result rows of the sampling driver's pickles."""
+    from decompdiff_tpu_torch.sampling import driver
+    return [r for s in summaries
+            for r in driver.load_result(s['path'])['results']]
+
+
+def native_bonds_phase(rows, label):
+    """The bond candidates of each sampled molecule (its predicted atoms
+    with reconstruct/ligan.py's radii, stretch 1.3, min_d 0) through the C
+    library and its plain version (native_compare)."""
+    import numpy as np
+
+    from decompdiff_tpu_torch.constants import atomic_numbers_from_index
+    from decompdiff_tpu_torch.reconstruct import ligan
+    calls = []
+    for r in rows:
+        element = atomic_numbers_from_index(r['pred_v'], 'basic')
+        radii = np.array([ligan._r(z) for z in element], np.float32)
+        calls.append(('perceive_bonds_native',
+                      (np.asarray(r['pred_pos'], np.float64), radii, 1.3,
+                       0.0)))
+    native_compare(calls, f'{label} bond candidates',
+                   len(rows), 'molecule')
+
+
+def native_parse_phase(paths, label):
+    """The raw receptors through the C PDB parser and its plain version:
+    every field equal (native_compare)."""
+    calls = [('parse_pdb_atoms_native', (Path(p).read_text(),))
+             for p in paths]
+    native_compare(calls, f'{label} PDB parser', len(paths), 'receptor')
+
+
+def visualize_phase(rows, work, label):
+    """The sampled molecules (their predicted atoms, positions and bonds
+    as MolRecords) through the port's utils/visualize.py: one 3Dmol HTML
+    view (visualize_ligand; without py3Dmol on the host, the first-party
+    recorder of utils/viewer3d.py) and one draw_mol_grid SVG; both checked
+    non-empty and holding every molecule."""
+    import numpy as np
+
+    from decompdiff_tpu_torch.constants import atomic_numbers_from_index
+    from decompdiff_tpu_torch.data.mol import MolRecord
+    from decompdiff_tpu_torch.utils import visualize
+    mols = []
+    for r in rows:
+        bond = np.asarray(r['pred_bond'])
+        src, dst = np.nonzero(bond)
+        mols.append(MolRecord(
+            element=atomic_numbers_from_index(r['pred_v'], 'basic'),
+            pos=np.asarray(r['pred_pos'], np.float32),
+            bond_index=np.stack([src, dst]), bond_type=bond[src, dst],
+            aromatic=np.zeros(len(r['pred_v']), bool)))
+    t0 = time.perf_counter()
+    view = visualize.visualize_ligand(mols)
+    html = Path(view.write_html(str(work / 'sampled.html'))).read_text()
+    html_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svg = visualize.draw_mol_grid(
+        mols, legends=[f'sample {i}' for i in range(len(mols))])._repr_svg_()
+    svg_s = time.perf_counter() - t0
+    check(html.count('viewer.addModel(') == len(mols)
+          and '$3Dmol.createViewer' in html,
+          f'{label}: the 3Dmol view holds {html.count("viewer.addModel(")} '
+          f'of {len(mols)} molecules')
+    check(svg.startswith('<svg') and svg.count('<g transform=') == len(mols)
+          and svg.count('<line') > 0,
+          f'{label}: the SVG grid holds {svg.count("<g transform=")} of '
+          f'{len(mols)} molecules')
+    print(f'{label} visualize: {len(mols)} sampled molecules, 3Dmol HTML '
+          f'({type(view).__module__}) {len(html)} characters in '
+          f'{html_s:.3f} s, draw_mol_grid SVG {len(svg)} characters '
+          f'({svg.count("<line")} bond lines) in {svg_s:.3f} s',
+          flush=True)
 
 
 def evaluate_counted(ops, outdir, label):
@@ -1988,6 +2193,8 @@ def prep_phase(torch, per_call):
         index = write_raw_pairs(str(raw), RAW_PAIRS, half=PREP_HALF,
                                 seed=PREP_SEED)
         n_receptor = len(PDBProtein(str(raw / index[0]['protein'])).element)
+        native_parse_phase([raw / e['protein'] for e in index],
+                           'prepared store')
         index.append({'protein': 'missing/missing_rec.pdb',
                       'ligand': index[0]['ligand']})
         with open(work / 'index.pkl', 'wb') as f:
@@ -2066,6 +2273,7 @@ def prep_phase(torch, per_call):
                                            caught)
         batch_kernel_phase(torch, caught['model'], caught['batch'],
                            'prepared store')
+        native_collate_phase(caught['collate'], 'prepared store')
         del caught
 
         ops = model_ops()

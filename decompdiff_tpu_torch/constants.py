@@ -81,6 +81,19 @@ def is_aromatic_from_index(index, mode: str):
     raise ValueError(mode)
 
 
+def hybridization_from_index(index, mode: str):
+    """Hybridization strings for predicted class indices; only mode 'full'
+    carries the channel (ref utils/transforms.py:97-102 — whose body
+    indexes the aromatic table and returns its bool column, apparently
+    dead/buggy and never called; this returns the full-mode table's actual
+    hybridization column)."""
+    if mode != 'full':
+        raise ValueError(mode)
+    index = np.asarray(index)
+    table = np.array([h for _, h, _ in ATOM_TYPES_FULL])
+    return table[index]
+
+
 def atom_index(atomic_num: int, hybridization: str, is_aromatic: bool, mode: str) -> int:
     """Ref utils/transforms.py:105-111."""
     if mode == 'basic':

@@ -50,33 +50,69 @@ class PDBProtein:
         self._parse()
 
     def _enum_atom_lines(self):
-        # the fixed-column parser of native.py (the JAX package's C parser,
-        # same slicing, same ENDMDL stop); HEADER appears before coordinates
+        # the C fixed-column parser of native.py (csrc/ddnative.cpp: the
+        # JAX package's parser, same slicing, same ENDMDL stop, buffers
+        # sized from the block's lines); its offsets are bytes, so a
+        # non-ASCII block takes the Python parser below, as in the JAX
+        # package (counted in native.plain_calls)
+        if not self.block.isascii():
+            native.plain_calls['parse_pdb_atoms'] += 1
+            yield from self._enum_atom_lines_plain()
+            return
         for line in self.block.splitlines():
             if line[0:6].strip() == 'HEADER':
                 yield {'type': 'HEADER', 'value': line[10:].strip()}
                 break
             if line[0:6].strip() in ('ATOM', 'ENDMDL'):
-                break
+                break  # HEADER only appears before coordinates
         parsed = native.parse_pdb_atoms_native(self.block)
-        pos = parsed['pos']
-        off, ll = parsed['line_off'], parsed['line_len']
-        for i in range(len(parsed['serial'])):
+        # Python ints and floats (of the float32 values) in one pass each
+        serial, res_id, pos, off, ll = (
+            parsed[k].tolist()
+            for k in ('serial', 'res_id', 'pos', 'line_off', 'line_len'))
+        for i in range(len(serial)):
             yield {
-                'line': self.block[int(off[i]):int(off[i]) + int(ll[i])],
+                'line': self.block[off[i]:off[i] + ll[i]],
                 'type': 'ATOM',
-                'atom_id': int(parsed['serial'][i]),
+                'atom_id': serial[i],
                 'atom_name': parsed['atom_name'][i],
                 'res_name': parsed['res_name'][i],
                 'chain': parsed['chain'][i].strip(),
-                'res_id': int(parsed['res_id'][i]),
+                'res_id': res_id[i],
                 'res_insert_id': parsed['insert_id'][i].strip(),
-                'x': float(pos[i, 0]),
-                'y': float(pos[i, 1]),
-                'z': float(pos[i, 2]),
+                'x': pos[i][0],
+                'y': pos[i][1],
+                'z': pos[i][2],
                 'segment': parsed['segment'][i],
                 'element_symb': parsed['element'][i],
             }
+
+    def _enum_atom_lines_plain(self):
+        for line in self.block.splitlines():
+            rec = line[0:6].strip()
+            if rec == 'ATOM':
+                element_symb = line[76:78].strip().capitalize()
+                if not element_symb:
+                    element_symb = line[13:14]
+                yield {
+                    'line': line,
+                    'type': 'ATOM',
+                    'atom_id': int(line[6:11]),
+                    'atom_name': line[12:16].strip(),
+                    'res_name': line[17:20].strip(),
+                    'chain': line[21:22].strip(),
+                    'res_id': int(line[22:26]),
+                    'res_insert_id': line[26:27].strip(),
+                    'x': float(line[30:38]),
+                    'y': float(line[38:46]),
+                    'z': float(line[46:54]),
+                    'segment': line[72:76].strip(),
+                    'element_symb': element_symb,
+                }
+            elif rec == 'HEADER':
+                yield {'type': 'HEADER', 'value': line[10:].strip()}
+            elif rec == 'ENDMDL':
+                break  # some PDBs have more than one model
 
     def _parse(self):
         residues_tmp = {}

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from decompdiff_tpu_torch.constants import (
-    NUM_AA_TYPES, PROTEIN_ATOM_ELEMENTS, atom_index)
+    NUM_AA_TYPES, PROTEIN_ATOM_ELEMENTS, atom_class_count, atom_index)
 
 MIN_PRIOR_STD = 0.6  # ref utils/transforms.py:196
 
@@ -187,6 +187,12 @@ def random_rotation_matrix(rng: np.random.Generator) -> np.ndarray:
     return Q.astype(np.float32)
 
 
+def random_rotation(rng: np.random.Generator, *pos_arrays):
+    """QR-orthogonal global rotation (ref :392-403)."""
+    Q = random_rotation_matrix(rng)
+    return tuple(np.asarray(p, np.float32) @ Q for p in pos_arrays)
+
+
 def featurize_sample(sample: dict, prior_mode: str = 'ref_prior',
                      ligand_atom_mode: str = 'basic',
                      ligand_bond_mode: str = 'fc',
@@ -266,3 +272,6 @@ def featurize_sample(sample: dict, prior_mode: str = 'ref_prior',
         'num_arms': int(sample['num_arms']),
     }
 
+
+def ligand_feature_dim(mode: str) -> int:
+    return atom_class_count(mode)

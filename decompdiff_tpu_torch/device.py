@@ -1,4 +1,11 @@
-"""Device selection shared by every entry point."""
+"""Device selection shared by every entry point.
+
+Every entry point takes an explicit device here (CUDA unless the caller
+names the CPU), so the port has no counterpart of the JAX package's
+utils/platform.py: that module only re-applies JAX_PLATFORMS through
+jax.config for a TPU plugin that ignores the environment variable, and
+PyTorch has no such plugin or variable to repair.
+"""
 
 from __future__ import annotations
 

@@ -25,6 +25,10 @@ def index_to_log_onehot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
     return torch.log(torch.clamp(onehot, min=1e-30))
 
 
+def log_onehot_to_index(log_x: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(log_x, dim=-1)
+
+
 def gumbel_argmax(uniform: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Gumbel-max sample over the last axis from a uniform draw, with the
     reference's -log(-log(U + 1e-30) + 1e-30) construction

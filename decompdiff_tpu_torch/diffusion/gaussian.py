@@ -14,7 +14,9 @@ The reverse posterior mean uses the unanchored DDPM coefficients
 from __future__ import annotations
 
 import dataclasses
+import math
 import types
+from typing import Optional
 
 import torch
 
@@ -103,6 +105,19 @@ class GaussianDiffusion:
         var = om_s / om_t * (om_t - om_s) / ab_s
         return torch.log(torch.clamp(var, min=1e-20))
 
+    def reverse_step(self, generator: Optional[torch.Generator], x0_pred,
+                     xt, t, stds, noise: Optional[torch.Tensor] = None):
+        """One ancestral step: mean + 1[t>0] * exp(0.5 logvar) * eps *
+        sigma_k (ref models/decompdiff.py:612-615,679-684). eps is drawn
+        from `generator` on xt's device, or is `noise` when given."""
+        mean = self.q_posterior_mean(x0_pred, xt, t)
+        logvar = self.extract(self.posterior_logvar, t, xt.ndim)
+        nonzero = self._bcast((t > 0).to(xt.dtype), xt.ndim)
+        if noise is None:
+            noise = torch.randn(xt.shape, generator=generator,
+                                device=xt.device, dtype=xt.dtype)
+        return mean + nonzero * torch.exp(0.5 * logvar) * noise * stds
+
     # -- losses --------------------------------------------------------------
     @staticmethod
     def pos_mse_per_graph(pred, target, stds, atom_mask):
@@ -117,3 +132,18 @@ class GaussianDiffusion:
     def pos_mse_loss(self, pred, target, stds, atom_mask):
         """Scalar mean over graphs of `pos_mse_per_graph`."""
         return self.pos_mse_per_graph(pred, target, stds, atom_mask).mean()
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """ref models/decompdiff.py:44-49 (sum over last dim)."""
+    kl = 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
+    return kl.sum(-1)
+
+
+def log_normal(values, means, log_scales):
+    """ref models/decompdiff.py:52-55 (sum over last dim)."""
+    var = torch.exp(log_scales * 2)
+    log_prob = (-((values - means) ** 2) / (2 * var) - log_scales
+                - math.log(math.sqrt(2 * math.pi)))
+    return log_prob.sum(-1)

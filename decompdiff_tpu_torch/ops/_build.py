@@ -1,10 +1,15 @@
-"""Build the CUDA kernels under csrc/ with nvcc and load them with ctypes.
+"""Build the libraries under csrc/ and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`build/<name>-<hash>.so` at the repository root; the hash covers the source,
-every header in csrc/ and the flags, so an edit rebuilds and an unchanged
-tree reuses the library. Nothing is built when a module is imported: the
-first launch (or an explicit `build()`) compiles.
+Each `csrc/<name>.cu` (a CUDA kernel) has a plain C interface and compiles
+with nvcc on its own into `build/<name>-<hash>.so` at the repository root;
+the hash covers the source, every header in csrc/ and the flags, so an edit
+rebuilds and an unchanged tree reuses the library. `csrc/ddnative.cpp`, the
+host library of native.py, compiles the same way with g++ (its hash: the
+source and the g++ flags), so a machine without nvcc builds it too; nothing
+on the CPU path calls nvcc. Nothing is built when a module is imported: the
+first call (or an explicit `build()`) compiles. Each compiler writes a
+pid-suffixed file that replaces the library in one `os.replace`, so
+processes that race to build one leave a whole library.
 """
 
 from __future__ import annotations
@@ -20,8 +25,12 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 KERNELS = ('edge_attention', 'bond_attention', 'triplet_attention')
+HOST_LIBRARIES = ('ddnative',)
+SOURCES = KERNELS + HOST_LIBRARIES
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+# no -march=native: one library serves any host that shares the build/
+GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -38,18 +47,40 @@ def nvcc_path() -> str:
     return path
 
 
+def gxx_path() -> str:
+    found = shutil.which('g++')
+    if not found:
+        raise RuntimeError('g++ not found on PATH; the host library '
+                           'csrc/ddnative.cpp cannot build')
+    return found
+
+
+def _sources(name: str):
+    if name in HOST_LIBRARIES:
+        return [CSRC / f'{name}.cpp']
+    return [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh'))
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh')):
+    flags = GXX_FLAGS if name in HOST_LIBRARIES else NVCC_FLAGS
+    h = hashlib.sha256(' '.join(flags).encode())
+    for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named kernel that has no current library, one nvcc per
-    source, all started together. Returns each compiler's output ('' for a
-    library that was already built); raises if any compile fails."""
+def _command(name: str, tmp: Path):
+    compiler, flags = ((gxx_path(), GXX_FLAGS) if name in HOST_LIBRARIES
+                       else (nvcc_path(), NVCC_FLAGS))
+    return [compiler, *flags, '-o', str(tmp), str(_sources(name)[0])]
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named library that has no current build, one compiler
+    per source (nvcc for a kernel, g++ for a host library), all started
+    together. Returns each compiler's output ('' for a library that was
+    already built); raises with the output if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -57,8 +88,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs = {name: '' for name in names}
@@ -71,9 +102,20 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError('nvcc failed for ' + ', '.join(failed) + ':\n' +
-                           '\n'.join(logs[n] for n in failed))
+        raise RuntimeError('the build failed for ' + ', '.join(failed) +
+                           ':\n' + '\n'.join(logs[n] for n in failed))
     return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>, built first if it has none."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib
 
 
 def load(name: str, symbol: str, n_ptrs: int, n_ints: int,
@@ -81,13 +123,7 @@ def load(name: str, symbol: str, n_ptrs: int, n_ints: int,
     """The C function `symbol` of csrc/<name>.cu, typed as n_ptrs pointers,
     n_ints ints and (a launcher) a trailing stream pointer, returning a
     cudaError_t."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
-    fn = getattr(lib, symbol)
+    fn = getattr(library(name), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
@@ -95,11 +131,11 @@ def load(name: str, symbol: str, n_ptrs: int, n_ints: int,
 
 
 def build_once(mesh) -> None:
-    """Build the kernels once for the ranks of a data-parallel mesh
-    (parallel/mesh.py) on one host: local rank 0 compiles every kernel that
-    has no current library while the others wait at a barrier; then each
-    rank loads the libraries at its first launch. A world of one builds at
-    its first launch, as ever."""
+    """Build the kernels and the host library once for the ranks of a
+    data-parallel mesh (parallel/mesh.py) on one host: local rank 0
+    compiles every source that has no current library while the others
+    wait at a barrier; then each rank loads the libraries at its first
+    call. A world of one builds at its first call, as ever."""
     if not mesh.distributed or mesh.device.type != 'cuda':
         return
     from decompdiff_tpu_torch.parallel.mesh import barrier

@@ -54,3 +54,21 @@ def substitute_with_beta_prior(sample: dict, beta_prior_path: str,
     assert len(beta_prior['scaffold_prior']) == beta_prior['num_scaffold']
     return substitute_with_given_prior(sample, beta_prior,
                                        protein_ligand_dist_th)
+
+
+def apply_std_coef(sample: dict, std_coef: float) -> dict:
+    """Scale all prior covariances by std_coef^2 (ref utils/prior.py:92-105)."""
+    for key in ('arms_prior', 'scaffold_prior'):
+        sample[key] = [
+            (num, mu, cov * std_coef ** 2, a_mu, a_cov)
+            for (num, mu, cov, a_mu, a_cov) in sample[key]]
+    return sample
+
+
+def apply_num_atoms_change(sample: dict, delta: int) -> dict:
+    """Shift per-part atom counts, floored at 1 (ref utils/prior.py:108-123)."""
+    for key in ('arms_prior', 'scaffold_prior'):
+        sample[key] = [
+            (max(num + delta, 1), mu, cov, a_mu, a_cov)
+            for (num, mu, cov, a_mu, a_cov) in sample[key]]
+    return sample

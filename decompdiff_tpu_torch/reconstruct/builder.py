@@ -313,6 +313,15 @@ def reconstruct_from_generated_with_bond(xyz, atomic_nums, bond_index,
     return _record_from_bonds(atomic_nums, xyz, repaired, charges)
 
 
+def perceive_bonds(xyz, atomic_nums, stretch_factor=1.3, min_d=0.4):
+    """Covalent-radius bond perception with stretch pruning + hypervalency
+    repair (OpenBabel connect_the_dots; ref utils/reconstruct.py:76-193)."""
+    from decompdiff_tpu_torch.reconstruct import ligan
+    bonds = ligan.connect_the_dots(xyz, atomic_nums,
+                                   covalent_factor=stretch_factor)
+    return bonds, np.zeros(len(atomic_nums), np.int64)
+
+
 def _rdkit_from_perceived(xyz, atomic_nums, bonds, flags):
     """Perceived graph -> sanitized RDKit mol, mirroring
     convert_ob_mol_to_rd_mol (ref utils/reconstruct.py:196-307): aromatic

@@ -27,6 +27,7 @@ repair cascade when RDKit is present.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -132,13 +133,24 @@ def connect_the_dots(pos, element, indicators=None,
     if n == 0:
         return bonds
 
-    # candidate bonds within covalent_factor * (ra + rb) (ref :100-109),
-    # as the JAX package's C library finds them (float32 radii)
+    # candidate bonds within covalent_factor * (ra + rb) (ref :100-109):
+    # the C library's squared-distance rule on float32 radii while the
+    # candidates fit its 16 n + 16 buffer; beyond it the JAX package's
+    # Python rule (float64 norms, unrounded radii), counted in
+    # native.plain_calls
     from decompdiff_tpu_torch import native as _native
     radii = np.array([_r(z) for z in element], np.float32)
-    for a, b in zip(*_native.perceive_bonds_native(
-            pos, radii, stretch=covalent_factor, min_d=0.0)):
-        bonds[(int(a), int(b))] = 1
+    nb = _native.perceive_bonds_native(pos, radii, stretch=covalent_factor,
+                                       min_d=0.0)
+    if nb is not None:
+        for a, b in zip(*nb):
+            bonds[(int(a), int(b))] = 1
+    else:
+        _native.plain_calls['perceive_bonds'] += 1
+        d = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+        for i, j in itertools.combinations(range(n), 2):
+            if d[i, j] < (_r(element[i]) + _r(element[j])) * covalent_factor:
+                bonds[(i, j)] = 1
 
     # freeze max valences from the INITIAL candidate graph (ref :111-125
     # computes atom_maxb exactly once); recomputing from the live pruned

@@ -16,6 +16,19 @@ import numpy as np
 import torch
 
 
+class BlackHole:
+    """Absorbs any call/attribute (ref utils/misc.py:17-23)."""
+
+    def __setattr__(self, name, value):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+    def __getattr__(self, name):
+        return self
+
+
 def get_logger(name: str, log_dir: Optional[str] = None) -> logging.Logger:
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
@@ -85,3 +98,16 @@ def snapshot_source(log_dir: str) -> None:
     except Exception:
         logging.getLogger('train_torch').warning(
             'source snapshot failed (continuing)', exc_info=True)
+
+
+# error taxonomy for the preprocessing fail buckets (ref utils/misc.py:88-105)
+class AlphaSpaceError(Exception):
+    pass
+
+
+class SDFParsingError(Exception):
+    pass
+
+
+class ExtractPocketError(Exception):
+    pass
