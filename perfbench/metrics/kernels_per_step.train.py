@@ -1,0 +1,9 @@
+"""Device kernels a training step launches, counted in the profiler's trace
+of the traced window (memory copies and sets left out). Moves
+train_graphs_per_s."""
+
+from perfbench.core.readers import kernels_per_step
+
+
+def read(ctx):
+    return kernels_per_step(ctx, 'train')
