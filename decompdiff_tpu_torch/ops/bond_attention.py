@@ -51,6 +51,7 @@ from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
     check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
+from decompdiff_tpu_torch.utils.profiling import span
 
 
 def bond_attention_reference(h_bond, x, mask, q, k: Branch, v: Branch, *,
@@ -231,9 +232,10 @@ class _BondAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         h_bond, x, mask, q, *kv = ctx.saved_tensors
-        d_hb, d_x, d_q, dk, dv = bond_attention_backward(
-            g.contiguous(), h_bond, x, mask, q, Branch(*kv[:7]),
-            Branch(*kv[7:]), **ctx.opts)
+        with span('ops.bond_attention.backward'):
+            d_hb, d_x, d_q, dk, dv = bond_attention_backward(
+                g.contiguous(), h_bond, x, mask, q, Branch(*kv[:7]),
+                Branch(*kv[7:]), **ctx.opts)
         return (None, None, d_hb, d_x, None, d_q, *dk, *dv)
 
 
@@ -247,11 +249,13 @@ def bond_attention(h_bond: torch.Tensor, x: Optional[torch.Tensor],
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     its gradient launches the backward kernel.
     """
-    if on_cpu(q):
-        return bond_attention_reference(h_bond, x, mask, q, k, v,
-                                        n_heads=n_heads, pos_mode=pos_mode)
-    return _BondAttention.apply(n_heads, pos_mode, h_bond,
-                                x if pos_mode else None, mask, q, *k, *v)
+    with span('ops.bond_attention'):
+        if on_cpu(q):
+            return bond_attention_reference(h_bond, x, mask, q, k, v,
+                                            n_heads=n_heads,
+                                            pos_mode=pos_mode)
+        return _BondAttention.apply(n_heads, pos_mode, h_bond,
+                                    x if pos_mode else None, mask, q, *k, *v)
 
 
 def bond_attention_backward(g: torch.Tensor, h_bond, x, mask, q, k: Branch,

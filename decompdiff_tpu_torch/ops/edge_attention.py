@@ -76,6 +76,7 @@ from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
     check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
+from decompdiff_tpu_torch.utils.profiling import span
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
 
@@ -400,10 +401,11 @@ class _EdgeAttention(torch.autograd.Function):
     def backward(ctx, g):
         x, x_src, lig, group, idx, mask, e_w, q, *params = ctx.saved_tensors
         gate = tuple(params[14:]) or None
-        d_x, d_ew, d_q, dk, dv, *rest = edge_attention_backward(
-            g.contiguous(), x, lig, group, idx, mask, e_w, q,
-            Branch(*params[:7]), Branch(*params[7:14]), gate=gate,
-            x_src=x_src, **ctx.opts)
+        with span('ops.edge_attention.backward'):
+            d_x, d_ew, d_q, dk, dv, *rest = edge_attention_backward(
+                g.contiguous(), x, lig, group, idx, mask, e_w, q,
+                Branch(*params[:7]), Branch(*params[7:14]), gate=gate,
+                x_src=x_src, **ctx.opts)
         d_gate = rest.pop(0) if gate is not None else ()
         d_xs = rest.pop(0) if x_src is not None else None
         return (None, None, d_x, d_xs, None, None, None, None, d_ew, d_q,
@@ -428,12 +430,13 @@ def edge_attention(x: torch.Tensor, lig: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     its gradient launches the backward kernel.
     """
-    if on_cpu(q):
-        return edge_attention_reference(x, lig, group, idx, mask, e_w, q, k,
-                                        v, n_heads=n_heads, pos_mode=pos_mode,
-                                        gate=gate, x_src=x_src)
-    return _EdgeAttention.apply(n_heads, pos_mode, x, x_src, lig, group, idx,
-                                mask, e_w, q, *k, *v, *(gate or ()))
+    with span('ops.edge_attention'):
+        if on_cpu(q):
+            return edge_attention_reference(
+                x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
+                pos_mode=pos_mode, gate=gate, x_src=x_src)
+        return _EdgeAttention.apply(n_heads, pos_mode, x, x_src, lig, group,
+                                    idx, mask, e_w, q, *k, *v, *(gate or ()))
 
 
 def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,

@@ -60,6 +60,7 @@ from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
     check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
+from decompdiff_tpu_torch.utils.profiling import span
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -241,9 +242,10 @@ class _TripletAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         angle, mask, q, *kv = ctx.saved_tensors
-        d_angle, d_q, dk, dv = triplet_attention_backward(
-            g.contiguous(), angle, mask, q, Branch(*kv[:7]), Branch(*kv[7:]),
-            n_heads=ctx.n_heads)
+        with span('ops.triplet_attention.backward'):
+            d_angle, d_q, dk, dv = triplet_attention_backward(
+                g.contiguous(), angle, mask, q, Branch(*kv[:7]),
+                Branch(*kv[7:]), n_heads=ctx.n_heads)
         return (None, None, d_angle, None, d_q, *dk, *dv)
 
 
@@ -259,10 +261,12 @@ def triplet_attention(angle: torch.Tensor, mask: torch.Tensor,
     whose backward is the float32 plain backward); CUDA tensors launch the
     kernel, and its gradient launches the backward kernel.
     """
-    if on_cpu(q) and not bf16:
-        return triplet_attention_reference(angle, mask, q, k, v,
-                                           n_heads=n_heads)
-    return _TripletAttention.apply(n_heads, bf16, angle, mask, q, *k, *v)
+    with span('ops.triplet_attention'):
+        if on_cpu(q) and not bf16:
+            return triplet_attention_reference(angle, mask, q, k, v,
+                                               n_heads=n_heads)
+        return _TripletAttention.apply(n_heads, bf16, angle, mask, q, *k,
+                                       *v)
 
 
 def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,

@@ -10,6 +10,12 @@ sampler takes, for parity tests). Given a data-parallel mesh and this
 rank's rows of the batch (parallel/mesh.py), each draw is made at the
 global batch's shape and this rank's rows kept; `noise_override` stays
 global.
+
+Spans (utils/profiling.py, recorded only while recording is on): each
+step is `sample.step`, holding `sample.denoiser`, `sample.guidance` (the
+guidance gradient at x_t, taken before the posteriors, which do not feed
+it) and `sample.posterior` (the type, bond and position posteriors, the
+draws, the host drift's `sample.host_drift` and the ancestral update).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from decompdiff_tpu_torch.guidance.funcs import (
 from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, center_by_protein)
 from decompdiff_tpu_torch.parallel.mesh import Mesh, draw_rows, take_rows
+from decompdiff_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,84 +186,101 @@ def sample_diffusion(model: DecompDiffModel, cfg: SampleConfig,
                          shape, mesh)
 
     for step, (t, s) in enumerate(zip(ts.tolist(), ss.tolist())):
-        tb = torch.full((B,), t, dtype=torch.long, device=device)
-        sb = torch.full((B,), s, dtype=torch.long, device=device)
-        preds = model.apply(batch, xt, vt, bt, tb)
+        with span('sample.step', step=step):
+            tb = torch.full((B,), t, dtype=torch.long, device=device)
+            sb = torch.full((B,), s, dtype=torch.long, device=device)
+            with span('sample.denoiser'):
+                preds = model.apply(batch, xt, vt, bt, tb)
 
-        # positions (C0 / noise parameterization; ref :601-613)
-        if model.config.get('model_mean_type', 'C0') == 'C0':
-            pos0 = preds['pred_ligand_pos']
-        else:
-            pos0 = model.pos_diff.predict_x0_from_eps(
-                xt, preds['pred_ligand_pos'] - xt, tb)
+            # guidance at x_t (ref :638-677); strided applies it once per
+            # jump, scaled by the jump length t - s
+            with span('sample.guidance'):
+                grad = _guidance_grad(model, cfg, batch, xt, tb, offset,
+                                      full_protein, mesh)
+                if strided:
+                    grad = grad * float(t - s)
 
-        # atom types (ref :617-622; strided: exact skip posterior)
-        log_v_recon = torch.log_softmax(preds['pred_ligand_v'], dim=-1)
-        log_vt = index_to_log_onehot(vt, model.atom_diff.num_classes)
-        if strided:
-            log_v_model = model.atom_diff.q_v_posterior_skip(
-                log_v_recon, log_vt, tb, sb)
-        else:
-            log_v_model = model.atom_diff.q_v_posterior(log_v_recon, log_vt,
-                                                        tb)
-        v_next = gumbel_argmax(draw('v_uniform', step, log_v_model.shape),
-                               log_v_model)
-        v_next = torch.where(upd, v_next, vt.long()).to(vt.dtype)
+            with span('sample.posterior'):
+                # positions (C0 / noise parameterization; ref :601-613)
+                if model.config.get('model_mean_type', 'C0') == 'C0':
+                    pos0 = preds['pred_ligand_pos']
+                else:
+                    pos0 = model.pos_diff.predict_x0_from_eps(
+                        xt, preds['pred_ligand_pos'] - xt, tb)
 
-        # bonds (ref :628-636)
-        if model.bond_diffusion:
-            log_b_recon = torch.log_softmax(preds['pred_bond'], dim=-1)
-            log_bt = index_to_log_onehot(bt, model.bond_diff.num_classes)
-            if strided:
-                log_b_model = model.bond_diff.q_v_posterior_skip(
-                    log_b_recon, log_bt, tb, sb)
-            else:
-                log_b_model = model.bond_diff.q_v_posterior(log_b_recon,
-                                                            log_bt, tb)
-            b_next = gumbel_argmax(draw('b_uniform', step, log_b_model.shape),
-                                   log_b_model)
-            b_next = torch.where(batch.bond_mask, b_next, 0).to(bt.dtype)
-        else:
-            b_next = bt
+                # atom types (ref :617-622; strided: exact skip posterior)
+                log_v_recon = torch.log_softmax(preds['pred_ligand_v'],
+                                                dim=-1)
+                log_vt = index_to_log_onehot(vt, model.atom_diff.num_classes)
+                if strided:
+                    log_v_model = model.atom_diff.q_v_posterior_skip(
+                        log_v_recon, log_vt, tb, sb)
+                else:
+                    log_v_model = model.atom_diff.q_v_posterior(
+                        log_v_recon, log_vt, tb)
+                v_next = gumbel_argmax(
+                    draw('v_uniform', step, log_v_model.shape), log_v_model)
+                v_next = torch.where(upd, v_next, vt.long()).to(vt.dtype)
 
-        # guidance (ref :638-677); strided applies it once per jump, scaled
-        # by the jump length t - s
-        if strided:
-            pos_mean = model.pos_diff.q_posterior_mean_skip(pos0, xt, tb, sb)
-        else:
-            pos_mean = model.pos_diff.q_posterior_mean(pos0, xt, tb)
-        grad = _guidance_grad(model, cfg, batch, xt, tb, offset, full_protein,
-                              mesh)
-        if strided:
-            grad = grad * float(t - s)
-        pos_mean = pos_mean - grad
+                # bonds (ref :628-636)
+                if model.bond_diffusion:
+                    log_b_recon = torch.log_softmax(preds['pred_bond'],
+                                                    dim=-1)
+                    log_bt = index_to_log_onehot(bt,
+                                                 model.bond_diff.num_classes)
+                    if strided:
+                        log_b_model = model.bond_diff.q_v_posterior_skip(
+                            log_b_recon, log_bt, tb, sb)
+                    else:
+                        log_b_model = model.bond_diff.q_v_posterior(
+                            log_b_recon, log_bt, tb)
+                    b_next = gumbel_argmax(
+                        draw('b_uniform', step, log_b_model.shape),
+                        log_b_model)
+                    b_next = torch.where(batch.bond_mask, b_next,
+                                         0).to(bt.dtype)
+                else:
+                    b_next = bt
 
-        # the host drift, only inside its window (t of the step, in strided
-        # mode the jump's start): outside it no copy to the host is made
-        if (cfg.mmff_callback is not None
-                and cfg.mmff_end_time <= t < cfg.mmff_start_time):
-            pos_mean = pos_mean - _host_drift(cfg.mmff_callback, pos_mean,
-                                              v_next, batch.ligand_mask)
+                if strided:
+                    pos_mean = model.pos_diff.q_posterior_mean_skip(
+                        pos0, xt, tb, sb)
+                else:
+                    pos_mean = model.pos_diff.q_posterior_mean(pos0, xt, tb)
+                pos_mean = pos_mean - grad
 
-        # ancestral update with prior-std-scaled noise (ref :679-684)
-        if strided:
-            logvar = model.pos_diff.posterior_logvar_skip(tb, sb, xt.ndim)
-            nonzero = float(s >= 0)
-        else:
-            logvar = model.pos_diff.extract(model.pos_diff.posterior_logvar,
-                                            tb, xt.ndim)
-            nonzero = float(t > 0)
-        noise = draw('pos_eps', step, xt.shape, normal=True)
-        x_next = pos_mean + nonzero * torch.exp(0.5 * logvar) * noise * stds
-        xt = torch.where(upd[..., None], x_next, xt)
-        vt, bt = v_next, b_next
+                # the host drift, only inside its window (t of the step, in
+                # strided mode the jump's start): outside it no copy to the
+                # host is made
+                if (cfg.mmff_callback is not None
+                        and cfg.mmff_end_time <= t < cfg.mmff_start_time):
+                    with span('sample.host_drift'):
+                        pos_mean = pos_mean - _host_drift(
+                            cfg.mmff_callback, pos_mean, v_next,
+                            batch.ligand_mask)
 
-        if cfg.save_traj:
-            out = {'pos': xt + offset[:, None, :], 'v': vt,
-                   'v0_log': log_v_recon, 'vt_log': log_v_model}
-            if model.bond_diffusion:
-                out['bond'] = bt
-            traj.append(out)
+                # ancestral update with prior-std-scaled noise
+                # (ref :679-684)
+                if strided:
+                    logvar = model.pos_diff.posterior_logvar_skip(tb, sb,
+                                                                  xt.ndim)
+                    nonzero = float(s >= 0)
+                else:
+                    logvar = model.pos_diff.extract(
+                        model.pos_diff.posterior_logvar, tb, xt.ndim)
+                    nonzero = float(t > 0)
+                noise = draw('pos_eps', step, xt.shape, normal=True)
+                x_next = (pos_mean
+                          + nonzero * torch.exp(0.5 * logvar) * noise * stds)
+                xt = torch.where(upd[..., None], x_next, xt)
+            vt, bt = v_next, b_next
+
+            if cfg.save_traj:
+                out = {'pos': xt + offset[:, None, :], 'v': vt,
+                       'v0_log': log_v_recon, 'vt_log': log_v_model}
+                if model.bond_diffusion:
+                    out['bond'] = bt
+                traj.append(out)
 
     result = {'pos': xt + offset[:, None, :], 'v': vt, 'bond': bt}
     if cfg.save_traj:

@@ -117,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                              '(ref train_diffusion_decomp.py:67)')
     parser.add_argument('--profile_steps', type=int, default=0,
                         help='trace N steps (from step 10, or the first after '
-                             'a resume) into <run>/profile/trace.json')
+                             'a resume) into <run>/profile/trace.json, the '
+                             "port's spans with the profiler's events")
     parser.add_argument('--device', default=None,
                         help='torch device (default: CUDA; without a GPU '
                              'pass cpu explicitly); under torchrun each rank '

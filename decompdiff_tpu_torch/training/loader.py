@@ -7,6 +7,11 @@ shapes, and prefetch ahead of the training loop.
 The batches are the JAX loader's, array for array: the same shuffle
 (np.random.default_rng(seed), one permutation per epoch), the same
 featurization in submission order and the same bucketing and flushes.
+
+Spans (utils/profiling.py): `loader.collate` on the producer thread,
+`loader.wait` (the consumer's blocking get) and `loader.h2d` (the copy to
+the device); counters `loader.gets` and `loader.empty_gets` (gets that
+found the queue empty).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 from decompdiff_tpu_torch.data.collate import (
     GROUP_BUCKETS, LIGAND_BUCKETS, PROTEIN_BUCKETS, bucket_key, collate)
 from decompdiff_tpu_torch.device import DeviceLike, resolve_device
+from decompdiff_tpu_torch.utils.profiling import count, span
 
 
 class BucketedLoader:
@@ -127,9 +133,10 @@ class BucketedLoader:
         return False
 
     def _collate(self, records, key):
-        batch = collate(records, device='cpu', np_override=key[0],
-                        nl_override=key[1], na_override=key[2])
-        return batch.pin_memory() if self._pin else batch
+        with span('loader.collate'):
+            batch = collate(records, device='cpu', np_override=key[0],
+                            nl_override=key[1], na_override=key[2])
+            return batch.pin_memory() if self._pin else batch
 
     def _bucket_loop(self, records, pb, lb, gb):
         # a run of consecutive oversize drops as long as two epochs means no
@@ -168,21 +175,32 @@ class BucketedLoader:
                 return
         self._put(None)
 
-    def __iter__(self) -> Iterator:
+    def _get(self):
+        """The next item of the queue, or None once close() was called.
+        Counts the gets, and those that found the queue empty."""
+        count('loader.gets')
+        if self._queue.empty():
+            count('loader.empty_gets')
         while True:
             try:
-                item = self._queue.get(timeout=0.2)
+                return self._queue.get(timeout=0.2)
             except queue.Empty:
                 # after close() the producer exits without the None
                 # sentinel, so a blocked consumer notices the stop itself
                 if self._stop.is_set():
-                    return
-                continue
+                    return None
+
+    def __iter__(self) -> Iterator:
+        while True:
+            with span('loader.wait'):
+                item = self._get()
             if item is None:
                 return
             if isinstance(item, Exception):
                 raise item
-            yield item.to(self.device, non_blocking=self._pin)
+            with span('loader.h2d'):
+                batch = item.to(self.device, non_blocking=self._pin)
+            yield batch
 
     def close(self):
         self._stop.set()

@@ -31,6 +31,11 @@ world of one's.
 Gradients are dicts {parameter name: tensor} in the order of
 `denoiser.named_parameters()`; utils.params.state_dict_to_flax turns one
 into the JAX package's layout.
+
+Spans (utils/profiling.py): `train.step` (train_step, apply_grads; it
+carries state.step), `train.loss` (jitter and the loss), `train.backward`
+(torch.autograd.grad), `train.optimizer` (global norm, clip, Adam, the Lt
+history) and, under a mesh, `train.reduce` (the collectives).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, sample_time)
 from decompdiff_tpu_torch.parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_mean, draw_rows)
+from decompdiff_tpu_torch.utils.profiling import span
 
 Grads = Dict[str, torch.Tensor]
 DEFAULT_LOSS_WEIGHTS = {'pos': 1.0, 'v': 100.0, 'bond': 100.0}
@@ -178,8 +184,9 @@ def _gather_rows(t_used: torch.Tensor, per_graph: torch.Tensor,
     gather (t < 2**24 is exact in float32)."""
     if mesh is None or not mesh.distributed:
         return t_used, per_graph
-    rows = all_gather_rows(
-        torch.stack([t_used.to(per_graph.dtype), per_graph], -1), mesh)
+    with span('train.reduce'):
+        rows = all_gather_rows(
+            torch.stack([t_used.to(per_graph.dtype), per_graph], -1), mesh)
     return rows[:, 0].to(t_used.dtype), rows[:, 1]
 
 
@@ -220,23 +227,26 @@ def make_train_fns(model: DecompDiffModel, train_cfg,
 
         def randn(shape):
             return torch.randn(shape, generator=generator, device=dev)
-        # input jitter (ref scripts/train_diffusion_decomp.py:160-164)
-        batch = batch.replace(
-            protein_pos=batch.protein_pos + pos_noise_std * draw_rows(
-                randn, batch.protein_pos.shape, mesh),
-            prior_centers=batch.prior_centers + prior_noise_std * draw_rows(
-                randn, batch.prior_centers.shape, mesh))
-        time_step = None
-        if method == 'importance':
-            time_step, _ = sample_time(
-                batch.batch_size, model.num_timesteps, method,
-                state.lt_history, state.lt_count, generator, dev, mesh)
-        out = model.get_diffusion_loss(batch, generator, time_step=time_step,
-                                       **loss_kw)
-        loss = weighted_loss(out['losses'], loss_weights)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for n, p, g in zip(names, params, torch.autograd.grad(
-                     loss, params, allow_unused=True))}
+        with span('train.loss'):
+            # input jitter (ref scripts/train_diffusion_decomp.py:160-164)
+            batch = batch.replace(
+                protein_pos=batch.protein_pos + pos_noise_std * draw_rows(
+                    randn, batch.protein_pos.shape, mesh),
+                prior_centers=batch.prior_centers
+                + prior_noise_std * draw_rows(
+                    randn, batch.prior_centers.shape, mesh))
+            time_step = None
+            if method == 'importance':
+                time_step, _ = sample_time(
+                    batch.batch_size, model.num_timesteps, method,
+                    state.lt_history, state.lt_count, generator, dev, mesh)
+            out = model.get_diffusion_loss(batch, generator,
+                                           time_step=time_step, **loss_kw)
+            loss = weighted_loss(out['losses'], loss_weights)
+        with span('train.backward'):
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for n, p, g in zip(names, params, torch.autograd.grad(
+                         loss, params, allow_unused=True))}
         metrics = {f'loss_{k}': v.detach() for k, v in out['losses'].items()}
         metrics['loss'] = loss.detach()
         t_used, per_graph = _gather_rows(
@@ -248,35 +258,41 @@ def make_train_fns(model: DecompDiffModel, train_cfg,
         all-reduce."""
         if mesh is None:
             return grads, metrics
-        both = all_reduce_mean(
-            {**grads, **{f'metric:{k}': v for k, v in metrics.items()}}, mesh)
+        with span('train.reduce'):
+            both = all_reduce_mean(
+                {**grads, **{f'metric:{k}': v for k, v in metrics.items()}},
+                mesh)
         return ({k: both[k] for k in grads},
                 {k: both[f'metric:{k}'] for k in metrics})
 
     def _update(state, grads, t_used, per_graph):
-        state.optimizer.step(grads)
-        lt_update(state, t_used, per_graph)
+        """The global norm to report, the clip, Adam and the Lt history."""
+        with span('train.optimizer'):
+            grad_norm = global_norm(grads)
+            state.optimizer.step(grads)
+            lt_update(state, t_used, per_graph)
         state.step += 1
+        return grad_norm
 
     def train_step(state: TrainState, batch: ComplexBatch,
                    generator: Optional[torch.Generator] = None) -> dict:
-        grads, metrics, t_used, per_graph = grad_step(state, batch, generator)
-        grads, metrics = reduce(grads, metrics)
-        metrics['grad_norm'] = global_norm(grads)
-        _update(state, grads, t_used, per_graph)
+        with span('train.step', step=state.step):
+            grads, metrics, t_used, per_graph = grad_step(state, batch,
+                                                          generator)
+            grads, metrics = reduce(grads, metrics)
+            metrics['grad_norm'] = _update(state, grads, t_used, per_graph)
         return metrics
 
     def apply_grads(state: TrainState, grads_sum: Grads,
                     t_used: torch.Tensor,
                     per_graph: torch.Tensor,
                     metrics: Optional[dict] = None) -> torch.Tensor:
-        grads_sum, reduced = reduce(grads_sum, metrics or {})
-        if metrics is not None:
-            metrics.update(reduced)
-        grads = {k: g / n_acc for k, g in grads_sum.items()}
-        grad_norm = global_norm(grads)
-        _update(state, grads, t_used, per_graph)
-        return grad_norm
+        with span('train.step', step=state.step):
+            grads_sum, reduced = reduce(grads_sum, metrics or {})
+            if metrics is not None:
+                metrics.update(reduced)
+            grads = {k: g / n_acc for k, g in grads_sum.items()}
+            return _update(state, grads, t_used, per_graph)
 
     return train_step, grad_step, apply_grads
 

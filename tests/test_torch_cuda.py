@@ -41,7 +41,9 @@ float64 reference oracle with the kernels (rtol = atol = 3e-4), and the
 sampler's host drift fires at the same steps with the same inputs on the
 card as on the CPU. A training step on two data-parallel ranks (spawned
 processes; gloo when they share the card) with the kernels on matches the
-same step in one process, each rank's kernels taking half the batch.
+same step in one process, each rank's kernels taking half the batch. The
+port's spans (utils/profiling.py) and CUPTI's records of the kernels they
+launch lie on one clock.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -1278,3 +1280,47 @@ def test_sampler_drift_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(go, o, **TOL)
     assert torch.equal(gpu_out['v'], cpu_out['v'])
     torch.testing.assert_close(gpu_out['pos'], cpu_out['pos'], **TOL)
+
+
+def test_spans_on_the_profiler_clock(cuda):
+    """Spans and CUPTI's records on one clock: span `a` launches a kernel,
+    sleeps 2 ms and launches another; span `b` synchronises. Both kernels
+    go to `a`, the idle gap between them is labelled `@ a`, `a`'s first
+    CUDA runtime record lies inside it within 1 ms of its start, and the
+    synchronisation inside `b`."""
+    import time
+    from decompdiff_tpu_torch.utils import profiling
+    from perfbench.core import spans as attribution
+    x = torch.ones(1 << 20, device=cuda)
+    x + 1
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        pass                        # the first start initialises CUPTI
+    with torch.profiler.profile(activities=activities) as prof:
+        profiling.start_recording()
+        with profiling.span('a'):
+            x + 1
+            time.sleep(0.002)
+            x + 2
+        with profiling.span('b'):
+            torch.cuda.synchronize()
+        rec = profiling.take()
+    kin = attribution.read_kineto(prof)
+    att = attribution.Attribution.of(rec, kin, steps=1)
+    assert len(kin.ops) == 2
+    assert [att.index.name(i) for i in att.owner] == ['a', 'a']
+    (label, seconds), = att.idle_gaps()
+    assert label.endswith(' @ a') and seconds >= 0.0015, (label, seconds)
+    assert [s.name for s in rec.spans] == ['a', 'b']
+    a, b = 0, 1
+    first = min(kin.host, key=lambda h: h[1])
+    lead_ms = (first[1] - att.index.start[a]) / 1e6
+    assert 0 <= lead_ms <= 1 and first[2] <= att.index.end[a], lead_ms
+    # the profiler synchronises again when it stops, after `b`
+    sync = min((h for h in kin.host if 'Synchronize' in h[0]),
+               key=lambda h: h[1])
+    assert att.index.start[b] <= sync[1] and sync[2] <= att.index.end[b]
+    print(f'first runtime record {first[0]} {lead_ms:.4f} ms after a '
+          f'opened; gap {label!r} {seconds * 1e3:.4f} ms; {sync[0]} '
+          f'{(sync[1] - att.index.start[b]) / 1e6:.4f} ms after b opened')

@@ -47,8 +47,9 @@ from decompdiff_tpu_torch.utils.checkpoint import (
     save_checkpoint)
 from decompdiff_tpu_torch.utils.params import (
     flax_to_state_dict, state_dict_to_flax)
+from decompdiff_tpu_torch.utils import profiling
 from decompdiff_tpu_torch.utils.profiling import (
-    TRACE_FILE, Timer, annotate, trace)
+    TRACE_FILE, count, span, trace)
 from decompdiff_tpu_torch.utils.testing import (
     random_complex_batch, tiny_model_config)
 
@@ -402,25 +403,27 @@ def test_async_snapshot_holds_its_own_iteration(tmp_path):
 
 
 def test_profiling_trace_annotate_and_timer(tmp_path):
-    """trace(logdir) writes a Chrome trace holding an annotate() range and
-    the work inside it; trace(None) runs its body; Timer counts and sums
-    each named phase."""
+    """trace(logdir) writes one Chrome trace holding the profiler's events
+    and the spans recorded meanwhile, on the same clock and on the thread's
+    own track: the span holds the work inside it; counters are counter
+    events; trace(None) runs its body untraced and records nothing."""
     with trace(str(tmp_path / 'prof')):
-        with annotate('ddtorch_phase'):
+        with span('ddtorch_phase', step=3):
             torch.ones(8, 8) @ torch.ones(8, 8)
+            count('ddtorch_counter', 2)
     events = json.loads((tmp_path / 'prof' / TRACE_FILE).read_text())[
         'traceEvents']
-    names = {e.get('name', '') for e in events}
-    assert 'ddtorch_phase' in names and 'aten::mm' in names
+    phase = [e for e in events if e.get('name') == 'ddtorch_phase']
+    mm = [e for e in events if e.get('name') == 'aten::mm']
+    assert len(phase) == 1 and mm
+    phase = phase[0]
+    assert phase['ph'] == 'X' and phase['args']['step'] == 3
+    assert phase['tid'] == mm[0]['tid'] == threading.get_native_id()
+    assert phase['ts'] <= mm[0]['ts']
+    assert mm[0]['ts'] + mm[0]['dur'] <= phase['ts'] + phase['dur']
+    counter = [e for e in events if e.get('name') == 'ddtorch_counter']
+    assert [e['args']['value'] for e in counter] == [2]
     with trace(None):           # no logdir: runs the body untraced
-        torch.ones(2) + 1
-
-    timer = Timer()
-    for _ in range(3):
-        with timer.time('a'):
-            time.sleep(0.001)
-    with timer.time('b'):
-        pass
-    got = timer.summary()
-    assert got['a']['count'] == 3 and got['b']['count'] == 1
-    assert got['a']['total_s'] >= 0.003
+        with span('untraced'):
+            torch.ones(2) + 1
+    assert profiling._active is None
