@@ -597,15 +597,33 @@ def call_inputs(torch, args, kw):
     return tensors
 
 
+def window_valid(torch, valid, kw):
+    """valid [B, N, K] pairs of an edge call, only those of the rows in its
+    destination-row window kw['rows'] (ops/edge_attention.py) where it has
+    one: the rows outside the window are written 0, not computed."""
+    if kw.get('rows') is None:
+        return valid
+    start, count = kw['rows']
+    keep = torch.zeros(valid.shape[1], dtype=torch.bool, device=valid.device)
+    keep[start:start + count] = True
+    return valid & keep[:, None]
+
+
 def work(torch, name, args, kw, out):
     """(FLOPs, [H, H] second-linear FLOPs among them, bytes) the call needs
     on these inputs: 2 per multiply-add of the per-pair products, of q.k and
-    alpha.v and of the m-gate's v.wm over valid (row, source) pairs only
-    (LayerNorm, exp and adds left out, so the bound is a lower bound);
-    every input read once and the output written once."""
+    alpha.v and of the m-gate's v.wm over valid (row, source) pairs only,
+    with an edge call's row window those of its rows (LayerNorm, exp and
+    adds left out, so the bound is a lower bound); every input read once
+    (with the window, the inputs read per destination row only at its rows)
+    and the output written once."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in call_inputs(torch, args, kw))
     nbytes += out.numel() * out.element_size()
+    if kw.get('rows') is not None:   # idx, mask, e_w, q and both t_row
+        per_row = sum(t.numel() * t.element_size()
+                      for t in (*args[3:7], args[7][0], args[8][0]))
+        nbytes -= int(per_row * (1 - kw['rows'][1] / args[3].shape[1]))
     H = args[-3].shape[-1]                # every kernel takes (..., q, k, v)
     nh = kw['n_heads']
     pos = kw.get('pos_mode', False)
@@ -613,7 +631,7 @@ def work(torch, name, args, kw, out):
     attn = 2 * H * H + 2 * H + v_out      # k second linear, q.k, v and alpha.v
     square = 2 * H * H * (1 if pos else 2)    # the [H, H] second linears
     if name.startswith('edge_attention'):  # (x, lig, group, idx, mask, ...)
-        pairs = int((args[4] > 0.5).sum())
+        pairs = int(window_valid(torch, args[4] > 0.5, kw).sum())
         n_types = 1 if args[2] is None else 2
         per_pair = 2 * 2 * 21 * n_types * H + attn
         if kw.get('gate') is not None:
@@ -779,8 +797,10 @@ def edge_backward_work(torch, args, kw):
     the m-gate three H-wide ones more (s, its d y_v, Ys); per live row (one
     with a valid edge) the [H, H] products: Qk, d q and d Wo_k, and in
     node mode Gv and d Wo_v; with the m-gate once Wo_v wm and Wo_v^T Ys.
-    The products are the tensor-core share."""
-    valid = args[4] > 0.5                 # (x, lig, group, idx, mask, ...)
+    The products are the tensor-core share. With a row window, the rows
+    outside it carry no gradient, so only its rows count."""
+    # (x, lig, group, idx, mask, ...)
+    valid = window_valid(torch, args[4] > 0.5, kw)
     pairs, rows = int(valid.sum()), int(valid.any(-1).sum())
     H, nh = args[-3].shape[-1], kw['n_heads']
     n_types = 1 if args[2] is None else 2

@@ -49,6 +49,25 @@
 // (or [B, N, 3]) output is written; a tile with no valid edge writes zeros
 // without computing.
 //
+// Destination-row window (both forward kernels): the launch may compute
+// only rows start .. start + count - 1 of every molecule (the refine nets'
+// coordinate attention keeps only the update of the rows after the protein
+// block). Rows outside the window are written 0 by the same launch, a
+// grid-stride fill before the tiles (no separate memset). The tile map
+// walks only the window's tiles: B * ceil(count / 2) of them, tile t of
+// molecule b at rows b * N + start + 2 t and the next, the second masked
+// when count is odd. Without a window the whole batch is one block of
+// B * N rows, the flat map of every tile. A tile computes its rows as
+// ever (a row's arithmetic never reads its tile partner's), so each window
+// row's output is bitwise that of the launch without the window. The
+// per-row kernel keeps its one block per row; a block outside the window
+// writes its zeros and returns.
+// The backward kernels take the window only to read the cotangent's rows
+// outside it as 0, which gives the gradient of the windowed forward with
+// no copy of the cotangent (no extra launch). They still walk every row:
+// in the refine nets that cotangent is 0 there already, and skipping those
+// rows would save device time only in training, which the host paces.
+//
 // Forward design at every other width (a multiple of 32 up to 1024 whose
 // head width divides 32; row_attention.cuh): one block per destination row
 // with one thread per channel, the sources in chunks of 16: per chunk the
@@ -276,6 +295,42 @@ __device__ __forceinline__ bool row_has_source(const float* mrow, int K) {
 
 namespace rm = rowmma;
 
+// The destination rows a forward launch computes: rows start .. start +
+// count - 1 of each of `mols` blocks of `stride` rows. A window of every
+// molecule has mols = B, stride = N; no window is one block of every row
+// (mols = 1, stride = count = B * N, start = 0).
+struct RowWindow {
+  int mols, stride, start, count;
+  __host__ __device__ int tiles_per_mol() const {
+    return (count + rm::TI - 1) / rm::TI;
+  }
+  __device__ bool holds(int row) const {
+    const int i = row % stride;
+    return i >= start && i < start + count;
+  }
+};
+
+// The window of rows start .. start + count - 1 of each of B molecules of
+// N rows; (0, N) is the one block of every row.
+RowWindow row_window(int B, int N, int start, int count) {
+  return start == 0 && count == N ? RowWindow{1, B * N, 0, B * N}
+                                  : RowWindow{B, N, start, count};
+}
+
+// Zeros of the rows outside the window, `width` floats a row, over the
+// launch's threads (none when the window holds every row). No barrier.
+__device__ __forceinline__ void zero_outside(const RowWindow& w, float* out,
+                                             int width) {
+  const int gap = w.stride - w.count;  // rows outside, per block of rows
+  const size_t n = (size_t)w.mols * gap * width;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / width), j = r % gap;
+    const int row = r / gap * w.stride + (j < w.start ? j : j + w.count);
+    out[(size_t)row * width + e % width] = 0.f;
+  }
+}
+
 // Offsets into the forward kernel's dynamic shared memory; the launcher
 // builds the same layout to size the launch.
 struct EdgeLayout {
@@ -323,17 +378,18 @@ struct EdgeTile {
 };
 
 // Threads r < TILE: the scalars of pair row r (source k0 + r % KC of row
-// row0 + r / KC). Rows outside the graph (row >= rows or source >= K) get
-// node 0 and weigh nothing. Returns the thread's validity. No barrier.
+// row0 + r / KC). Rows outside the tile (row >= row_end) and sources
+// beyond K get node 0 and weigh nothing. Returns the thread's validity. No
+// barrier.
 __device__ __forceinline__ int edge_tile_setup(const EdgeArgs& a,
                                                const EdgeTile& t, int row0,
-                                               int rows, int k0) {
+                                               int row_end, int k0) {
   const int r = threadIdx.x;
   if (r >= rm::TILE) return 0;
   const int row = row0 + r / rm::KC, k = k0 + r % rm::KC;
   int s_flat = 0, ok = 0, ta = 3, tb = -1;
   float r0 = 0.f, r1 = 0.f, r2 = 0.f, d = 0.f, w = 1.f;
-  if (row < rows && k < a.K) {
+  if (row < row_end && k < a.K) {
     const int N = a.N, b = row / N;
     const size_t e = (size_t)row * a.K + k;
     // the loads that do not depend on the source first
@@ -463,13 +519,14 @@ __device__ __forceinline__ void edge_gate(const float* V, const Gate& gt,
       coef[warp + q * rm::WARPS] *= 1.f / (1.f + expf(-s[q]));
 }
 
-// Persistent: block g takes the tiles g, g + gridDim.x, ... of 2
-// destination rows each.
+// Persistent: block g takes the tiles g, g + gridDim.x, ... of the
+// window's 2 destination rows each, after its share of the zeros outside.
 template <int H, bool POS, bool GATE>
 __global__ void __launch_bounds__(rm::THREADS, 1)
-    edge_attention_kernel(EdgeArgs a, int B) {
+    edge_attention_kernel(EdgeArgs a, RowWindow w) {
   extern __shared__ __align__(16) unsigned char dyn[];
-  const int K = a.K, NH = a.n_heads, rows = B * a.N;
+  const int K = a.K, NH = a.n_heads;
+  zero_outside(w, a.out, POS ? 3 : H);
   const EdgeLayout lay(H, NH, POS);
   rm::bf16* wkh = reinterpret_cast<rm::bf16*>(dyn + lay.wk_hi);
   rm::bf16* wkl = reinterpret_cast<rm::bf16*>(dyn + lay.wk_lo);
@@ -506,11 +563,13 @@ __global__ void __launch_bounds__(rm::THREADS, 1)
   const int c = threadIdx.x % H;
   // the tile row of this thread's pre-phase rows
   const int il_t = (threadIdx.x / H) * (rm::TILE * H / rm::THREADS) / rm::KC;
-  const int n_tiles = (rows + rm::TI - 1) / rm::TI;
+  const int per_mol = w.tiles_per_mol(), n_tiles = w.mols * per_mol;
 
   // A tile without a valid edge skips all its chunks and writes zeros.
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * rm::TI, n_rows = min(rm::TI, rows - row0);
+    const int j = tile % per_mol * rm::TI;  // the tile's first window row
+    const int row0 = tile / per_mol * w.stride + w.start + j;
+    const int n_rows = min(rm::TI, w.count - j);
     float* out0 = a.out + (size_t)row0 * (POS ? 3 : H);
     const bool in_t = il_t < n_rows;
     const size_t t_off = (size_t)(row0 + il_t) * H + c;
@@ -528,7 +587,7 @@ __global__ void __launch_bounds__(rm::THREADS, 1)
           for (int e = threadIdx.x; e < rm::TI * NH * 3; e += rm::THREADS)
             A3[e] = 0.f;
       }
-      const int live = edge_tile_setup(a, et, row0, rows, k0);
+      const int live = edge_tile_setup(a, et, row0, row0 + n_rows, k0);
       if (!__syncthreads_or(live)) continue;  // no valid edge in the chunk
       // RBF q of row r by thread r + TILE * j: q is uniform over a warp
       for (int u = threadIdx.x; u < rm::TILE * R; u += rm::THREADS) {
@@ -576,11 +635,12 @@ __global__ void __launch_bounds__(rm::THREADS, 1)
 // forward at the other widths: per-row kernel of row_attention.cuh
 // ---------------------------------------------------------------------------
 
-// One block per destination row (b, i), one thread per channel. WIDE: the
-// block may have up to 1024 threads (H > 256).
+// One block per destination row (b, i), one thread per channel; a row
+// outside the window is written 0. WIDE: the block may have up to 1024
+// threads (H > 256).
 template <bool GATE, bool WIDE>
 __global__ void __launch_bounds__(WIDE ? 1024 : 256)
-    edge_attention_row_kernel(EdgeArgs a) {
+    edge_attention_row_kernel(EdgeArgs a, RowWindow w) {
   extern __shared__ __align__(16) float smem[];
   __shared__ EdgeChunk ch;
 
@@ -599,7 +659,7 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256)
   const int c = threadIdx.x;
   float* out_row = a.out + (size_t)row * (pos ? 3 : H);
 
-  if (!row_has_source(a.mask + (size_t)row * K, K)) {
+  if (!w.holds(row) || !row_has_source(a.mask + (size_t)row * K, K)) {
     zero_row(out_row, pos);
     return;
   }
@@ -624,27 +684,28 @@ __global__ void __launch_bounds__(WIDE ? 1024 : 256)
 }
 
 template <bool GATE, bool WIDE>
-cudaError_t launch_row(const EdgeArgs& a, int rows, size_t smem,
-                       cudaStream_t stream) {
+cudaError_t launch_row(const EdgeArgs& a, const RowWindow& w, int rows,
+                       size_t smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(edge_attention_row_kernel<GATE, WIDE>, smem);
   if (err != cudaSuccess) return err;
-  edge_attention_row_kernel<GATE, WIDE><<<rows, a.H, smem, stream>>>(a);
+  edge_attention_row_kernel<GATE, WIDE><<<rows, a.H, smem, stream>>>(a, w);
   return cudaGetLastError();
 }
 
 // The per-row forward: [CH][H] pre of both branches and [CH][heads] v (pos
 // mode), plus with the gate its block-sum scratch and the chunk's CH gates.
-cudaError_t launch_fwd_row(const EdgeArgs& a, int B, cudaStream_t stream) {
+cudaError_t launch_fwd_row(const EdgeArgs& a, const RowWindow& w, int B,
+                           cudaStream_t stream) {
   const bool gate = a.gate.wm != nullptr, wide = a.H > 256;
   const size_t smem =
       smem_bytes(a.H, a.n_heads, 0) +
       (gate ? sizeof(float) * ((size_t)(a.H / 32) * CH + CH) : 0);
   const int rows = B * a.N;
   if (gate)
-    return wide ? launch_row<true, true>(a, rows, smem, stream)
-                : launch_row<true, false>(a, rows, smem, stream);
-  return wide ? launch_row<false, true>(a, rows, smem, stream)
-              : launch_row<false, false>(a, rows, smem, stream);
+    return wide ? launch_row<true, true>(a, w, rows, smem, stream)
+                : launch_row<true, false>(a, w, rows, smem, stream);
+  return wide ? launch_row<false, true>(a, w, rows, smem, stream)
+              : launch_row<false, false>(a, w, rows, smem, stream);
 }
 
 struct EdgeBwdArgs {
@@ -665,6 +726,7 @@ struct EdgeBwdArgs {
   int rows;              // B * N
   float* scratch;        // row buffers in device memory (SCRATCH kernels)
   int per_block;         //   floats of them per block
+  RowWindow win;         // the forward's window: g reads 0 outside it
 };
 
 // The backward of the rows of block blockIdx.x. SCRATCH: the row buffers in
@@ -703,10 +765,12 @@ __device__ __forceinline__ void edge_bwd_rows(const EdgeBwdArgs& a) {
     const float tv = f.v.t_row[(size_t)row * H + c];
     const EdgeRow dst = edge_row(f, row);
     float g_c = 0.f, g3[3] = {0.f, 0.f, 0.f};
-    if (pos)
-      for (int d = 0; d < 3; ++d) g3[d] = a.g[(size_t)row * 3 + d];
-    else
-      g_c = a.g[(size_t)row * H + c];
+    if (a.win.holds(row)) {
+      if (pos)
+        for (int d = 0; d < 3; ++d) g3[d] = a.g[(size_t)row * 3 + d];
+      else
+        g_c = a.g[(size_t)row * H + c];
+    }
 
     // pass A: logits, k, and the v part of d alpha
     for (int m0 = 0; m0 < K; m0 += CH) {
@@ -1179,11 +1243,12 @@ __global__ void __launch_bounds__(hb::THREADS, 1)
       continue;
     }
     const int lig = f.lig[row] > 0.5f;
+    const bool held = a.win.holds(row);
     if (tid < H) {
       QR[tid] = f.q[(size_t)row * H + tid];
-      if (!POS) GR[tid] = a.g[(size_t)row * H + tid];
+      if (!POS) GR[tid] = held ? a.g[(size_t)row * H + tid] : 0.f;
     }
-    if (POS && tid < 3) GR[tid] = a.g[(size_t)row * 3 + tid];
+    if (POS && tid < 3) GR[tid] = held ? a.g[(size_t)row * 3 + tid] : 0.f;
     __syncthreads();
     hb::row_matrices<H, POS ? 1 : 2>(f.k.wo, f.v.wo, f.k.bo, f.v.bo, QR, GR,
                                      NH, M, HS, HS + hb::MAXNH);
@@ -1454,16 +1519,18 @@ cudaError_t launch_bwd_head(const EdgeBwdArgs& a, int G,
   return cudaGetLastError();
 }
 
-// One block per SM (at most one per tile).
+// One block per SM (at most one per tile, at least one for the zeros).
 template <int H>
-cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
+cudaError_t launch_fwd(const EdgeArgs& a, const RowWindow& w,
+                       cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const size_t smem = EdgeLayout(H, a.n_heads, a.pos != 0).bytes;
-  void (*kernel)(EdgeArgs, int) = edge_attention_kernel<H, false, false>;
+  void (*kernel)(EdgeArgs, RowWindow) =
+      edge_attention_kernel<H, false, false>;
   if (a.pos)
     kernel = edge_attention_kernel<H, true, false>;
   else if (a.gate.wm)
@@ -1471,8 +1538,8 @@ cudaError_t launch_fwd(const EdgeArgs& a, int B, cudaStream_t stream) {
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (B * a.N + rm::TI - 1) / rm::TI;
-  kernel<<<std::min(sms, tiles), rm::THREADS, smem, stream>>>(a, B);
+  const int grid = std::max(1, std::min(sms, w.mols * w.tiles_per_mol()));
+  kernel<<<grid, rm::THREADS, smem, stream>>>(a, w);
   return cudaGetLastError();
 }
 
@@ -1496,7 +1563,9 @@ EdgeBwdKernel bwd_kernel(bool gate, int H, bool scratch) {
 // Forward. xs: the sources' coordinates (x when the caller has no separate
 // table). H in 32, 64, 128: the tensor-core kernel; any other width the
 // wrapper admits: the per-row kernel. *row: 1 when the per-row kernel was
-// launched, else 0 (the wrapper counts the route from it).
+// launched, else 0 (the wrapper counts the route from it). Only rows
+// row_start .. row_start + row_count - 1 of each molecule are computed, the
+// others written 0; (0, N) computes every row.
 extern "C" int edge_attention_fwd(
     const float* x, const float* xs, const float* lig, const float* group,
     const int* idx,
@@ -1508,20 +1577,23 @@ extern "C" int edge_attention_fwd(
     const float* v_wo, const float* v_bo, const float* v_lns,
     const float* v_lnb, const float* wm, const float* bm,
     float* out, int* row, int B, int N, int K, int H, int n_heads,
-    int n_types, int pos, void* stream) {
+    int n_types, int pos, int row_start, int row_count, void* stream) {
   *row = 0;
+  if (row_start < 0 || row_count < 0 || row_start + row_count > N)
+    return (int)cudaErrorInvalidValue;
   if (B * N == 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
+  const RowWindow w = row_window(B, N, row_start, row_count);
   EdgeArgs a{x, xs, lig, group, idx, mask, ew, q,
              Branch{k_row, k_src, k_feat, k_wo, k_bo, k_lns, k_lnb},
              Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
              out, N, K, H, n_heads, n_types, pos, Gate{wm, bm}};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (H) {
-    case 32: return (int)launch_fwd<32>(a, B, s);
-    case 64: return (int)launch_fwd<64>(a, B, s);
-    case 128: return (int)launch_fwd<128>(a, B, s);
-    default: *row = 1; return (int)launch_fwd_row(a, B, s);
+    case 32: return (int)launch_fwd<32>(a, w, s);
+    case 64: return (int)launch_fwd<64>(a, w, s);
+    case 128: return (int)launch_fwd<128>(a, w, s);
+    default: *row = 1; return (int)launch_fwd_row(a, w, B, s);
   }
 }
 
@@ -1559,7 +1631,9 @@ extern "C" int edge_attention_bwd_route(int* row, int K, int H,
 // which alone reads k_woT and v_woT (the transposed Wo) and the scratch: G
 // times edge_attention_bwd_scratch's floats, or null when that is 0.
 // *route: 1 when the row buffers went to the scratch, else 0; *row: 1 when
-// the per-row kernel was launched, else 0.
+// the per-row kernel was launched, else 0. The gradients are those of the
+// forward over rows row_start .. row_start + row_count - 1 of each molecule:
+// g's rows outside them are read as 0.
 extern "C" int edge_attention_bwd(
     const float* x, const float* xs, const float* lig, const float* group,
     const int* idx, const float* mask, const float* ew, const float* q,
@@ -1574,9 +1648,12 @@ extern "C" int edge_attention_bwd(
     float* d_tsrc_k,
     float* d_trow_v, float* d_tsrc_v, float* slots, float* d_params,
     float* scratch, int* route, int* row, int B, int N, int K, int H,
-    int n_heads, int n_types, int pos, int G, void* stream) {
+    int n_heads, int n_types, int pos, int row_start, int row_count, int G,
+    void* stream) {
   *route = 0;
   *row = 0;
+  if (row_start < 0 || row_count < 0 || row_start + row_count > N)
+    return (int)cudaErrorInvalidValue;
   if (B * N == 0 || G <= 0) return 0;
   if (wm && pos) return (int)cudaErrorInvalidValue;  // the gate is node-only
   EdgeBwdArgs a{
@@ -1585,7 +1662,8 @@ extern "C" int edge_attention_bwd(
                Branch{v_row, v_src, v_feat, v_wo, v_bo, v_lns, v_lnb},
                nullptr, N, K, H, n_heads, n_types, pos, Gate{wm, bm}},
       g, k_woT, v_woT, d_x, d_xs, d_ew, d_q, d_trow_k, d_tsrc_k, d_trow_v,
-      d_tsrc_v, slots, B * N, nullptr, 0};
+      d_tsrc_v, slots, B * N, nullptr, 0,
+      row_window(B, N, row_start, row_count)};
   const bool gate = wm != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
   bool head = false;

@@ -144,14 +144,17 @@ class H2XAttention(nn.Module):
             _param(self, 'xk_ew_kernel', N_ETYPES * R, 1)
             _param(self, 'xk_ew_bias', 1)
 
-    def forward(self, h, x, graph: EdgeGraph, e_w: Optional[torch.Tensor]):
+    def forward(self, h, x, graph: EdgeGraph, e_w: Optional[torch.Tensor],
+                rows: Optional[edge_ops.Rows] = None):
+        """rows: the destination-row window (ops/edge_attention.py) whose
+        update the caller keeps; the other rows' dx is 0."""
         kw = _dtype_kw(self, h)
         if self.ew_net_type == 'r':
             e_w = _ew_r(self, 'xk', x, graph, **kw)
         elif self.ew_net_type != 'global' or e_w is None:
             e_w = torch.ones_like(graph.mask)
         return _call(self, ('xk', 'xv'), h, x, graph, e_w, self.xq(h), kw,
-                     pos_mode=True)
+                     pos_mode=True, rows=rows)
 
 
 class AttentionLayerO2(nn.Module):
@@ -171,13 +174,17 @@ class AttentionLayerO2(nn.Module):
             setattr(self, f'h2x_{i}', H2XAttention(
                 hidden_dim, n_heads, ew_net_type, use_kernels))
 
-    def forward(self, h, x, graph: EdgeGraph, movable, e_w):
+    def forward(self, h, x, graph: EdgeGraph, movable, e_w,
+                num_protein: int):
+        """movable is False on the protein block [0, num_protein): the h2x
+        attentions compute only the rows after it."""
+        rows = (num_protein, x.shape[1] - num_protein)
         h_in = h
         for i in range(self.num_x2h):
             h_in = getattr(self, f'x2h_{i}')(h_in, x, graph, e_w)
         new_h = h if self.sync_twoup else h_in
         for i in range(self.num_h2x):
-            dx = getattr(self, f'h2x_{i}')(new_h, x, graph, e_w)
+            dx = getattr(self, f'h2x_{i}')(new_h, x, graph, e_w, rows)
             x = x + dx * movable[..., None].to(x.dtype)
         return h_in, x
 
@@ -212,8 +219,10 @@ class UniTransformerO2(nn.Module):
         """
         Args:
             h [B, N, H], x [B, N, 3]: context features and positions
-            mask_all, mask_ligand, movable [B, N] bool
-            num_protein: protein slice size (the hybrid cutoff's split)
+            mask_all, mask_ligand, movable [B, N] bool, movable False on
+                the protein block
+            num_protein: protein slice size (the hybrid cutoff's split and
+                the coordinate attentions' first row)
         """
         lig = mask_ligand.float()
         for _ in range(self.num_blocks):
@@ -233,5 +242,6 @@ class UniTransformerO2(nn.Module):
                 e_w = torch.sigmoid(
                     self.edge_pred(fixed_rbf(dist)))[..., 0].contiguous()
             for i in range(self.num_layers):
-                h, x = getattr(self, f'layer_{i}')(h, x, graph, movable, e_w)
+                h, x = getattr(self, f'layer_{i}')(h, x, graph, movable, e_w,
+                                                   num_protein)
         return {'x': x, 'h': h}

@@ -125,11 +125,12 @@ def gather_table(h, x):
 
 
 def _edge_call(module, prefixes, h, x, graph: EdgeGraph, e_w, q,
-               pos_mode: bool):
+               pos_mode: bool, rows: Optional[edge_ops.Rows] = None):
     """One edge attention of a module with `use_kernels` and `gather_bf16`
-    flags, whose two branches are registered under `prefixes`. The output
-    is float32; the sources' h @ Wj is formed in float32 on the kernel
-    path (the JAX kernel's, from its float32 node table _pack_hx)."""
+    flags, whose two branches are registered under `prefixes`, over the
+    destination-row window `rows`. The output is float32; the sources'
+    h @ Wj is formed in float32 on the kernel path (the JAX kernel's, from
+    its float32 node table _pack_hx)."""
     h_src, kw = None, {}
     if not module.use_kernels:
         fn = edge_ops.edge_attention_reference
@@ -142,7 +143,7 @@ def _edge_call(module, prefixes, h, x, graph: EdgeGraph, e_w, q,
               q.float(), *(_branch(module, p, h, h_src,
                                    f32_src=module.use_kernels)
                            for p in prefixes),
-              n_heads=module.n_heads, pos_mode=pos_mode, **kw)
+              n_heads=module.n_heads, pos_mode=pos_mode, rows=rows, **kw)
 
 
 class NodeEdgeAttention(nn.Module):
@@ -182,9 +183,12 @@ class PosEdgeAttention(nn.Module):
         _register_branch(self, 'xv', n_etypes * 21, H, n_heads)
         self.xq = MLP(H, H, H, dtype=dtype)
 
-    def forward(self, h, x, graph: EdgeGraph, e_w):
+    def forward(self, h, x, graph: EdgeGraph, e_w,
+                rows: Optional[edge_ops.Rows] = None):
+        """rows: the destination-row window (ops/edge_attention.py) whose
+        update the caller keeps; the other rows' dx is 0."""
         return _edge_call(self, ('xk', 'xv'), h, x, graph, e_w, self.xq(h),
-                          pos_mode=True)
+                          pos_mode=True, rows=rows)
 
 
 def _bond_call(module, prefixes, h_lig, x_lig, h_bond, bond_mask, q,
@@ -355,6 +359,8 @@ class AttentionLayerBond(nn.Module):
 
     def forward(self, h, x, graph: EdgeGraph, h_bond, bond_mask, movable,
                 num_protein: int, e_w):
+        """movable is False on the protein block [0, num_protein): the
+        edge coordinate attention computes only the rows after it."""
         Np, Nl = num_protein, h_bond.shape[1]
         new_h_edge = self.node_layer_with_edge(h, x, graph, e_w)
         h_lig = h[:, Np:Np + Nl].contiguous()
@@ -365,7 +371,8 @@ class AttentionLayerBond(nn.Module):
         new_h = h + self.lin_node(new_h_edge + new_h_bond_full)
 
         # coordinate updates use the updated h (ref :280-285)
-        dx_edge = self.pos_layer_with_edge(new_h, x, graph, e_w)
+        dx_edge = self.pos_layer_with_edge(new_h, x, graph, e_w,
+                                           (Np, x.shape[1] - Np))
         dx_bond = self.pos_layer_with_bond(
             new_h[:, Np:Np + Nl].contiguous(), x_lig, new_h_bond, bond_mask)
         dx = torch.cat([dx_edge[:, :Np], dx_edge[:, Np:Np + Nl] + dx_bond,
@@ -403,7 +410,8 @@ class UniTransformerBond(nn.Module):
         Args:
             h [B, N, H], x [B, N, 3]: context features and positions
             h_bond [B, Nl, Nl, H]: bond features
-            mask_all, mask_ligand, movable [B, N] bool; bond_mask [B, Nl, Nl]
+            mask_all, mask_ligand, movable [B, N] bool, movable False on
+                the protein block; bond_mask [B, Nl, Nl]
             num_protein: protein slice size
             group_idx: optional [B, N] decomposition group (6 edge types)
         """

@@ -39,6 +39,24 @@ check_heads admits the per-row kernel (csrc/row_attention.cuh). It reports
 the route it took, and the per-row launches, of any mode, also count in
 `edge_attention.row_launches`.
 
+`rows` = (start, count), the destination-row window, is the same for every
+molecule: only rows start .. start + count - 1 are computed, every other
+row's output is exactly 0 and carries no gradient, and None computes every
+row. Each refine-net layer's coordinate (pos-mode) attention passes the
+rows after the protein block, the only rows whose update it keeps
+(movable is False on the protein), from num_protein and N alone, so no
+host synchronisation. The kernel's tile map walks only
+the window's tiles, and the same launch writes the zeros outside it; each
+window row is bitwise the row computed without the window, since a row's
+arithmetic never reads another's (csrc/edge_attention.cu). Launches with a
+window count in `edge_attention.window_launches`, and while recording is
+on (utils/profiling.py) add the rows they compute, B * count, to the
+counter `ops.edge_attention.rows` and B * N to `ops.edge_attention.rows_all`.
+The backward kernels take the window only to read the cotangent's rows
+outside it as 0 (in the refine nets those are 0 already: movable is False
+there); they still walk every row, since training, the one caller of the
+backward, is paced by the host.
+
 On CUDA tensors `edge_attention` is differentiable: its autograd node saves
 only the inputs, and `edge_attention_backward` recomputes the rest in a
 backward kernel and returns the gradients of x, e_w, q, both branches, the
@@ -76,9 +94,30 @@ from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
     check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
-from decompdiff_tpu_torch.utils.profiling import span
+from decompdiff_tpu_torch.utils.profiling import count, span
 
 Gate = Tuple[torch.Tensor, torch.Tensor]   # (wm [H], bm [1])
+Rows = Tuple[int, int]                     # (start, count) of every molecule
+
+
+def _row_window(rows: Optional[Rows], N: int) -> Optional[Rows]:
+    """rows as (start, count) ints, or None for every row; raises unless
+    the window lies in [0, N]."""
+    if rows is None:
+        return None
+    start, n = (int(r) for r in rows)
+    if start < 0 or n < 0 or start + n > N:
+        raise ValueError(f'row window {tuple(rows)} outside [0, {N}]')
+    return start, n
+
+
+def _zero_outside(out: torch.Tensor, rows: Optional[Rows]) -> torch.Tensor:
+    """out [B, N, C] with the rows outside the window exactly 0."""
+    if rows is None:
+        return out
+    i = torch.arange(out.shape[1], device=out.device)
+    keep = (i >= rows[0]) & (i < rows[0] + rows[1])
+    return torch.where(keep[:, None], out, 0.0)
 
 
 def gather_nodes(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -115,15 +154,18 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
                              k: Branch, v: Branch, *, n_heads: int,
                              pos_mode: bool, gate: Optional[Gate] = None,
                              x_src: Optional[torch.Tensor] = None,
-                             compute_dtype: Optional[torch.dtype] = None
-                             ) -> torch.Tensor:
+                             compute_dtype: Optional[torch.dtype] = None,
+                             rows: Optional[Rows] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, in the order of the JAX dense
     path (models/uni_transformer_bond.py NodeEdgeAttention/PosEdgeAttention,
     models/uni_transformer.py X2HAttention for the gate); with x_src, the
     order of the JAX kernel's gather_bf16 path (edge_kernel.py:172-175).
     compute_dtype: the JAX dense path's rounding of edge_feat @ We under
-    the config key (ops/common.py feat_product); the kernel has none."""
+    the config key (ops/common.py feat_product); the kernel has none.
+    rows: the window, honoured by zeroing every other row of the output
+    (computed all the same)."""
     _node_mode_gate(gate, pos_mode)
+    rows = _row_window(rows, idx.shape[1])
     xs = x if x_src is None else x_src
     rel = x[:, :, None, :] - gather_nodes(xs, idx)           # x_dst - x_src
     dist = safe_norm(rel, dim=-1)
@@ -142,14 +184,17 @@ def edge_attention_reference(x, lig, group, idx, mask, e_w, q,
         wm, bm = gate
         vv = vv * torch.sigmoid(vv @ wm[:, None] + bm)
     vv = vv * e_w[..., None]
-    return attend(q, kk, vv, mask > 0.5, n_heads, rel if pos_mode else None)
+    return _zero_outside(
+        attend(q, kk, vv, mask > 0.5, n_heads, rel if pos_mode else None),
+        rows)
 
 
 def edge_attention_backward_reference(g, x, lig, group, idx, mask, e_w, q,
                                       k: Branch, v: Branch, *, n_heads: int,
                                       pos_mode: bool,
                                       gate: Optional[Gate] = None,
-                                      x_src: Optional[torch.Tensor] = None):
+                                      x_src: Optional[torch.Tensor] = None,
+                                      rows: Optional[Rows] = None):
     """Plain version of the backward: autograd through the plain forward.
     Returns (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch, then with a
     gate (d_wm, d_bm) and with an x_src d_x_src."""
@@ -157,7 +202,7 @@ def edge_attention_backward_reference(g, x, lig, group, idx, mask, e_w, q,
         return edge_attention_reference(
             x, lig, group, idx, mask, e_w, q, Branch(*params[:7]),
             Branch(*params[7:14]), n_heads=n_heads, pos_mode=pos_mode,
-            gate=tuple(params[14:]) or None, x_src=x_src)
+            gate=tuple(params[14:]) or None, x_src=x_src, rows=rows)
     d = autograd_grads(fn, g, [x, e_w, q, x_src, *k, *v, *(gate or ())])
     grads = (d[0], d[1], d[2], Branch(*d[4:11]), Branch(*d[11:18]))
     if gate is not None:
@@ -360,41 +405,47 @@ def _count(counter, gate, x_src) -> None:
 
 
 def _forward(x, lig, group, idx, mask, e_w, q, k, v, n_heads, pos_mode,
-             gate, x_src):
+             gate, x_src, rows):
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
                           pos_mode, gate, x_src)
     check_inputs(q.device, named)
+    start, n = rows or (0, N)
     out = torch.empty((B, N, 3 if pos_mode else H), device=q.device,
                       dtype=torch.float32)
     wm, bm = gate or (None, None)
     row = ctypes.c_int(0)                 # 1: the per-row kernel launched
-    fn = _build.load('edge_attention', 'edge_attention_fwd', 26, 7)
+    fn = _build.load('edge_attention', 'edge_attention_fwd', 26, 9)
     args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
              ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q)]
             + branch_ptrs(k) + branch_ptrs(v)
             + [ptr(wm), ptr(bm), ptr(out), ctypes.byref(row)]
-            + [B, N, K, H, n_heads, n_et, int(pos_mode)])
+            + [B, N, K, H, n_heads, n_et, int(pos_mode), start, n])
     launch(fn, args, q.device, 'edge_attention')
     _count(edge_attention, gate, x_src)
     edge_attention.row_launches += row.value
+    if rows is not None:
+        edge_attention.window_launches += 1
+        count('ops.edge_attention.rows', B * n)
+        count('ops.edge_attention.rows_all', B * N)
     return out
 
 
 class _EdgeAttention(torch.autograd.Function):
-    """Forward kernel, saving only the inputs; backward kernel. `params` is
-    the k and v Branch fields, then wm and bm with a gate."""
+    """Forward kernel, saving only the inputs and the window; backward
+    kernel. `params` is the k and v Branch fields, then wm and bm with a
+    gate."""
 
     @staticmethod
-    def forward(ctx, n_heads, pos_mode, x, x_src, lig, group, idx, mask, e_w,
-                q, *params):
-        ctx.opts = dict(n_heads=n_heads, pos_mode=pos_mode)
+    def forward(ctx, n_heads, pos_mode, rows, x, x_src, lig, group, idx,
+                mask, e_w, q, *params):
+        ctx.opts = dict(n_heads=n_heads, pos_mode=pos_mode, rows=rows)
         ctx.save_for_backward(x, x_src, lig, group, idx, mask, e_w, q,
                               *params)
         return _forward(x, lig, group, idx, mask, e_w, q,
                         Branch(*params[:7]), Branch(*params[7:14]), n_heads,
-                        pos_mode, tuple(params[14:]) or None, x_src)
+                        pos_mode, tuple(params[14:]) or None, x_src, rows)
 
     @staticmethod
     @once_differentiable
@@ -408,8 +459,8 @@ class _EdgeAttention(torch.autograd.Function):
                 x_src=x_src, **ctx.opts)
         d_gate = rest.pop(0) if gate is not None else ()
         d_xs = rest.pop(0) if x_src is not None else None
-        return (None, None, d_x, d_xs, None, None, None, None, d_ew, d_q,
-                *dk, *dv, *d_gate)
+        return (None, None, None, d_x, d_xs, None, None, None, None, d_ew,
+                d_q, *dk, *dv, *d_gate)
 
 
 def edge_attention(x: torch.Tensor, lig: torch.Tensor,
@@ -417,7 +468,8 @@ def edge_attention(x: torch.Tensor, lig: torch.Tensor,
                    mask: torch.Tensor, e_w: torch.Tensor, q: torch.Tensor,
                    k: Branch, v: Branch, *, n_heads: int, pos_mode: bool,
                    gate: Optional[Gate] = None,
-                   x_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   x_src: Optional[torch.Tensor] = None,
+                   rows: Optional[Rows] = None) -> torch.Tensor:
     """Args (float32 unless noted):
         x [B, N, 3] coordinates; lig [B, N] 1.0 on ligand(+prior) nodes;
         group [B, N] decomposition group ids, or None for 4 edge types;
@@ -426,33 +478,40 @@ def edge_attention(x: torch.Tensor, lig: torch.Tensor,
         wo [H, H] (v in pos mode [H, heads]), bo, ln_scale, ln_bias;
         gate: optional m-gate (wm [H], bm [1]), node mode only;
         x_src: optional [B, N, 3] coordinates the sources are read from
-        (the gather_bf16 hi + lo table), None for x.
+        (the gather_bf16 hi + lo table), None for x;
+        rows: optional (start, count) destination-row window of every
+        molecule, in [0, N]; the other rows' output is 0.
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     its gradient launches the backward kernel.
     """
+    rows = _row_window(rows, idx.shape[1])
     with span('ops.edge_attention'):
         if on_cpu(q):
             return edge_attention_reference(
                 x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
-                pos_mode=pos_mode, gate=gate, x_src=x_src)
-        return _EdgeAttention.apply(n_heads, pos_mode, x, x_src, lig, group,
-                                    idx, mask, e_w, q, *k, *v, *(gate or ()))
+                pos_mode=pos_mode, gate=gate, x_src=x_src, rows=rows)
+        return _EdgeAttention.apply(n_heads, pos_mode, rows, x, x_src, lig,
+                                    group, idx, mask, e_w, q, *k, *v,
+                                    *(gate or ()))
 
 
 def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
                             q, k: Branch, v: Branch, *, n_heads: int,
                             pos_mode: bool, gate: Optional[Gate] = None,
-                            x_src: Optional[torch.Tensor] = None):
+                            x_src: Optional[torch.Tensor] = None,
+                            rows: Optional[Rows] = None):
     """Gradients of edge_attention for the output cotangent g ([B, N, H],
     pos mode [B, N, 3]): (d_x, d_e_w, d_q, d_k, d_v), d_k and d_v as Branch
     (d t_row, d t_src and the five parameter gradients), then with a gate
     (d_wm, d_bm), and with an x_src d_x_src (d_x then holds only the
-    destinations' part). CPU tensors run the plain version; CUDA tensors
-    launch the backward kernel."""
+    destinations' part); with a row window, those of the windowed forward
+    (g's rows outside it count as 0). CPU tensors run the plain version;
+    CUDA tensors launch the backward kernel."""
+    rows = _row_window(rows, idx.shape[1])
     if on_cpu(q):
         return edge_attention_backward_reference(
             g, x, lig, group, idx, mask, e_w, q, k, v, n_heads=n_heads,
-            pos_mode=pos_mode, gate=gate, x_src=x_src)
+            pos_mode=pos_mode, gate=gate, x_src=x_src, rows=rows)
     B, N, K = idx.shape
     H = q.shape[-1]
     named, n_et = _checks(x, lig, group, idx, mask, e_w, q, k, v, n_heads,
@@ -460,6 +519,7 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
     named.append(('g', g, (B, N, 3 if pos_mode else H), torch.float32))
     check_inputs(q.device, named)
     dev = q.device
+    start, n = rows or (0, N)
     d_x = torch.zeros((B, N, 3), device=dev)
     d_xs = None if x_src is None else torch.zeros((B, N, 3), device=dev)
     d_ew = torch.empty((B, N, K), device=dev)
@@ -481,7 +541,7 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
                                 blocks, dev) if row else None)
     route = ctypes.c_int(0)               # 1: row buffers in the scratch
     launched_row = ctypes.c_int(0)        # 1: the per-row kernel launched
-    fn = _build.load('edge_attention', 'edge_attention_bwd', 40, 8)
+    fn = _build.load('edge_attention', 'edge_attention_bwd', 40, 10)
     args = ([ptr(x), ptr(x if x_src is None else x_src), ptr(lig),
              ptr(group), ptr(idx), ptr(mask), ptr(e_w), ptr(q), ptr(g)]
             + branch_ptrs(k) + [ptr(woT_k)]
@@ -490,7 +550,7 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
                                 d_q, d_trow_k, d_tsrc_k, d_trow_v, d_tsrc_v,
                                 pg.slots, pg.out, scratch)]
             + [ctypes.byref(route), ctypes.byref(launched_row), B, N, K, H,
-               n_heads, n_et, int(pos_mode), blocks])
+               n_heads, n_et, int(pos_mode), start, n, blocks])
     launch(fn, args, dev, 'edge_attention_backward')
     _count(edge_attention_backward, gate, x_src)
     edge_attention_backward.scratch_launches += route.value
@@ -504,6 +564,7 @@ def edge_attention_backward(g: torch.Tensor, x, lig, group, idx, mask, e_w,
 
 edge_attention.launches = edge_attention.gated_launches = 0
 edge_attention.gather_launches = edge_attention.row_launches = 0
+edge_attention.window_launches = 0
 edge_attention_backward.launches = edge_attention_backward.gated_launches = 0
 edge_attention_backward.gather_launches = 0
 edge_attention_backward.scratch_launches = 0

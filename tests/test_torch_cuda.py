@@ -43,7 +43,13 @@ card as on the CPU. A training step on two data-parallel ranks (spawned
 processes; gloo when they share the card) with the kernels on matches the
 same step in one process, each rank's kernels taking half the batch. The
 port's spans (utils/profiling.py) and CUPTI's records of the kernels they
-launch lie on one clock.
+launch lie on one clock. The edge forward with a destination-row window
+(both routes, both modes, 4 and 6 edge types, odd and even windows at the
+sampling entry point's B = 8, N = 352) gives its window rows bitwise and
+zeros elsewhere; the gradient through a windowed launch is the unwindowed
+one for the cotangent zeroed outside the window; and a released-width
+denoiser call (both refine nets) is bitwise the same with and without the
+window.
 
 Tolerance rtol 1e-3 / atol 1e-4: float32 on both sides, with other
 summation orders and the device's expf/sincosf.
@@ -1324,3 +1330,126 @@ def test_spans_on_the_profiler_clock(cuda):
     print(f'first runtime record {first[0]} {lead_ms:.4f} ms after a '
           f'opened; gap {label!r} {seconds * 1e3:.4f} ms; {sync[0]} '
           f'{(sync[1] - att.index.start[b]) / 1e6:.4f} ms after b opened')
+
+
+# --------------------------------------------------------------------------
+# the destination-row window of the edge forward
+# --------------------------------------------------------------------------
+
+def _window_call(cuda, mode, group, K=32, Nl=32):
+    """(args, kw) of an edge call on the card at the sampling entry point's
+    B = 8, N = 352 (Np = 320), H = 128 (mode pos or node) or, for mode
+    pos_row, H = 96 on the per-row kernel."""
+    H, heads = (96, 12) if mode.endswith('row') else (128, 16)
+    args, kw = _edge_case(np.random.default_rng(60 + Nl + 2 * group), H,
+                          heads, mode.split('_')[0], K=K, B=8, N=352,
+                          Np=320, group=group)
+    return tuple(_dev(a, cuda) for a in args), kw
+
+
+@pytest.mark.parametrize('Nl', [32, 25], ids=['Nl32', 'Nl25'])
+@pytest.mark.parametrize('group', [False, True], ids=['4types', '6types'])
+@pytest.mark.parametrize('mode', ['pos', 'node', 'pos_row'])
+def test_edge_window_kernel(cuda, mode, group, Nl):
+    """The forward with a row window (start, Nl) against the same launch
+    without one: the window's rows bitwise equal, every other row exactly
+    +0 (over memory that held nonzeros), for a window at an even and an odd
+    start row (another pairing of rows into tiles); each windowed launch
+    adds one to edge_attention.window_launches and none to the other
+    counts."""
+    args, kw = _window_call(cuda, mode, group, Nl=Nl)
+    whole = edge_ops.edge_attention(*args, **kw)
+    N = whole.shape[1]
+    for start in (320, 319):
+        counts = (edge_ops.edge_attention.launches,
+                  edge_ops.edge_attention.window_launches)
+        torch.full_like(whole, 7.0)   # freed: the next output's memory
+        got = edge_ops.edge_attention(*args, **kw, rows=(start, Nl))
+        torch.cuda.synchronize()
+        assert (edge_ops.edge_attention.launches,
+                edge_ops.edge_attention.window_launches) == (
+                    counts[0] + 1, counts[1] + 1)
+        inside = torch.zeros(N, dtype=torch.bool, device=cuda)
+        inside[start:start + Nl] = True
+        assert torch.equal(got[:, inside], whole[:, inside]), start
+        zeros = got[:, ~inside]
+        assert torch.equal(zeros, torch.zeros_like(zeros))
+        assert not zeros.signbit().any()
+    assert float(whole[:, 320:320 + Nl].abs().max()) > 0
+
+
+@pytest.mark.parametrize('mode', ['pos', 'node'])
+def test_edge_window_backward(cuda, mode):
+    """The gradient through a windowed launch (its autograd node) for a
+    cotangent with nonzero rows outside the window equals the unwindowed
+    backward's for that cotangent zeroed there: bitwise for every gradient
+    summed in a fixed order, within float32 rounding for those the kernel
+    sums with atomics (d x and both branches' d t_src). The window costs
+    the backward no device operation: CUPTI records the same ones with it
+    as without."""
+    from perfbench.core import spans as attribution
+    args, kw = _window_call(cuda, mode, True, Nl=25)
+    x, lig, group, idx, mask, e_w, q, k, v = args
+    leaves = [x, e_w, q, *k, *v]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = edge_ops.edge_attention(x, lig, group, idx, mask, e_w, q, k, v,
+                                  **kw, rows=(320, 25))
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    inside = torch.zeros(out.shape[1], dtype=torch.bool, device=cuda)
+    inside[320:345] = True
+    before = edge_ops.edge_attention_backward.launches
+    got = torch.autograd.grad(out, leaves, g)
+    assert edge_ops.edge_attention_backward.launches == before + 1
+    with torch.no_grad():
+        d_x, d_ew, d_q, dk, dv = edge_ops.edge_attention_backward(
+            torch.where(inside[:, None], g, 0.0), *args, **kw)
+    want = [d_x, d_ew, d_q, *dk, *dv]
+    atomic = {0, 3 + 1, 3 + 7 + 1}       # d x, d t_src of k and v
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i in atomic:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), i
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        pass                        # the first start initialises CUPTI
+    names = []
+    for rows in (None, (320, 25)):
+        with torch.profiler.profile(activities=activities) as prof:
+            edge_ops.edge_attention_backward(g, *args, **kw, rows=rows)
+            torch.cuda.synchronize()
+        names.append(sorted(op[0] for op in attribution.read_kineto(prof).ops))
+    assert names[0] == names[1] and names[0], names
+
+
+@pytest.mark.parametrize('model_name', ['released', 'uni_o2'])
+def test_denoiser_window_bitwise(cuda, model_name, monkeypatch):
+    """One denoiser call at the released widths and the sampling entry
+    point's shapes (B = 8, Np = 320, Nl = 32): with the coordinate
+    attentions windowed to the rows after the protein block, as the refine
+    nets call them, every prediction is bitwise that of the same call with
+    the window taken away, and every pos-mode launch took the window."""
+    from decompdiff_tpu_torch.utils.testing import (
+        DEFAULT_MODEL_CONFIG, uni_o2_model_config)
+    cfg = (dict(DEFAULT_MODEL_CONFIG) if model_name == 'released'
+           else uni_o2_model_config())
+    model = DecompDiffModel.create(dict(cfg, use_pallas=True), 8,
+                                   device=cuda, seed=0)
+    batch, _ = _entry_batch(cuda, 32)
+    t = torch.full((8,), 500, dtype=torch.long, device=cuda)
+    state = (batch.ligand_pos, batch.ligand_v, batch.bond_type, t)
+    before = edge_ops.edge_attention.window_launches
+    with torch.no_grad():
+        got = model.apply(batch, *state)
+    windowed = edge_ops.edge_attention.window_launches
+    assert windowed - before == (
+        cfg['num_blocks'] * cfg['num_layers'] * cfg.get('num_h2x', 1))
+    # every window taken away where the wrapper reads it
+    monkeypatch.setattr(edge_ops, '_row_window', lambda rows, N: None)
+    with torch.no_grad():
+        want = model.apply(batch, *state)
+    assert edge_ops.edge_attention.window_launches == windowed
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
