@@ -335,6 +335,11 @@ WIDE, WIDER = (512, 16), ((1024, 32),)
 # H100 SXM published peaks: FP32 outside the tensor cores, HBM3 bandwidth,
 # dense bf16 on the tensor cores
 PEAK_FLOPS, PEAK_BYTES, TENSOR_PEAK = 67e12, 3.35e12, 989e12
+# the Adam kernel: it reads p, g, m, v and writes p, m, v (float32), and
+# does about 13 operations a parameter; held to its plain version as the
+# card test holds the optimizer (tests/test_torch_cuda.py)
+ADAM_BYTES, ADAM_FLOPS = 28, 13
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
 # bf16 tensor-core passes that the [H, H] products (the second linears, and
 # the bond's first linears) of each forward record's function take at its
 # accuracy (row_mma.cuh: hi*hi + hi*lo + lo*hi for float32, hi*hi with
@@ -430,6 +435,9 @@ KERNEL_SOURCES = {
         'decompdiff_tpu/ops/pallas/triplet_kernel.py:371',
     'edge_attention_mgate_backward':
         'decompdiff_tpu/ops/pallas/edge_kernel.py:568',
+    # no Pallas kernel: the JAX package's optax adam is XLA's fused
+    # elementwise code
+    'multi_tensor_adam': 'optax.adam (XLA, no Pallas kernel)',
 }
 # Each kernel mode's ms as this script measured it on the per-row
 # CUDA-core kernel, before that kernel's redesign (the forwards onto the
@@ -574,6 +582,20 @@ def plain_versions(ops):
     finally:
         for name, mod in ops.items():
             setattr(mod, name, wrappers[name])
+
+
+@contextlib.contextmanager
+def plain_adam():
+    """The optimizer's Adam kernel (ops/multi_tensor_adam.py) replaced by
+    its plain version, which takes its arguments: a training step then
+    launches no hand-written kernel."""
+    from decompdiff_tpu_torch.ops import multi_tensor_adam as mod
+    kernel = mod.multi_tensor_adam
+    mod.multi_tensor_adam = mod.multi_tensor_adam_reference
+    try:
+        yield
+    finally:
+        mod.multi_tensor_adam = kernel
 
 
 RECORD_SUFFIXES = ('_mgate', '_bf16', '_gather', '_row', '_wide', '_nl64')
@@ -961,12 +983,87 @@ def table_roundings(rec, like=None):
         tutb.gather_table = orig
 
 
+def adam_phase(torch, cfg):
+    """The optimizer's Adam kernel against its plain version over the
+    parameters of `cfg`'s denoiser (the released one's 704 tensors, 4.98 M
+    parameters) with the training config's Adam settings: one step from
+    drawn gradients, moments and step counts (10 to 59), parameters,
+    moments and step counts within ADAM_RTOL / ADAM_ATOL. Timed: the
+    kernel launching its table again, as a training step does; the plain
+    version; torch's fused Adam on the same tensors (library_ms; its
+    update differs, see ops/multi_tensor_adam.py). Bound: ADAM_BYTES a
+    parameter at PEAK_BYTES (ADAM_FLOPS at PEAK_FLOPS)."""
+    from decompdiff_tpu_torch.models.diffusion_model import DecompDiffModel
+    from decompdiff_tpu_torch.ops.multi_tensor_adam import (
+        multi_tensor_adam, multi_tensor_adam_reference)
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state)
+    dev = torch.device('cuda')
+    model = DecompDiffModel.create(dict(cfg, use_pallas=True), 8, device=dev,
+                                   seed=0)
+    group = create_train_state(model, DEFAULT_TRAIN_CONFIG).optimizer.adam \
+        .param_groups[0]
+    hyper = dict(lr=group['lr'], beta1=group['betas'][0],
+                 beta2=group['betas'][1], eps=group['eps'],
+                 weight_decay=group['weight_decay'])
+    params = [p.detach() for p in model.denoiser.parameters()]
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def draw(scale):
+        return [torch.randn(p.shape, generator=gen, device=dev) * scale
+                for p in params]
+    grads, m, v = draw(1e-3), draw(1e-4), [x * x for x in draw(1e-3)]
+    steps = [torch.full((), float(10 + i % 50), device=dev)
+             for i in range(len(params))]
+    want = [[t.clone() for t in col] for col in (params, m, v, steps)]
+    got = [[t.clone() for t in col] for col in (params, m, v, steps)]
+    multi_tensor_adam_reference(want[0], grads, *want[1:], **hyper)
+    table = multi_tensor_adam(got[0], grads, *got[1:], **hyper)
+    torch.cuda.synchronize()
+    worst, outside = 0.0, 0
+    for a, b in zip(got, want):
+        a = torch.cat([t.reshape(-1) for t in a])
+        b = torch.cat([t.reshape(-1) for t in b])
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        outside += int((err > ADAM_ATOL + ADAM_RTOL * b.abs()).sum())
+    ms = time_ms(torch, lambda: multi_tensor_adam(got[0], grads, *got[1:],
+                                                  **hyper, table=table))
+    plain_ms = time_ms(torch, lambda: multi_tensor_adam_reference(
+        want[0], grads, *want[1:], **hyper), iters=5, warmup=1)
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.Adam(lib_params, lr=hyper['lr'],
+                           betas=(hyper['beta1'], hyper['beta2']),
+                           eps=hyper['eps'],
+                           weight_decay=hyper['weight_decay'], fused=True)
+    library_ms = time_ms(torch, lib.step)
+    t_ops = ADAM_FLOPS * n / PEAK_FLOPS * 1e3
+    t_bytes = ADAM_BYTES * n / PEAK_BYTES * 1e3
+    ok = outside == 0 and all(bool(torch.isfinite(t).all()) for t in got[0])
+    print(f'kernel multi_tensor_adam[{len(params)} tensors, {n} parameters]: '
+          f'max_abs_err {worst:.3e}, {outside} elements outside (rtol '
+          f'{ADAM_RTOL}, atol {ADAM_ATOL}) {"ok" if ok else "MISMATCH"}; '
+          f'kernel {ms:.4f} ms ({table.n_blocks} blocks), plain '
+          f'{plain_ms:.4f} ms, torch fused Adam {library_ms:.4f} ms, bound '
+          f'{max(t_ops, t_bytes):.4f} ms by bytes ({ADAM_BYTES * n / 1e6:.1f} '
+          f'MB)', flush=True)
+    check(ok, 'multi_tensor_adam disagrees with its plain version')
+    return {'multi_tensor_adam': dict(
+        err=worst, modes=[(ms, plain_ms, t_ops, t_bytes, t_ops)],
+        library_ms=library_ms)}
+
+
 def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
     """Training steps of `cfg` at the bench shapes, kernels on and off.
     per_step: the forward kernels' launches per step (each backward kernel
     launches as often as its forward). wrapped: kernels off is the kernel
     model under plain_versions (for an option the plain path does not
-    read). Returns the launch counts of the kernel path."""
+    read); on both the plain path runs the plain Adam (plain_adam). Returns
+    the launch counts of the kernel path, the Adam kernel's
+    ('multi_tensor_adam', one a step) among them."""
     from decompdiff_tpu_torch.training.train_step import (
         DEFAULT_TRAIN_CONFIG, create_train_state, make_train_fns)
     dev = torch.device('cuda')
@@ -976,8 +1073,12 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
                                                         wrapped)))
 
     def plain_ctx(key):
-        return (plain_versions(ops) if wrapped and key == 'plain'
-                else contextlib.nullcontext())
+        stack = contextlib.ExitStack()
+        if key == 'plain':
+            stack.enter_context(plain_adam())
+            if wrapped:
+                stack.enter_context(plain_versions(ops))
+        return stack
 
     # one step's gradients from the same weights and the same draws; with
     # pallas_gather_bf16 also the witness: the plain path rounding its
@@ -1068,22 +1169,25 @@ def train_phase(torch, batch, cfg, per_step, label, wrapped=False):
             torch.cuda.synchronize()
         elapsed = (time.perf_counter() - t0) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated() / 2**20
-        counts = get_launches()
+        counts, adam = get_launches(), adam_launches()
         print(f'{label} train path {key}: {TRAIN_STEPS} steps at '
               f'B={batch.batch_size} '
               f'Np={NUM_PROTEIN} Nl={NUM_LIGAND}: {elapsed:.4f} s/step, peak '
               f'device memory {peak:.1f} MiB; last step loss '
               f'{float(metrics["loss"]):.5f} grad_norm '
-              f'{float(metrics["grad_norm"]):.5f}; launches {counts}',
-              flush=True)
+              f'{float(metrics["grad_norm"]):.5f}; launches {counts}, '
+              f'multi_tensor_adam {adam}', flush=True)
         check(all(bool(torch.isfinite(v)) for v in metrics.values()),
               f'non-finite training metrics ({key})')
         if key == 'kernels':
-            launches = counts
+            launches = dict(counts, multi_tensor_adam=adam)
             check(counts == expect, f'training launches differ from the '
                   f'expected {expect}')
+            check(adam == TRAIN_STEPS, f'{adam} Adam kernel launches in '
+                  f'{TRAIN_STEPS} steps')
         else:
-            check(not any(counts.values()), 'the plain path launched kernels')
+            check(not any(counts.values()) and adam == 0,
+                  'the plain path launched kernels')
     return launches
 
 
@@ -2478,6 +2582,12 @@ def train_entry_phase(torch, per_call):
                   f'{nonzero(expect)}, every other counter 0)', flush=True)
             check(launches == expect, f'train entry point ({tag}) launch '
                   'counts differ from the expected')
+            # n_acc_batch 1: one Adam launch a step
+            launches['multi_tensor_adam'] = adam_launches()
+            check(launches['multi_tensor_adam'] == len(
+                summary['batch_shapes']), f'train entry point ({tag}): '
+                f'{launches["multi_tensor_adam"]} Adam kernel launches in '
+                f'{len(summary["batch_shapes"])} steps')
             for n, c in launches.items():
                 total[n] = total.get(n, 0) + c
             model = models.pop()
@@ -3025,7 +3135,10 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
     training steps of that config (compute_bf16_phase);
     dp_train_launches and dp_sample_launches: each rank's, in rank order,
     through the training and the sampling script under torchrun on
-    DP_WORLDS[-1] ranks (dp_phase)."""
+    DP_WORLDS[-1] ranks (dp_phase). The Adam kernel's record (adam_phase)
+    counts its launches through the training path and the training entry
+    point; the bf16 and data-parallel training runs do not count them
+    (None), and no sampling path runs it (0)."""
     kernels = []
     for name, r in results.items():
         ms, plain_ms, t_ops, t_bytes, t_fp32 = (
@@ -3052,9 +3165,12 @@ def kernel_records(results, launches, entry_launches, train_entry_launches,
             'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
             'bound_fp32_ms': max(t_fp32, t_bytes),
             # no single PyTorch call computes these fused MLP attentions or
-            # their gradients
-            'library_ms': None,
+            # their gradients; Adam's: torch's fused Adam
+            'library_ms': r.get('library_ms'),
         })
+        if name == 'multi_tensor_adam':
+            kernels[-1].update(bf16_train_launches=None,
+                               dp_train_launches=None)
     return kernels
 
 
@@ -3072,9 +3188,18 @@ def ops_module(rec):
 
 
 def zero_launches():
-    """Sets the launch count of every forward and backward kernel to 0."""
-    from decompdiff_tpu_torch.ops import zero_launch_counts
+    """Sets the launch count of every forward and backward kernel, and the
+    optimizer's Adam kernel's, to 0."""
+    from decompdiff_tpu_torch.ops import multi_tensor_adam, zero_launch_counts
     zero_launch_counts()
+    multi_tensor_adam.multi_tensor_adam.launches = 0
+
+
+def adam_launches():
+    """The optimizer's Adam kernel's launches (multi_tensor_adam.launches,
+    which ops.launch_counters and so get_launches leave out)."""
+    from decompdiff_tpu_torch.ops import multi_tensor_adam
+    return multi_tensor_adam.multi_tensor_adam.launches
 
 
 def get_launches(counts=None):
@@ -3179,6 +3304,7 @@ def main():
             results = kernel_phase(torch, captured)
         results.update(backward_phase(torch, ops, captured))
         results.update(nl64)
+        results.update(adam_phase(torch, bond_cfg))
         # the per-row backward kernels at WIDTHS: the triplet's at the first
         # width is the record triplet_attention_backward_row (no released
         # path reaches it), the others are printed only
@@ -3251,6 +3377,9 @@ def main():
     for n in results:
         if n == TOP_RECORD:
             launches[n] = train_entry_launches[n]
+            continue
+        if n == 'multi_tensor_adam':
+            launches[n] = train_launches[n]
             continue
         if n in ('triplet_attention_row_bf16', 'edge_attention_row_gather'):
             launches[n] = width_option_launches[n.replace('_row', '')]

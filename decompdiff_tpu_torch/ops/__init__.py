@@ -1,5 +1,7 @@
 """The hand-written kernels' wrappers: edge_attention, bond_attention and
-triplet_attention, each with its backward."""
+triplet_attention, each with its backward, whose launch counters this module
+gathers; and multi_tensor_adam, the optimizer's update, which keeps its own
+(`multi_tensor_adam.launches`)."""
 
 KERNEL_MODULES = ('edge_attention', 'bond_attention', 'triplet_attention')
 

@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
-KERNELS = ('edge_attention', 'bond_attention', 'triplet_attention')
+KERNELS = ('edge_attention', 'bond_attention', 'triplet_attention',
+           'multi_tensor_adam')
 HOST_LIBRARIES = ('ddnative',)
 SOURCES = KERNELS + HOST_LIBRARIES
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

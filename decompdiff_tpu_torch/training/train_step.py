@@ -41,6 +41,7 @@ history) and, under a mesh, `train.reduce` (the collectives).
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Dict, Optional
 
 import torch
@@ -48,6 +49,7 @@ import torch
 from decompdiff_tpu_torch.data.batch import ComplexBatch
 from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, sample_time)
+from decompdiff_tpu_torch.ops.multi_tensor_adam import MultiTensorAdam
 from decompdiff_tpu_torch.parallel.mesh import (
     Mesh, all_gather_rows, all_reduce_mean, draw_rows)
 from decompdiff_tpu_torch.utils.profiling import span
@@ -76,10 +78,16 @@ class Optimizer:
     """Global-norm clipping, then torch Adam (ref utils/train.py:34-43).
 
     The clip is optax's clip_by_global_norm rule: gradients pass unchanged
-    below max_grad_norm and are scaled to (g / norm) * max_grad_norm at or
-    above it (not torch's clip_grad_norm_, which adds 1e-6 to the norm).
-    torch Adam's weight_decay is L2 added to the clipped gradient before the
-    moments, like optax's add_decayed_weights placed before adam.
+    below max_grad_norm and are scaled by max_grad_norm / norm at or above
+    it (not torch's clip_grad_norm_, which adds 1e-6 to the norm). A step
+    copies the gradients into one flat buffer, whose views are the
+    parameters' .grad from step to step, takes their norm and the scale on
+    the device and multiplies the buffer by it: a few launches, no host
+    synchronisation. torch Adam's weight_decay is L2 added to the clipped
+    gradient before the moments, like optax's add_decayed_weights placed
+    before adam. Adam is ops/multi_tensor_adam.py's MultiTensorAdam: one
+    kernel launch for every parameter when they are on CUDA, the kernel's
+    plain version on the CPU; `step` sits on the parameters' device.
     """
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], optimizer_cfg,
@@ -89,22 +97,37 @@ class Optimizer:
             raise NotImplementedError(f'Optimizer not supported: {opt_type}')
         self.params = dict(params)
         self.max_grad_norm = float(max_grad_norm)
-        self.adam = torch.optim.Adam(
-            list(self.params.values()), lr=optimizer_cfg.get('lr', 5e-4),
+        plist = list(self.params.values())
+        self.adam = MultiTensorAdam(
+            plist, lr=optimizer_cfg.get('lr', 5e-4),
             betas=(optimizer_cfg.get('beta1', 0.95),
                    optimizer_cfg.get('beta2', 0.999)),
             eps=1e-8, weight_decay=float(optimizer_cfg.get('weight_decay', 0.0)))
+        self._flat = torch.zeros(sum(p.numel() for p in plist),
+                                 dtype=plist[0].dtype, device=plist[0].device)
+        self._grads, i = [], 0
+        for p in plist:
+            self._grads.append(self._flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
 
-    def step(self, grads: Grads) -> None:
-        """Clip `grads` by their global norm and take one Adam step."""
-        norm = global_norm(grads)
-        clip = norm >= self.max_grad_norm
-        for name, p in self.params.items():
-            g = grads[name]
-            p.grad = torch.where(clip, g / norm * self.max_grad_norm, g)
+    def step(self, grads: Grads) -> torch.Tensor:
+        """Clip `grads` by their global norm and take one Adam step; returns
+        the norm. `grads` are left as they are."""
+        torch._foreach_copy_(self._grads,
+                             list(map(grads.__getitem__, self.params)))
+        # float64 sums: torch's float32 norm of one long vector on the CPU
+        # drifts by about 1e-5
+        norm = torch.linalg.vector_norm(self._flat,
+                                        dtype=torch.float64).float()
+        self._flat.mul_(torch.where(norm >= self.max_grad_norm,
+                                    self.max_grad_norm / norm, 1.0))
+        params = self.params.values()
+        if not all(map(operator.is_, map(operator.attrgetter('grad'), params),
+                       self._grads)):
+            for p, g in zip(params, self._grads):
+                p.grad = g
         self.adam.step()
-        for p in self.params.values():
-            p.grad = None
+        return norm
 
     @property
     def lr(self) -> float:
@@ -266,10 +289,10 @@ def make_train_fns(model: DecompDiffModel, train_cfg,
                 {k: both[f'metric:{k}'] for k in metrics})
 
     def _update(state, grads, t_used, per_graph):
-        """The global norm to report, the clip, Adam and the Lt history."""
+        """The global norm to report (the one the clip uses), the clip, Adam
+        and the Lt history."""
         with span('train.optimizer'):
-            grad_norm = global_norm(grads)
-            state.optimizer.step(grads)
+            grad_norm = state.optimizer.step(grads)
             lt_update(state, t_used, per_graph)
         state.step += 1
         return grad_norm
@@ -291,7 +314,8 @@ def make_train_fns(model: DecompDiffModel, train_cfg,
             grads_sum, reduced = reduce(grads_sum, metrics or {})
             if metrics is not None:
                 metrics.update(reduced)
-            grads = {k: g / n_acc for k, g in grads_sum.items()}
+            grads = dict(zip(grads_sum, torch._foreach_div(
+                list(grads_sum.values()), n_acc)))
             return _update(state, grads, t_used, per_graph)
 
     return train_step, grad_step, apply_grads

@@ -1196,6 +1196,189 @@ def test_tiny_uni_o2_train_step_kernels_on_vs_off(cuda):
                           count='gated_launches')
 
 
+# --------------------------------------------------------------------------
+# the optimizer: the clip and fused Adam in multi-tensor launches
+# --------------------------------------------------------------------------
+
+# kernels one Optimizer.step may launch over the released denoiser's 704
+# parameters once Adam's state exists (a per-parameter loop launches 704 or
+# more); the first step also fills the state's zeros, 3 a parameter
+OPT_KERNELS = 64
+
+
+def _released_train_state(cuda, seed=0):
+    """The released denoiser on the card and a TrainState over its 704
+    parameters with the released clip and Adam settings."""
+    from decompdiff_tpu_torch.training.train_step import (
+        DEFAULT_TRAIN_CONFIG, create_train_state)
+    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    model = DecompDiffModel.create(DEFAULT_MODEL_CONFIG, 8, device=cuda,
+                                   seed=seed)
+    from decompdiff_tpu_torch.ops.multi_tensor_adam import MultiTensorAdam
+    state = create_train_state(model, DEFAULT_TRAIN_CONFIG)
+    assert len(state.optimizer.params) == 704
+    assert isinstance(state.optimizer.adam, MultiTensorAdam)
+    return model, state
+
+
+def _step_grads(params, sigmas=(0.01, 0.005, 0.001)):
+    """One gradient dict a step, normal with standard deviation sigma:
+    global norms of about 2,230 sigma, so 22 and 11 (above the clip norm 8),
+    then 2.2 (below it)."""
+    device = next(iter(params.values())).device
+    g = torch.Generator(device=device).manual_seed(7)
+    return [{n: torch.randn(p.shape, generator=g, device=device) * s
+             for n, p in params.items()} for s in sigmas]
+
+
+def _plain_clip_adam(params, steps, dtype=torch.float32, max_norm=8.0,
+                     lr=5e-4, b1=0.95, b2=0.999, eps=1e-8):
+    """The clip and Adam written per parameter in `dtype`, from `params`
+    over the gradient dicts `steps`: each step's gradients times
+    max_norm / norm at or above max_norm, the moments, then the update with
+    bias correction. Returns (parameters, first moments, second moments)."""
+    p = {k: v.detach().to(dtype) for k, v in params.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    v = {k: torch.zeros_like(x) for k, x in p.items()}
+    for t, grads in enumerate(steps, 1):
+        grads = {k: g.to(dtype) for k, g in grads.items()}
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        scale = torch.where(norm >= max_norm, max_norm / norm,
+                            torch.ones_like(norm))
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        for k in p:
+            g = grads[k] * scale
+            m[k] = b1 * m[k] + (1 - b1) * g
+            v[k] = b2 * v[k] + (1 - b2) * g * g
+            p[k] = p[k] - (lr / c1) * m[k] / (
+                torch.sqrt(v[k]) / np.sqrt(c2) + eps)
+    return p, m, v
+
+
+def test_optimizer_on_card_matches_plain_clip_adam(cuda):
+    """Three Optimizer steps over the released denoiser's 704 parameters
+    (above, above, below the clip norm) against the clip and Adam written
+    per parameter, at the CPU's tolerance against optax (rtol 1e-6, atol
+    1e-7): parameters and both moments, Adam's step on the card, one
+    multi_tensor_adam launch a step. The parameters' whole change agrees
+    with the same steps in float64 to 1e-6 of itself (torch's fused Adam,
+    with its betas rounded to float32 in the bias corrections, is 6e-6
+    short). Each step after the first launches at most OPT_KERNELS kernels,
+    as perfbench's Tracer counts them for kernels_per_step.train."""
+    from decompdiff_tpu_torch.ops.multi_tensor_adam import multi_tensor_adam
+    from perfbench.core.trace import Tracer
+    _, state = _released_train_state(cuda)
+    opt = state.optimizer
+    p0 = {k: p.detach().clone() for k, p in opt.params.items()}
+    steps = _step_grads(opt.params)
+    want_p, want_m, want_v = _plain_clip_adam(opt.params, steps)
+    exact = _plain_clip_adam(opt.params, steps, torch.float64)[0]
+    Tracer.initialise()
+    norms, kernels = [], []
+    launches = multi_tensor_adam.launches
+    for grads in steps:
+        tracer = Tracer()
+        torch.cuda.synchronize()
+        tracer.start()
+        norms.append(float(opt.step(grads)))
+        torch.cuda.synchronize()
+        kernels.append(len(tracer.stop(0.0, 1).kernels))
+    print(f'global norms {norms}, kernels a step {kernels}')
+    assert multi_tensor_adam.launches - launches == 3
+    assert [n >= 8.0 for n in norms] == [True, True, False]
+    assert max(kernels[1:]) <= OPT_KERNELS, kernels
+    assert kernels[0] <= OPT_KERNELS + 3 * len(p0), kernels
+    dot = sum(float(((p.double() - p0[k].double())
+                     * (exact[k] - p0[k].double())).sum())
+              for k, p in opt.params.items())
+    sq = sum(float(((exact[k] - p0[k].double()) ** 2).sum()) for k in p0)
+    assert abs(dot / sq - 1) < 1e-6, dot / sq - 1
+    for name, p in opt.params.items():
+        st = opt.adam.state[p]
+        assert st['step'].device == p.device and float(st['step']) == 3.0
+        for got, want in ((p, want_p), (st['exp_avg'], want_m),
+                          (st['exp_avg_sq'], want_v)):
+            torch.testing.assert_close(got.detach(), want[name], rtol=1e-6,
+                                       atol=1e-7, msg=name)
+
+
+@pytest.mark.parametrize('wd', [0.0, 0.1], ids=['no_wd', 'wd'])
+def test_multi_tensor_adam_kernel(cuda, wd):
+    """The kernel against its plain version for three steps: ragged tensors
+    (one empty, some across the CHUNK boundary), steps counted from 5 and
+    from 0, L2 weight decay. The second step refills the same gradient
+    tensors and launches the first step's table again; the third takes new
+    gradient tensors and builds a new one. A non-contiguous gradient is
+    refused, also where it is a transposed view at the address and size of
+    the one the table was built for."""
+    from decompdiff_tpu_torch.ops.multi_tensor_adam import (
+        CHUNK, multi_tensor_adam, multi_tensor_adam_reference)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    sizes = [(0,), (3,), (CHUNK,), (CHUNK + 1,), (5, 7), (6, 6),
+             (3 * CHUNK + 17,)]
+
+    def draw(scale=1.0):
+        return [torch.randn(s, generator=g, device=cuda) * scale
+                for s in sizes]
+    params, grads = draw(), draw(1e-2)
+    m, v = draw(1e-3), [x.abs() for x in draw(1e-5)]
+    steps = [torch.full((), float(5 * (i % 2)), device=cuda)
+             for i in range(len(sizes))]
+    want = [[t.clone() for t in col] for col in (params, m, v, steps)]
+    hyper = dict(lr=5e-4, beta1=0.95, beta2=0.999, eps=1e-8,
+                 weight_decay=wd)
+    launches, tables = multi_tensor_adam.launches, []
+    for k in range(3):
+        if k == 1:
+            for t, new in zip(grads, draw(1e-2)):
+                t.copy_(new)
+        elif k == 2:
+            grads = draw(1e-2)
+        multi_tensor_adam_reference(want[0], grads, *want[1:], **hyper)
+        tables.append(multi_tensor_adam(params, grads, m, v, steps, **hyper,
+                                        table=tables[-1] if tables else None))
+        for got, ref in zip((params, m, v, steps), want):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert multi_tensor_adam.launches == launches + 3
+    assert tables[1] is tables[0] and tables[2] is not tables[1]
+    bad = [x.t() if x.shape == (6, 6) else x for x in grads]
+    for table in (None, tables[-1]):
+        with pytest.raises(ValueError):
+            multi_tensor_adam(params, bad, m, v, steps, **hyper, table=table)
+    assert multi_tensor_adam.launches == launches + 3
+
+
+def test_adam_checkpoint_resumes_bitwise(cuda, tmp_path):
+    """Two Optimizer steps, a checkpoint written (utils/checkpoint.py) and read
+    into a fresh TrainState: a third step from the same gradients is
+    bitwise the uninterrupted run's (parameters, moments, step), and the
+    resumed Adam step sits on the parameters' device."""
+    from decompdiff_tpu_torch.utils.checkpoint import (
+        read_checkpoint, restore_train_state, save_checkpoint)
+    from decompdiff_tpu_torch.utils.testing import DEFAULT_MODEL_CONFIG
+    model, state = _released_train_state(cuda)
+    steps = _step_grads(state.optimizer.params)
+    for grads in steps[:2]:
+        state.optimizer.step(grads)
+    path = str(tmp_path / '2.ckpt')
+    save_checkpoint(path, {'model': DEFAULT_MODEL_CONFIG}, model, state, {},
+                    2)
+    fresh, resumed = _released_train_state(cuda, seed=1)
+    resumed = restore_train_state(read_checkpoint(path), fresh, resumed)
+    for p in resumed.optimizer.params.values():
+        st = resumed.optimizer.adam.state[p]
+        assert st['step'].device == p.device and float(st['step']) == 2.0
+    for s in (state, resumed):
+        s.optimizer.step(steps[2])
+    for (name, p), q in zip(state.optimizer.params.items(),
+                            resumed.optimizer.params.values()):
+        assert torch.equal(p, q), name
+        a, b = state.optimizer.adam.state[p], resumed.optimizer.adam.state[q]
+        for k in ('step', 'exp_avg', 'exp_avg_sq'):
+            assert torch.equal(a[k], b[k]), (name, k)
+
+
 def test_converted_released_model_matches_oracle(cuda):
     """The released uni_o2_bond config from a reference-layout state dict
     through the port's converter: one denoiser call with the kernels (B=1,

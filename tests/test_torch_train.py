@@ -27,6 +27,8 @@ from decompdiff_tpu.utils.testing import (
 from decompdiff_tpu_torch.diffusion import categorical as tcat
 from decompdiff_tpu_torch.models.diffusion_model import (
     DecompDiffModel, sample_time, sample_time_symmetric)
+from decompdiff_tpu_torch.ops.multi_tensor_adam import (
+    MultiTensorAdam, multi_tensor_adam)
 from decompdiff_tpu_torch.training.train_step import (
     Optimizer, PlateauScheduler, create_train_state, get_learning_rate,
     lt_update, make_eval_step, make_train_fns, set_learning_rate,
@@ -183,6 +185,97 @@ def test_optimizer_matches_optax(wd):
             np.testing.assert_allclose(tp[k].detach().numpy(),
                                        np.asarray(jp[k]), rtol=1e-6,
                                        atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize('side', ['above', 'below'])
+def test_train_step_norm_and_clipped_grads_at_the_hook(side):
+    """train_step's grad_norm is sqrt(sum |g|^2) of the gradients its
+    grad_step gives, and a step pre-hook on Adam sees .grad at global norm
+    min(norm, 8), above the clip norm and below it (the loss weights scaled
+    down); .grad keeps the clipped gradients after the step."""
+    scale = 1.0 if side == 'above' else 1e-4
+    cfg = dict(TRAIN_CFG, loss_weights={
+        k: v * scale for k, v in TRAIN_CFG['loss_weights'].items()})
+    model = DecompDiffModel.create(_cfg(), 8, device='cpu', seed=4)
+    batch = random_complex_batch(np.random.default_rng(0), device='cpu',
+                                 **BATCH)
+    state = create_train_state(model, cfg)
+    train_step, grad_step, _ = make_train_fns(model, cfg)
+    g = torch.Generator().manual_seed(11)
+    grads = grad_step(state, batch,
+                      torch.Generator().set_state(g.get_state()))[0]
+    want = float(torch.sqrt(sum((v.double() ** 2).sum()
+                                for v in grads.values())))
+    assert (want > 8.0) == (side == 'above')
+    seen = []
+    params = list(state.optimizer.params.values())
+    state.optimizer.adam.register_step_pre_hook(
+        lambda opt, args, kwargs: seen.append(float(torch.sqrt(sum(
+            (p.grad.double() ** 2).sum() for p in params)))))
+    metrics = train_step(state, batch, g)
+    assert float(metrics['grad_norm']) == pytest.approx(want, rel=1e-6)
+    assert seen == [pytest.approx(min(want, 8.0), rel=1e-6)]
+    after = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                 for p in params)))
+    assert after == seen[0]
+
+
+@pytest.mark.parametrize('wd', [0.0, 0.1], ids=['no_wd', 'wd'])
+def test_multi_tensor_adam_plain_matches_torch_adam(wd):
+    """The plain version of the multi-tensor Adam kernel (what the card's
+    launch is held to, and the Optimizer's Adam on the CPU) against
+    torch.optim.Adam for 3 steps: parameters, moments and step counts. The
+    Optimizer's Adam is a MultiTensorAdam, which takes no other torch Adam
+    option."""
+    rng = np.random.default_rng(8)
+    shapes = [(4, 3), (7,), (0,), (2, 2, 2)]
+    p0 = [torch.as_tensor(rng.normal(size=s).astype(np.float32))
+          for s in shapes]
+    tp = [torch.nn.Parameter(p.clone()) for p in p0]
+    adam = torch.optim.Adam(tp, lr=5e-4, betas=(0.95, 0.999), eps=1e-8,
+                            weight_decay=wd)
+    params = [p.clone() for p in p0]
+    m = [torch.zeros_like(p) for p in p0]
+    v = [torch.zeros_like(p) for p in p0]
+    steps = [torch.zeros(()) for _ in p0]
+    for sc in (5.0, 3.0, 0.5):
+        grads = [torch.as_tensor((rng.normal(size=s) * sc).astype(np.float32))
+                 for s in shapes]
+        for p, g in zip(tp, grads):
+            p.grad = g
+        adam.step()
+        multi_tensor_adam(params, grads, m, v, steps, lr=5e-4, beta1=0.95,
+                          beta2=0.999, eps=1e-8, weight_decay=wd)
+    for p, q, a, b, s in zip(tp, params, m, v, steps):
+        st = adam.state[p]
+        torch.testing.assert_close(q, p.detach(), rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(a, st['exp_avg'], rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(b, st['exp_avg_sq'], rtol=1e-6,
+                                   atol=1e-7)
+        assert float(s) == float(st['step']) == 3.0
+    opt = Optimizer({'w': torch.nn.Parameter(torch.zeros(2))}, {})
+    assert isinstance(opt.adam, MultiTensorAdam)
+    assert not opt.adam.param_groups[0]['fused']
+    for option in MultiTensorAdam.OPTIONS:
+        with pytest.raises(ValueError):
+            MultiTensorAdam([torch.nn.Parameter(torch.zeros(2))],
+                            **{option: True})
+
+
+def test_multi_tensor_adam_table_key():
+    """The key a kernel table is launched again under tells apart what the
+    table's check would: a transposed view at the same address and size,
+    another dtype, a new address; the same tensors give the same key."""
+    from decompdiff_tpu_torch.ops.multi_tensor_adam import _key
+    w = torch.zeros(6, 6)
+    cols = ([w], [torch.zeros(6, 6)], [torch.zeros(6, 6)], [torch.zeros(())],
+            [torch.ones(6, 6)])
+    key = _key(cols)
+    assert _key(cols) == key
+    g = cols[4][0]
+    for other in (g.t(), g.view(torch.int32), g.clone()):
+        assert other.numel() == g.numel()
+        assert _key(cols[:4] + ([other],)) != key
 
 
 def test_optimizer_type_and_lr():
