@@ -130,6 +130,9 @@
    per-row edge, bond and triplet backward at WIDTHS (printed only, but
    the triplet's at H=96: the record triplet_attention_backward_row), and
    the backward kernels on the inputs of a denoiser call at WIDE (B=2).
+   The triplet forward also at the sampling cell's batch, B=TRIPLET_BATCH
+   (the B=8 inputs repeated along the batch): against its plain version
+   and timed, every launch on its pipelined kernel (printed).
 4. Sampling paths: guided reverse diffusion (armsca_prox + clash at every
    step) with kernels on, first with the released uni_o2_bond config, then
    the same with pallas_bf16, then with pallas_gather_bf16, then with the
@@ -323,6 +326,9 @@ TRAIN_SHAPES = ((24, 24), (32, 30), (64, 56))
 TRIPLET_HEAD_NL = 64
 TOP_RECORD = f'triplet_attention_backward_nl{TRIPLET_HEAD_NL}'
 TRAIN_STEPS = 3     # timed training steps, after one warm-up step
+# the sampling cell's batch (perfbench bond.sample.b100), at which the
+# triplet forward is also held and timed
+TRIPLET_BATCH = 100
 # (hidden width, heads) of uni_o2_bond runs on the per-row forward kernels
 # (widths outside the tensor-core kernels'), at B=2 and WIDTH_STEPS steps
 WIDTHS, WIDTH_B, WIDTH_STEPS = ((96, 12), (256, 16)), 2, 5
@@ -445,14 +451,17 @@ KERNEL_SOURCES = {
 # PERF.md kernel table, NVIDIA H100 80GB HBM3, 700 W; the edge and bond
 # backward's from the last runs of their per-row kernels at these shapes,
 # the triplet backward's at B=4, Nl=64 from the per-row kernel's three
-# runs there), printed beside this run's.
+# runs there), printed beside this run's. The triplet forward's are those of
+# its mma.sync kernel before the wgmma pipeline (at B=TRIPLET_BATCH: on
+# random inputs with the sampler's dense bond masks, in the same call).
 PREVIOUS_MS = {
     ('edge_attention', 'node'): '0.4334-0.4361',
     ('edge_attention', 'pos'): '0.3852-0.3888',
     ('edge_attention_mgate', 'node'): '0.4622-0.4671',
     ('bond_attention', 'node'): '0.0997-0.0999',
     ('bond_attention', 'pos'): '0.0934-0.0937',
-    ('triplet_attention', 'node'): '1.8163-1.8297',
+    ('triplet_attention', 'node'): '0.4360-0.4413',
+    ('triplet_attention', f'node B{TRIPLET_BATCH}'): '5.2851-5.3697',
     ('edge_attention_backward', 'node'): '2.9100-2.9114',
     ('edge_attention_backward', 'pos'): '2.8446-2.8465',
     ('edge_attention_mgate_backward', 'node'): '2.9901-2.9944',
@@ -769,6 +778,34 @@ def kernel_phase(torch, captured):
     check(checked == want + 1 + 3 * len(WIDTHS),
           f'{checked} forward checks, expected {want + 1 + 3 * len(WIDTHS)}')
     return results
+
+
+def triplet_batch_phase(torch, call):
+    """The triplet forward at the sampling cell's batch: the B=8, Nl=32
+    inputs of a released-config denoiser call (call: its args and kw)
+    repeated along the batch to B=TRIPLET_BATCH, against its plain version
+    and timed (check_forward: printed, the record stays B=8's); every launch
+    on the pipelined kernel (triplet_attention.pipelined_launches)."""
+    from decompdiff_tpu_torch.ops import triplet_attention as mod
+    from decompdiff_tpu_torch.ops.common import Branch
+    args, kw = call
+    reps = -(-TRIPLET_BATCH // args[0].shape[0])
+
+    def tile(x):
+        return x.repeat(reps, *[1] * (x.dim() - 1))[:TRIPLET_BATCH]
+    big = [tile(a) for a in args[:3]] + [
+        Branch(tile(p.t_row), tile(p.t_src), *p[2:]) for p in args[3:]]
+    fn = mod.triplet_attention
+    before = (fn.pipelined_launches, fn.launches, fn.row_launches)
+    check_forward(torch, {}, 'triplet_attention', f'node B{TRIPLET_BATCH}',
+                  big, kw, KERNEL_RTOL, KERNEL_ATOL)
+    piped, launched, row = (n - b for n, b in zip(
+        (fn.pipelined_launches, fn.launches, fn.row_launches), before))
+    print(f'triplet forward at B={TRIPLET_BATCH}: {piped} pipelined of '
+          f'{launched} launches, {row} per-row (the timed ones included)',
+          flush=True)
+    check(launched > 0 and piped == launched and row == 0,
+          'a triplet forward launch did not take its pipelined kernel')
 
 
 def previous_note(name, mode):
@@ -3302,6 +3339,8 @@ def main():
         captured.update(width_modes)
         with torch.no_grad():
             results = kernel_phase(torch, captured)
+            triplet_batch_phase(torch, captured[('triplet_attention',
+                                                 'node')])
         results.update(backward_phase(torch, ops, captured))
         results.update(nl64)
         results.update(adam_phase(torch, bond_cfg))

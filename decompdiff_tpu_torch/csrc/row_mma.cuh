@@ -1,7 +1,8 @@
-// The tensor-core stage of the triplet, edge and bond forward kernels
-// (sm_90a).
+// The tensor-core stage of the edge and bond forward kernels (sm_90a). The
+// triplet forward, which ran on it too, has its own pipelined kernel on
+// wgmma (triplet_attention.cu, wgmma.cuh).
 //
-// The three forward kernels compute, for every destination row and each of
+// The forward kernels compute, for every destination row and each of
 // its sources, two branches (k and v) of the form
 //   pre = (per-pair features) @ w_feat + t_row[row] + t_src[source]
 //   y   = relu(LayerNorm(pre) * ln_scale + ln_bias)
@@ -14,8 +15,7 @@
 // Shape of a launch: one block of 512 threads per SM, looping over tiles.
 // A tile is TI = 2 destination rows x KC = 32 sources (one per lane of a
 // warp): 64 pair rows. For one branch the edge kernel writes the tile's
-// `pre` into P ([64][H] float32, row stride H + 4) (the triplet kernel
-// builds it in registers and calls ln_write itself; the bond kernel takes
+// `pre` into P ([64][H] float32, row stride H + 4) (the bond kernel takes
 // its per-pair [H, H] first linear on the tensor cores as well), then
 //   * ln_relu / ln_write: LayerNorm (eps 1e-5), scale, bias, relu, each
 //     warp on its four rows at once; y = hi + lo is split into two bf16
@@ -50,10 +50,12 @@
 // What bounds it (per-phase clock64 counts on an H100 in an instrumented
 // build): the phases run one after another between barriers, so the tensor
 // cores idle while the CUDA cores build `pre` and normalize it, and the
-// reverse; at the released shapes the three mma.sync passes take about a
-// third of the triplet forward, bound by ldmatrix traffic and mma.sync
-// issue, and the edge forward's edge-feature product about a third of its
-// time.
+// reverse; the three mma.sync passes are bound by ldmatrix traffic and
+// mma.sync issue (about a third of the triplet forward when it ran here),
+// and the edge forward's edge-feature product takes about a third of its
+// time. The triplet forward left this stage for a wgmma pipeline without
+// block barriers (triplet_attention.cu), which runs it in half the time at
+// the released shapes: the design to carry to the edge forward next.
 #pragma once
 
 #include <cuda_bf16.h>

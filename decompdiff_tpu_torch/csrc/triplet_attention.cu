@@ -20,22 +20,56 @@
 // [H, H] product: ~13 GFLOP at those shapes (chip_smoke.py), against
 // O(Nl^3) bytes.
 //
-// Forward design, H in 32, 64, 128 (row_mma.cuh): a persistent grid of one
-// 512-thread block per SM. Each block stages Wo_k and Wo_v, split into
-// bf16 hi + lo, in shared memory once, then loops over work items (complex
-// b, atom j); an item stages t_src[b, j, :, :] of both branches in shared
-// memory (when it fits, else reads it through the cache) and walks its rows
-// i two at a time: a tile is 2 rows i x 32 atoms k (more k: an online softmax across
-// chunks of 32). Per tile and branch each warp builds four pair rows on
-// CUDA cores, a lane four channels with their columns of Wa in registers:
-// the 13-wide angular code (sincosf, no polynomial) projected and added to
-// t_row and t_src, then LayerNorm and relu on the registers, split into
-// bf16 hi + lo in shared memory. The [H, H] product runs on the tensor
-// cores, three bf16 passes (float32 accuracy),
-// or one with `bf16` (the `pallas_bf16` option of the TPU kernel,
-// triplet_kernel.py:121-126). Logits, softmax and sum alpha v stay float32
-// on CUDA cores. No O(Nl^3 H) intermediate leaves the SM. A tile with no
-// valid triplet writes zeros without computing.
+// Forward design, H in 32, 64, 128 (wgmma.cuh): a persistent grid of one
+// block per SM, two warpgroups that never wait for each other once the
+// block has staged Wo_k and Wo_v (bf16 hi + lo) and Wa_k and Wa_v (fp16 hi
+// + lo, 13 rows padded to 16) as wgmma B operands. A warpgroup's unit is
+// half the rows i of an item (b, j): it copies the item's t_src rows of both
+// branches into its own shared memory (when the layout fits; else it reads
+// them through the cache), then walks tiles of 2 rows i x 32 sources k, 64
+// pair rows, wgmma's M (more k: an online softmax across chunks of 32);
+// warp w holds the pair rows (i0 + w / 2, k0 + 16 (w % 2) + [0, 16)). At a
+// tile's start each warp copies its row's q into its shared memory
+// (cp.async; when the layout fits). Per chunk, in turn:
+//   1. the 13-wide angular code of the warp's rows, once for both branches
+//      (sincosf over the warp's lanes), as fp16 A registers hi + lo;
+//   2. k: pre = t_row + t_src in the accumulator layout, += ang @ Wa_k on
+//      the tensor cores (three passes); LayerNorm and relu in registers
+//      (four lanes hold a row: two shuffles a sum), split into bf16 hi + lo
+//      A registers; k = y Wo_k + bo_k as wgmma m64nHk16 with A from
+//      registers, its accumulator started at bo_k;
+//   3. the logits q . k (at a head width of 8, a head's column block summed
+//      over the row's four lanes by halving) and the online softmax of the
+//      warp's 16 sources (lanes over heads);
+//   4. v: the same pre and LayerNorm, y_v Wo_v, and sum e v over the warp's
+//      rows, kept as H / 32 columns a lane.
+// The two warps of a row i keep their own softmax states and merge them at
+// the end of the tile through shared memory (a 128-thread named barrier).
+// So one warpgroup's CUDA-core stages run while the other's products hold
+// the tensor cores. Inside a warpgroup the stages run in turn: y_v held
+// across the k product and the logits took the registers that the loads of
+// q and bo_k needed, and those loads then waited one after another. The
+// three passes stay: y and Wo in bf16 hi + lo, the lo*lo term dropped, keep
+// each product within about 2^-16 relative, the float32 contract; `bf16`
+// (the `pallas_bf16` option of the TPU kernel, triplet_kernel.py:121-126)
+// is the single hi*hi pass of the second linears. The angular product takes
+// fp16 hi + lo (2^-22; the code lies in [-pi, pi], Wa far inside fp16's
+// range): in bf16 it moved y enough that, with `bf16`, y rounded to the
+// other bf16 neighbour 40x as often as from a float32 product (PERF.md).
+// Shared memory at H = 128, 16 heads: Wo 128 KB, Wa 16 KB, per warp 1.8 KB
+// (its row's q, the logits and weights of its rows, rescale factors), per
+// warpgroup 2.5 KB for the merge: 163.5 KB. The unit's t_src (32 KB a
+// warpgroup at Nl = 32) would make it 227.5 KB, over the 227 KB, so there
+// t_src is read through the cache (staged with `bf16`, and at H = 32, 64);
+// q in shared memory gained more than t_src did (PERF.md). No O(Nl^3 H)
+// intermediate leaves the SM; a chunk without a valid triplet is skipped,
+// and a row without one writes zeros.
+// What bounds it (clock64 phase counts of thread 0 of each warpgroup, B =
+// 100, Nl = 32, an H100; PERF.md): no one phase; the CUDA-core stages of a
+// warpgroup in turn. The angular code takes 15% of the cycles, the two
+// pre's 19%, the two LayerNorms 18%, the logits and the softmax 18%, the
+// merge 7%, the issue of the products and the waits for them 20%. H = 128
+// runs at 255 registers with 156 B of spill stores (bf16: 76 B).
 //
 // Forward design at every other width (a multiple of 32 up to 1024 whose
 // head width divides 32; row_attention.cuh): one block per (complex, i, j),
@@ -87,13 +121,14 @@
 #include "head_bwd.cuh"
 #include "row_attention_bwd.cuh"
 #include "row_mma.cuh"
+#include "wgmma.cuh"
 
 using namespace rowattn;
 
 namespace {
 
 constexpr int A = 13;   // angular code width
-constexpr int AP = 16;  // its row stride in the forward's shared memory
+constexpr int AP = 16;  // its row stride in the backward's shared memory
 __constant__ float kFreqs[6] = {1.f, 2.f, 3.f, 1.f, 0.5f, 1.f / 3.f};
 
 struct TripletArgs {
@@ -164,210 +199,613 @@ __device__ __forceinline__ bool row_has_source(const TripletArgs& a, int row,
 }
 
 // ---------------------------------------------------------------------------
-// forward: tensor-core stage of row_mma.cuh
+// forward, H in 32, 64, 128: two warpgroups on wgmma (wgmma.cuh)
 // ---------------------------------------------------------------------------
 
 namespace rm = rowmma;
 
+namespace pipe {
+
+constexpr int THREADS = 256;  // two warpgroups, each on its own tiles
+constexpr int GROUPS = THREADS / 128;
+constexpr int KC = 32;        // sources per chunk
+constexpr int TI = 2;         // rows i per tile: TI * KC = 64, wgmma's M
+
 // Offsets into the forward kernel's dynamic shared memory; the launcher
-// builds the same layout to size the launch.
-struct TripletLayout {
-  size_t wk_hi, wk_lo, wv_hi, wv_lo, wa, p, ang, e, sc, m, l, q, scratch,
-      valid, ts, bytes;
-  __host__ __device__ TripletLayout(int H, int NH, int Nl, bool split,
-                                    bool stage) {
+// builds the same layout to size the launch. Per warp: E [16][e_ld] (the
+// angular code of its 16 pair rows, then their logits and weights, at the
+// tile's end its softmax state) and SC [NH] (the chunk's rescale factors);
+// per warpgroup: TS [2][Nl][H] (the unit's t_src of both branches, when
+// staged), MG [2][TI][H] and ML [2][TI][2][NH] (the odd warps' states for
+// the merge, two slots).
+struct Layout {
+  size_t wo, wa, warp, group, warp_bytes, group_bytes, mg, ml, bytes;
+  int e_ld;
+  __host__ __device__ Layout(int H, int NH, int Nl, bool split, bool stage,
+                             bool qs) {
+    e_ld = (NH > 16 ? NH : 16) + 4;
     rm::Carve c;
-    wk_hi = c.take(rm::wo_bytes(H));
-    wk_lo = split ? c.take(rm::wo_bytes(H)) : 0;
-    wv_hi = c.take(rm::wo_bytes(H));
-    wv_lo = split ? c.take(rm::wo_bytes(H)) : 0;
-    wa = c.take(sizeof(float) * 2 * A * H);
-    p = c.take(rm::p_bytes(H));
-    ang = c.take(sizeof(float) * rm::TILE * AP);
-    e = c.take(sizeof(float) * NH * rm::EH);
-    sc = c.take(sizeof(float) * rm::TI * NH);
-    m = c.take(sizeof(float) * rm::TI * NH);
-    l = c.take(sizeof(float) * rm::TI * NH);
-    q = c.take(sizeof(float) * rm::TI * H);
-    scratch = c.take(sizeof(float) * rm::THREADS);
-    valid = c.take(sizeof(int) * rm::TILE);
-    ts = stage ? c.take(sizeof(float) * 2 * (size_t)Nl * H) : 0;
+    wo = c.take(sizeof(rm::bf16) * H * H * (split ? 4 : 2));
+    wa = c.take(sizeof(__half) * 16 * H * 4);
+    warp_bytes =
+        (sizeof(float) * ((qs ? H : 0) + 16 * e_ld + NH) + 15) & ~(size_t)15;
+    warp = c.take(warp_bytes * 4 * GROUPS);
+    mg = stage ? sizeof(float) * 2 * (size_t)Nl * H : 0;
+    ml = mg + sizeof(float) * 2 * TI * H;
+    group_bytes = ml + sizeof(float) * 2 * TI * 2 * NH;
+    group = c.take(group_bytes * GROUPS);
     bytes = c.off;
   }
 };
 
-// One branch's y of the tile into P, in the form FORM: pair row r = (il, k)
-// gets pre = t_row[i0 + il] + t_src[k0 + k] + ang[r] @ Wa (0 outside the
-// atoms), then relu(LayerNorm(pre)) (rm::ln_write). Warp w builds its own
-// rows w, w + WARPS, ... in registers, a lane channels lane + 32 v, so the
-// LayerNorm needs neither a barrier nor a pass through shared memory.
-// wa: the branch's Wa [A][H] in shared memory; t_row0: t_row of row i0
-// (rows Nl * H apart); ts: the item's t_src rows [Nl][H], in shared or
-// device memory. No barrier.
-template <int H, int FORM>
-__device__ __forceinline__ void triplet_tile_y(const float (*ang)[AP],
-                                               const Branch& br,
-                                               const float* wa,
-                                               const float* t_row0,
-                                               const float* ts, int i0,
-                                               int k0, int Nl, float* P) {
-  constexpr int NV = H / 32;
-  static_assert(rm::KC % rm::WARPS == 0, "a warp's row q is in row il");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float w[A][NV], tr[rm::TI][NV], x[rm::RW][NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-#pragma unroll
-    for (int t = 0; t < A; ++t)
-      w[t][v] = wa[t * H + lane + 32 * v];
-#pragma unroll
-    for (int il = 0; il < rm::TI; ++il)
-      tr[il][v] = i0 + il < Nl
-                      ? t_row0[(size_t)il * Nl * H + lane + 32 * v]
-                      : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < rm::RW; ++q) {
-    const int il = q * rm::WARPS / rm::KC, r = warp + q * rm::WARPS;
-    const int k = k0 + r % rm::KC;
-    const float* tsr = ts + (size_t)min(k, Nl - 1) * H;
-    float a[AP];
-#pragma unroll
-    for (int t = 0; t < AP / 4; ++t) {
-      const float4 a4 = reinterpret_cast<const float4*>(ang[r])[t];
-      a[4 * t] = a4.x;
-      a[4 * t + 1] = a4.y;
-      a[4 * t + 2] = a4.z;
-      a[4 * t + 3] = a4.w;
-    }
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      float p = tr[il][v] + tsr[lane + 32 * v];
-#pragma unroll
-      for (int t = 0; t < A; ++t) p = fmaf(a[t], w[t][v], p);
-      x[q][v] = i0 + il < Nl && k < Nl ? p : 0.f;
-    }
-  }
-  rm::ln_write<H, FORM>(P, x, br.lns, br.lnb);
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(grp + 1) : "memory");
 }
 
-// Persistent: block g takes work items (b, j) = g, g + gridDim.x, ...;
-// stage != 0: the item's t_src rows are copied into shared memory.
-template <int H, bool BF16>
-__global__ void __launch_bounds__(rm::THREADS, 1)
-    triplet_attention_kernel(TripletArgs a, int B, int stage) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  constexpr int Y = BF16 ? rm::kHi : rm::kHiLo;
-  const int Nl = a.Nl, NH = a.n_heads;
-  const TripletLayout lay(H, NH, Nl, !BF16, stage != 0);
-  rm::bf16* wkh = reinterpret_cast<rm::bf16*>(dyn + lay.wk_hi);
-  rm::bf16* wvh = reinterpret_cast<rm::bf16*>(dyn + lay.wv_hi);
-  rm::bf16* wkl =
-      BF16 ? nullptr : reinterpret_cast<rm::bf16*>(dyn + lay.wk_lo);
-  rm::bf16* wvl =
-      BF16 ? nullptr : reinterpret_cast<rm::bf16*>(dyn + lay.wv_lo);
-  float* WA = reinterpret_cast<float*>(dyn + lay.wa);  // Wa_k, then Wa_v
-  float* P = reinterpret_cast<float*>(dyn + lay.p);
-  float(*ang)[AP] = reinterpret_cast<float(*)[AP]>(dyn + lay.ang);
-  const rm::Softmax sm{reinterpret_cast<float*>(dyn + lay.e),
-                       reinterpret_cast<float*>(dyn + lay.sc),
-                       reinterpret_cast<float*>(dyn + lay.m),
-                       reinterpret_cast<float*>(dyn + lay.l)};
-  float* Q = reinterpret_cast<float*>(dyn + lay.q);
-  float* scratch = reinterpret_cast<float*>(dyn + lay.scratch);
-  int* valid = reinterpret_cast<int*>(dyn + lay.valid);
-  float* TS = reinterpret_cast<float*>(dyn + lay.ts);
+// BYTES (4 or 16) from global g to shared s, asynchronously (cp.async);
+// wait_copies() returns once this thread's copies have landed.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(float* s, const float* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(s)),
+               "l"(g), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  rm::stage_wo<H>(a.k.wo, wkh, wkl);
-  rm::stage_wo<H>(a.v.wo, wvh, wvl);
-  for (int e = threadIdx.x; e < A * H; e += rm::THREADS) {
-    WA[e] = __ldg(a.k.w_feat + e);
-    WA[A * H + e] = __ldg(a.v.w_feat + e);
+// x = h + l in bf16 (to about 2^-16) or fp16 (2^-22).
+__device__ __forceinline__ void split1(float x, rm::bf16& h, rm::bf16& l) {
+  h = __float2bfloat16_rn(x);
+  l = __float2bfloat16_rn(x - __bfloat162float(h));
+}
+__device__ __forceinline__ void split1(float x, __half& h, __half& l) {
+  h = __float2half_rn(x);
+  l = __float2half_rn(x - __half2float(h));
+}
+
+// B = the first kv rows of w ([kv][N] row-major; zero below) as a K x N
+// wgmma operand (wgmma.cuh) of 16-bit T, split into hi and lo (lo null: hi
+// only). Every thread of the block; no barrier.
+template <int K, int N, typename T>
+__device__ __forceinline__ void stage_b(const float* __restrict__ w, int kv,
+                                        T* hi, T* lo) {
+  for (int e = threadIdx.x; e < K * N; e += THREADS) {
+    const int k = e / N, n = e - k * N;
+    T h, l;
+    split1(k < kv ? __ldg(w + e) : 0.f, h, l);
+    const int o = wgmma::b_offset(k, n, K);
+    hi[o] = h;
+    if (lo) lo[o] = l;
   }
-  const float scale = 1.f / sqrtf((float)(H / NH));
+}
 
-  for (int item = blockIdx.x; item < B * Nl; item += gridDim.x) {
-    const int b = item / Nl, j = item % Nl;
+// (x, y) -> bf16x2 hi and lo, x + y = hi + lo to about 2^-16.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  hi = wgmma::pack(h);
+  lo = wgmma::pack(__floats2bfloat162_rn(x - f.x, y - f.y));
+}
+
+// The same in fp16: to about 2^-22.
+__device__ __forceinline__ void split2h(float x, float y, uint32_t& hi,
+                                        uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x, y);
+  const float2 f = __half22float2(h);
+  hi = wgmma::pack(h);
+  lo = wgmma::pack(__floats2half2_rn(x - f.x, y - f.y));
+}
+
+// relu(LayerNorm(x) * lns + lnb) of the thread's two rows of an m64nH
+// accumulator x (rows g and g + 8: four lanes hold a row), as the A
+// registers of the next product: hi and, with SPLIT, lo.
+template <int H, bool SPLIT>
+__device__ __forceinline__ void ln_split(const float (&x)[H / 2],
+                                         const float* __restrict__ lns,
+                                         const float* __restrict__ lnb,
+                                         uint32_t (&hi)[H / 4],
+                                         uint32_t (&lo)[H / 4]) {
+  constexpr int NJ = H / 8;
+  const int t4 = threadIdx.x & 3;
+  float mean[2], rstd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float s = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < NJ; ++jb)
+      s += x[4 * jb + 2 * r] + x[4 * jb + 2 * r + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    mean[r] = s / H;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float s2 = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < NJ; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = x[4 * jb + 2 * r + e] - mean[r];
+        s2 = fmaf(d, d, s2);
+      }
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+    rstd[r] = rsqrtf(s2 / H + 1e-5f);
+  }
+#pragma unroll
+  for (int jb = 0; jb < NJ; ++jb) {
+    const int c = 8 * jb + 2 * t4;
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(lns + c));
+    const float2 bi = __ldg(reinterpret_cast<const float2*>(lnb + c));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float y0 = fmaxf(
+          (x[4 * jb + 2 * r] - mean[r]) * rstd[r] * sc.x + bi.x, 0.f);
+      const float y1 = fmaxf(
+          (x[4 * jb + 2 * r + 1] - mean[r]) * rstd[r] * sc.y + bi.y, 0.f);
+      if (SPLIT)
+        split2(y0, y1, hi[2 * jb + r], lo[2 * jb + r]);
+      else
+        hi[2 * jb + r] = wgmma::pack(__floats2bfloat162_rn(y0, y1));
+    }
+  }
+}
+
+// d = A B over H (A: the 64 x H tile in registers, B: an H x H operand at
+// descriptors bh, bl): SPLIT lo*hi + hi*lo + hi*hi (float32 accuracy), else
+// hi*hi. Issues the products; the caller commits and waits. keep: d's
+// values are added to (else overwritten).
+template <int H, bool SPLIT>
+__device__ __forceinline__ void tile_product(float (&d)[H / 2],
+                                             const uint32_t (&hi)[H / 4],
+                                             const uint32_t (&lo)[H / 4],
+                                             uint64_t bh, uint64_t bl,
+                                             bool keep) {
+  using M = wgmma::Mma<H>;
+#pragma unroll
+  for (int s = 0; s < H / 16; ++s)
+    if (SPLIT)
+      M::rs(d, lo[4 * s], lo[4 * s + 1], lo[4 * s + 2], lo[4 * s + 3],
+            bh + 16 * s, keep || s > 0);
+#pragma unroll
+  for (int s = 0; s < H / 16; ++s)
+    if (SPLIT)
+      M::rs(d, hi[4 * s], hi[4 * s + 1], hi[4 * s + 2], hi[4 * s + 3],
+            bl + 16 * s, 1);
+#pragma unroll
+  for (int s = 0; s < H / 16; ++s)
+    M::rs(d, hi[4 * s], hi[4 * s + 1], hi[4 * s + 2], hi[4 * s + 3],
+          bh + 16 * s, keep || SPLIT || s > 0);
+}
+
+// pre = t_row + t_src + ang @ Wa of one branch for the thread's two rows
+// of the tile, in the accumulator layout: tr the row's t_row, ts the
+// unit's t_src, the sources' rows at sa, sb (columns swizzled by xa, xb
+// when staged); the angular code in A registers ah + al (fp16), Wa at
+// descriptors dhi, dlo.
+template <int H>
+__device__ __forceinline__ void tile_pre(float (&p)[H / 2],
+                                         const float* __restrict__ tr,
+                                         const float* ts, int sa, int sb,
+                                         int xa, int xb,
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint64_t dhi, uint64_t dlo) {
+  using MA = wgmma::Mma<H, true>;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int jb = 0; jb < H / 8; ++jb) {
+    const int c = 8 * jb + 2 * t4;
+    const float2 r = __ldg(reinterpret_cast<const float2*>(tr + c));
+    const float2 x = *reinterpret_cast<const float2*>(ts + sa + (c ^ xa));
+    const float2 y = *reinterpret_cast<const float2*>(ts + sb + (c ^ xb));
+    p[4 * jb] = r.x + x.x;
+    p[4 * jb + 1] = r.y + x.y;
+    p[4 * jb + 2] = r.x + y.x;
+    p[4 * jb + 3] = r.y + y.y;
+  }
+  wgmma::fence();
+  MA::rs(p, al[0], al[1], al[2], al[3], dhi, 1);
+  MA::rs(p, ah[0], ah[1], ah[2], ah[3], dlo, 1);
+  MA::rs(p, ah[0], ah[1], ah[2], ah[3], dhi, 1);
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_regs(p);
+}
+
+// The sources of a chunk whose bits are set (bit k - k0) without source
+// i, for a row i with bond mask m (0 if the bond j -> i is absent).
+__device__ __forceinline__ unsigned row_bits(unsigned bits, float m, int d) {
+  if (!(m > 0.5f)) return 0u;
+  return d >= 0 && d < KC ? bits & ~(1u << d) : bits;
+}
+
+// x[0, n) += partner's x[n, 2n) (or the reverse: `up` keeps the upper half
+// in x[0, n)) of the lane `lane ^ m`.
+template <int N, int S>
+__device__ __forceinline__ void halve(float (&x)[S], int m, bool up) {
+  static_assert(2 * N <= S, "two halves of N");
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const float send = up ? x[t] : x[t + N];
+    const float keep = up ? x[t + N] : x[t];
+    x[t] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+  }
+}
+
+}  // namespace pipe
+
+// Persistent, two warpgroups a block, each on its own units: unit u is item
+// (b, j) = u / 2 and half u % 2 of its tiles of TI rows i. A warpgroup
+// stages its unit's t_src rows in shared memory (stage != 0), then per tile
+// walks the sources in chunks of KC; warp w of the group holds the pair
+// rows (i0 + w / 2, k0 + 16 (w % 2) + [0, 16)).
+template <int H, bool BF16>
+__global__ void __launch_bounds__(pipe::THREADS, 1)
+    triplet_attention_kernel_ws(TripletArgs a, int units, int stage,
+                                int qs) {
+  using namespace pipe;
+  constexpr int NJ = H / 8;   // 8-column blocks of a row
+  constexpr int NA = H / 2;   // accumulator floats of a 64 x H tile
+  constexpr int NR = H / 4;   // A registers of a 64 x H tile
+  constexpr int CPT = H / 32; // output columns of a lane
+  constexpr bool SPLIT = !BF16;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int Nl = a.Nl, NH = a.n_heads, hd = H / NH;
+  const Layout lay(H, NH, Nl, SPLIT, stage != 0, qs != 0);
+  const int tid = threadIdx.x, grp = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+
+  rm::bf16* wo = reinterpret_cast<rm::bf16*>(dyn + lay.wo);
+  __half* wa = reinterpret_cast<__half*>(dyn + lay.wa);
+  rm::bf16* wvo = wo + (SPLIT ? 2 : 1) * H * H;
+  stage_b<H, H>(a.k.wo, H, wo, SPLIT ? wo + H * H : nullptr);
+  stage_b<H, H>(a.v.wo, H, wvo, SPLIT ? wvo + H * H : nullptr);
+  stage_b<16, H>(a.k.w_feat, A, wa, wa + 16 * H);
+  stage_b<16, H>(a.v.w_feat, A, wa + 32 * H, wa + 48 * H);
+  wgmma::fence_smem();
+  __syncthreads();  // the block's only barrier
+  const uint64_t dk_hi = wgmma::b_desc(wo, H), dv_hi = wgmma::b_desc(wvo, H);
+  const uint64_t dk_lo = SPLIT ? wgmma::b_desc(wo + H * H, H) : 0;
+  const uint64_t dv_lo = SPLIT ? wgmma::b_desc(wvo + H * H, H) : 0;
+  const uint64_t dak_hi = wgmma::b_desc(wa, 16);
+  const uint64_t dak_lo = wgmma::b_desc(wa + 16 * H, 16);
+  const uint64_t dav_hi = wgmma::b_desc(wa + 32 * H, 16);
+  const uint64_t dav_lo = wgmma::b_desc(wa + 48 * H, 16);
+
+  const int ld = lay.e_ld;
+  float* QS = reinterpret_cast<float*>(dyn + lay.warp +
+                                       lay.warp_bytes * (tid >> 5));
+  float* E = QS + (qs ? H : 0);
+  const bool q16 = (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
+  float* SC = E + 16 * ld;
+  unsigned char* gb = dyn + lay.group + lay.group_bytes * grp;
+  float* TS = reinterpret_cast<float*>(gb);
+  float* MG = reinterpret_cast<float*>(gb + lay.mg);
+  float* ML = reinterpret_cast<float*>(gb + lay.ml);
+  const float scale = 1.f / sqrtf((float)hd);
+  const int hs = __ffs(hd) - 1;  // hd = 2^hs
+  // the softmax map: LPH lanes a head, HPP heads a pass; lane: head
+  // lane / LPH of a pass, rows (lane % LPH) RPL + [0, RPL) of the warp's 16
+  const int LPH = min(max(32 / NH, 1), 16), HPP = 32 / LPH, RPL = 16 / LPH;
+  const int hl = lane / LPH, r0 = (lane % LPH) * RPL;
+  const int il = warp >> 1, kh = 16 * (warp & 1);
+  const int rv = ((g & 1) << 2) | (g & 2) | ((g >> 2) & 1);  // rev3(g)
+  const int n_tiles = (Nl + TI - 1) / TI, half0 = (n_tiles + 1) / 2;
+  int slot = 0;
+
+  for (int u = blockIdx.x * GROUPS + grp; u < units;
+       u += gridDim.x * GROUPS) {
+    const int item = u >> 1, b = item / Nl, j = item - b * Nl;
+    const int tb = (u & 1) ? half0 : 0, te = (u & 1) ? n_tiles : half0;
+    if (tb >= te) continue;
     const float* mrow_j = a.mask + ((size_t)b * Nl + j) * Nl;  // bonds k -> j
     const size_t src0 = ((size_t)b * Nl + j) * Nl * H;
     const float* tsk = a.k.t_src + src0;
     const float* tsv = a.v.t_src + src0;
+    int swz = 0;  // TS rows: column c of row k at c ^ 8 (k & 3)
     if (stage) {
-      __syncthreads();  // the last item is done with TS
+      group_sync(grp);  // the last unit is done with TS
       const int n = Nl * H;
       if (((reinterpret_cast<uintptr_t>(tsk) |
             reinterpret_cast<uintptr_t>(tsv)) & 15) == 0) {
-        for (int e = threadIdx.x; e < n / 2; e += rm::THREADS)
-          reinterpret_cast<float4*>(TS)[e] =
-              e < n / 4 ? __ldg(reinterpret_cast<const float4*>(tsk) + e)
-                        : __ldg(reinterpret_cast<const float4*>(tsv) + e -
-                                n / 4);
-      } else {
-        for (int e = threadIdx.x; e < 2 * n; e += rm::THREADS)
-          TS[e] = e < n ? __ldg(tsk + e) : __ldg(tsv + e - n);
-      }
-      tsk = TS;
-      tsv = TS + (size_t)Nl * H;
-    }
-    // a tile: rows i0, i0 + 1 (rows (b, i, j) of out, Nl * H apart); one
-    // without a valid triplet skips all its chunks and writes zeros
-    for (int i0 = 0; i0 < Nl; i0 += rm::TI) {
-      const int n_rows = min(rm::TI, Nl - i0);
-      const size_t row0 = (((size_t)b * Nl + i0) * Nl + j) * H;
-      float acc = 0.f;
-
-      for (int k0 = 0; k0 < Nl; k0 += rm::KC) {
-        __syncthreads();  // the last chunk (tile, item) is done with them
-        if (k0 == 0) {    // the tile's rows: q and the softmax state
-          for (int e = threadIdx.x; e < rm::TI * H; e += rm::THREADS)
-            Q[e] = e / H < n_rows
-                       ? a.q[row0 + (size_t)(e / H) * Nl * H + e % H]
-                       : 0.f;
-          rm::softmax_reset(sm, NH);
+        for (int e = tid & 127; e < n / 2; e += 128) {
+          const int br = e >= n / 4, f = 4 * e - br * n, k = f / H;
+          const float4 x = __ldg(reinterpret_cast<const float4*>(
+              (br ? tsv : tsk) + f));
+          *reinterpret_cast<float4*>(TS + br * n + k * H +
+                                     ((f - k * H) ^ ((k & 3) << 3))) = x;
         }
-        int live = 0;
-        for (int u = threadIdx.x; u < rm::TILE * 7; u += rm::THREADS) {
-          const int r = u / 7, f = u - r * 7;
-          const int i = i0 + r / rm::KC, k = k0 + r % rm::KC;
-          const bool in = i < Nl && k < Nl;
-          float x = 0.f, m_ij = 0.f, m_jk = 0.f;
-          if (in) {  // independent loads
-            x = a.angle[(((size_t)b * Nl + i) * Nl + j) * Nl + k];
-            if (f == 6) {
-              m_ij = a.mask[((size_t)b * Nl + i) * Nl + j];
-              m_jk = mrow_j[k];
-            }
-          }
+      } else {
+        for (int e = tid & 127; e < 2 * n; e += 128) {
+          const int br = e >= n, f = e - br * n, k = f / H;
+          TS[br * n + k * H + ((f - k * H) ^ ((k & 3) << 3))] =
+              __ldg((br ? tsv : tsk) + f);
+        }
+      }
+      group_sync(grp);
+      tsk = TS;
+      tsv = TS + n;
+      swz = 3;
+    }
+
+    for (int t = tb; t < te; ++t) {
+      const int i0 = TI * t, i = i0 + il;
+      // rows (b, i, j) of out, q, t_row: row0 for i0, Nl apart
+      const size_t row0 = ((size_t)b * Nl + i0) * Nl + j;
+      const size_t row = row0 + (i < Nl ? (size_t)il * Nl : 0);
+      const float m0 = a.mask[row0];
+      const float m1 = i0 + 1 < Nl ? a.mask[row0 + Nl] : 0.f;
+      if (qs) {  // the row's q into QS, read by the logits
+        wait_copies();  // the last tile's copy has landed
+        const float* qrow = a.q + row * H;
+        if (q16)
+          for (int c = 4 * lane; c < H; c += 128)
+            copy_async<16>(QS + c, qrow + c);
+        else
+          for (int c = lane; c < H; c += 32) copy_async<4>(QS + c, qrow + c);
+      }
+      float m_own[4], l_own[4], acc[CPT];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) m_own[s] = -1e29f, l_own[s] = 0.f;
+#pragma unroll
+      for (int s = 0; s < CPT; ++s) acc[s] = 0.f;
+
+      for (int k0 = 0; k0 < Nl; k0 += KC) {
+        const int kk = k0 + lane;
+        const unsigned bits =
+            __ballot_sync(0xffffffffu, kk < Nl && mrow_j[kk] > 0.5f);
+        const unsigned b0 = row_bits(bits, m0, i0 - k0);
+        const unsigned b1 = i0 + 1 < Nl ? row_bits(bits, m1, i0 + 1 - k0) : 0u;
+        if (!(b0 | b1)) continue;  // no triplet: the same in every warp
+        const unsigned vmask = ((il ? b1 : b0) >> kh) & 0xffffu;
+
+        // the angular code of the warp's rows, once for both branches
+        for (int w2 = lane; w2 < 16 * 7; w2 += 32) {
+          const int r = w2 / 7, f = w2 - 7 * r, k = k0 + kh + r;
+          const float x = i < Nl && k < Nl ? __ldg(a.angle + row * Nl + k)
+                                           : 0.f;
+          float* er = E + r * ld;
           if (f == 6) {
-            const int ok = k != i && m_jk > 0.5f && m_ij > 0.5f;
-            valid[r] = ok;
-            live |= ok;
-            ang[r][0] = x;
+            er[0] = x;
+            er[13] = er[14] = er[15] = 0.f;
           } else {
             float s, co;
             sincosf(x * kFreqs[f], &s, &co);
-            ang[r][1 + f] = s;
-            ang[r][7 + f] = co;
+            er[1 + f] = s;
+            er[7 + f] = co;
           }
         }
-        if (!__syncthreads_or(live)) continue;  // no triplet in the chunk
+        __syncwarp();
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              E + (g + 8 * (s & 1)) * ld + 8 * (s >> 1) + 2 * t4);
+          split2h(x.x, x.y, ah[s], al[s]);
+        }
 
-        // k: logits and the online softmax
-        triplet_tile_y<H, Y>(ang, a.k, WA, a.k.t_row + row0, tsk, i0, k0, Nl,
-                             P);
-        __syncthreads();
-        rm::tile_product<H, !BF16>(P, wkh, wkl, a.k.bo);
-        rm::chunk_logits<H>(P, Q, valid, NH, scale, sm);
-        __syncthreads();
-        // v: sum alpha v
-        triplet_tile_y<H, Y>(ang, a.v, WA + A * H, a.v.t_row + row0, tsv, i0,
-                             k0, Nl, P);
-        __syncthreads();
-        rm::tile_product<H, !BF16>(P, wvh, wvl, a.v.bo);
-        acc = rm::chunk_acc_node<H>(acc, P, sm, nullptr, NH);
+        // the sources of the thread's rows g, g + 8 of the warp's 16
+        const int ka = min(k0 + kh + g, Nl - 1);
+        const int kb = min(k0 + kh + g + 8, Nl - 1);
+        const int sa = ka * H, sb = kb * H;
+        const int xa = (ka & swz) << 3, xb = (kb & swz) << 3;
+
+        // k: pre, y, then k = y Wo_k + bo_k on the tensor cores
+        float pk[NA];
+        tile_pre<H>(pk, a.k.t_row + row * H, tsk, sa, sb, xa, xb, ah, al,
+                    dak_hi, dak_lo);
+        uint32_t yh[NR], yl[NR];
+        ln_split<H, SPLIT>(pk, a.k.lns, a.k.lnb, yh, yl);
+        float ak[NA];  // the product adds to bo_k, set by column
+#pragma unroll
+        for (int jb = 0; jb < NJ; ++jb) {
+          const float2 bo = __ldg(
+              reinterpret_cast<const float2*>(a.k.bo + 8 * jb + 2 * t4));
+          ak[4 * jb] = ak[4 * jb + 2] = bo.x;
+          ak[4 * jb + 1] = ak[4 * jb + 3] = bo.y;
+        }
+        wgmma::fence();
+        tile_product<H, SPLIT>(ak, yh, yl, dk_hi, dk_lo, true);
+        wgmma::commit();
+        wgmma::wait<0>();
+        wgmma::fence_regs(ak);
+        wgmma::fence_regs(yh);
+        if (SPLIT) wgmma::fence_regs(yl);
+
+        // logits of the warp's rows into E: scale q . k, a head's columns
+        // summed in the thread (pairs), over lanes (t4: xor 1, 2) and over
+        // blocks
+        wait_copies();  // q in QS
+        __syncwarp();   // every lane's: QS; every lane is done with E
+        if (hs == 3) {  // a head a block: sums over the row's four lanes
+                        // by halving, NJ / 4 heads a lane
+          float x[2 * NJ];
+#pragma unroll
+          for (int jb = 0; jb < NJ; ++jb) {
+            const int c = 8 * jb + 2 * t4;
+            const float2 qv =
+                qs ? *reinterpret_cast<const float2*>(QS + c)
+                   : __ldg(reinterpret_cast<const float2*>(a.q + row * H + c));
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              x[2 * jb + r] = fmaf(qv.x, ak[4 * jb + 2 * r],
+                                   qv.y * ak[4 * jb + 2 * r + 1]);
+          }
+          halve<NJ>(x, 1, t4 & 1);
+          halve<NJ / 2>(x, 2, t4 >> 1);
+          const int h0 = (t4 & 1) * (NJ / 2) + (t4 >> 1) * (NJ / 4);
+#pragma unroll
+          for (int u = 0; u < NJ / 4; ++u)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              E[(g + 8 * r) * ld + h0 + u] = x[2 * u + r] * scale;
+        } else {
+          const float* qr = a.q + row * H;
+          float run[2] = {0.f, 0.f};
+#pragma unroll
+          for (int jb = 0; jb < NJ; ++jb) {
+            const int c = 8 * jb + 2 * t4;
+            const float2 qv =
+                qs ? *reinterpret_cast<const float2*>(QS + c)
+                   : __ldg(reinterpret_cast<const float2*>(qr + c));
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float s0 = qv.x * ak[4 * jb + 2 * r];
+              const float s1 = qv.y * ak[4 * jb + 2 * r + 1];
+              float* er = E + (g + 8 * r) * ld;
+              if (hs == 0) {  // a head a column
+                er[c] = s0 * scale;
+                er[c + 1] = s1 * scale;
+                continue;
+              }
+              float p = s0 + s1;
+              if (hs >= 2) p += __shfl_xor_sync(0xffffffffu, p, 1);
+              if (hs >= 3) p += __shfl_xor_sync(0xffffffffu, p, 2);
+              run[r] += p;
+              if (((8 * (jb + 1)) & (hd - 1)) == 0) {  // the head's last block
+                if (hs >= 3 ? t4 == 0 : (c & (hd - 1)) == 0)
+                  er[c >> hs] = run[r] * scale;
+                run[r] = 0.f;
+              }
+            }
+          }
+        }
+        __syncwarp();
+        // the online softmax of each head over the warp's rows: LPH lanes a
+        // head, HPP heads a pass
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (HPP * s >= NH) break;
+          const int h = hl + HPP * s;
+          const bool hv = h < NH;
+          float* col = E + h;
+          float mc = -3.0e38f;
+          for (int q = 0; q < RPL; ++q) {
+            const int r = r0 + q;
+            if (hv && ((vmask >> r) & 1u)) mc = fmaxf(mc, col[r * ld]);
+          }
+          for (int o = 1; o < LPH; o <<= 1)
+            mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
+          const float m_new = fmaxf(m_own[s], mc);
+          const float sc = expf(m_own[s] - m_new);
+          float ls = 0.f;
+          for (int q = 0; q < RPL; ++q) {
+            const int r = r0 + q;
+            const float e = hv && ((vmask >> r) & 1u)
+                                ? expf(col[r * ld] - m_new)
+                                : 0.f;
+            if (hv) col[r * ld] = e;
+            ls += e;
+          }
+          for (int o = 1; o < LPH; o <<= 1)
+            ls += __shfl_xor_sync(0xffffffffu, ls, o);
+          l_own[s] = l_own[s] * sc + ls;
+          m_own[s] = m_new;
+          if (hv && lane % LPH == 0) SC[h] = sc;
+        }
+        __syncwarp();
+
+        // v: pre, y, y Wo_v on the tensor cores, then the sum over the
+        // thread's two rows of e v per column
+        float pv[NA];
+        tile_pre<H>(pv, a.v.t_row + row * H, tsv, sa, sb, xa, xb, ah, al,
+                    dav_hi, dav_lo);
+        uint32_t zh[NR], zl[NR];
+        ln_split<H, SPLIT>(pv, a.v.lns, a.v.lnb, zh, zl);
+        float av[NA];
+        wgmma::fence();
+        tile_product<H, SPLIT>(av, zh, zl, dv_hi, dv_lo, false);
+        wgmma::commit();
+        float a32[2 * NJ];
+        if (hs == 3) {  // one head a block: e of rows g, g + 8 by block
+          float ea[NJ], eb[NJ];
+#pragma unroll
+          for (int jq = 0; jq < NJ / 4; ++jq) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(E + g * ld + 4 * jq);
+            const float4 y =
+                *reinterpret_cast<const float4*>(E + (g + 8) * ld + 4 * jq);
+            ea[4 * jq] = x.x, ea[4 * jq + 1] = x.y, ea[4 * jq + 2] = x.z,
+            ea[4 * jq + 3] = x.w;
+            eb[4 * jq] = y.x, eb[4 * jq + 1] = y.y, eb[4 * jq + 2] = y.z,
+            eb[4 * jq + 3] = y.w;
+          }
+          wgmma::wait<0>();
+          wgmma::fence_regs(av);
+#pragma unroll
+          for (int jb = 0; jb < NJ; ++jb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              a32[2 * jb + e] =
+                  fmaf(ea[jb], av[4 * jb + e], eb[jb] * av[4 * jb + 2 + e]);
+        } else {
+          wgmma::wait<0>();
+          wgmma::fence_regs(av);
+#pragma unroll
+          for (int jb = 0; jb < NJ; ++jb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int h = (8 * jb + 2 * t4 + e) >> hs;
+              a32[2 * jb + e] = fmaf(E[g * ld + h], av[4 * jb + e],
+                                     E[(g + 8) * ld + h] * av[4 * jb + 2 + e]);
+            }
+        }
+        wgmma::fence_regs(zh);
+        if (SPLIT) wgmma::fence_regs(zl);
+        // over the warp's 16 rows: each lane keeps CPT columns
+        halve<NJ>(a32, 4, g & 1);
+        halve<NJ / 2>(a32, 8, (g >> 1) & 1);
+        halve<NJ / 4>(a32, 16, (g >> 2) & 1);
+#pragma unroll
+        for (int s = 0; s < CPT; ++s) {
+          const int v = CPT * rv + s, c = 8 * (v >> 1) + 2 * t4 + (v & 1);
+          acc[s] = fmaf(acc[s], SC[c >> hs], a32[s]);
+        }
+        __syncwarp();  // E and SC are rewritten by the next chunk
       }
-      rm::finish_node<H>(acc, sm, NH, scratch, a.out + row0, (size_t)Nl * H,
-                         n_rows);
+
+      // the warp pair of row i: merge the two softmax states; out =
+      // sum alpha y Wo_v + bo_v (0 for a row without a source). The odd
+      // warp publishes its state (m, l by head, its columns of the sum);
+      // the even warp keeps its own m, l in E.
+      float* mg = MG + (slot * TI + il) * H;
+      float* wm = (warp & 1) ? ML + (slot * TI + il) * 2 * NH : E;
+      float* wl = (warp & 1) ? wm + NH : E + ld;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (HPP * s >= NH) break;
+        const int h = hl + HPP * s;
+        if (h < NH && lane % LPH == 0) {
+          wm[h] = m_own[s];
+          wl[h] = l_own[s];
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < CPT; ++s) {
+        const int v = CPT * rv + s, c = 8 * (v >> 1) + 2 * t4 + (v & 1);
+        if (warp & 1) mg[c] = acc[s];
+      }
+      group_sync(grp);
+      if (!(warp & 1) && i < Nl) {
+        const float* pm = ML + (slot * TI + il) * 2 * NH;
+#pragma unroll
+        for (int s = 0; s < CPT; ++s) {
+          const int v = CPT * rv + s, c = 8 * (v >> 1) + 2 * t4 + (v & 1);
+          const int h = c >> hs;
+          const float ma = E[h], mb = pm[h], mx = fmaxf(ma, mb);
+          const float fa = expf(ma - mx), fb = expf(mb - mx);
+          const float l = E[ld + h] * fa + pm[NH + h] * fb;
+          a.out[row * H + c] =
+              fmaf(acc[s], fa, mg[c] * fb) * (1.f / fmaxf(l, 1e-16f)) +
+              (l > 0.f ? __ldg(a.v.bo + c) : 0.f);
+        }
+      }
+      __syncwarp();  // the even warp has read its state from E
+      slot ^= 1;
     }
   }
 }
@@ -1044,8 +1482,8 @@ cudaError_t launch_bwd_head(const TripletBwdArgs& a, int G,
   return cudaGetLastError();
 }
 
-// One block per SM (at most one per work item). t_src is staged when the
-// whole layout fits the block's shared memory.
+// One block of two warpgroups per SM (at most one per item: two units).
+// t_src is staged when the whole layout fits the block's shared memory.
 template <int H>
 cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
                        cudaStream_t stream) {
@@ -1057,16 +1495,20 @@ cudaError_t launch_fwd(const TripletArgs& a, int B, bool bf16,
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const bool stage =
-      TripletLayout(H, a.n_heads, a.Nl, !bf16, true).bytes <= (size_t)optin;
-  const size_t smem = TripletLayout(H, a.n_heads, a.Nl, !bf16, stage).bytes;
-  void (*kernel)(TripletArgs, int, int) = triplet_attention_kernel<H, false>;
-  if (bf16) kernel = triplet_attention_kernel<H, true>;
+  const bool stage = pipe::Layout(H, a.n_heads, a.Nl, !bf16, true, true)
+                         .bytes <= (size_t)optin;
+  const bool qs = pipe::Layout(H, a.n_heads, a.Nl, !bf16, false, true)
+                      .bytes <= (size_t)optin;
+  const size_t smem =
+      pipe::Layout(H, a.n_heads, a.Nl, !bf16, stage, qs).bytes;
+  void (*kernel)(TripletArgs, int, int, int) =
+      bf16 ? triplet_attention_kernel_ws<H, true>
+           : triplet_attention_kernel_ws<H, false>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<std::min(sms, B * a.Nl), rm::THREADS, smem, stream>>>(a, B,
-                                                                 stage);
+  kernel<<<std::min(sms, B * a.Nl), pipe::THREADS, smem, stream>>>(
+      a, 2 * B * a.Nl, stage, qs);
   return cudaGetLastError();
 }
 

@@ -24,10 +24,13 @@ forward variants are counted apart (`triplet_attention.launches`,
 `triplet_attention.bf16_launches`).
 
 The forward launcher chooses its kernel by width: for H in 32, 64, 128 the
-tensor-core kernel (csrc/row_mma.cuh), for every other width that
-check_heads admits the per-row kernel (csrc/row_attention.cuh), both with
-the bf16 option. It reports the route it took, and the per-row launches,
-of either variant, also count in `triplet_attention.row_launches`.
+pipelined tensor-core kernel (two warpgroups on wgmma, csrc/wgmma.cuh), for
+every other width that check_heads admits the per-row kernel
+(csrc/row_attention.cuh), both with the bf16 option. It reports the route it
+took: the per-row launches, of either variant, also count in
+`triplet_attention.row_launches`, the pipelined ones in
+`triplet_attention.pipelined_launches` and, while spans are recorded, in the
+counter `ops.triplet_attention.pipelined` (utils/profiling.py).
 
 On CUDA tensors `triplet_attention` is differentiable: its autograd node
 saves only the inputs, and `triplet_attention_backward` recomputes the rest
@@ -60,7 +63,7 @@ from decompdiff_tpu_torch.ops.common import (
     Branch, ParamGrads, attend, autograd_grads, backward_blocks,
     backward_scratch, branch_checks, branch_mlp, branch_ptrs, check_heads,
     check_inputs, feat_product, kernel_query, launch, on_cpu, ptr)
-from decompdiff_tpu_torch.utils.profiling import span
+from decompdiff_tpu_torch.utils.profiling import count, span
 
 
 def triplet_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -218,6 +221,9 @@ def _forward(angle, mask, q, k, v, n_heads, bf16):
     else:
         triplet_attention.launches += 1
     triplet_attention.row_launches += row.value
+    if not row.value:
+        triplet_attention.pipelined_launches += 1
+        count('ops.triplet_attention.pipelined')
     return out
 
 
@@ -316,7 +322,7 @@ def triplet_attention_backward(g: torch.Tensor, angle, mask, q, k: Branch,
 
 
 triplet_attention.launches = triplet_attention.bf16_launches = 0
-triplet_attention.row_launches = 0
+triplet_attention.row_launches = triplet_attention.pipelined_launches = 0
 triplet_attention_backward.launches = 0
 triplet_attention_backward.scratch_launches = 0
 triplet_attention_backward.row_launches = 0

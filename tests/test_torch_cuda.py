@@ -16,7 +16,9 @@ d t_src sum across both. The m-gated edge kernels (uni_o2) run at K=20 and
 K=32 with a gate bias of 0 and one of +-30, which saturates the sigmoid.
 The gather_bf16 edge kernels (sources from x_src) run forward and backward
 in both modes with 4 and 6 edge types, and with an x_src far from x on both
-forward routes; the edge and triplet forwards run at widths outside the
+forward routes; the triplet forward's pipelined kernel (wgmma) runs at H =
+32, 64 and 128 at Nl = 13 to 80 and at head widths 1 to 32, with a complex
+that is all padding; the edge and triplet forwards run at widths outside the
 tensor-core kernels' (H = 96, 256, 1024) on their per-row kernels, and the
 bond forward at H = 512 and 1024 (blocks of more than 256 threads) on its
 per-row kernel and at H = 32, 64 and 128 on its tensor-core kernel. The
@@ -265,18 +267,37 @@ def _forward_on_card(fn, plain, args, kw, cuda, counter, count):
     return got
 
 
+# The triplet forward's pipelined kernel (two warpgroups on wgmma) at each
+# width it serves, with its released head width 8, at every Nl above; and at
+# the other head widths (1 to 32 channels a head) at one and two chunks.
+# Complex 2 is padding (no bond) and gives exactly 0, as do the rows without
+# a bond (j -> i).
+TRIPLET_PIPE_CASES = (
+    [(H, heads, Nl) for H, heads in ((32, 4), (64, 8), (128, 16))
+     for Nl in (13, 20, 32, 48, 64, 80)]
+    + [(128, 4, 20), (128, 32, 48), (128, 128, 20), (64, 64, 48),
+       (32, 1, 20), (32, 2, 48)])
+
+
 @pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
-@pytest.mark.parametrize('Nl', [13, 20, 32, 48, 80])
-def test_triplet_tensor_core_kernel(cuda, Nl, bf16):
-    args, kw = _triplet_case(np.random.default_rng(10 + Nl), 128, 16, Nl)
+@pytest.mark.parametrize('H,heads,Nl', TRIPLET_PIPE_CASES,
+                         ids=[f'H{h}-nh{n}-Nl{l}'
+                              for h, n, l in TRIPLET_PIPE_CASES])
+def test_triplet_tensor_core_kernel(cuda, H, heads, Nl, bf16):
+    args, kw = _triplet_case(np.random.default_rng(10 + Nl), H, heads, Nl,
+                             B=3)
     args[1][1, :, 2] = 0.0            # rows (i, 2) of complex 1 as well
+    args[1][2] = 0.0                  # complex 2: padding
+    counter = triplet_ops.triplet_attention
+    pipelined = counter.pipelined_launches
     got = _forward_on_card(
         triplet_ops.triplet_attention,
         triplet_ops.triplet_attention_reference, args, dict(kw, bf16=bf16),
-        cuda, triplet_ops.triplet_attention,
-        'bf16_launches' if bf16 else 'launches')
+        cuda, counter, 'bf16_launches' if bf16 else 'launches')
+    assert counter.pipelined_launches == pipelined + 1
     assert float(got[0, 4].abs().max()) == 0.0
     assert float(got[1, :, 2].abs().max()) == 0.0
+    assert float(got[2].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize('K', [16, 32, 48], ids=['K16', 'K32', 'K48'])
